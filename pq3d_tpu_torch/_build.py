@@ -1,0 +1,46 @@
+"""Build native sources of the port into ``build/`` beside the package.
+
+Every shared library the port compiles (the host kernel-map code with
+g++, the CUDA kernels with nvcc) lands in ``<checkout>/build/<kind>/``,
+keyed by a hash of its source and flags, so a checkout builds what it
+needs at first use and reuses it afterwards.  ``build/`` is gitignored.
+Each build writes a temporary file and renames it into place, so
+concurrent processes (pytest workers) never load a half-written library.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import subprocess
+from typing import List
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build")
+
+
+def build_shared(src: str, kind: str, cmd_prefix: List[str],
+                 flags: List[str]) -> str:
+    """Compile ``src`` (a path under ``csrc/``) into a shared library.
+
+    ``cmd_prefix`` is the compiler invocation (e.g. ``["g++"]``), ``flags``
+    its options.  Returns the library path; raises
+    ``subprocess.CalledProcessError`` (with the compiler's output) on a
+    failed build."""
+    with open(src, "rb") as f:
+        text = f.read()
+    tag = hashlib.sha1(text + " ".join(cmd_prefix + flags).encode()
+                       ).hexdigest()[:12]
+    out_dir = os.path.join(BUILD_ROOT, kind)
+    os.makedirs(out_dir, exist_ok=True)
+    stem = os.path.splitext(os.path.basename(src))[0]
+    so = os.path.join(out_dir, f"{stem}_{tag}.so")
+    if not os.path.exists(so):
+        tmp = f"{so}.tmp{os.getpid()}"
+        proc = subprocess.run(cmd_prefix + flags + [src, "-o", tmp],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise subprocess.CalledProcessError(
+                proc.returncode, proc.args, proc.stdout, proc.stderr)
+        os.replace(tmp, so)
+    return so

@@ -1,0 +1,61 @@
+"""Mask head (PyTorch, inference); counterpart of ``MaskHeadSegLevel`` in
+``pq3d_tpu/models/heads.py``.  Mask logits are (B, S, Q) (segments x
+queries); attend masks are (B, Q, S) with True = attend."""
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from pq3d_tpu_torch.models.layers import MLPHead, NEG_INF
+
+
+class MaskPredictionLayer(nn.Module):
+    """q/k projection + segment-query inner product."""
+
+    def __init__(self, hidden_size: int):
+        super().__init__()
+        self.q_proj = nn.Linear(hidden_size, hidden_size)
+        self.k_proj = nn.Linear(hidden_size, hidden_size, bias=False)
+
+    def forward(self, query, key):
+        return torch.einsum("bsd,bqd->bsq", self.k_proj(key),
+                            self.q_proj(query))
+
+
+class MaskHeadSegLevel(nn.Module):
+    """Class + segment-mask prediction from queries.  Returns
+    ``(cls_logits (B,Q,T), mask_logits (B,S,Q), attend_mask (B,Q,S))``
+    where attend is True where sigmoid(mask logit) >= 0.5."""
+
+    def __init__(self, hidden_size: int, num_targets: int,
+                 num_memories: int = 1,
+                 filter_out_classes: Sequence[int] = ()):
+        super().__init__()
+        self.num_memories = num_memories
+        self.filter_out_classes = list(filter_out_classes)
+        self.cls_head = MLPHead(hidden_size, hidden_size, num_targets)
+        for i in range(num_memories):
+            self.add_module(f"mask_pred_{i}",
+                            MaskPredictionLayer(hidden_size))
+
+    def forward(self, query: torch.Tensor,
+                seg_fts_for_match: List[Tuple[torch.Tensor, torch.Tensor]],
+                seg_valid: torch.Tensor):
+        cls_logits = self.cls_head(query)
+        if self.filter_out_classes:
+            cls_logits = cls_logits.clone()
+            cls_logits[..., self.filter_out_classes] = NEG_INF
+        mask_sum = 0.0
+        cnt = 0.0
+        for i in range(self.num_memories):
+            feat, valid = seg_fts_for_match[i]
+            logits = getattr(self, f"mask_pred_{i}")(query, feat)
+            w = valid[..., None].to(logits.dtype)    # (B, S, 1)
+            mask_sum = mask_sum + logits * w
+            cnt = cnt + w
+        mask_logits = mask_sum / (cnt + 1e-8)
+        mask_logits = torch.where(seg_valid[..., None], mask_logits, -1e6)
+        attend = torch.sigmoid(mask_logits).transpose(1, 2) >= 0.5
+        return cls_logits, mask_logits, attend

@@ -1,0 +1,282 @@
+"""Serving loop: queued scenes -> batches -> one forward on the card ->
+per-scene instance predictions.
+
+Counterpart of ``pq3d_tpu/serve.py`` (``ServerStats``, ``_MicroBatchServer``
+and ``InstSegServer``), single device:
+
+- a submit() queue with futures, so callers get per-scene results;
+- micro-batching: up to ``batch_size`` scenes per step, waiting at most
+  ``max_delay_s`` for stragglers, padding short batches by repeating the
+  last processed scene (results for the padding rows are dropped);
+- a depth-1 pipeline: while batch N's forward runs on the card (kernels
+  are queued asynchronously), batch N+1's host work runs;
+- per-scene ranking (eval/instseg_eval.rank_instances) at full point
+  resolution.
+
+The forward runs under ``torch.inference_mode()`` on the server's device;
+device results are read back in ``_finish``.
+"""
+from __future__ import annotations
+
+import concurrent.futures as _futures
+import queue
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from pq3d_tpu_torch.data.instseg_pipeline import (InstSegPipelineConfig,
+                                                  collate_processed,
+                                                  process_scene)
+from pq3d_tpu_torch.device import resolve_device
+from pq3d_tpu_torch.eval.instseg_eval import rank_instances
+
+
+@dataclass
+class ServerStats:
+    scenes: int = 0
+    steps: int = 0
+    total_wait_s: float = 0.0   # first-submit -> dispatch batching wait
+    total_step_s: float = 0.0   # summed per-batch dispatch->resolve time
+    # wall-clock span of processed batches (per-batch times overlap under
+    # the pipelined worker, so throughput comes from the span)
+    t_first: float = 0.0
+    t_last: float = 0.0
+    latencies_s: "deque" = field(
+        default_factory=lambda: deque(maxlen=100_000))
+    # per-stage host decomposition (summed seconds across batches):
+    # preprocess, collate, put_dispatch (host->device copy + forward
+    # enqueue), readback (waits for the device), rank
+    stage_s: Dict[str, float] = field(default_factory=dict)
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False, compare=False)
+
+    def record_latency(self, seconds: float) -> None:
+        with self._lock:
+            self.latencies_s.append(seconds)
+
+    def add_stage(self, name: str, seconds: float) -> None:
+        self.stage_s[name] = self.stage_s.get(name, 0.0) + seconds
+
+    def summary(self) -> Dict[str, Any]:
+        with self._lock:
+            lat = np.asarray(self.latencies_s) if self.latencies_s else \
+                np.zeros(1)
+        span = self.t_last - self.t_first
+        return {"scenes": self.scenes, "steps": self.steps,
+                "scenes_per_sec": self.scenes / max(span, 1e-9),
+                "p50_latency_s": float(np.quantile(lat, 0.5)),
+                "p99_latency_s": float(np.quantile(lat, 0.99)),
+                "stage_s": dict(self.stage_s)}
+
+
+class _MicroBatchServer:
+    """Micro-batching machinery: a submit() queue with futures, a collector
+    that waits at most ``max_delay_s`` for stragglers after the first
+    request, and a worker loop that reports per-batch failures into the
+    affected futures instead of dying.  Subclasses implement ``_dispatch``
+    (host work + asynchronous device enqueue) and ``_finish`` (readback +
+    host postprocess) over the real requests."""
+
+    def __init__(self, batch_size: int, max_delay_s: float = 0.05):
+        self.batch_size = batch_size
+        self.max_delay_s = max_delay_s
+        self.stats = ServerStats()
+        self._q: "queue.Queue" = queue.Queue()
+        self._closed = False
+        self._close_lock = threading.Lock()
+        self._rng = np.random.default_rng(0)
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def submit(self, request) -> Future:
+        fut: Future = Future()
+        with self._close_lock:
+            if self._closed:
+                raise RuntimeError("server closed")
+            self._q.put((request, fut, time.time()))
+        return fut
+
+    def close(self) -> None:
+        with self._close_lock:
+            if not self._closed:
+                self._closed = True
+                self._q.put(None)
+        self._thread.join()
+
+    def _collect(self, first_timeout=None):
+        """``None`` blocks until a request; ``0.0`` drains what is queued
+        now.  Returns ``None`` on the shutdown sentinel, ``[]`` when a
+        bounded wait found nothing."""
+        nonblocking = first_timeout == 0.0
+        try:
+            if nonblocking:
+                first = self._q.get_nowait()
+            elif first_timeout is not None:
+                first = self._q.get(timeout=first_timeout)
+            else:
+                first = self._q.get()
+        except queue.Empty:
+            return []
+        if first is None:
+            return None
+        items = [first]
+        deadline = time.time() + self.max_delay_s
+        while len(items) < self.batch_size:
+            try:
+                nxt = self._q.get_nowait() if nonblocking else \
+                    self._q.get(timeout=max(deadline - time.time(), 0))
+            except queue.Empty:
+                break
+            if nxt is None:
+                self._q.put(None)   # re-post sentinel for the outer loop
+                break
+            items.append(nxt)
+        return items
+
+    def _loop(self):
+        inflight = None    # (items, n_real, state, t_dispatch)
+        shutdown = False
+        while True:
+            items = None
+            if not shutdown:
+                items = self._collect(
+                    first_timeout=0.0 if inflight is not None else None)
+            if items is None and not shutdown:
+                shutdown = True
+                items = []
+            nxt = None
+            if items:
+                t0 = time.time()
+                reqs = [it[0] for it in items]
+                self.stats.total_wait_s += t0 - min(it[2] for it in items)
+                try:
+                    state = self._dispatch(reqs)
+                    nxt = (items, len(reqs), state, t0)
+                except Exception as e:
+                    self._fail(items, e)
+            if inflight is not None:
+                self._resolve(inflight)
+            inflight = nxt
+            if shutdown and inflight is None:
+                return
+
+    def _resolve(self, inflight):
+        items, n_real, state, t0 = inflight
+        try:
+            results = self._finish(state)
+            dt = time.time() - t0
+            for i in range(n_real):
+                _, fut, t_sub = items[i]
+                try:
+                    fut.set_result(results[i])
+                except _futures.InvalidStateError:
+                    continue    # the client cancelled this request
+                self.stats.record_latency(time.time() - t_sub)
+            self.stats.scenes += n_real
+            self.stats.steps += 1
+            self.stats.total_step_s += dt
+            if self.stats.t_first == 0.0:
+                self.stats.t_first = t0
+            self.stats.t_last = time.time()
+        except Exception as e:
+            self._fail(items, e)
+
+    @staticmethod
+    def _fail(items, e):
+        for _, fut, _t in items:
+            try:
+                if not fut.done():
+                    fut.set_exception(e)
+            except _futures.InvalidStateError:
+                pass
+
+    def _dispatch(self, reqs):
+        raise NotImplementedError
+
+    def _finish(self, state):
+        raise NotImplementedError
+
+
+def to_device(np_batch: Dict[str, Any], device: torch.device
+              ) -> Dict[str, Any]:
+    """Numpy batch (with a nested ``maps`` dict) -> tensors on ``device``."""
+    def put(v):
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        return t.to(device, non_blocking=True) if device.type == "cuda" \
+            else t
+    return {k: ({kk: put(vv) for kk, vv in v.items()}
+                if isinstance(v, dict) else put(v))
+            for k, v in np_batch.items()}
+
+
+class InstSegServer(_MicroBatchServer):
+    """Micro-batching inference server for the stage-1 instseg model:
+    submit one raw scene dict (points/colors/segment_id/...), receive a
+    list of {"class", "score", "mask"} instance predictions at full point
+    resolution.  ``model`` must already live on ``device``."""
+
+    def __init__(self, model, pipe_cfg: InstSegPipelineConfig,
+                 batch_size: int, num_classes: int, topk: int = 100,
+                 score_threshold: float = 0.0, max_delay_s: float = 0.05,
+                 extra_features: Optional[Dict[str, int]] = None,
+                 device="cuda"):
+        if not pipe_cfg.level_caps:
+            raise ValueError(
+                "serving requires pipe_cfg.level_caps: fixed level pads "
+                "keep every batch at one shape")
+        self.device = resolve_device(device)
+        self.model = model
+        self.pipe_cfg = pipe_cfg
+        self.num_classes = num_classes
+        self.topk = topk
+        self.score_threshold = score_threshold
+        self.extra_features = extra_features or {}
+        super().__init__(batch_size, max_delay_s)
+
+    def _forward(self, batch):
+        with torch.inference_mode():
+            out = self.model(batch)
+        return out["predictions_class"][-1], out["predictions_mask"][-1]
+
+    def _dispatch(self, scenes):
+        n_real = len(scenes)
+        t0 = time.time()
+        processed = [process_scene(s, self.pipe_cfg, self._rng)
+                     for s in scenes]
+        t1 = time.time()
+        self.stats.add_stage("preprocess", t1 - t0)
+        processed += [processed[-1]] * (self.batch_size - n_real)
+        np_batch = collate_processed(processed, self.pipe_cfg)
+        self.stats.add_stage("collate", time.time() - t1)
+        meta = np_batch.pop("_meta")
+        S = self.pipe_cfg.max_segments
+        for name, dim in self.extra_features.items():
+            # offline per-segment features are not served yet: zero-filled
+            np_batch[f"{name}_seg_fts"] = np.zeros(
+                (self.batch_size, S, dim), np.float32)
+            np_batch[f"{name}_seg_pad_masks"] = np_batch["seg_pad_masks"]
+        t2 = time.time()
+        cls_l, mask_l = self._forward(to_device(np_batch, self.device))
+        self.stats.add_stage("put_dispatch", time.time() - t2)
+        return (n_real, cls_l, mask_l, np_batch["seg_pad_masks"], meta)
+
+    def _finish(self, state):
+        n_real, cls_l, mask_l, seg_valid, meta = state
+        t0 = time.time()
+        cls_l = cls_l.float().cpu().numpy()
+        mask_l = mask_l.float().cpu().numpy()
+        self.stats.add_stage("readback", time.time() - t0)
+        t1 = time.time()
+        out = [rank_instances(cls_l[i], mask_l[i], seg_valid[i],
+                              num_classes=self.num_classes, topk=self.topk,
+                              score_threshold=self.score_threshold,
+                              seg_to_full=meta["segment_to_full"][i])
+               for i in range(n_real)]
+        self.stats.add_stage("rank", time.time() - t1)
+        return out

@@ -1,0 +1,84 @@
+"""pq3d_tpu_torch stands alone: it imports neither JAX nor the JAX package
+(checked in a subprocess, since this suite's conftest imports jax), its
+entry points refuse to run on a machine without CUDA unless asked for the
+CPU, and its config dict is the slice's YAML sections."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+import yaml
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHECK = r"""
+import importlib, pkgutil, sys
+import pq3d_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(pq3d_tpu_torch.__path__,
+                                              "pq3d_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "flax", "pq3d_tpu", "yaml")
+             or m.startswith(("jax.", "flax.", "pq3d_tpu.")))
+print(len(mods), bad)
+sys.exit(1 if bad or len(mods) < 20 else 0)
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_imports_no_jax():
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    top = {n.split(".")[0] for n in names}
+    assert not top & {"jax", "flax", "pq3d_tpu", "yaml"}, top
+    assert "pq3d_tpu_torch" in top
+
+
+def test_entry_points_refuse_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal path is moot")
+    from pq3d_tpu_torch.config import slice_config
+    from pq3d_tpu_torch.data.instseg_pipeline import (InstSegPipelineConfig,
+                                                      pipeline_config)
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.serve import InstSegServer
+    cfg = slice_config()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InstSegServer(None, pipeline_config(
+            cfg["data"]["instseg_options"]), batch_size=4, num_classes=200)
+    assert isinstance(InstSegPipelineConfig(), InstSegPipelineConfig)
+
+
+def test_slice_config_equals_yaml():
+    from pq3d_tpu_torch import config
+    path = os.path.join(REPO, "pq3d_tpu", "config", "configs",
+                        "instseg_sceneverse.yaml")
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    assert config.INSTSEG_SCENEVERSE_MODEL == raw["model"]
+    assert config.INSTSEG_SCENEVERSE_OPTIONS == \
+        raw["data"]["instseg_options"]
+    cfg = config.slice_config()
+    va = cfg["model"]["voxel_encoder"]["args"]
+    assert va.pop("pallas_conv") is True      # the one override
+    assert cfg["model"]["unified_encoder"]["args"]["hidden_size"] == 768
+    assert cfg["model"]["mask_head"]["args"]["filter_out_classes"] == [0, 2]
+    assert "pallas_conv" not in \
+        config.INSTSEG_SCENEVERSE_MODEL["voxel_encoder"]["args"]
