@@ -1,18 +1,20 @@
-"""The slice's configuration as plain dicts (no YAML parser needed).
+"""The slices' configuration as plain dicts (no YAML parser needed).
 
-``INSTSEG_SCENEVERSE_MODEL`` and ``INSTSEG_SCENEVERSE_OPTIONS`` are the
-``model`` and ``data.instseg_options`` sections of
-``pq3d_tpu/config/configs/instseg_sceneverse.yaml`` as ``yaml.safe_load``
-reads them (``${...}`` interpolations left as strings).  The serving slice
-adds one override, ``model.voxel_encoder.args.pallas_conv: true``, which
-routes the decoder's 96/128-channel stride-1 3^3 convs to the z-run CUDA
-kernel.
+``INSTSEG_SCENEVERSE`` is ``pq3d_tpu/config/configs/instseg_sceneverse.yaml``
+as ``yaml.safe_load`` reads it (``${...}`` interpolations left as
+strings); ``INSTSEG_SCENEVERSE_MODEL`` and ``INSTSEG_SCENEVERSE_OPTIONS``
+are its ``model`` and ``data.instseg_options`` sections.  The slices add
+one override, ``model.voxel_encoder.args.pallas_conv: true``, which routes
+the decoder's 96/128-channel stride-1 3^3 convs to the z-run CUDA kernel.
+``load_config`` resolves a named config with ``key=value`` overrides, as
+the JAX package's loader does for its YAML files.
 """
 from __future__ import annotations
 
+import ast
 import copy
 import re
-from typing import Any, Dict
+from typing import Any, Dict, Sequence
 
 INSTSEG_SCENEVERSE_OPTIONS: Dict[str, Any] = {
     "num_labels": 200,
@@ -92,6 +94,50 @@ INSTSEG_SCENEVERSE_MODEL: Dict[str, Any] = {
     },
 }
 
+INSTSEG_SCENEVERSE: Dict[str, Any] = {
+    "name": "instseg-sceneverse",
+    "base_dir": "outputs",
+    "exp_dir": "",
+    "rng_seed": 42,
+    "mode": "train",
+    "resume": False,
+    "pretrain_ckpt_path": "",
+    "log_every": 10,
+    "debug": {"flag": False, "debug_size": 10},
+    "data": {
+        "train": ["ScanNetInstSegSceneVerse"],
+        "val": ["ScanNetInstSegSceneVerse"],
+        "test": ["ScanNetInstSegSceneVerse"],
+        "scene_verse_base": None,
+        "scene_verse_aux": None,
+        "load_scan_options": {
+            "load_inst_info": True, "load_pc_info": True,
+            "load_segment_info": True, "load_image_segment_feat": False,
+            "load_point_segment_feat": False},
+        "instseg_options": INSTSEG_SCENEVERSE_OPTIONS,
+    },
+    "dataloader": {"batchsize": 4, "batchsize_eval": 1, "num_workers": 0},
+    "task": "InstSeg",
+    "data_wrapper": "InstSegDatasetWrapper",
+    "trainer": "Query3DTrainer",
+    "solver": {
+        "gradient_accumulation_steps": 1,
+        "lr": "1e-4",          # a string, as YAML 1.1 reads it
+        "grad_norm": 80,
+        "epochs": 600,
+        "epochs_per_eval": 200,
+        "optim": {"name": "AdamW", "args": {"betas": [0.9, 0.98]}},
+        "sched": {"name": "warmup_cosine", "args": {"warmup_steps": 0}},
+    },
+    "eval": {"name": "InstSegEval", "topk_per_scene": 100,
+             "use_dbscan": False,
+             "ignore_label": "${data.instseg_options.ignore_label}",
+             "dataset_name": "ScanNet"},
+    "model": INSTSEG_SCENEVERSE_MODEL,
+}
+
+CONFIGS = {"instseg_sceneverse": INSTSEG_SCENEVERSE}
+
 _REF = re.compile(r"^\$\{([\w.]+)\}$")
 
 
@@ -110,13 +156,53 @@ def _resolve(node, root):
     return node
 
 
-def slice_config() -> Dict[str, Any]:
-    """The serving slice's config, interpolations resolved:
-    ``{"model": ..., "data": {"instseg_options": ...}}`` with the
-    ``pallas_conv: true`` override applied."""
-    model = copy.deepcopy(INSTSEG_SCENEVERSE_MODEL)
-    model["voxel_encoder"]["args"]["pallas_conv"] = True
-    raw = {"model": model,
-           "data": {"instseg_options": copy.deepcopy(
-               INSTSEG_SCENEVERSE_OPTIONS)}}
+def parse_value(text: str) -> Any:
+    """A ``key=value`` override's value as YAML reads a scalar or a flow
+    list: true/false/null, numbers, Python literals, ``[a, b]`` lists of
+    those (bare words become strings), anything else a string."""
+    t = text.strip()
+    low = t.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    if low in ("null", "none", "~"):
+        return None
+    if t.startswith("[") and t.endswith("]"):
+        inner = t[1:-1].strip()
+        return [parse_value(v) for v in inner.split(",")] if inner else []
+    try:
+        return ast.literal_eval(t)
+    except (ValueError, SyntaxError):
+        return t
+
+
+def set_dotted(cfg: Dict[str, Any], dotted: str, value: Any) -> None:
+    """Set ``cfg[a][b][c] = value`` for ``dotted = "a.b.c"``, creating
+    missing levels."""
+    *path, leaf = dotted.split(".")
+    node = cfg
+    for part in path:
+        node = node.setdefault(part, {})
+    node[leaf] = value
+
+
+def load_config(name: str, overrides: Sequence[str] = ()) -> Dict[str, Any]:
+    """The named config with dotted ``key=value`` overrides applied, then
+    interpolations resolved."""
+    if name.endswith(".yaml"):
+        name = name[:-5]
+    if name not in CONFIGS:
+        raise KeyError(f"unknown config {name!r}; known: {sorted(CONFIGS)}")
+    raw = copy.deepcopy(CONFIGS[name])
+    for ov in overrides:
+        key, sep, val = ov.partition("=")
+        if not sep:
+            raise ValueError(f"override {ov!r} is not key=value")
+        set_dotted(raw, key.strip(), parse_value(val))
     return _resolve(raw, raw)
+
+
+def slice_config() -> Dict[str, Any]:
+    """The slices' config, interpolations resolved: instseg_sceneverse
+    with the ``pallas_conv: true`` override applied."""
+    return load_config("instseg_sceneverse",
+                       ["model.voxel_encoder.args.pallas_conv=true"])

@@ -1,12 +1,13 @@
 """Instance-segmentation host pipeline: scene dict -> fixed-shape batch.
 
 Counterpart of ``pq3d_tpu/data/instseg_pipeline.py``, trimmed to the
-serving slice: color normalization, voxelization, FPS query sampling,
-sparse kernel maps and the dense-block stem pack, collated into the
-rectangular (B, ...) layout with host-built maps.  Augmentation and the
-flat, compact, swin and device-maps layouts of the JAX package are not
-ported.  Everything here is numpy; the batch it returns is bit-identical
-to the JAX package's on the same scenes.
+stage-1 slices: train-time augmentation, color normalization,
+voxelization, FPS query sampling, sparse kernel maps and the dense-block
+stem pack, collated into the rectangular (B, ...) layout with host-built
+maps.  The flat, compact, swin and device-maps layouts of the JAX package
+are not ported.  Everything here is numpy; the batch it returns is
+bit-identical to the JAX package's on the same scenes and rng, with or
+without augmentation.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ class InstSegPipelineConfig:
     query_sample_strategy: str = "fps"      # the only one ported
     max_segments: int = 512
     max_instances: int = 120
-    use_aug: bool = True                    # train-time only; not ported
+    use_aug: bool = True                    # train-time only
     fps_subsample: int = 16384   # 0 = exact FPS
     voxel_bucket: int = 4096
     # hard per-level pads (static shapes across every batch)
@@ -81,6 +82,33 @@ def pipeline_config(options: Dict) -> InstSegPipelineConfig:
         **{k: v for k, v in options.items() if k in names})
 
 
+def _augment(points, colors, rng: np.random.Generator):
+    """Train-time augmentation, the JAX package's ``_augment`` with the
+    same rng calls in the same order: mean-center + random shift, x/y
+    flips (p=0.5 each), per-axis scale +-10%, rotation around z +-pi and
+    tilts around y/x +-pi/24, then brightness/contrast +-0.2 and RGB shift
+    +-20/255 in the [0, 1] color domain (clipped after each)."""
+    points = points - points.mean(0)
+    points = points + rng.uniform(points.min(0), points.max(0)) / 2
+    for i in (0, 1):
+        if rng.random() < 0.5:
+            points[:, i] = points[:, i].max() - points[:, i]
+    points = points * rng.uniform(0.9, 1.1, size=3)
+    for axis, lim in ((2, np.pi), (1, np.pi / 24), (0, np.pi / 24)):
+        t = rng.uniform(-lim, lim)
+        c, s = np.cos(t), np.sin(t)
+        rot = {2: [[c, -s, 0], [s, c, 0], [0, 0, 1]],
+               1: [[c, 0, s], [0, 1, 0], [-s, 0, c]],
+               0: [[1, 0, 0], [0, c, -s], [0, s, c]]}[axis]
+        points = points @ np.asarray(rot, np.float32).T
+    x = (colors + 1) / 2
+    x = np.clip(x * (1 + rng.uniform(-0.2, 0.2)) + rng.uniform(-0.2, 0.2),
+                0, 1)
+    x = np.clip(x + rng.uniform(-20 / 255, 20 / 255, size=3), 0, 1)
+    colors = x * 2 - 1
+    return points.astype(np.float32), colors.astype(np.float32)
+
+
 def _segment_centers(points, segment_id, num_segments):
     cnt = np.maximum(np.bincount(segment_id, minlength=num_segments), 1)
     sums = np.stack([np.bincount(segment_id, weights=points[:, c],
@@ -92,16 +120,17 @@ def _segment_centers(points, segment_id, num_segments):
 def process_scene(scene: Dict[str, np.ndarray], cfg: InstSegPipelineConfig,
                   rng: np.random.Generator, train: bool = False
                   ) -> Dict[str, np.ndarray]:
-    """One scene -> unpadded host arrays + sparse hierarchy (eval mode)."""
-    if train and cfg.use_aug:
-        raise NotImplementedError(
-            "train-time augmentation is not ported; the PyTorch pipeline "
-            "serves (train=False)")
+    """One scene -> unpadded host arrays + sparse hierarchy; ``train``
+    augments (when ``cfg.use_aug``) and skips the full-resolution GT
+    masks, which only evaluation reads."""
     points = scene["points"].astype(np.float32)
     colors = scene["colors"].astype(np.float32)
     segment_id = scene["segment_id"]
     inst_point = scene["instance_labels"]
     inst_labels = scene["inst_labels"]
+
+    if train and cfg.use_aug:
+        points, colors = _augment(points, colors, rng)
 
     # normalize color ((x+1)/2 maps [-1,1] -> [0,1] like the /255 path)
     color_n = ((colors + 1) / 2 - COLOR_MEAN) / COLOR_STD
@@ -141,9 +170,11 @@ def process_scene(scene: Dict[str, np.ndarray], cfg: InstSegPipelineConfig,
         pad_sizes=list(cfg.level_caps) if cfg.level_caps else None,
         bucket=cfg.voxel_bucket)
 
-    full_instance_masks = np.stack(
-        [inst_point == i for i in range(n_inst)]) if n_inst else \
-        np.zeros((0, len(points)), bool)
+    full_instance_masks = None
+    if not train:
+        full_instance_masks = np.stack(
+            [inst_point == i for i in range(n_inst)]) if n_inst else \
+            np.zeros((0, len(points)), bool)
 
     return {
         "points": points,
@@ -288,6 +319,7 @@ def collate_processed(processed: List[Dict[str, np.ndarray]],
 
 def make_batch(scenes: List[Dict[str, np.ndarray]],
                cfg: InstSegPipelineConfig,
-               rng: np.random.Generator) -> Dict[str, np.ndarray]:
-    processed = [process_scene(s, cfg, rng) for s in scenes]
+               rng: np.random.Generator,
+               train: bool = False) -> Dict[str, np.ndarray]:
+    processed = [process_scene(s, cfg, rng, train) for s in scenes]
     return collate_processed(processed, cfg)

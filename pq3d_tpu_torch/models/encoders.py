@@ -1,4 +1,4 @@
-"""Vision / memory encoders (PyTorch, inference); counterpart of
+"""Vision / memory encoders (PyTorch); counterpart of
 ``pq3d_tpu/models/encoders.py``:
 
 - SegVoxelEncoder: Res16UNet -> per-scale segment-pooled features
@@ -18,15 +18,16 @@ from pq3d_tpu_torch.ops import segment
 
 
 class ProjectLN(nn.Module):
-    """Linear + LayerNorm projection block."""
+    """Linear + LayerNorm + Dropout projection block."""
 
-    def __init__(self, in_size: int, hidden_size: int):
+    def __init__(self, in_size: int, hidden_size: int, dropout: float = 0.0):
         super().__init__()
         self.Dense_0 = nn.Linear(in_size, hidden_size)
         self.LayerNorm_0 = nn.LayerNorm(hidden_size, eps=FLAX_LN_EPS)
+        self.drop = nn.Dropout(dropout)
 
     def forward(self, x):
-        return self.LayerNorm_0(self.Dense_0(x))
+        return self.drop(self.LayerNorm_0(self.Dense_0(x)))
 
 
 class SegVoxelEncoder(nn.Module):
@@ -45,20 +46,24 @@ class SegVoxelEncoder(nn.Module):
                  hlevels: Sequence[int] = (0, 1, 2, 3),
                  backbone_out_channels: int = 200,
                  conv1_kernel_size: int = 5, pallas_conv: bool = False,
-                 in_channels: int = 3):
+                 in_channels: int = 3, dropout: float = 0.1,
+                 bn_momentum: float = 0.02):
         super().__init__()
         self.hlevels = list(hlevels)
+        # the backbone's `final` output (backbone_out_channels) is not used
+        # here: its parameters get a zero gradient and are still decayed
         self.backbone = Res16UNet(in_channels=in_channels,
                                   out_channels=backbone_out_channels,
                                   conv1_kernel_size=conv1_kernel_size,
-                                  pallas_conv=pallas_conv)
+                                  pallas_conv=pallas_conv,
+                                  bn_momentum=bn_momentum)
         # channels of feature_maps [L4, L3, L2, L1, L0]: the encoder's last
         # stage, then the four decoder stages
         P = self.backbone.planes
         p = [P[3]] + P[4:8]
         for i, hlevel in enumerate(self.hlevels + [4]):
             self.add_module(f"feat_proj_{i}", ProjectLN(p[hlevel],
-                                                        hidden_size))
+                                                        hidden_size, dropout))
 
     def forward(self, voxel_feats: torch.Tensor,
                 maps: Dict[str, torch.Tensor], voxel2segment: torch.Tensor,
@@ -101,13 +106,15 @@ class SegVoxelEncoder(nn.Module):
 
 
 class ObjectEncoder(nn.Module):
-    """Per-object/segment feature projection (Linear + LayerNorm), without
-    a point backbone."""
+    """Per-object/segment feature projection (Linear + LayerNorm +
+    Dropout), without a point backbone."""
 
-    def __init__(self, input_feat_size: int, hidden_size: int = 768):
+    def __init__(self, input_feat_size: int, hidden_size: int = 768,
+                 dropout: float = 0.1):
         super().__init__()
         self.input_feat_proj = nn.Linear(input_feat_size, hidden_size)
         self.LayerNorm_0 = nn.LayerNorm(hidden_size, eps=FLAX_LN_EPS)
+        self.drop = nn.Dropout(dropout)
 
     def forward(self, obj_feats):
-        return self.LayerNorm_0(self.input_feat_proj(obj_feats))
+        return self.drop(self.LayerNorm_0(self.input_feat_proj(obj_feats)))

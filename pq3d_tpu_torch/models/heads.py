@@ -1,4 +1,4 @@
-"""Mask head (PyTorch, inference); counterpart of ``MaskHeadSegLevel`` in
+"""Mask head (PyTorch); counterpart of ``MaskHeadSegLevel`` in
 ``pq3d_tpu/models/heads.py``.  Mask logits are (B, S, Q) (segments x
 queries); attend masks are (B, Q, S) with True = attend."""
 from __future__ import annotations
@@ -31,11 +31,13 @@ class MaskHeadSegLevel(nn.Module):
 
     def __init__(self, hidden_size: int, num_targets: int,
                  num_memories: int = 1,
-                 filter_out_classes: Sequence[int] = ()):
+                 filter_out_classes: Sequence[int] = (),
+                 dropout: float = 0.1):
         super().__init__()
         self.num_memories = num_memories
         self.filter_out_classes = list(filter_out_classes)
-        self.cls_head = MLPHead(hidden_size, hidden_size, num_targets)
+        self.cls_head = MLPHead(hidden_size, hidden_size, num_targets,
+                                dropout)
         for i in range(num_memories):
             self.add_module(f"mask_pred_{i}",
                             MaskPredictionLayer(hidden_size))

@@ -1,5 +1,5 @@
-"""Query3DUnified, stage-1 instance segmentation branch (PyTorch,
-inference); counterpart of ``pq3d_tpu/models/query3d.py`` for the
+"""Query3DUnified, stage-1 instance segmentation branch (PyTorch);
+counterpart of ``pq3d_tpu/models/query3d.py`` for the
 ``("voxel", "mv", "pc")`` memories + ``("mask",)`` head with ``dim_loc=3``.
 
 Data flow: query_locs -> Fourier positional queries; memories (voxel U-Net
@@ -7,6 +7,8 @@ segment features, mv/pc per-segment features) -> (feat, attend_mask, pos)
 triples; the mask head bound with segment features; the unified query
 decoder (num_blocks x num_layers, self-masking); a last mask prediction.
 Consumes the batch dict of ``data/instseg_pipeline.collate`` as tensors.
+``model.train()`` selects BatchNorm batch statistics and dropout (the JAX
+``train=True``), ``model.eval()`` running statistics and no dropout.
 """
 from __future__ import annotations
 
@@ -44,12 +46,15 @@ class UnifiedEncoderCfg:
 @dataclasses.dataclass(frozen=True)
 class EncoderCfg:
     input_feat_size: int = 768
+    dropout: float = 0.1
 
 
 @dataclasses.dataclass(frozen=True)
 class VoxelEncoderCfg:
     hlevels: Tuple[int, ...] = (0, 1, 2, 3)
+    dropout: float = 0.1
     out_channels: int = 200
+    bn_momentum: float = 0.02
     conv1_kernel_size: int = 5
     pallas_conv: bool = False    # route 3^3 convs to the z-run CUDA kernel
 
@@ -89,16 +94,18 @@ class Query3DUnified(nn.Module):
         self.coord_encoder = CoordinateEncoder(hidden_size)
         if "mv" in memories:
             self.mv_encoder = ObjectEncoder(mv_enc.input_feat_size,
-                                            hidden_size)
+                                            hidden_size, mv_enc.dropout)
         if "pc" in memories:
             self.pc_encoder = ObjectEncoder(pc_enc.input_feat_size,
-                                            hidden_size)
+                                            hidden_size, pc_enc.dropout)
         if "voxel" in memories:
             self.voxel_encoder = SegVoxelEncoder(
                 hidden_size=hidden_size, hlevels=voxel_enc.hlevels,
                 backbone_out_channels=voxel_enc.out_channels,
                 conv1_kernel_size=voxel_enc.conv1_kernel_size,
-                pallas_conv=voxel_enc.pallas_conv)
+                pallas_conv=voxel_enc.pallas_conv,
+                dropout=voxel_enc.dropout,
+                bn_momentum=voxel_enc.bn_momentum)
         self.mask_head = heads_lib.MaskHeadSegLevel(
             hidden_size, mask_head_cfg.num_targets,
             num_memories=len(self.memories),
@@ -213,9 +220,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
                 ) -> Query3DUnified:
     """Build the stage-1 model from a resolved config dict (the YAML
-    schema: ``cfg["model"]`` as in configs/instseg_sceneverse.yaml), with
-    random weights drawn from ``torch.Generator().manual_seed(seed)``, in
-    eval mode on ``device`` (raises without CUDA unless device="cpu")."""
+    schema: ``cfg["model"]`` as in configs/instseg_sceneverse.yaml, dropout
+    rates included), with random weights drawn from
+    ``torch.Generator().manual_seed(seed)``, in eval mode on ``device``
+    (raises without CUDA unless device="cpu").  Training runs the JAX
+    model's ``grad_mode='scatter_free'`` with ``remat_policy='none'``, the
+    defaults there; other values are not ported."""
     dev = resolve_device(device)
     m = cfg["model"]
     ue = m["unified_encoder"]["args"]
@@ -223,6 +233,16 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
     bk = va.get("backbone_kwargs") or {}
     bk_cfg = bk.get("config") or {}
     mh = m["mask_head"]["args"]
+    if va.get("grad_mode", "scatter_free") != "scatter_free" \
+            or va.get("remat_policy", "none") != "none":
+        raise NotImplementedError(
+            "the port trains with grad_mode='scatter_free' and "
+            "remat_policy='none' only")
+
+    def enc_cfg(name):
+        a = m[name]["args"]
+        return EncoderCfg(a.get("input_feat_size", 768),
+                          a.get("dropout", 0.1))
     model = Query3DUnified(
         memories=tuple(m["memories"]), heads=tuple(m["heads"]),
         hidden_size=m["hidden_size"], dim_loc=m["obj_loc"]["dim_loc"],
@@ -235,13 +255,13 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
             structure=ue["structure"],
             spatial_selfattn=ue.get("spatial_selfattn", True),
             use_self_mask=ue.get("use_self_mask", False)),
-        mv_enc=EncoderCfg(m["mv_encoder"]["args"].get("input_feat_size",
-                                                      768)),
-        pc_enc=EncoderCfg(m["pc_encoder"]["args"].get("input_feat_size",
-                                                      768)),
+        mv_enc=enc_cfg("mv_encoder"),
+        pc_enc=enc_cfg("pc_encoder"),
         voxel_enc=VoxelEncoderCfg(
             hlevels=tuple(va.get("hlevels", (0, 1, 2, 3))),
+            dropout=va.get("dropout", 0.1),
             out_channels=bk.get("out_channels", 200),
+            bn_momentum=bk_cfg.get("bn_momentum", 0.02),
             conv1_kernel_size=bk_cfg.get("conv1_kernel_size", 5),
             pallas_conv=va.get("pallas_conv", False)),
         mask_head_cfg=MaskHeadCfg(

@@ -1,11 +1,12 @@
-"""Promptable query decoder (PyTorch, inference); counterpart of
+"""Promptable query decoder (PyTorch); counterpart of
 ``pq3d_tpu/models/query_encoder.py``: ``num_blocks`` x ``num_layers``
 rounds of [mask prediction -> masked cross-attention over memories ->
 spatial self-attention -> FFN], parallel memory structure.
 
 Memories are a dict name -> (feat, attend_mask, pos) with True = attend.
 With ``use_self_mask`` the thresholded mask logits of each round become
-the next round's cross-attention masks.
+the next round's cross-attention masks.  Every sublayer drops out at
+``dropout`` (0.1, fixed in the JAX layer) in train mode.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ class QueryEncoderLayer(nn.Module):
     attentions see the same query and their updates are averaged."""
 
     def __init__(self, d_model: int, n_head: int, memories: Sequence[str],
-                 dim_feedforward: int = 2048,
+                 dim_feedforward: int = 2048, dropout: float = 0.1,
                  spatial_selfattn: bool = False,
                  structure: str = "parallel"):
         super().__init__()
@@ -36,13 +37,14 @@ class QueryEncoderLayer(nn.Module):
         self.memories = list(memories)
         self.spatial_selfattn = spatial_selfattn
         if spatial_selfattn:
-            self.self_attn = SpatialSelfAttentionLayer(d_model, n_head)
+            self.self_attn = SpatialSelfAttentionLayer(d_model, n_head,
+                                                       dropout=dropout)
         else:
-            self.self_attn = SelfAttentionLayer(d_model, n_head)
+            self.self_attn = SelfAttentionLayer(d_model, n_head, dropout)
         for m in self.memories:
             self.add_module(f"cross_attns_{m}",
-                            CrossAttentionLayer(d_model, n_head))
-        self.ffn = FFNLayer(d_model, dim_feedforward)
+                            CrossAttentionLayer(d_model, n_head, dropout))
+        self.ffn = FFNLayer(d_model, dim_feedforward, dropout)
 
     def forward(self, query: torch.Tensor, inputs: Dict[str, Memory],
                 pairwise_locs: Optional[torch.Tensor] = None):

@@ -1,4 +1,4 @@
-"""Sparse residual U-Net over host-built kernel maps (PyTorch, inference).
+"""Sparse residual U-Net over host-built kernel maps (PyTorch).
 
 Counterpart of ``pq3d_tpu/models/sparse_unet.py`` for the rectangular
 layout: the Res16UNet34C topology -- dense-block 5^3 stem -> 4x stride-2
@@ -85,11 +85,17 @@ class SparseConv(nn.Module):
                 and zrun_conv.applicable(n_rows, self.kernel.shape[1],
                                          self.out_channels))
 
-    def forward(self, x, nbr, valid, zplan=None):
+    def forward(self, x, nbr, valid, zplan=None, parent=None,
+                parent_off=None, in_valid=None):
+        """``parent``/``parent_off``/``in_valid`` (the dual maps) make it a
+        stride-2 down conv over the child map ``nbr``."""
+        if parent is not None:
+            return sparse.sparse_conv_down(x, nbr, self.kernel, parent,
+                                           parent_off, valid, in_valid)
         if self.routes(nbr.shape[0], zplan):
             zb, zc = zplan
-            return zrun_conv.zrun_conv(x, self.kernel, zb, zc, valid)
-        return sparse.sparse_conv(x, nbr, self.kernel, None, valid)
+            return zrun_conv.zrun_conv_sym(x, self.kernel, zb, zc, valid)
+        return sparse.sparse_conv_sym(x, nbr, self.kernel, valid)
 
 
 class DenseStemConv(nn.Module):
@@ -112,23 +118,25 @@ class SparseConvTranspose(nn.Module):
         super().__init__()
         self.kernel = _conv_weight(8, in_channels, out_channels)
 
-    def forward(self, x, parent, parent_off, valid):
-        return sparse.sparse_conv_transpose(x, parent, parent_off,
-                                            self.kernel, valid)
+    def forward(self, x, parent, parent_off, valid, child, in_valid):
+        return sparse.sparse_conv_transpose_gf(x, parent, parent_off,
+                                               self.kernel, child, valid,
+                                               in_valid)
 
 
 class BasicBlock(nn.Module):
     """conv3 -> BN -> ReLU -> conv3 -> BN -> (+residual) -> ReLU."""
 
-    def __init__(self, in_channels: int, planes: int):
+    def __init__(self, in_channels: int, planes: int,
+                 bn_momentum: float = 0.02):
         super().__init__()
         self.conv1 = SparseConv(in_channels, planes)
-        self.norm1 = MaskedBatchNorm(planes)
+        self.norm1 = MaskedBatchNorm(planes, bn_momentum)
         self.conv2 = SparseConv(planes, planes)
-        self.norm2 = MaskedBatchNorm(planes)
+        self.norm2 = MaskedBatchNorm(planes, bn_momentum)
         if in_channels != planes:
             self.downsample_conv = nn.Linear(in_channels, planes, bias=False)
-            self.downsample_norm = MaskedBatchNorm(planes)
+            self.downsample_norm = MaskedBatchNorm(planes, bn_momentum)
         else:
             self.downsample_conv = None
 
@@ -143,12 +151,13 @@ class BasicBlock(nn.Module):
 
 
 class ResStage(nn.Module):
-    def __init__(self, in_channels: int, planes: int, layers: int):
+    def __init__(self, in_channels: int, planes: int, layers: int,
+                 bn_momentum: float = 0.02):
         super().__init__()
         for i in range(layers):
             self.add_module(f"block{i}",
                             BasicBlock(in_channels if i == 0 else planes,
-                                       planes))
+                                       planes, bn_momentum))
         self.layers = layers
 
     def forward(self, x, nbr, valid, zplan=None):
@@ -168,31 +177,33 @@ class Res16UNet(nn.Module):
                  init_dim: int = 32,
                  planes: Sequence[int] = (32, 64, 128, 256, 256, 128, 96, 96),
                  layers: Sequence[int] = (2, 3, 4, 6, 2, 2, 2, 2),
-                 conv1_kernel_size: int = 5, pallas_conv: bool = False):
+                 conv1_kernel_size: int = 5, pallas_conv: bool = False,
+                 bn_momentum: float = 0.02):
         super().__init__()
         P = list(planes)
         self.planes = P
         self.layers = list(layers)
         self.pallas_conv = pallas_conv
+        bm = bn_momentum
         self.conv0 = DenseStemConv(in_channels, init_dim, conv1_kernel_size)
-        self.bn0 = MaskedBatchNorm(init_dim)
+        self.bn0 = MaskedBatchNorm(init_dim, bm)
         ch = init_dim
         skip_ch = [init_dim]
         for l in range(4):
             self.add_module(f"conv{l + 1}s2", SparseConv(ch, ch, k=8))
-            self.add_module(f"bn{l + 1}", MaskedBatchNorm(ch))
+            self.add_module(f"bn{l + 1}", MaskedBatchNorm(ch, bm))
             self.add_module(f"stage{l + 1}",
-                            ResStage(ch, P[l], self.layers[l]))
+                            ResStage(ch, P[l], self.layers[l], bm))
             ch = P[l]
             skip_ch.append(ch)
         for i in range(4):
             lvl = 3 - i
             self.add_module(f"convtr{i + 4}", SparseConvTranspose(ch,
                                                                   P[4 + i]))
-            self.add_module(f"bntr{i + 4}", MaskedBatchNorm(P[4 + i]))
+            self.add_module(f"bntr{i + 4}", MaskedBatchNorm(P[4 + i], bm))
             self.add_module(f"stage{i + 5}",
                             ResStage(P[4 + i] + skip_ch[lvl], P[4 + i],
-                                     self.layers[4 + i]))
+                                     self.layers[4 + i], bm))
             ch = P[4 + i]
         self.final = nn.Linear(ch, out_channels)
 
@@ -244,8 +255,9 @@ class Res16UNet(nn.Module):
         out = F.relu(self.bn0(out, v[0]))
         skips = [out]
         for l in range(4):
-            out = getattr(self, f"conv{l + 1}s2")(out, fm[f"child_{l}"],
-                                                  v[l + 1])
+            out = getattr(self, f"conv{l + 1}s2")(
+                out, fm[f"child_{l}"], v[l + 1], parent=fm[f"parent_{l}"],
+                parent_off=fm[f"parent_off_{l}"], in_valid=v[l])
             out = F.relu(getattr(self, f"bn{l + 1}")(out, v[l + 1]))
             out = getattr(self, f"stage{l + 1}")(out, n[l + 1], v[l + 1],
                                                  zp[l + 1])
@@ -254,7 +266,8 @@ class Res16UNet(nn.Module):
         for i in range(4):
             lvl = 3 - i
             out = getattr(self, f"convtr{i + 4}")(
-                out, fm[f"parent_{lvl}"], fm[f"parent_off_{lvl}"], v[lvl])
+                out, fm[f"parent_{lvl}"], fm[f"parent_off_{lvl}"], v[lvl],
+                fm[f"child_{lvl}"], v[lvl + 1])
             out = F.relu(getattr(self, f"bntr{i + 4}")(out, v[lvl]))
             out = torch.cat([out, skips[lvl]], -1)
             out = getattr(self, f"stage{i + 5}")(out, n[lvl], v[lvl],

@@ -15,6 +15,13 @@ the port keeps only ``zbase``/``zcode``.  On a CUDA tensor
 :func:`zrun_conv` launches ``csrc/zrun_conv.cu``; on a CPU tensor it runs
 :func:`zrun_conv_reference`.  A failed build or launch raises: there is no
 fallback to the plain version on the card.
+
+Training goes through :func:`zrun_conv_sym`, the counterpart of
+``pallas_zt_conv_sym``: the 3^3 stencil is symmetric, so ``dx`` is the
+same kernel applied to the masked ``dy`` with ``flip_k(W)^T``, and ``dW``
+re-gathers ``x`` through the same plan (:func:`zrun_weight_grad`, plain
+PyTorch, as the JAX package computes it in XLA) instead of storing the
+27 x N x Cin gathered taps.
 """
 from __future__ import annotations
 
@@ -34,8 +41,11 @@ from pq3d_tpu_torch.ops import sparse
 MIN_ROWS = 40960
 
 # launches of the CUDA kernel since the last reset (a plain counter that
-# smoke runs set to 0 before the main path and read after it)
+# smoke runs set to 0 before the main path and read after it), and the
+# same launches split by the pass that made them: "fwd" (the conv) and
+# "bwd" (its dx)
 launches = 0
+phase_launches = {"fwd": 0, "bwd": 0}
 
 _SRC = os.path.join(CSRC_DIR, "zrun_conv.cu")
 _NVCC_FLAGS = ["-O3", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -85,34 +95,67 @@ def zrun_plan(nbr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return zbase, zcode
 
 
+def _tap_rows(xb: torch.Tensor, zbase: torch.Tensor, zcode: torch.Tensor):
+    """Yield (tap, rows): for each of the 27 taps (z-fastest order,
+    tap = 3*c + dz + 1) the (N, Cin) rows of ``xb`` it reads, zero where
+    the tap has no neighbour.  Per column the 3 consecutive rows from
+    ``zbase`` are gathered once; ``zcode`` picks the row carrying each
+    z-offset (each offset sits in at most one slot)."""
+    for c in range(9):
+        base = zbase[:, c].long()
+        trips = [xb.index_select(0, base + p) for p in range(3)]
+        for dz in (-1, 0, 1):
+            xi = torch.zeros_like(trips[0])
+            for p in range(3):
+                m = (zcode[:, c, p] == dz)[:, None]
+                xi = xi + torch.where(m, trips[p], 0)
+            yield c * 3 + dz + 1, xi
+
+
 def zrun_conv_reference(x: torch.Tensor, w: torch.Tensor,
                         zbase: torch.Tensor, zcode: torch.Tensor,
                         out_valid: Optional[torch.Tensor] = None,
                         compute_dtype: torch.dtype = torch.bfloat16
                         ) -> torch.Tensor:
     """Plain PyTorch version of the kernel (the JAX package's
-    ``sparse_conv_ztriple``): per column gather the 3 consecutive rows from
-    ``zbase``, pick the row carrying each z-offset by ``zcode``, and run
-    the 27 matmuls with operands rounded to ``compute_dtype`` and f32
-    accumulation.  Returns (N, Cout) in x.dtype."""
-    cin, cout = w.shape[1], w.shape[2]
-    xb = x.to(compute_dtype).float()
-    wb = w.to(compute_dtype).float()
-    acc = torch.zeros(zbase.shape[0], cout, dtype=torch.float32,
+    ``sparse_conv_ztriple``): the 27 taps' rows (:func:`_tap_rows`) times
+    W, operands rounded to ``compute_dtype``, f32 accumulation.  Returns
+    (N, Cout) in x.dtype."""
+    xb = sparse._round(x, compute_dtype)
+    wb = sparse._round(w, compute_dtype)
+    acc = torch.zeros(zbase.shape[0], w.shape[2], dtype=torch.float32,
                       device=x.device)
-    for c in range(9):
-        base = zbase[:, c].long()
-        trips = [xb.index_select(0, base + p) for p in range(3)]
-        for dz in (-1, 0, 1):
-            xi = torch.zeros(zbase.shape[0], cin, dtype=torch.float32,
-                             device=x.device)
-            for p in range(3):
-                m = (zcode[:, c, p] == dz)[:, None]
-                xi = xi + torch.where(m, trips[p], 0)
-            acc.addmm_(xi, wb[c * 3 + dz + 1])
+    for tap, xi in _tap_rows(xb, zbase, zcode):
+        acc.addmm_(xi, wb[tap])
     if out_valid is not None:
         acc = torch.where(out_valid[:, None], acc, 0)
     return acc.to(x.dtype)
+
+
+def zrun_weight_grad(x: torch.Tensor, zbase: torch.Tensor,
+                     zcode: torch.Tensor, dy: torch.Tensor,
+                     compute_dtype: torch.dtype = torch.bfloat16
+                     ) -> torch.Tensor:
+    """dW (27, Cin, Cout) f32 of the z-run conv: ``dW[tap] = rows(x)^T @
+    dy`` with x and dy rounded to ``compute_dtype`` and f32 accumulation
+    (the JAX package's ``_ztriple_weight_grad``).  Re-gathers x through the
+    plan instead of storing the 27 gathered taps."""
+    xb = sparse._round(x, compute_dtype)
+    dyb = sparse._round(dy, compute_dtype)
+    return torch.stack([xi.t() @ dyb
+                        for _, xi in _tap_rows(xb, zbase, zcode)])
+
+
+def zrun_conv_backward_reference(x: torch.Tensor, w: torch.Tensor,
+                                 zbase: torch.Tensor, zcode: torch.Tensor,
+                                 out_valid: Optional[torch.Tensor],
+                                 dy: torch.Tensor):
+    """Plain twin of :func:`zrun_conv_sym`'s backward: (dx, dW) with the
+    plain forward applied to the masked ``dy`` and ``flip_k(W)^T``."""
+    if out_valid is not None:
+        dy = torch.where(out_valid[:, None], dy, 0)
+    dx = zrun_conv_reference(dy, w.flip(0).transpose(1, 2), zbase, zcode)
+    return dx.to(x.dtype), zrun_weight_grad(x, zbase, zcode, dy).to(w.dtype)
 
 
 def _nvcc() -> str:
@@ -147,20 +190,19 @@ def build() -> ctypes.CDLL:
 
 def zrun_conv(x: torch.Tensor, w: torch.Tensor, zbase: torch.Tensor,
               zcode: torch.Tensor,
-              out_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+              out_valid: Optional[torch.Tensor] = None,
+              phase: str = "fwd") -> torch.Tensor:
     """y (N, Cout) = the stride-1 3^3 conv of x (N, Cin) with w (27, Cin,
     Cout) over the z-run plan; operands rounded to bf16, f32 accumulation,
     output in x.dtype, rows with ``out_valid`` False zeroed.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (forward only: raises if grad mode is on and an input requires grad)."""
+    and counts it under ``phase`` ("fwd" or "bwd").  Not differentiable
+    itself: training goes through :func:`zrun_conv_sym`."""
     if x.device.type == "cpu":
         return zrun_conv_reference(x, w, zbase, zcode, out_valid)
     if x.device.type != "cuda":
         raise ValueError(f"zrun_conv: unsupported device {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise RuntimeError("zrun_conv is forward-only: its backward kernel "
-                           "comes with the training port")
     n, cin = x.shape
     k, wcin, cout = w.shape
     if k != 27 or wcin != cin:
@@ -200,4 +242,55 @@ def zrun_conv(x: torch.Tensor, w: torch.Tensor, zbase: torch.Tensor,
         raise RuntimeError(f"zrun_conv kernel launch failed: cudaError {err}")
     global launches
     launches += 1
+    phase_launches[phase] += 1
     return y
+
+
+def reset_counts() -> None:
+    """Set every launch count to 0."""
+    global launches
+    launches = 0
+    for k in phase_launches:
+        phase_launches[k] = 0
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if contiguous and 16-byte aligned, else a fresh
+    contiguous copy (a gradient from autograd may be a strided view or
+    start at an offset, e.g. one half of a ``torch.cat``'s gradient)."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+class _ZrunConvSym(torch.autograd.Function):
+    """The z-run conv with the scatter-free symmetric-stencil backward;
+    saves only its input, W and the plan."""
+
+    @staticmethod
+    def forward(ctx, x, w, zbase, zcode, out_valid):
+        ctx.save_for_backward(x, w, zbase, zcode, out_valid)
+        return zrun_conv(x, w, zbase, zcode, out_valid)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, zbase, zcode, out_valid = ctx.saved_tensors
+        if out_valid is not None:
+            dy = torch.where(out_valid[:, None], dy, 0)
+        dy = _aligned(dy)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = zrun_conv(dy, w.flip(0).transpose(1, 2), zbase, zcode,
+                           phase="bwd").to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = zrun_weight_grad(x, zbase, zcode, dy).to(w.dtype)
+        return dx, dw, None, None, None
+
+
+def zrun_conv_sym(x: torch.Tensor, w: torch.Tensor, zbase: torch.Tensor,
+                  zcode: torch.Tensor,
+                  out_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`zrun_conv` with a backward: dx launches the same kernel on
+    the masked dy with ``flip_k(W)^T`` (the plain version on the CPU), dW
+    is :func:`zrun_weight_grad`."""
+    return _ZrunConvSym.apply(x, w, zbase, zcode, out_valid)

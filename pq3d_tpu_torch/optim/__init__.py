@@ -1,0 +1,1 @@
+"""optim of pq3d_tpu_torch (see the package docstring)."""

@@ -54,6 +54,17 @@ def _target(module: nn.Module, leaf: str, value: np.ndarray
                    f"{type(module).__name__}")
 
 
+def torch_name(model: nn.Module, path: Tuple[str, ...], value: np.ndarray
+               ) -> Tuple[str, np.ndarray]:
+    """(dotted torch name, converted value) of the flax leaf at ``path``
+    (module path + leaf name, without the collection); raises
+    ``AttributeError`` or ``KeyError`` when the model has no counterpart."""
+    mod_path, leaf = path[:-1], path[-1]
+    module = model.get_submodule(".".join(mod_path))
+    attr, value = _target(module, leaf, value)
+    return ".".join(mod_path + (attr,)), value
+
+
 def load_flax_variables(model: nn.Module,
                         variables: Dict[str, Dict[str, Any]]) -> None:
     """Fill ``model``'s parameters and buffers from a flax variable tree
@@ -65,14 +76,11 @@ def load_flax_variables(model: nn.Module,
     leftover = []
     for collection, tree in variables.items():
         for path, value in _leaves(tree):
-            mod_path, leaf = path[:-1], path[-1]
             try:
-                module = model.get_submodule(".".join(mod_path))
-                attr, value = _target(module, leaf, value)
+                name, value = torch_name(model, path, value)
             except (AttributeError, KeyError):
                 leftover.append("/".join((collection,) + path))
                 continue
-            name = ".".join(mod_path + (attr,))
             t = state.get(name)
             if t is None or name in filled \
                     or tuple(t.shape) != value.shape:

@@ -1,5 +1,6 @@
-"""Tests of the port that need an NVIDIA card: the CUDA kernels against
-their plain PyTorch versions on the same inputs.  They skip without a card.
+"""Tests of the port that need an NVIDIA card: the CUDA kernels, forward
+and backward, against their plain PyTorch versions on the same inputs.
+They skip without a card.
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only the port's dependencies:
 
@@ -61,21 +62,50 @@ def test_zrun_conv_kernel_matches_plain_version(cuda_device, dtype, cin,
 
 
 @pytest.mark.cuda
-def test_zrun_conv_refuses_grad(cuda_device):
-    """Forward only: with grad mode on and a weight that requires grad the
-    wrapper raises; under inference_mode the same call runs."""
-    rng = np.random.default_rng(0)
-    nbr, valid = _scene(rng, extent=24, n_pts=3000)
+@pytest.mark.parametrize("dy_layout", ["masked", "offset", "strided"])
+@pytest.mark.parametrize("cin,cout", [(96, 128), (192, 128)])
+def test_zrun_conv_sym_backward_matches_plain(cuda_device, dy_layout, cin,
+                                              cout):
+    """zrun_conv_sym's backward on the card: dx launches the kernel once
+    (Cin and Cout swapped, so the (192, 128) conv's dx runs Cout 192) and
+    dW is the re-gather; both against zrun_conv_backward_reference within
+    1e-2 of max|ref|.  An unmasked dy that is a view 4 bytes into its
+    storage, or a column slice, still launches the kernel (on an aligned
+    copy)."""
+    rng = np.random.default_rng(cin)
+    nbr, valid = _scene(rng, extent=32, n_pts=6000)
     n = nbr.shape[0]
-    xd = torch.from_numpy(rng.standard_normal((n, 96)).astype(np.float32)
-                          ).to(cuda_device)
-    wd = torch.zeros(27, 96, 96, device=cuda_device, requires_grad=True)
+    x = np.zeros((n, cin), np.float32)
+    x[valid] = rng.standard_normal((valid.sum(), cin))
+    w = (rng.standard_normal((27, cin, cout)) * 0.05).astype(np.float32)
+    dy = rng.standard_normal((n, cout)).astype(np.float32)
     zb, zc = tzr.zrun_plan(torch.from_numpy(nbr).to(cuda_device))
-    vd = torch.from_numpy(valid).to(cuda_device)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        tzr.zrun_conv(xd, wd, zb, zc, vd)
-    with torch.inference_mode():
-        assert tzr.zrun_conv(xd, wd, zb, zc, vd).shape == (n, 96)
+    vd = torch.from_numpy(valid).to(cuda_device) \
+        if dy_layout == "masked" else None
+    dyd = torch.from_numpy(dy).to(cuda_device)
+    if dy_layout == "offset":
+        flat = torch.zeros(n * cout + 1, device=cuda_device)
+        flat[1:] = dyd.reshape(-1)
+        dyd = flat[1:].view(n, cout)
+        assert dyd.data_ptr() % 16
+    elif dy_layout == "strided":
+        wide = torch.zeros(n, cout + 16, device=cuda_device)
+        wide[:, 16:] = dyd
+        dyd = wide[:, 16:]
+        assert not dyd.is_contiguous()
+    xd = torch.from_numpy(x).to(cuda_device).requires_grad_(True)
+    wd = torch.from_numpy(w).to(cuda_device).requires_grad_(True)
+    before = dict(tzr.phase_launches)
+    tzr.zrun_conv_sym(xd, wd, zb, zc, vd).backward(dyd)
+    torch.cuda.synchronize()
+    assert tzr.phase_launches["fwd"] == before["fwd"] + 1
+    assert tzr.phase_launches["bwd"] == before["bwd"] + 1
+    dx_ref, dw_ref = tzr.zrun_conv_backward_reference(
+        xd.detach(), wd.detach(), zb, zc, vd, dyd)
+    for got, ref in ((xd.grad, dx_ref), (wd.grad, dw_ref)):
+        assert got.shape == ref.shape
+        err = (got - ref).abs().max() / ref.abs().max()
+        assert err.item() <= 1e-2
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """pq3d_tpu_torch stands alone: it imports neither JAX nor the JAX package
 (checked in a subprocess, since this suite's conftest imports jax), its
-entry points refuse to run on a machine without CUDA unless asked for the
-CPU, and its config dict is the slice's YAML sections."""
+entry points (model, server, trainer CLI) refuse to run on a machine
+without CUDA unless asked for the CPU, and its config dict is the slices'
+YAML."""
 import ast
 import os
 import subprocess
@@ -15,6 +16,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHECK = r"""
 import importlib, pkgutil, sys
+NEEDED = ["pq3d_tpu_torch." + m for m in (
+    "run", "train.trainer", "train.state", "train.checkpoints",
+    "train.metrics", "optim.losses", "optim.optimizers", "data.datasets",
+    "eval.instseg_eval", "eval.scannet_protocol", "ops.zrun_conv",
+    "ops.sparse")]
 import pq3d_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(pq3d_tpu_torch.__path__,
                                               "pq3d_tpu_torch.")]
@@ -23,8 +29,9 @@ for m in mods:
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "pq3d_tpu", "yaml")
              or m.startswith(("jax.", "flax.", "pq3d_tpu.")))
-print(len(mods), bad)
-sys.exit(1 if bad or len(mods) < 20 else 0)
+missing = sorted(set(NEEDED) - set(mods))
+print(len(mods), bad, missing)
+sys.exit(1 if bad or missing or len(mods) < 40 else 0)
 """
 
 
@@ -49,7 +56,7 @@ def test_chip_smoke_imports_no_jax():
     assert "pq3d_tpu_torch" in top
 
 
-def test_entry_points_refuse_cuda_without_a_card():
+def test_entry_points_refuse_cuda_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the refusal path is moot")
     from pq3d_tpu_torch.config import slice_config
@@ -63,6 +70,11 @@ def test_entry_points_refuse_cuda_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         InstSegServer(None, pipeline_config(
             cfg["data"]["instseg_options"]), batch_size=4, num_classes=200)
+    from pq3d_tpu_torch import run
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run.main(["--config-name", "instseg_sceneverse",
+                  "data.train=[SyntheticInstSeg]",
+                  "data.val=[SyntheticInstSeg]", f"exp_dir={tmp_path}"])
     assert isinstance(InstSegPipelineConfig(), InstSegPipelineConfig)
 
 
@@ -72,6 +84,7 @@ def test_slice_config_equals_yaml():
                         "instseg_sceneverse.yaml")
     with open(path) as f:
         raw = yaml.safe_load(f)
+    assert config.INSTSEG_SCENEVERSE == raw
     assert config.INSTSEG_SCENEVERSE_MODEL == raw["model"]
     assert config.INSTSEG_SCENEVERSE_OPTIONS == \
         raw["data"]["instseg_options"]

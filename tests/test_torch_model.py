@@ -111,7 +111,7 @@ def test_res16unet_matches_jax(monkeypatch):
                                                  train=False))(variables)
 
     _route_small(monkeypatch, 128)
-    tmodel = TRes16UNet(pallas_conv=True)
+    tmodel = TRes16UNet(pallas_conv=True).eval()
     load_flax_variables(tmodel, variables)
     routed = _spy_routed(monkeypatch, tmodel)
     with torch.inference_mode():
