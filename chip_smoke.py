@@ -6,47 +6,61 @@
 Phases (one line each; any failure exits non-zero, nothing is skipped):
 
 1. device   -- requires CUDA; prints the card's name and power limit;
-2. build    -- builds csrc/zrun_conv.cu with nvcc (sm_90a) from this
-               checkout and prints the build seconds;
-3. kernel   -- the z-run 3^3 conv kernel against its plain PyTorch version
-               at the routed shapes of the serving slice (maps from the
-               port's pipeline on a full-size synthetic batch): error, median
-               time over 20 launches (CUDA events), plain time, bound;
+2. build    -- builds csrc/zrun_conv.cu and csrc/windowed_conv.cu with nvcc
+               (sm_90a) from this checkout, one nvcc each, both started
+               together, and prints the build seconds;
+3. kernel   -- the z-run 3^3 conv kernel (B1) against its plain PyTorch
+               version at the routed shapes of the serving slice (maps from
+               the port's pipeline on a full-size synthetic batch): error,
+               median time over 20 launches (CUDA events), plain time, bound;
 4. serve    -- the slice end to end: the full-width stage-1 model
                (instseg_sceneverse + pallas_conv: true, random weights from
                a seed) behind InstSegServer(batch_size=4) answers 8 scenes of
-               60-80k points; checks every answer and that the kernel ran
-               exactly routed-convs x forwards times;
+               60-80k points; checks every answer and that B1 ran exactly
+               routed-convs x forwards times (and the windowed conv never);
 5. check    -- the served forward against the same model with every conv on
                its plain version, on one batch;
-6. kernel_bwd -- the kernel's backward (dx: the same kernel on the masked dy
-               with W flipped and transposed; dW: the plain re-gather)
-               through its autograd Function against the plain backward,
-               at the routed shapes of a full-size training batch: error,
-               the dx kernel's median ms over 20 launches, plain ms, bound,
-               and the dW re-gather's ms;
-7. train    -- stage-1 training end to end: pq3d_tpu_torch.run builds the
+6. winconv  -- the windowed conv kernel (B2), which no model calls, on the
+               served batch's coordinates rebuilt level by level and put in
+               Morton order per scene: per level the host seconds of
+               morton_order and build_window_map (tile 256, window 512), the
+               out-of-window share of the references, E_pad and Et; at every
+               routed (level, Cin, Cout) and at one 5^3 case (K = 125, L0,
+               32 -> 32) the kernel against its plain version and both
+               against the gather conv (within 1e-3), the wrapper's median
+               ms over 20 launches, the plain version's and
+               exception_contrib's over 5, the bound, and B1's ms from
+               phase 3 beside B2's; the launches must equal the calls;
+7. kernel_bwd -- B1's backward (dx: the same kernel on the masked dy with W
+               flipped and transposed; dW: the plain re-gather) through its
+               autograd Function against the plain backward, at the routed
+               shapes of a full-size training batch: error, the dx kernel's
+               median ms over 20 launches, plain ms, bound, and the dW
+               re-gather's ms beside its bound;
+8. train    -- stage-1 training end to end: pq3d_tpu_torch.run builds the
                trainer (instseg_sceneverse + pallas_conv: true, batch 4 of
                synthetic 70k-point scenes, AdamW); 1 warm step, 5 timed
                steps (loss, grad norm, host-pipeline s, device ms per step;
-               steps/s, scenes/s, peak memory; the kernel's forward and
-               backward launches, which must be 2 x routed convs per step),
-               then 5 steps on one batch whose loss must fall;
-8. train_check -- one train step (dropout off) with the kernel against
-               the same step all-plain (loss) and with every backward on
-               its plain version (routed-conv weight gradients), and each
-               routed conv replayed at the step's own x and dy against
-               its plain backward, all within 2e-2;
+               steps/s, scenes/s, peak memory; B1's forward and backward
+               launches, which must be 2 x routed convs per step), then 5
+               steps on one batch, whose loss (train mode, dropout off,
+               read before and after them) must fall;
+9. train_check -- one train step (dropout off) with B1 against the same
+               step all-plain (loss) and with every backward on its plain
+               version (routed-conv weight gradients), and each routed conv
+               replayed at the step's own x and dy against its plain
+               backward, all within 2e-2;
 then one JSON line with every hand kernel's numbers, and the result line.
 
     python3 chip_smoke.py --profile PATH
 
 adds torch.profiler traces of one served forward (after phase 5) and of one
-train step (after phase 8): device busy time against the host clock, the
+train step (after phase 9): device busy time against the host clock, the
 idle share and the device time by kernel (the top rows printed, the whole
 tables written to PATH and to PATH with ``_train`` before its extension).
 """
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -162,16 +176,27 @@ def rel_err(got, ref):
             / ref.float().abs().max().clamp_min(1e-12)).item()
 
 
-def conv_bound(n, cin, cout, pairs, with_valid, flops_peak, bw_peak):
-    """(bound ms, what bounds it, flops, bytes) of one z-run conv: the
-    valid taps' bf16 products over the tensor-core peak against reading x
-    (f32), W (bf16), the plan and the mask once and writing y (f32)."""
+def zrun_plan_bytes(n, with_valid):
+    """Bytes of the z-run plan (zbase int32, zcode int8) and the mask."""
+    return n * 9 * 4 + n * 27 + (n if with_valid else 0)
+
+
+def conv_bound(n, cin, cout, pairs, plan_bytes, flops_peak, bw_peak,
+               taps=27):
+    """(bound ms, what bounds it, flops, bytes) of one sparse conv: the
+    valid references' bf16 products over the tensor-core peak against
+    reading x (f32), W (bf16) and the plan once and writing y (f32)."""
     flops = 2.0 * pairs * cin * cout
-    nbytes = (n * cin * 4 + 27 * cin * cout * 2 + n * 9 * 4 + n * 27
-              + (n if with_valid else 0) + n * cout * 4)
+    nbytes = (n * cin * 4 + taps * cin * cout * 2 + plan_bytes
+              + n * cout * 4)
+    return bound_of(flops, nbytes, flops_peak, bw_peak) + (flops, nbytes)
+
+
+def bound_of(flops, nbytes, flops_peak, bw_peak):
+    """(the larger of the two times in ms, which of them it is)."""
     t_ops, t_bytes = flops / flops_peak * 1e3, nbytes / bw_peak * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", flops, nbytes)
+            else "bytes")
 
 
 def smoke_trainer(exp_dir):
@@ -188,6 +213,184 @@ def smoke_trainer(exp_dir):
         "data.synthetic.n_segments=400", "log_every=1", "device=cuda",
         f"exp_dir={exp_dir}"])
     return run.build_instseg_trainer(cfg)
+
+
+@contextlib.contextmanager
+def dropout_off(model):
+    """Every dropout of ``model`` at rate 0 inside the block."""
+    import torch
+    drops = [m for m in model.modules() if isinstance(m, torch.nn.Dropout)]
+    rates = [m.p for m in drops]
+    for m in drops:
+        m.p = 0.0
+    try:
+        yield
+    finally:
+        for m, p in zip(drops, rates):
+            m.p = p
+
+
+def batch_loss(trainer, b):
+    """The loss of the device batch ``b`` in train mode (BatchNorm on the
+    batch's own statistics) with dropout off, no gradient, no update."""
+    import torch
+    with dropout_off(trainer.model), torch.no_grad():
+        trainer.model.train()
+        total, _ = trainer.loss_fn(trainer.model(b), b)
+    return total.item()
+
+
+PLAN_KEYS = ("win_lo", "nbr_local", "exc_in_k", "exc_row_tile",
+             "exc_src_tile")
+
+
+def morton_maps(level_coords, pad, kernel):
+    """The flat (B * pad, K) map of one level with each scene's voxels in
+    Morton order (padding rows after them, scene s at rows s * pad ..),
+    the valid rows and the host seconds of ``morton_order``."""
+    import numpy as np
+    from pq3d_tpu_torch.ops import kernel_maps
+    parts, valid, morton_s = [], [], 0.0
+    for s, c in enumerate(level_coords):
+        t0 = time.time()
+        order = kernel_maps.morton_order(c)
+        morton_s += time.time() - t0
+        nbr = kernel_maps.build_neighbor_map(c[order], kernel, n_pad=pad)
+        parts.append(np.where(nbr >= 0, nbr + s * pad, -1).astype(np.int32))
+        valid.append(np.arange(pad) < len(c))
+    return np.concatenate(parts), np.concatenate(valid), morton_s
+
+
+def winconv_phase(scenes, batch, pipe, shapes, b1_ms, dev, flops_peak,
+                  bw_peak):
+    """Kernel B2 (the windowed conv) at full width on the served batch's
+    coordinates, Morton-ordered: for each level with routed convs, the
+    plan at tile 256 / window 512 and its host seconds; at each routed
+    (level, Cin, Cout) and at one 5^3 case (K = 125, L0, 32 -> 32) the
+    kernel against its plain version and both against the gather conv
+    (all within 1e-3), then the wrapper's median ms over 20 launches,
+    the plain version's and ``exception_contrib``'s over 5, the bound and
+    B1's ms at the same shape.  Returns the level and shape records and
+    the launch count of the phase."""
+    import numpy as np
+    import torch
+    from pq3d_tpu_torch.ops import kernel_maps, voxelize, windowed_conv
+    from pq3d_tpu_torch.ops.sparse import sparse_conv
+    tile, window = 256, 512
+    levels = sorted({lvl for lvl, _, _ in shapes})
+    coords = []
+    for i, s in enumerate(scenes):
+        c = [voxelize.quantize(s["points"].astype(np.float32),
+                               pipe.voxel_size)[0]]
+        while len(c) <= max(levels):
+            c.append(kernel_maps.downsample_coords(c[-1])[0])
+        for lvl in levels:
+            if len(c[lvl]) != int(batch["maps"][f"valid_{lvl}"][i].sum()):
+                fail(f"scene {i} L{lvl}: rebuilt {len(c[lvl])} voxels, the "
+                     f"served batch has "
+                     f"{int(batch['maps'][f'valid_{lvl}'][i].sum())}")
+        coords.append(c)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    windowed_conv.reset_counts()            # B2's path starts here
+    calls = 0
+    level_recs, recs = [], []
+    cases = [(lvl, 3, cin, cout, shapes[(lvl, cin, cout)])
+             for lvl, cin, cout in sorted(shapes)] + [(0, 5, 32, 32, 0)]
+    plans = {}
+    for lvl, kernel, cin, cout, per_fwd in cases:
+        if (lvl, kernel) not in plans:
+            plans.clear()
+            pad = batch["maps"][f"valid_{lvl}"].shape[1]
+            nbr, valid, morton_s = morton_maps([c[lvl] for c in coords], pad,
+                                               kernel)
+            t0 = time.time()
+            plan = windowed_conv.build_window_map(nbr, tile, window)
+            plan_s = time.time() - t0
+            refs = int((nbr >= 0).sum())
+            lrec = {"level": lvl, "k": nbr.shape[1], "n": nbr.shape[0],
+                    "morton_s": morton_s, "window_map_s": plan_s,
+                    "references": refs,
+                    "valid_slot_share": refs / nbr.size,
+                    "exceptions": plan["n_exceptions"],
+                    "out_of_window_share": plan["n_exceptions"] / refs,
+                    "e_pad": plan["exc_in_k"].shape[1],
+                    "et": plan["exc_row_tile"].shape[1],
+                    "plan_bytes": sum(plan[k].nbytes for k in PLAN_KEYS)}
+            level_recs.append(lrec)
+            print(f"winconv: L{lvl} K={lrec['k']} N={lrec['n']} Morton order "
+                  f"{morton_s:.3f} s, window map {plan_s:.3f} s (host) | "
+                  f"{plan['n_exceptions']} of {refs} references out of the "
+                  f"window ({lrec['out_of_window_share']:.4f}); "
+                  f"{lrec['valid_slot_share']:.4f} of the N x K slots hold a "
+                  f"reference | E_pad {lrec['e_pad']}, Et {lrec['et']}",
+                  flush=True)
+            plans[(lvl, kernel)] = (
+                torch.from_numpy(nbr).to(dev), torch.from_numpy(valid).to(dev),
+                {k: torch.from_numpy(plan[k]).to(dev) for k in PLAN_KEYS},
+                lrec)
+        nbr_d, valid_d, plan_d, lrec = plans[(lvl, kernel)]
+        n, k = nbr_d.shape
+        x = torch.randn(n, cin, generator=gen).to(dev) * valid_d[:, None]
+        w = (torch.randn(k, cin, cout, generator=gen)
+             * (2.0 / (k * cin)) ** 0.5).to(dev)
+
+        def kernel_call():
+            return windowed_conv.windowed_sparse_conv(
+                x, w, *plan_d.values(), tile=tile, window=window)
+        got = kernel_call()
+        calls += 1
+        ref = windowed_conv.windowed_sparse_conv_reference(x, w, plan_d, tile,
+                                                           window)
+        gat = sparse_conv(x, nbr_d, w)
+        torch.cuda.synchronize()
+        errs = {"kernel_vs_plain": rel_err(got, ref),
+                "kernel_vs_gather": rel_err(got, gat),
+                "plain_vs_gather": rel_err(ref, gat)}
+        if not (torch.isfinite(got).all().item()
+                and max(errs.values()) <= 1e-3):
+            fail(f"windowed_conv disagrees at L{lvl} K={k} {cin}->{cout}: "
+                 f"{errs}")
+        ms = cuda_time(kernel_call, 20)
+        prep = windowed_conv.prepare(x, w, plan_d["exc_in_k"],
+                                     plan_d["exc_src_tile"])
+        kernel_ms = cuda_time(lambda: windowed_conv.launch(
+            *prep, plan_d["win_lo"], plan_d["nbr_local"],
+            plan_d["exc_row_tile"], cout, tile, window), 20)
+        calls += 40
+        plain_ms = cuda_time(lambda: windowed_conv.windowed_sparse_conv_reference(
+            x, w, plan_d, tile, window), 5)
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        exc_ms = cuda_time(lambda: windowed_conv.exception_contrib(
+            xb, wb, plan_d["exc_in_k"], plan_d["exc_src_tile"]), 5)
+        bound, by, flops, nbytes = conv_bound(
+            n, cin, cout, lrec["references"], lrec["plan_bytes"], flops_peak,
+            bw_peak, taps=k)
+        b1 = b1_ms.get((lvl, cin, cout)) if k == 27 else None
+        rec = {"level": lvl, "k": k, "n": n, "cin": cin, "cout": cout,
+               "per_forward": per_fwd, "ms": ms, "kernel_ms": kernel_ms,
+               "plain_ms": plain_ms, "exception_contrib_ms": exc_ms,
+               "dense_flops": 2.0 * n * k * cin * cout, "bound_ms": bound,
+               "bound_by": by, "b1_ms": b1, "flops": flops, "bytes": nbytes,
+               "max_abs_err": (got - ref).abs().max().item(), **errs}
+        recs.append(rec)
+        b1_txt = f"B1 zrun_conv {b1:.3f} ms" if b1 is not None else \
+            "B1 does not take this shape"
+        print(f"winconv: windowed_conv L{lvl} K={k} N={n} {cin}->{cout} "
+              f"({per_fwd} per forward) rel_err vs plain "
+              f"{errs['kernel_vs_plain']:.2e}, vs gather conv "
+              f"{errs['kernel_vs_gather']:.2e} | {ms:.3f} ms (kernel alone "
+              f"{kernel_ms:.3f} ms, exception_contrib {exc_ms:.3f} ms; plain "
+              f"{plain_ms:.3f} ms; bound {bound:.4f} ms by {by}; "
+              f"{flops / ms / 1e9:.1f} TFLOP/s on the references, kernel "
+              f"{rec['dense_flops'] / kernel_ms / 1e9:.1f} TFLOP/s on all N x "
+              f"K slots) | {b1_txt}", flush=True)
+        del x, w, got, ref, gat, xb, wb, prep
+    launches = windowed_conv.launches        # B2's path ends here
+    if launches != calls:
+        fail(f"windowed_conv launched {launches} times for {calls} calls")
+    del plans
+    torch.cuda.empty_cache()
+    return {"levels": level_recs, "shapes": recs, "launches": launches}
 
 
 def kernel_bwd_phase(zrun_conv, fm, shapes, dev, flops_peak, bw_peak):
@@ -231,12 +434,19 @@ def kernel_bwd_phase(zrun_conv, fm, shapes, dev, flops_peak, bw_peak):
         dw_ms = cuda_time(lambda: zrun_conv.zrun_weight_grad(x, zb, zc, dym),
                           5)
         pairs = int((zc != -2).sum().item())
-        bound, by, flops, nbytes = conv_bound(n, cout, cin, pairs, False,
-                                              flops_peak, bw_peak)
+        bound, by, flops, nbytes = conv_bound(
+            n, cout, cin, pairs, zrun_plan_bytes(n, False), flops_peak,
+            bw_peak)
+        # dW = sum over taps of x_tap^T @ dy: the same products, reading x
+        # (f32), dy (f32) and the plan once and writing dW (f32)
+        dw_bound, dw_by = bound_of(
+            flops, n * cin * 4 + n * cout * 4 + zrun_plan_bytes(n, False)
+            + 27 * cin * cout * 4, flops_peak, bw_peak)
         rec = {"level": lvl, "n": n, "cin": cout, "cout": cin,
                "forward": f"{cin}->{cout}", "per_step": per_step, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-               "dw_ms": dw_ms, "flops": flops, "bytes": nbytes,
+               "dw_ms": dw_ms, "dw_bound_ms": dw_bound, "dw_bound_by": dw_by,
+               "flops": flops, "bytes": nbytes,
                "max_abs_err_dx": (xg.grad - dx_ref).abs().max().item(),
                "max_rel_err_dx": rel_dx, "max_rel_err_dw": rel_dw}
         recs.append(rec)
@@ -245,7 +455,8 @@ def kernel_bwd_phase(zrun_conv, fm, shapes, dev, flops_peak, bw_peak):
               f"{rel_dx:.2e} dW {rel_dw:.2e} | {ms:.3f} ms (plain "
               f"{plain_ms:.3f} ms, bound {bound:.4f} ms by {by}, "
               f"{flops / ms / 1e9:.1f} TFLOP/s on valid taps) | dW re-gather "
-              f"{dw_ms:.3f} ms", flush=True)
+              f"{dw_ms:.3f} ms (bound {dw_bound:.4f} ms by {dw_by})",
+              flush=True)
         del x, w, dy, xg, wg, dx_ref, dw_ref, dym, zb, zc
     torch.cuda.empty_cache()
     return recs
@@ -329,9 +540,16 @@ def train_phase(trainer, zrun_conv, warm, card):
         fail(f"zrun_conv launches fwd {counts['fwd']} bwd {counts['bwd']} "
              f"!= routed convs {routed} each")
 
+    # the gate reads the batch's loss with dropout off before and after the
+    # 5 steps: each step's own loss carries dropout's noise (+-3 around a
+    # fall of 6-9 over the 5 steps), enough to decide a first-vs-last test
+    wb = trainer._put(warm)
+    before = batch_loss(trainer, wb)
     losses = [float(trainer.train_batch(warm)["loss"]) for _ in range(5)]
-    print(f"train: 5 steps on one batch, loss {losses}", flush=True)
-    if not losses[-1] < losses[0]:
+    after = batch_loss(trainer, wb)
+    print(f"train: 5 steps on one batch, loss {losses} (dropout on); "
+          f"dropout off {before:.4f} before, {after:.4f} after", flush=True)
+    if not after < before:
         fail("the loss did not fall over 5 steps on one batch")
     return {"counts": counts, "routed_per_step": expected, "steps": steps,
             "host_s": host_s, "wall_s": wall, "peak_bytes": peak}
@@ -353,10 +571,6 @@ def train_check_phase(trainer, zrun_conv, batch):
     import torch
     model = trainer.model
     backbone = model.voxel_encoder.backbone
-    drops = [m for m in model.modules() if isinstance(m, torch.nn.Dropout)]
-    rates = [m.p for m in drops]
-    for m in drops:
-        m.p = 0.0
     b = trainer._put(batch)
     names = [r[0] for r in backbone.routed_convs(level_rows(b))]
     kernel, sym = zrun_conv.zrun_conv, zrun_conv.zrun_conv_sym
@@ -393,10 +607,9 @@ def train_check_phase(trainer, zrun_conv, batch):
         return total.item(), {n: backbone.get_submodule(n).kernel.grad
                               .clone() for n in names}
 
-    runs = {mode: step(mode) for mode in ("K", "KP", "P", "K2")}
+    with dropout_off(model):
+        runs = {mode: step(mode) for mode in ("K", "KP", "P", "K2")}
     backbone.pallas_conv = True
-    for m, p in zip(drops, rates):
-        m.p = p
     model.zero_grad(set_to_none=True)
 
     def worst(a, c):
@@ -451,7 +664,7 @@ def main():
     from pq3d_tpu_torch.eval.instseg_eval import rank_instances
     from pq3d_tpu_torch.models.query3d import build_model
     from pq3d_tpu_torch.models.sparse_unet import flatten_maps
-    from pq3d_tpu_torch.ops import zrun_conv
+    from pq3d_tpu_torch.ops import windowed_conv, zrun_conv
     from pq3d_tpu_torch.serve import InstSegServer, to_device
 
     # the synthetic scenes outgrow the YAML's deep level caps; the pipeline
@@ -472,10 +685,20 @@ def main():
     flops_peak, bw_peak = peaks_for(kind)
     dev = torch.device("cuda")
 
-    # ---- 2. build -------------------------------------------------------
+    # ---- 2. build: one nvcc for each source, all started together ------
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.time()
-    zrun_conv.build()
-    print(f"build: zrun_conv.cu {time.time() - t0:.1f} s", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        builds = {name: pool.submit(mod.build) for name, mod in
+                  (("zrun_conv.cu", zrun_conv),
+                   ("windowed_conv.cu", windowed_conv))}
+        for name, job in builds.items():
+            try:
+                job.result()
+            except subprocess.CalledProcessError as e:
+                fail(f"nvcc failed on {name}:\n{e.stderr[-4000:]}")
+    print(f"build: {' and '.join(builds)} in {time.time() - t0:.1f} s",
+          flush=True)
 
     # ---- 3. kernel against its plain version at the routed shapes -------
     cfg = slice_config()
@@ -487,8 +710,8 @@ def main():
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params",
           flush=True)
     t0 = time.time()
-    batch = make_batch(make_scenes(4, seed=1), pipe,
-                       np.random.default_rng(0))
+    served = make_scenes(4, seed=1)
+    batch = make_batch(served, pipe, np.random.default_rng(0))
     rows = level_rows(batch)
     most = [int(batch["maps"][f"valid_{l}"].sum(1).max()) for l in range(5)]
     print(f"pipeline: 4 scenes collated in {time.time() - t0:.1f} s, flat "
@@ -530,7 +753,8 @@ def main():
                     xd, w, zb, zc, valid), 5)
                 pairs = int((zc != -2).sum().item())
                 bound, by, flops, nbytes = conv_bound(
-                    n, cin, cout, pairs, True, flops_peak, bw_peak)
+                    n, cin, cout, pairs, zrun_plan_bytes(n, True),
+                    flops_peak, bw_peak)
                 rec = {"level": lvl, "n": n, "cin": cin, "cout": cout,
                        "per_forward": per_fwd, "ms": ms,
                        "plain_ms": plain_ms, "bound_ms": bound,
@@ -572,12 +796,14 @@ def main():
         torch.cuda.reset_peak_memory_stats()
         scenes = make_scenes(8, seed=3)
         zrun_conv.reset_counts()            # main path starts here
+        windowed_conv.reset_counts()
         t0 = time.time()
         results = [f.result(timeout=900)
                    for f in [srv.submit(s) for s in scenes]]
         wall = time.time() - t0
         settle(srv, len(scenes))
         main_launches = zrun_conv.launches  # main path ends here
+        b2_serve = windowed_conv.launches
     finally:
         srv.close()
     st = srv.stats.summary()
@@ -688,7 +914,12 @@ def main():
     del model, backbone, srv, outs, got, ref, out, enc_out, b, fm
     torch.cuda.empty_cache()
 
-    # ---- 6. kernel_bwd: the backward at a training batch's shapes -------
+    # ---- 6. winconv: kernel B2 on the served batch's coordinates --------
+    wc = winconv_phase(served, batch, pipe, shapes,
+                       {(r["level"], r["cin"], r["cout"]): r["ms"]
+                        for r in per_shape}, dev, flops_peak, bw_peak)
+
+    # ---- 7. kernel_bwd: the backward at a training batch's shapes -------
     import tempfile
     exp_dir = tempfile.mkdtemp(prefix="pq3d_smoke_")
     try:
@@ -712,10 +943,12 @@ def main():
                                bw_peak)
         del tfm
 
-        # ---- 7. train ---------------------------------------------------
+        # ---- 8. train ---------------------------------------------------
+        windowed_conv.reset_counts()
         tr = train_phase(trainer, zrun_conv, warm, card)
+        b2_train = windowed_conv.launches
 
-        # ---- 8. train_check ---------------------------------------------
+        # ---- 9. train_check ---------------------------------------------
         tc = train_check_phase(trainer, zrun_conv, warm)
         if args.profile:
             stem, ext = os.path.splitext(args.profile)
@@ -757,10 +990,38 @@ def main():
         "bwd_bound_by": max(bwd, key=lambda r: r["bound_ms"])["bound_by"],
         "bwd_max_abs_err": max(r["max_abs_err_dx"] for r in bwd),
         "dw_regather_ms": per_step("dw_ms"),
+        "dw_regather_bound_ms": per_step("dw_bound_ms"),
         "bwd_shapes": bwd,
         "train_check": tc,
     }
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    routed_b2 = [r for r in wc["shapes"] if r["per_forward"]]
+
+    def b2_fwd(key):
+        return sum(r[key] * r["per_forward"] for r in routed_b2)
+    b2_entry = {
+        "name": "windowed_conv", "route": "cuda",
+        "source": "pq3d_tpu_torch/csrc/windowed_conv.cu",
+        "replaces": "pq3d_tpu/ops/pallas_conv.py:205",
+        "launches": wc["launches"],
+        "launches_by_path": {"serve": b2_serve, "train": b2_train,
+                             "winconv": wc["launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in wc["shapes"]),
+        "ms": b2_fwd("ms"), "plain_ms": b2_fwd("plain_ms"),
+        "bound_ms": b2_fwd("bound_ms"),
+        "bound_by": max(routed_b2, key=lambda r: r["bound_ms"])["bound_by"],
+        "library_ms": None,
+        "kernel_ms": b2_fwd("kernel_ms"),
+        "exception_contrib_ms": b2_fwd("exception_contrib_ms"),
+        "b1_ms": b2_fwd("b1_ms"),
+        "scope": f"ms/kernel_ms/plain_ms/bound_ms/exception_contrib_ms/"
+                 f"b1_ms: sum over the {len(routed)} routed convs of one "
+                 f"served forward (B=4) on Morton-ordered maps of the same "
+                 f"coordinates; ms is the wrapper (bf16 cast, "
+                 f"exception_contrib, kernel), kernel_ms the launch alone; "
+                 f"launches: the winconv phase (B2 is on no model path)",
+        "levels": wc["levels"], "shapes": wc["shapes"],
+    }
+    print(json.dumps({"kernels": [entry, b2_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,12 +11,29 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
 from typing import List
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build")
+
+# flags of every CUDA kernel library (plain C interface, loaded by ctypes)
+NVCC_FLAGS = ["-O3", "-gencode", "arch=compute_90a,code=sm_90a",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler (PATH, then the toolkit's default)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "from csrc/ at first use and need the CUDA toolkit")
 
 
 def build_shared(src: str, kind: str, cmd_prefix: List[str],

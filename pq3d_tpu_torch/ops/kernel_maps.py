@@ -135,6 +135,25 @@ def build_neighbor_map(coords: np.ndarray, kernel_size: int,
     return nbr
 
 
+def morton_order(coords: np.ndarray, bits: int = 10) -> np.ndarray:
+    """Permutation sorting integer coords by Morton (z-order) code, ``bits``
+    per axis (coords past 2^bits - 1 from the minimum are clipped), stable.
+
+    Spatially near voxels become index-near, so a sparse conv's neighbour
+    indices gather around the diagonal: the windowed conv
+    (ops/windowed_conv.py) reads each output tile's neighbours from one
+    contiguous slab of rows.
+    """
+    c = (coords - coords.min(0)).astype(np.uint64)
+    c = np.minimum(c, (1 << bits) - 1)
+    code = np.zeros(len(c), dtype=np.uint64)
+    for b in range(bits):
+        for d in range(3):
+            code |= ((c[:, d] >> np.uint64(b)) & np.uint64(1)) << \
+                np.uint64(3 * b + d)
+    return np.argsort(code, kind="stable")
+
+
 def downsample_coords(coords: np.ndarray
                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Stride-2 coordinate downsampling.

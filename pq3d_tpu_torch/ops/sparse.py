@@ -40,6 +40,16 @@ def fast_row_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.index_select(0, idx)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if contiguous and 16-byte aligned, else a fresh
+    contiguous copy, for the CUDA kernels' 16-byte row loads (a gradient
+    from autograd may be a strided view or start at an offset, e.g. one
+    half of a ``torch.cat``'s gradient)."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _masked_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows at ``idx``; rows where ``idx < 0`` are zero."""
     rows = x.index_select(0, idx.clamp_min(0))

@@ -27,13 +27,12 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 import threading
 from typing import Optional, Tuple
 
 import torch
 
-from pq3d_tpu_torch._build import CSRC_DIR, build_shared
+from pq3d_tpu_torch._build import CSRC_DIR, NVCC_FLAGS, build_shared, nvcc
 from pq3d_tpu_torch.ops import sparse
 
 # routing threshold: the smallest row count the routed convs run at (the
@@ -48,8 +47,6 @@ launches = 0
 phase_launches = {"fwd": 0, "bwd": 0}
 
 _SRC = os.path.join(CSRC_DIR, "zrun_conv.cu")
-_NVCC_FLAGS = ["-O3", "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -158,18 +155,6 @@ def zrun_conv_backward_reference(x: torch.Tensor, w: torch.Tensor,
     return dx.to(x.dtype), zrun_weight_grad(x, zbase, zcode, dy).to(w.dtype)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the zrun conv kernel is built from "
-                       "csrc/zrun_conv.cu at first use and needs the CUDA "
-                       "toolkit")
-
-
 def build() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     global _LIB
@@ -177,7 +162,7 @@ def build() -> ctypes.CDLL:
         return _LIB
     with _LOCK:
         if _LIB is None:
-            so = build_shared(_SRC, "torch_ext", [_nvcc()], _NVCC_FLAGS)
+            so = build_shared(_SRC, "torch_ext", [nvcc()], NVCC_FLAGS)
             lib = ctypes.CDLL(so)
             lib.pq3d_zrun_conv.argtypes = (
                 [ctypes.c_void_p] * 6
@@ -254,15 +239,6 @@ def reset_counts() -> None:
         phase_launches[k] = 0
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself if contiguous and 16-byte aligned, else a fresh
-    contiguous copy (a gradient from autograd may be a strided view or
-    start at an offset, e.g. one half of a ``torch.cat``'s gradient)."""
-    if t.is_contiguous() and t.data_ptr() % 16 == 0:
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
-
-
 class _ZrunConvSym(torch.autograd.Function):
     """The z-run conv with the scatter-free symmetric-stencil backward;
     saves only its input, W and the plan."""
@@ -277,7 +253,7 @@ class _ZrunConvSym(torch.autograd.Function):
         x, w, zbase, zcode, out_valid = ctx.saved_tensors
         if out_valid is not None:
             dy = torch.where(out_valid[:, None], dy, 0)
-        dy = _aligned(dy)
+        dy = sparse._aligned(dy)
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = zrun_conv(dy, w.flip(0).transpose(1, 2), zbase, zcode,

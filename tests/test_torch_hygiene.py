@@ -20,7 +20,7 @@ NEEDED = ["pq3d_tpu_torch." + m for m in (
     "run", "train.trainer", "train.state", "train.checkpoints",
     "train.metrics", "optim.losses", "optim.optimizers", "data.datasets",
     "eval.instseg_eval", "eval.scannet_protocol", "ops.zrun_conv",
-    "ops.sparse")]
+    "ops.sparse", "ops.windowed_conv")]
 import pq3d_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(pq3d_tpu_torch.__path__,
                                               "pq3d_tpu_torch.")]
