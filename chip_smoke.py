@@ -8,11 +8,17 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
 1. device   -- requires CUDA; prints the card's name and power limit;
 2. build    -- builds csrc/zrun_conv.cu and csrc/windowed_conv.cu with nvcc
                (sm_90a) from this checkout, one nvcc each, both started
-               together, and prints the build seconds;
+               together, and prints the build seconds and B1's registers and
+               spills per instantiation (ptxas -v);
 3. kernel   -- the z-run 3^3 conv kernel (B1) against its plain PyTorch
                version at the routed shapes of the serving slice (maps from
                the port's pipeline on a full-size synthetic batch): error,
-               median time over 20 launches (CUDA events), plain time, bound;
+               median time over 20 launches (CUDA events), the wrapper's
+               host time per call, plain time, bound, the share of the
+               N x 27 slots that hold a
+               reference beside the share of (tile, tap) pairs the kernel
+               stages (128-row tiles) and multiplies (64-row halves), and
+               TFLOP/s over both;
 4. serve    -- the slice end to end: the full-width stage-1 model
                (instseg_sceneverse + pallas_conv: true, random weights from
                a seed) behind InstSegServer(batch_size=4) answers 8 scenes of
@@ -35,8 +41,9 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                flipped and transposed; dW: the plain re-gather) through its
                autograd Function against the plain backward, at the routed
                shapes of a full-size training batch: error, the dx kernel's
-               median ms over 20 launches, plain ms, bound, and the dW
-               re-gather's ms beside its bound;
+               median ms over 20 launches, its host time per call, plain
+               ms, bound, the slot and (tile, tap) shares as in phase 3,
+               and the dW re-gather's ms beside its bound;
 8. train    -- stage-1 training end to end: pq3d_tpu_torch.run builds the
                trainer (instseg_sceneverse + pallas_conv: true, batch 4 of
                synthetic 70k-point scenes, AdamW); 1 warm step, 5 timed
@@ -50,7 +57,8 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                version (routed-conv weight gradients), and each routed conv
                replayed at the step's own x and dy against its plain
                backward, all within 2e-2;
-then one JSON line with every hand kernel's numbers, and the result line.
+then a summary line (B1 against B2 in this run), one JSON line with every
+hand kernel's numbers, and the result line.
 
     python3 chip_smoke.py --profile PATH
 
@@ -100,6 +108,20 @@ def cuda_time(fn, reps):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def host_time(fn, reps):
+    """Host milliseconds per call of ``fn`` over ``reps`` calls back to
+    back, the device left to run behind them: what a call costs the host
+    (its checks, casts, launches), not the device."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def settle(srv, scenes):
@@ -179,6 +201,36 @@ def rel_err(got, ref):
 def zrun_plan_bytes(n, with_valid):
     """Bytes of the z-run plan (zbase int32, zcode int8) and the mask."""
     return n * 9 * 4 + n * 27 + (n if with_valid else 0)
+
+
+def tap_shares(zrun_conv, zc):
+    """(slots, staged, multiplied): the share of the N x 27 slots that
+    hold a reference, and of the (tile, tap) pairs B1 stages (its 128-row
+    tiles) and multiplies (each warpgroup's 64 rows), from the plan."""
+    slots = (zc != -2).sum().item() / (zc.shape[0] * 27)
+    staged = zrun_conv.tile_tap_mask(zc, zrun_conv.TILE).float().mean().item()
+    mult = zrun_conv.tile_tap_mask(zc, zrun_conv.MMA_ROWS).float().mean()
+    return slots, staged, mult.item()
+
+
+def ptxas_summary(log):
+    """'Cout: registers / spill bytes' of each B1 instantiation in the
+    ptxas -v log of its build."""
+    import re
+    out, cout = [], None
+    for line in log.splitlines():
+        m = re.search(r"zrun_conv_kernelILi(\d+)E", line)
+        if m and "Compiling entry" in line:
+            cout = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cout is not None:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cout is not None:
+            out.append(f"{cout}: {m.group(1)} reg / {spill} B spill")
+            cout = None
+    return out
 
 
 def conv_bound(n, cin, cout, pairs, plan_bytes, flops_peak, bw_peak,
@@ -396,8 +448,9 @@ def winconv_phase(scenes, batch, pipe, shapes, b1_ms, dev, flops_peak,
 def kernel_bwd_phase(zrun_conv, fm, shapes, dev, flops_peak, bw_peak):
     """The kernel's backward at each routed shape: dx and dW through the
     autograd Function against the plain backward, then the dx kernel's
-    median ms over 20 launches, its plain version's, its bound (Cin and
-    Cout swapped: dy in, dx out) and the dW re-gather's ms."""
+    median ms over 20 launches, its host time per call, its plain
+    version's, its bound (Cin and Cout swapped: dy in, dx out) and the dW
+    re-gather's ms."""
     import torch
     gen = torch.Generator(device="cpu").manual_seed(1)
     recs = []
@@ -429,6 +482,8 @@ def kernel_bwd_phase(zrun_conv, fm, shapes, dev, flops_peak, bw_peak):
         wt = w.flip(0).transpose(1, 2)
         ms = cuda_time(lambda: zrun_conv.zrun_conv(dym, wt, zb, zc,
                                                    phase="bwd"), 20)
+        host_ms = host_time(lambda: zrun_conv.zrun_conv(dym, wt, zb, zc,
+                                                        phase="bwd"), 20)
         plain_ms = cuda_time(lambda: zrun_conv.zrun_conv_reference(
             dym, wt, zb, zc), 5)
         dw_ms = cuda_time(lambda: zrun_conv.zrun_weight_grad(x, zb, zc, dym),
@@ -437,6 +492,7 @@ def kernel_bwd_phase(zrun_conv, fm, shapes, dev, flops_peak, bw_peak):
         bound, by, flops, nbytes = conv_bound(
             n, cout, cin, pairs, zrun_plan_bytes(n, False), flops_peak,
             bw_peak)
+        slots, staged, mult = tap_shares(zrun_conv, zc)
         # dW = sum over taps of x_tap^T @ dy: the same products, reading x
         # (f32), dy (f32) and the plan once and writing dW (f32)
         dw_bound, dw_by = bound_of(
@@ -444,19 +500,24 @@ def kernel_bwd_phase(zrun_conv, fm, shapes, dev, flops_peak, bw_peak):
             + 27 * cin * cout * 4, flops_peak, bw_peak)
         rec = {"level": lvl, "n": n, "cin": cout, "cout": cin,
                "forward": f"{cin}->{cout}", "per_step": per_step, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+               "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                "dw_ms": dw_ms, "dw_bound_ms": dw_bound, "dw_bound_by": dw_by,
-               "flops": flops, "bytes": nbytes,
+               "flops": flops, "bytes": nbytes, "slot_share": slots,
+               "tile_tap_share": staged, "mult_share": mult,
+               "mult_flops": mult * 2.0 * n * 27 * cin * cout,
                "max_abs_err_dx": (xg.grad - dx_ref).abs().max().item(),
                "max_rel_err_dx": rel_dx, "max_rel_err_dw": rel_dw}
         recs.append(rec)
         print(f"kernel_bwd: zrun_conv dx L{lvl} N={n} {cout}->{cin} "
               f"(forward {cin}->{cout}, {per_step} per step) rel_err dx "
-              f"{rel_dx:.2e} dW {rel_dw:.2e} | {ms:.3f} ms (plain "
+              f"{rel_dx:.2e} dW {rel_dw:.2e} | {ms:.3f} ms (host "
+              f"{host_ms:.3f} ms a call, plain "
               f"{plain_ms:.3f} ms, bound {bound:.4f} ms by {by}, "
-              f"{flops / ms / 1e9:.1f} TFLOP/s on valid taps) | dW re-gather "
-              f"{dw_ms:.3f} ms (bound {dw_bound:.4f} ms by {dw_by})",
-              flush=True)
+              f"{flops / ms / 1e9:.1f} TFLOP/s on valid taps, "
+              f"{rec['mult_flops'] / ms / 1e9:.1f} on multiplied tiles) | "
+              f"slots {slots:.4f}, (tile, tap) pairs staged {staged:.4f}, "
+              f"multiplied {mult:.4f} | dW re-gather {dw_ms:.3f} ms (bound "
+              f"{dw_bound:.4f} ms by {dw_by})", flush=True)
         del x, w, dy, xg, wg, dx_ref, dw_ref, dym, zb, zc
     torch.cuda.empty_cache()
     return recs
@@ -699,6 +760,11 @@ def main():
                 fail(f"nvcc failed on {name}:\n{e.stderr[-4000:]}")
     print(f"build: {' and '.join(builds)} in {time.time() - t0:.1f} s",
           flush=True)
+    regs = ptxas_summary(zrun_conv.build_log)
+    print(f"build: zrun_conv.cu ptxas, Cout: registers / spills: "
+          f"{'; '.join(regs)}", flush=True)
+    if not regs:
+        fail("no ptxas report in zrun_conv.cu's build log")
 
     # ---- 3. kernel against its plain version at the routed shapes -------
     cfg = slice_config()
@@ -749,17 +815,23 @@ def main():
             if dt is torch.float32:      # the main path feeds f32 x
                 ms = cuda_time(lambda: zrun_conv.zrun_conv(xd, w, zb, zc,
                                                            valid), 20)
+                host_ms = host_time(lambda: zrun_conv.zrun_conv(
+                    xd, w, zb, zc, valid), 20)
                 plain_ms = cuda_time(lambda: zrun_conv.zrun_conv_reference(
                     xd, w, zb, zc, valid), 5)
                 pairs = int((zc != -2).sum().item())
                 bound, by, flops, nbytes = conv_bound(
                     n, cin, cout, pairs, zrun_plan_bytes(n, True),
                     flops_peak, bw_peak)
+                slots, staged, mult = tap_shares(zrun_conv, zc)
                 rec = {"level": lvl, "n": n, "cin": cin, "cout": cout,
                        "per_forward": per_fwd, "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bound,
+                       "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound,
                        "bound_by": by, "flops": flops, "dense27_flops":
-                           2.0 * n * 27 * cin * cout, "bytes": nbytes}
+                           2.0 * n * 27 * cin * cout, "bytes": nbytes,
+                       "slot_share": slots, "tile_tap_share": staged,
+                       "mult_share": mult,
+                       "mult_flops": mult * 2.0 * n * 27 * cin * cout}
             rec[f"max_abs_err_{'f32' if dt is torch.float32 else 'bf16'}"] \
                 = diff
             rec[f"max_rel_err_{'f32' if dt is torch.float32 else 'bf16'}"] \
@@ -768,9 +840,14 @@ def main():
         print(f"kernel: zrun_conv L{lvl} N={n} {cin}->{cout} "
               f"rel_err f32 {rec['max_rel_err_f32']:.2e} "
               f"bf16 {rec['max_rel_err_bf16']:.2e} | {rec['ms']:.3f} ms "
-              f"(plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f}"
+              f"(host {rec['host_ms']:.3f} ms a call, plain "
+              f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f}"
               f" ms by {rec['bound_by']}, {rec['flops'] / rec['ms'] / 1e9:.1f}"
-              f" TFLOP/s on valid taps)", flush=True)
+              f" TFLOP/s on valid taps, "
+              f"{rec['mult_flops'] / rec['ms'] / 1e9:.1f} on multiplied "
+              f"tiles) | slots {rec['slot_share']:.4f}, (tile, tap) pairs "
+              f"staged {rec['tile_tap_share']:.4f}, multiplied "
+              f"{rec['mult_share']:.4f}", flush=True)
         del x, w, zb, zc
     torch.cuda.empty_cache()
 
@@ -974,18 +1051,21 @@ def main():
                              "train_fwd": tr["counts"]["fwd"],
                              "train_bwd": tr["counts"]["bwd"]},
         "max_abs_err": max(r["max_abs_err_f32"] for r in per_shape),
-        "ms": per_fwd("ms"), "plain_ms": per_fwd("plain_ms"),
-        "bound_ms": per_fwd("bound_ms"),
+        "ms": per_fwd("ms"), "host_ms": per_fwd("host_ms"),
+        "plain_ms": per_fwd("plain_ms"), "bound_ms": per_fwd("bound_ms"),
         "bound_by": max(per_shape, key=lambda r: r["bound_ms"])["bound_by"],
         "library_ms": None,
-        "scope": f"ms/plain_ms/bound_ms: sum over the {len(routed)} routed "
-                 f"convs of one served forward (B=4); bwd_*: sum of the dx "
+        "scope": f"ms/host_ms/plain_ms/bound_ms: sum over the "
+                 f"{len(routed)} routed convs of one served forward (B=4), "
+                 f"ms the median device-clock time of a call, host_ms the "
+                 f"wrapper's host time per call; bwd_*: sum of the dx "
                  f"launches over the {len(troutes)} routed convs of one "
                  f"train step (B=4); launches: the serving run plus the "
                  f"5 timed train steps",
         "shapes": per_shape,
         "bwd_launches": tr["counts"]["bwd"],
-        "bwd_ms": per_step("ms"), "bwd_plain_ms": per_step("plain_ms"),
+        "bwd_ms": per_step("ms"), "bwd_host_ms": per_step("host_ms"),
+        "bwd_plain_ms": per_step("plain_ms"),
         "bwd_bound_ms": per_step("bound_ms"),
         "bwd_bound_by": max(bwd, key=lambda r: r["bound_ms"])["bound_by"],
         "bwd_max_abs_err": max(r["max_abs_err_dx"] for r in bwd),
@@ -993,6 +1073,13 @@ def main():
         "dw_regather_bound_ms": per_step("dw_bound_ms"),
         "bwd_shapes": bwd,
         "train_check": tc,
+        # shares of one forward's (dx: one step's) N x 27 slots and (tile,
+        # tap) pairs, weighted by each conv's dense N x 27 x Cin x Cout work
+        "slot_share": per_fwd("flops") / per_fwd("dense27_flops"),
+        "mult_share": per_fwd("mult_flops") / per_fwd("dense27_flops"),
+        "bwd_mult_share": per_step("mult_flops") / sum(
+            2.0 * r["n"] * 27 * r["cin"] * r["cout"] * r["per_step"]
+            for r in bwd),
     }
     routed_b2 = [r for r in wc["shapes"] if r["per_forward"]]
 
@@ -1021,6 +1108,12 @@ def main():
                  f"launches: the winconv phase (B2 is on no model path)",
         "levels": wc["levels"], "shapes": wc["shapes"],
     }
+    print(f"summary: B1 {entry['ms']:.3f} ms per served forward (host "
+          f"{entry['host_ms']:.3f} ms) against B2 {b2_entry['ms']:.3f} ms "
+          f"in this run, ratio {entry['ms'] / b2_entry['ms']:.3f}; B1 dx "
+          f"{entry['bwd_ms']:.3f} ms per train step (host "
+          f"{entry['bwd_host_ms']:.3f} ms); multiplied share of the dense work {entry['mult_share']:.4f} "
+          f"forward, {entry['bwd_mult_share']:.4f} dx", flush=True)
     print(json.dumps({"kernels": [entry, b2_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

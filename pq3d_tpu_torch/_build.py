@@ -41,9 +41,10 @@ def build_shared(src: str, kind: str, cmd_prefix: List[str],
     """Compile ``src`` (a path under ``csrc/``) into a shared library.
 
     ``cmd_prefix`` is the compiler invocation (e.g. ``["g++"]``), ``flags``
-    its options.  Returns the library path; raises
-    ``subprocess.CalledProcessError`` (with the compiler's output) on a
-    failed build."""
+    its options.  Returns the library path; the compiler's output of a
+    successful build is kept beside it, in the library's path plus
+    ``.log``.  Raises ``subprocess.CalledProcessError`` (with the
+    compiler's output) on a failed build."""
     with open(src, "rb") as f:
         text = f.read()
     tag = hashlib.sha1(text + " ".join(cmd_prefix + flags).encode()
@@ -59,5 +60,8 @@ def build_shared(src: str, kind: str, cmd_prefix: List[str],
         if proc.returncode != 0:
             raise subprocess.CalledProcessError(
                 proc.returncode, proc.args, proc.stdout, proc.stderr)
+        with open(f"{tmp}.log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(f"{tmp}.log", f"{so}.log")
         os.replace(tmp, so)
     return so

@@ -14,7 +14,9 @@ Mosaic's one-vreg in-VMEM gather; an indexed read is native on Hopper, so
 the port keeps only ``zbase``/``zcode``.  On a CUDA tensor
 :func:`zrun_conv` launches ``csrc/zrun_conv.cu``; on a CPU tensor it runs
 :func:`zrun_conv_reference`.  A failed build or launch raises: there is no
-fallback to the plain version on the card.
+fallback to the plain version on the card.  The kernel works on tiles of
+``TILE`` rows and skips every (tile, tap) pair that no row of the tile
+references (:func:`tile_tap_mask` computes the same pairs).
 
 Training goes through :func:`zrun_conv_sym`, the counterpart of
 ``pallas_zt_conv_sym``: the 3^3 stencil is symmetric, so ``dx`` is the
@@ -39,6 +41,11 @@ from pq3d_tpu_torch.ops import sparse
 # JAX package's pallas_zt_applicable uses the same bound).  Tests lower it.
 MIN_ROWS = 40960
 
+# output rows per block of the kernel; each of its two warpgroups
+# multiplies MMA_ROWS of them, and skips a tap none of those rows references
+TILE = 128
+MMA_ROWS = 64
+
 # launches of the CUDA kernel since the last reset (a plain counter that
 # smoke runs set to 0 before the main path and read after it), and the
 # same launches split by the pass that made them: "fwd" (the conv) and
@@ -49,6 +56,10 @@ phase_launches = {"fwd": 0, "bwd": 0}
 _SRC = os.path.join(CSRC_DIR, "zrun_conv.cu")
 _LOCK = threading.Lock()
 _LIB = None
+build_log = ""       # the compiler's output of the loaded library's build
+# the kernel's tile counter per (device index, stream): it is 0 between
+# launches (each launch sets it back), and launches on one stream run in order
+_counters = {}
 
 
 def applicable(n_rows: int, cin: int, cout: int) -> bool:
@@ -90,6 +101,21 @@ def zrun_plan(nbr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                 m, torch.tensor(d - 1, dtype=torch.int8, device=nbr.device),
                 zcode[:, :, p])
     return zbase, zcode
+
+
+def tile_tap_mask(zcode: torch.Tensor, tile: int = TILE) -> torch.Tensor:
+    """(ceil(N / tile), 27) bool: the taps that any row of each run of
+    ``tile`` consecutive rows references, read from ``zcode`` alone (tap =
+    3*c + dz + 1).  At ``TILE`` these are the (tile, tap) pairs the
+    kernel stages, at ``MMA_ROWS`` the ones its warpgroups multiply; a tile
+    with no tap set is all padding and is only written."""
+    n = zcode.shape[0]
+    taps = torch.stack([(zcode == dz).any(2) for dz in (-1, 0, 1)],
+                       2).reshape(n, 27)
+    pad = -n % tile
+    if pad:
+        taps = torch.cat([taps, taps.new_zeros(pad, 27)])
+    return taps.view(-1, tile, 27).any(1)
 
 
 def _tap_rows(xb: torch.Tensor, zbase: torch.Tensor, zcode: torch.Tensor):
@@ -157,18 +183,24 @@ def zrun_conv_backward_reference(x: torch.Tensor, w: torch.Tensor,
 
 def build() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
-    global _LIB
+    global _LIB, build_log
     if _LIB is not None:
         return _LIB
     with _LOCK:
         if _LIB is None:
-            so = build_shared(_SRC, "torch_ext", [nvcc()], NVCC_FLAGS)
+            # -Xptxas -v: registers and spills of each instantiation land
+            # in the build log (chip_smoke.py prints them)
+            so = build_shared(_SRC, "torch_ext", [nvcc()],
+                              NVCC_FLAGS + ["-Xptxas", "-v"])
             lib = ctypes.CDLL(so)
             lib.pq3d_zrun_conv.argtypes = (
-                [ctypes.c_void_p] * 6
+                [ctypes.c_void_p] * 7
                 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p])
             lib.pq3d_zrun_conv.restype = ctypes.c_int
+            if os.path.exists(f"{so}.log"):
+                with open(f"{so}.log") as f:
+                    build_log = f.read()
             _LIB = lib
     return _LIB
 
@@ -209,20 +241,31 @@ def zrun_conv(x: torch.Tensor, w: torch.Tensor, zbase: torch.Tensor,
                                    else [])
     if any(t.device != x.device for t in tensors + [w]):
         raise ValueError("zrun_conv: all inputs must be on one device")
-    x = x.contiguous()
+    # the kernel gathers bf16 rows by 16-byte async copies: f32 x is cast
+    # once here.  Each tap's W goes in as the image of its shared-memory
+    # tile, which the kernel copies whole: (Cin/8, Cout/8) blocks of 8 x 8
+    # with Cin fastest (K-major core matrices for wgmma)
+    xb = x.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:
+        raise ValueError("zrun_conv: bf16 x must be 16-byte aligned (the "
+                         "kernel's 16-byte row copies)")
+    wt = (w.to(torch.bfloat16).reshape(27, cin // 8, 8, cout // 8, 8)
+          .permute(0, 1, 3, 4, 2).contiguous())
     zbase = zbase.contiguous()
     zcode = zcode.contiguous()
-    wb = w.to(torch.bfloat16).contiguous()
-    if x.data_ptr() % 16 or wb.data_ptr() % 32:
-        raise ValueError("zrun_conv: x must be 16-byte aligned (vector "
-                         "loads) and w 32-byte aligned (WMMA loads)")
     y = torch.empty(n, cout, dtype=x.dtype, device=x.device)
     lib = build()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    key = (x.device.index, stream)
+    counter = _counters.get(key)
+    if counter is None:
+        counter = _counters[key] = torch.zeros(2, dtype=torch.int32,
+                                               device=x.device)
     err = lib.pq3d_zrun_conv(
-        x.data_ptr(), wb.data_ptr(), zbase.data_ptr(), zcode.data_ptr(),
+        xb.data_ptr(), wt.data_ptr(), zbase.data_ptr(), zcode.data_ptr(),
         out_valid.contiguous().data_ptr() if out_valid is not None else None,
-        y.data_ptr(), n, cin, cout, int(x.dtype == torch.bfloat16), stream)
+        y.data_ptr(), counter.data_ptr(), n, cin, cout,
+        int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"zrun_conv kernel launch failed: cudaError {err}")
     global launches

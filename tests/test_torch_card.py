@@ -63,6 +63,79 @@ def test_zrun_conv_kernel_matches_plain_version(cuda_device, dtype, cin,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout", [(96, 96), (128, 192), (96, 240)])
+def test_zrun_conv_kernel_skips_padding_tiles_wide_cout(cuda_device, dtype,
+                                                        cin, cout):
+    """A scene padded to over twice its voxel count, so that whole tiles
+    of the kernel hold no reference and skip the main loop, at the dx
+    widths (Cout 192, and 240, the widest the kernel takes).  Blocks of
+    y's size are filled with NaN and freed first, so a skipped tile that
+    wrote nothing would leave NaN in y.  Against zrun_conv_reference
+    within 1e-2 of max|ref|; pad rows exactly zero; one launch counted."""
+    rng = np.random.default_rng(cin + 2 * cout)
+    nbr, valid = _scene(rng, extent=30, n_pts=7000)
+    n_valid = int(valid.sum())
+    n = -(-(2 * n_valid + tzr.TILE) // tzr.TILE) * tzr.TILE
+    nbr = np.concatenate([nbr, np.full((n - len(nbr), 27), -1, np.int32)])
+    valid = np.arange(n) < n_valid
+    x = np.zeros((n, cin), np.float32)
+    x[valid] = rng.standard_normal((n_valid, cin))
+    w = (rng.standard_normal((27, cin, cout)) * 0.05).astype(np.float32)
+    xd = torch.from_numpy(x).to(cuda_device, dtype)
+    wd = torch.from_numpy(w).to(cuda_device)
+    vd = torch.from_numpy(valid).to(cuda_device)
+    zb, zc = tzr.zrun_plan(torch.from_numpy(nbr).to(cuda_device))
+    skipped = ~tzr.tile_tap_mask(zc).any(1)
+    assert skipped.sum().item() >= 2
+    junk = [torch.full((n, cout), float("nan"), dtype=dtype,
+                       device=cuda_device) for _ in range(2)]
+    del junk
+    before = tzr.launches
+    got = tzr.zrun_conv(xd, wd, zb, zc, vd)
+    torch.cuda.synchronize()
+    assert tzr.launches == before + 1 and got.dtype == dtype
+    assert torch.isfinite(got.float()).all()
+    ref = tzr.zrun_conv_reference(xd, wd, zb, zc, vd).float()
+    err = (got.float() - ref).abs().max() / ref.abs().max()
+    assert err.item() <= 1e-2
+    assert not got.float()[~vd].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(208, 128), (240, 96), (192, 192),
+                                      (192, 240), (240, 240)])
+def test_zrun_conv_kernel_splits_wide_stages(cuda_device, cin, cout):
+    """Shapes whose whole-tap ring stages, (128 + Cout) x Cin bf16, would
+    not fit twice in a block's shared memory: the kernel splits Cin into
+    K chunks.  Against zrun_conv_reference within 1e-2, twice in a row
+    (the second launch reuses the tile counter the first set back to 0,
+    which the test reads), one launch counted per call."""
+    rng = np.random.default_rng(cin * cout)
+    nbr, valid = _scene(rng, extent=32, n_pts=6000)
+    n = nbr.shape[0]
+    x = np.zeros((n, cin), np.float32)
+    x[valid] = rng.standard_normal((valid.sum(), cin))
+    w = (rng.standard_normal((27, cin, cout)) * 0.05).astype(np.float32)
+    xd = torch.from_numpy(x).to(cuda_device)
+    wd = torch.from_numpy(w).to(cuda_device)
+    vd = torch.from_numpy(valid).to(cuda_device)
+    zb, zc = tzr.zrun_plan(torch.from_numpy(nbr).to(cuda_device))
+    ref = tzr.zrun_conv_reference(xd, wd, zb, zc, vd)
+    for _ in range(2):
+        before = tzr.launches
+        got = tzr.zrun_conv(xd, wd, zb, zc, vd)
+        torch.cuda.synchronize()
+        assert tzr.launches == before + 1
+        err = (got - ref).abs().max() / ref.abs().max()
+        assert err.item() <= 1e-2
+        assert not got[~vd].any()
+        stream = torch.cuda.current_stream(cuda_device).cuda_stream
+        counter = tzr._counters[(xd.device.index, stream)]
+        assert counter.tolist() == [0, 0]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dy_layout", ["masked", "offset", "strided"])
 @pytest.mark.parametrize("cin,cout", [(96, 128), (192, 128)])
 def test_zrun_conv_sym_backward_matches_plain(cuda_device, dy_layout, cin,
@@ -153,12 +226,14 @@ def test_windowed_conv_kernel_matches_plain_version(cuda_device, dtype,
 
 @pytest.mark.cuda
 def test_zrun_conv_refuses_misaligned_rows(cuda_device):
-    """A contiguous view that starts 4 bytes into its storage would break
-    the kernel's 16-byte row loads: the wrapper raises before launching."""
+    """A bf16 view that starts 2 bytes into its storage would break the
+    kernel's 16-byte row copies: the wrapper raises before launching.  (f32
+    x is cast to an aligned bf16 copy first, so only bf16 x can be
+    misaligned.)"""
     rng = np.random.default_rng(1)
     nbr, valid = _scene(rng, extent=24, n_pts=3000)
     n = nbr.shape[0]
-    flat = torch.zeros(n * 96 + 1, device=cuda_device)
+    flat = torch.zeros(n * 96 + 1, dtype=torch.bfloat16, device=cuda_device)
     xd = flat[1:].view(n, 96)
     wd = torch.zeros(27, 96, 96, device=cuda_device)
     zb, zc = tzr.zrun_plan(torch.from_numpy(nbr).to(cuda_device))

@@ -116,3 +116,25 @@ def test_predicate_matches_pallas_zt_applicable(monkeypatch):
     # the slice's routed shapes
     assert tzr.applicable(262144, 128, 96) and tzr.applicable(131072, 96, 96)
     assert not tzr.applicable(32768, 128, 128)
+
+
+@pytest.mark.parametrize("extent,n_pts,pad_tiles", [(28, 4000, 0),
+                                                    (40, 5000, 3)])
+def test_tile_tap_mask_matches_neighbor_map(extent, n_pts, pad_tiles):
+    """tile_tap_mask, read from zcode, against the (N, 27) map itself:
+    tap k of a tile is set iff (nbr[tile rows, k] >= 0).any(), at the
+    kernel's tile and at its 64-row halves.  This pins tap = 3*c + dz + 1,
+    the order the kernel's skip of empty (tile, tap) pairs relies on.  The
+    second scene ends in whole padding tiles, which have no tap set."""
+    nbr, _ = _scene(np.random.default_rng(extent), extent, n_pts)
+    nbr = np.concatenate([nbr, np.full((pad_tiles * tzr.TILE, 27), -1,
+                                       np.int32)])
+    _, zc = tzr.zrun_plan(torch.from_numpy(nbr))
+    for tile in (tzr.TILE, tzr.MMA_ROWS):
+        want = (nbr.reshape(-1, tile, 27) >= 0).any(1)
+        got = tzr.tile_tap_mask(zc, tile)
+        assert got.dtype == torch.bool
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert 0 < want.mean() < 1
+    padding = ~got.any(1).numpy()
+    assert padding.sum() == pad_tiles * tzr.TILE // tzr.MMA_ROWS
