@@ -29,13 +29,16 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
 6. winconv  -- the windowed conv kernel (B2), which no model calls, on the
                served batch's coordinates rebuilt level by level and put in
                Morton order per scene: per level the host seconds of
-               morton_order and build_window_map (tile 256, window 512), the
-               out-of-window share of the references, E_pad and Et; at every
-               routed (level, Cin, Cout) and at one 5^3 case (K = 125, L0,
-               32 -> 32) the kernel against its plain version and both
-               against the gather conv (within 1e-3), the wrapper's median
-               ms over 20 launches, the plain version's and
-               exception_contrib's over 5, the bound, and B1's ms from
+               morton_order, build_window_map (tile 256, window 512) and
+               fold_exceptions, the out-of-window share of the references,
+               the extra slab rows a tile (X, padded, and the most and mean
+               a tile needs) and the share of (16-row, tap) pairs the
+               kernel multiplies; at every routed (level, Cin, Cout) and at
+               one 5^3 case (K = 125, L0, 32 -> 32) the kernel against its
+               plain version, the plain version over JAX's plan and the
+               gather conv (within 1e-3), the wrapper's and the launch's
+               median ms over 20 calls, the plain version's over 5, the
+               bound, the shared memory a block takes and B1's ms from
                phase 3 beside B2's; the launches must equal the calls;
 7. kernel_bwd -- B1's backward (dx: the same kernel on the masked dy with W
                flipped and transposed; dW: the plain re-gather) through its
@@ -213,15 +216,16 @@ def tap_shares(zrun_conv, zc):
     return slots, staged, mult.item()
 
 
-def ptxas_summary(log):
-    """'Cout: registers / spill bytes' of each B1 instantiation in the
-    ptxas -v log of its build."""
+def ptxas_summary(log, kernel, scale=1):
+    """'Cout: registers / spill bytes' of each instantiation of ``kernel``
+    in the ptxas -v log of its build (the template argument times
+    ``scale`` is the Cout it takes)."""
     import re
     out, cout = [], None
     for line in log.splitlines():
-        m = re.search(r"zrun_conv_kernelILi(\d+)E", line)
+        m = re.search(kernel + r"ILi(\d+)E", line)
         if m and "Compiling entry" in line:
-            cout = int(m.group(1))
+            cout = int(m.group(1)) * scale
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and cout is not None:
@@ -293,7 +297,7 @@ def batch_loss(trainer, b):
 
 
 PLAN_KEYS = ("win_lo", "nbr_local", "exc_in_k", "exc_row_tile",
-             "exc_src_tile")
+             "exc_src_tile")         # build_window_map's plan, as JAX's
 
 
 def morton_maps(level_coords, pad, kernel):
@@ -317,13 +321,14 @@ def winconv_phase(scenes, batch, pipe, shapes, b1_ms, dev, flops_peak,
                   bw_peak):
     """Kernel B2 (the windowed conv) at full width on the served batch's
     coordinates, Morton-ordered: for each level with routed convs, the
-    plan at tile 256 / window 512 and its host seconds; at each routed
-    (level, Cin, Cout) and at one 5^3 case (K = 125, L0, 32 -> 32) the
-    kernel against its plain version and both against the gather conv
-    (all within 1e-3), then the wrapper's median ms over 20 launches,
-    the plain version's and ``exception_contrib``'s over 5, the bound and
-    B1's ms at the same shape.  Returns the level and shape records and
-    the launch count of the phase."""
+    plan at tile 256 / window 512, its fold into the kernel's plan and
+    their host seconds; at each routed (level, Cin, Cout) and at one 5^3
+    case (K = 125, L0, 32 -> 32) the kernel against its plain version, the
+    plain version over JAX's plan and the gather conv (all within 1e-3),
+    then the wrapper's and the launch's median ms over 20 calls, the plain
+    version's over 5, the bound, the block's shared memory and B1's ms at
+    the same shape.  Returns the level and shape records and the launch
+    count of the phase."""
     import numpy as np
     import torch
     from pq3d_tpu_torch.ops import kernel_maps, voxelize, windowed_conv
@@ -358,29 +363,44 @@ def winconv_phase(scenes, batch, pipe, shapes, b1_ms, dev, flops_peak,
             t0 = time.time()
             plan = windowed_conv.build_window_map(nbr, tile, window)
             plan_s = time.time() - t0
+            t0 = time.time()
+            folded = windowed_conv.fold_exceptions(plan, nbr, tile, window)
+            fold_s = time.time() - t0
             refs = int((nbr >= 0).sum())
-            lrec = {"level": lvl, "k": nbr.shape[1], "n": nbr.shape[0],
+            extra = (folded["exc_src"] >= 0).sum(1)
+            k = nbr.shape[1]
+            # the (16-row, tap) pairs some row references: what the
+            # kernel's warps multiply
+            mult = float((folded["nbr_slab"].reshape(-1, 16, k) >= 0)
+                         .any(1).mean())
+            lrec = {"level": lvl, "k": k, "n": nbr.shape[0],
                     "morton_s": morton_s, "window_map_s": plan_s,
-                    "references": refs,
+                    "fold_s": fold_s, "references": refs,
                     "valid_slot_share": refs / nbr.size,
                     "exceptions": plan["n_exceptions"],
                     "out_of_window_share": plan["n_exceptions"] / refs,
-                    "e_pad": plan["exc_in_k"].shape[1],
-                    "et": plan["exc_row_tile"].shape[1],
-                    "plan_bytes": sum(plan[k].nbytes for k in PLAN_KEYS)}
+                    "x_rows": folded["exc_src"].shape[1],
+                    "x_max": int(extra.max()), "x_mean": float(extra.mean()),
+                    "mult_share": mult,
+                    "plan_bytes": sum(folded[key].nbytes
+                                      for key in windowed_conv.FOLDED_KEYS)}
             level_recs.append(lrec)
-            print(f"winconv: L{lvl} K={lrec['k']} N={lrec['n']} Morton order "
-                  f"{morton_s:.3f} s, window map {plan_s:.3f} s (host) | "
-                  f"{plan['n_exceptions']} of {refs} references out of the "
-                  f"window ({lrec['out_of_window_share']:.4f}); "
+            print(f"winconv: L{lvl} K={k} N={lrec['n']} Morton order "
+                  f"{morton_s:.3f} s, window map {plan_s:.3f} s, fold "
+                  f"{fold_s:.3f} s (host) | {plan['n_exceptions']} of {refs} "
+                  f"references out of the window "
+                  f"({lrec['out_of_window_share']:.4f}); "
                   f"{lrec['valid_slot_share']:.4f} of the N x K slots hold a "
-                  f"reference | E_pad {lrec['e_pad']}, Et {lrec['et']}",
-                  flush=True)
+                  f"reference | extra slab rows a tile: X {lrec['x_rows']} "
+                  f"(most {lrec['x_max']}, mean {lrec['x_mean']:.1f}) | "
+                  f"(16-row, tap) pairs multiplied {mult:.4f}", flush=True)
             plans[(lvl, kernel)] = (
                 torch.from_numpy(nbr).to(dev), torch.from_numpy(valid).to(dev),
-                {k: torch.from_numpy(plan[k]).to(dev) for k in PLAN_KEYS},
-                lrec)
-        nbr_d, valid_d, plan_d, lrec = plans[(lvl, kernel)]
+                {key: torch.from_numpy(plan[key]).to(dev)
+                 for key in PLAN_KEYS},
+                {key: torch.from_numpy(folded[key]).to(dev)
+                 for key in windowed_conv.FOLDED_KEYS}, lrec)
+        nbr_d, valid_d, plan_d, fold_d, lrec = plans[(lvl, kernel)]
         n, k = nbr_d.shape
         x = torch.randn(n, cin, generator=gen).to(dev) * valid_d[:, None]
         w = (torch.randn(k, cin, cout, generator=gen)
@@ -388,14 +408,17 @@ def winconv_phase(scenes, batch, pipe, shapes, b1_ms, dev, flops_peak,
 
         def kernel_call():
             return windowed_conv.windowed_sparse_conv(
-                x, w, *plan_d.values(), tile=tile, window=window)
+                x, w, *fold_d.values(), tile=tile, window=window)
         got = kernel_call()
         calls += 1
-        ref = windowed_conv.windowed_sparse_conv_reference(x, w, plan_d, tile,
-                                                           window)
+        ref = windowed_conv.windowed_sparse_conv_folded_reference(
+            x, w, fold_d, tile, window)
+        jref = windowed_conv.windowed_sparse_conv_reference(x, w, plan_d,
+                                                            tile, window)
         gat = sparse_conv(x, nbr_d, w)
         torch.cuda.synchronize()
         errs = {"kernel_vs_plain": rel_err(got, ref),
+                "kernel_vs_jax_plan": rel_err(got, jref),
                 "kernel_vs_gather": rel_err(got, gat),
                 "plain_vs_gather": rel_err(ref, gat)}
         if not (torch.isfinite(got).all().item()
@@ -403,40 +426,44 @@ def winconv_phase(scenes, batch, pipe, shapes, b1_ms, dev, flops_peak,
             fail(f"windowed_conv disagrees at L{lvl} K={k} {cin}->{cout}: "
                  f"{errs}")
         ms = cuda_time(kernel_call, 20)
-        prep = windowed_conv.prepare(x, w, plan_d["exc_in_k"],
-                                     plan_d["exc_src_tile"])
+        prep = windowed_conv.prepare(x, w, lrec["x_rows"], window)
         kernel_ms = cuda_time(lambda: windowed_conv.launch(
-            *prep, plan_d["win_lo"], plan_d["nbr_local"],
-            plan_d["exc_row_tile"], cout, tile, window), 20)
+            *prep, *fold_d.values(), cout, tile, window), 20)
         calls += 40
-        plain_ms = cuda_time(lambda: windowed_conv.windowed_sparse_conv_reference(
-            x, w, plan_d, tile, window), 5)
-        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
-        exc_ms = cuda_time(lambda: windowed_conv.exception_contrib(
-            xb, wb, plan_d["exc_in_k"], plan_d["exc_src_tile"]), 5)
+        plain_ms = cuda_time(
+            lambda: windowed_conv.windowed_sparse_conv_folded_reference(
+                x, w, fold_d, tile, window), 5)
+        ck, bufs, smem = windowed_conv.smem_fit(cin, cout, window,
+                                                lrec["x_rows"], k)
         bound, by, flops, nbytes = conv_bound(
             n, cin, cout, lrec["references"], lrec["plan_bytes"], flops_peak,
             bw_peak, taps=k)
         b1 = b1_ms.get((lvl, cin, cout)) if k == 27 else None
+        dense = 2.0 * n * k * cin * cout
         rec = {"level": lvl, "k": k, "n": n, "cin": cin, "cout": cout,
                "per_forward": per_fwd, "ms": ms, "kernel_ms": kernel_ms,
-               "plain_ms": plain_ms, "exception_contrib_ms": exc_ms,
-               "dense_flops": 2.0 * n * k * cin * cout, "bound_ms": bound,
+               "plain_ms": plain_ms, "dense_flops": dense,
+               "mult_share": lrec["mult_share"],
+               "mult_flops": lrec["mult_share"] * dense, "bound_ms": bound,
                "bound_by": by, "b1_ms": b1, "flops": flops, "bytes": nbytes,
+               "smem_bytes": smem, "ck": ck, "slab_buffers": bufs,
                "max_abs_err": (got - ref).abs().max().item(), **errs}
         recs.append(rec)
         b1_txt = f"B1 zrun_conv {b1:.3f} ms" if b1 is not None else \
             "B1 does not take this shape"
         print(f"winconv: windowed_conv L{lvl} K={k} N={n} {cin}->{cout} "
               f"({per_fwd} per forward) rel_err vs plain "
-              f"{errs['kernel_vs_plain']:.2e}, vs gather conv "
+              f"{errs['kernel_vs_plain']:.2e}, vs JAX's plan "
+              f"{errs['kernel_vs_jax_plan']:.2e}, vs gather conv "
               f"{errs['kernel_vs_gather']:.2e} | {ms:.3f} ms (kernel alone "
-              f"{kernel_ms:.3f} ms, exception_contrib {exc_ms:.3f} ms; plain "
-              f"{plain_ms:.3f} ms; bound {bound:.4f} ms by {by}; "
-              f"{flops / ms / 1e9:.1f} TFLOP/s on the references, kernel "
-              f"{rec['dense_flops'] / kernel_ms / 1e9:.1f} TFLOP/s on all N x "
-              f"K slots) | {b1_txt}", flush=True)
-        del x, w, got, ref, gat, xb, wb, prep
+              f"{kernel_ms:.3f} ms; plain {plain_ms:.3f} ms; bound "
+              f"{bound:.4f} ms by {by}; {flops / ms / 1e9:.1f} TFLOP/s on the "
+              f"references, kernel {dense / kernel_ms / 1e9:.1f} on all N x K "
+              f"slots, {rec['mult_flops'] / kernel_ms / 1e9:.1f} on the "
+              f"multiplied pairs) | shared memory {smem} B a block (chunk "
+              f"{ck}, {bufs} slab buffer{'s' if bufs > 1 else ''}) | {b1_txt}",
+              flush=True)
+        del x, w, got, ref, jref, gat, prep
     launches = windowed_conv.launches        # B2's path ends here
     if launches != calls:
         fail(f"windowed_conv launched {launches} times for {calls} calls")
@@ -760,11 +787,14 @@ def main():
                 fail(f"nvcc failed on {name}:\n{e.stderr[-4000:]}")
     print(f"build: {' and '.join(builds)} in {time.time() - t0:.1f} s",
           flush=True)
-    regs = ptxas_summary(zrun_conv.build_log)
-    print(f"build: zrun_conv.cu ptxas, Cout: registers / spills: "
-          f"{'; '.join(regs)}", flush=True)
-    if not regs:
-        fail("no ptxas report in zrun_conv.cu's build log")
+    for name, mod, kern, scale in (
+            ("zrun_conv.cu", zrun_conv, "zrun_conv_kernel", 1),
+            ("windowed_conv.cu", windowed_conv, "windowed_conv_kernel", 8)):
+        regs = ptxas_summary(mod.build_log, kern, scale)
+        print(f"build: {name} ptxas, Cout (of a block): registers / spills: "
+              f"{'; '.join(regs)}", flush=True)
+        if not regs:
+            fail(f"no ptxas report in {name}'s build log")
 
     # ---- 3. kernel against its plain version at the routed shapes -------
     cfg = slice_config()
@@ -1098,19 +1128,25 @@ def main():
         "bound_by": max(routed_b2, key=lambda r: r["bound_ms"])["bound_by"],
         "library_ms": None,
         "kernel_ms": b2_fwd("kernel_ms"),
-        "exception_contrib_ms": b2_fwd("exception_contrib_ms"),
         "b1_ms": b2_fwd("b1_ms"),
-        "scope": f"ms/kernel_ms/plain_ms/bound_ms/exception_contrib_ms/"
-                 f"b1_ms: sum over the {len(routed)} routed convs of one "
-                 f"served forward (B=4) on Morton-ordered maps of the same "
-                 f"coordinates; ms is the wrapper (bf16 cast, "
-                 f"exception_contrib, kernel), kernel_ms the launch alone; "
-                 f"launches: the winconv phase (B2 is on no model path)",
+        # the share of one forward's dense N x K x Cin x Cout work in the
+        # (16-row, tap) pairs the kernel multiplies
+        "mult_share": b2_fwd("mult_flops") / b2_fwd("dense_flops"),
+        "fold_s": sum(r["fold_s"] for r in wc["levels"] if r["k"] == 27),
+        "scope": f"ms/kernel_ms/plain_ms/bound_ms/b1_ms: sum over the "
+                 f"{len(routed)} routed convs of one served forward (B=4) on "
+                 f"Morton-ordered maps of the same coordinates; ms is the "
+                 f"wrapper (bf16 cast, W's layout, kernel), kernel_ms the "
+                 f"launch alone; fold_s: host seconds of fold_exceptions "
+                 f"over the levels' 3^3 maps; launches: the winconv phase "
+                 f"(B2 is on no model path)",
         "levels": wc["levels"], "shapes": wc["shapes"],
     }
     print(f"summary: B1 {entry['ms']:.3f} ms per served forward (host "
           f"{entry['host_ms']:.3f} ms) against B2 {b2_entry['ms']:.3f} ms "
-          f"in this run, ratio {entry['ms'] / b2_entry['ms']:.3f}; B1 dx "
+          f"(kernel alone {b2_entry['kernel_ms']:.3f} ms, multiplied share "
+          f"{b2_entry['mult_share']:.4f}) in this run, ratio "
+          f"{entry['ms'] / b2_entry['ms']:.3f}; B1 dx "
           f"{entry['bwd_ms']:.3f} ms per train step (host "
           f"{entry['bwd_host_ms']:.3f} ms); multiplied share of the dense work {entry['mult_share']:.4f} "
           f"forward, {entry['bwd_mult_share']:.4f} dx", flush=True)

@@ -45,6 +45,8 @@ MIN_ROWS = 40960
 # multiplies MMA_ROWS of them, and skips a tap none of those rows references
 TILE = 128
 MMA_ROWS = 64
+# the widest Cout one launch takes (a wgmma of at most 240 columns)
+MAX_COLS = 240
 
 # launches of the CUDA kernel since the last reset (a plain counter that
 # smoke runs set to 0 before the main path and read after it), and the
@@ -74,6 +76,25 @@ def applicable(n_rows: int, cin: int, cout: int) -> bool:
     if sparse.ztriple_applicable(n_rows, cin, cout):
         return False
     return n_rows % 128 == 0 and n_rows >= MIN_ROWS
+
+
+def kernel_shape(cin: int, cout: int) -> Tuple[int, list]:
+    """How the CUDA path runs a conv of this shape: (Cin padded to a
+    multiple of 16, the column slices ``[(first, width), ...]`` of Cout
+    padded to a multiple of 16, each at most ``MAX_COLS`` wide and a
+    multiple of 16, one launch each).  Both devices call it, so a CPU run
+    refuses what the card would; it takes every shape ``applicable``
+    routes (96 <= max(Cin, Cout) < 256), as the JAX kernel does by padding
+    both to 128 lanes."""
+    if cin < 1 or cout < 1:
+        raise ValueError(f"zrun_conv: needs Cin, Cout >= 1 (got {cin}, "
+                         f"{cout})")
+    cin_p = -(-cin // 16) * 16
+    cout_p = -(-cout // 16) * 16
+    n_slices = -(-cout_p // MAX_COLS)
+    width = -(-cout_p // (16 * n_slices)) * 16
+    return cin_p, [(c0, min(width, cout_p - c0))
+                   for c0 in range(0, cout_p, width)]
 
 
 def zrun_plan(nbr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -214,20 +235,20 @@ def zrun_conv(x: torch.Tensor, w: torch.Tensor, zbase: torch.Tensor,
     output in x.dtype, rows with ``out_valid`` False zeroed.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    and counts it under ``phase`` ("fwd" or "bwd").  Not differentiable
-    itself: training goes through :func:`zrun_conv_sym`."""
-    if x.device.type == "cpu":
-        return zrun_conv_reference(x, w, zbase, zcode, out_valid)
-    if x.device.type != "cuda":
-        raise ValueError(f"zrun_conv: unsupported device {x.device}")
+    (one launch per column slice of :func:`kernel_shape`, Cin and Cout
+    padded with zeros there and the pad cut off y) and counts the call
+    once under ``phase`` ("fwd" or "bwd").  Not differentiable itself:
+    training goes through :func:`zrun_conv_sym`."""
     n, cin = x.shape
     k, wcin, cout = w.shape
     if k != 27 or wcin != cin:
         raise ValueError(f"zrun_conv: w {tuple(w.shape)} does not match "
                          f"x {tuple(x.shape)}")
-    if cin % 16 or cout % 16 or cout > 240:
-        raise ValueError(f"zrun_conv: needs Cin, Cout multiples of 16 and "
-                         f"Cout <= 240 (got {cin}, {cout})")
+    cin_p, slices = kernel_shape(cin, cout)
+    if x.device.type == "cpu":
+        return zrun_conv_reference(x, w, zbase, zcode, out_valid)
+    if x.device.type != "cuda":
+        raise ValueError(f"zrun_conv: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"zrun_conv: x must be f32 or bf16, got {x.dtype}")
     if (zbase.shape != (n, 9) or zbase.dtype != torch.int32
@@ -245,15 +266,21 @@ def zrun_conv(x: torch.Tensor, w: torch.Tensor, zbase: torch.Tensor,
     # once here.  Each tap's W goes in as the image of its shared-memory
     # tile, which the kernel copies whole: (Cin/8, Cout/8) blocks of 8 x 8
     # with Cin fastest (K-major core matrices for wgmma)
-    xb = x.to(torch.bfloat16).contiguous()
+    xb = x.to(torch.bfloat16)
+    if cin_p != cin:
+        xb = torch.nn.functional.pad(xb, (0, cin_p - cin))
+    xb = xb.contiguous()
     if xb.data_ptr() % 16:
         raise ValueError("zrun_conv: bf16 x must be 16-byte aligned (the "
                          "kernel's 16-byte row copies)")
-    wt = (w.to(torch.bfloat16).reshape(27, cin // 8, 8, cout // 8, 8)
-          .permute(0, 1, 3, 4, 2).contiguous())
+    cout_p = slices[-1][0] + slices[-1][1]
+    wb = w.to(torch.bfloat16)
+    if (cin_p, cout_p) != (cin, cout):
+        wb = torch.nn.functional.pad(wb, (0, cout_p - cout, 0, cin_p - cin))
     zbase = zbase.contiguous()
     zcode = zcode.contiguous()
-    y = torch.empty(n, cout, dtype=x.dtype, device=x.device)
+    if out_valid is not None:
+        out_valid = out_valid.contiguous()
     lib = build()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     key = (x.device.index, stream)
@@ -261,13 +288,23 @@ def zrun_conv(x: torch.Tensor, w: torch.Tensor, zbase: torch.Tensor,
     if counter is None:
         counter = _counters[key] = torch.zeros(2, dtype=torch.int32,
                                                device=x.device)
-    err = lib.pq3d_zrun_conv(
-        xb.data_ptr(), wt.data_ptr(), zbase.data_ptr(), zcode.data_ptr(),
-        out_valid.contiguous().data_ptr() if out_valid is not None else None,
-        y.data_ptr(), counter.data_ptr(), n, cin, cout,
-        int(x.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"zrun_conv kernel launch failed: cudaError {err}")
+    ys = []
+    for c0, width in slices:
+        ws = wb if len(slices) == 1 else wb[:, :, c0:c0 + width]
+        wt = (ws.reshape(27, cin_p // 8, 8, width // 8, 8)
+              .permute(0, 1, 3, 4, 2).contiguous())
+        ys.append(torch.empty(n, width, dtype=x.dtype, device=x.device))
+        err = lib.pq3d_zrun_conv(
+            xb.data_ptr(), wt.data_ptr(), zbase.data_ptr(), zcode.data_ptr(),
+            out_valid.data_ptr() if out_valid is not None else None,
+            ys[-1].data_ptr(), counter.data_ptr(), n, cin_p,
+            width, int(x.dtype == torch.bfloat16), stream)
+        if err != 0:
+            raise RuntimeError(f"zrun_conv kernel launch failed: cudaError "
+                               f"{err}")
+    y = ys[0] if len(ys) == 1 else torch.cat(ys, 1)
+    if y.shape[1] != cout:
+        y = y[:, :cout].contiguous()
     global launches
     launches += 1
     phase_launches[phase] += 1

@@ -183,45 +183,102 @@ def test_zrun_conv_sym_backward_matches_plain(cuda_device, dy_layout, cin,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(100, 96), (96, 248), (248, 96)])
+def test_zrun_conv_sym_pads_and_slices_routed_shapes(cuda_device, cin, cout):
+    """Shapes ``applicable`` routes that are not the kernel's own: Cin 100
+    (padded to 112), Cout 248 (padded to 256 and run as two slices of 128)
+    and its dx (Cin 248 -> Cout 96 forward: dx has Cin 96 -> Cout 248).
+    Forward against zrun_conv_reference within 1e-2 (pad rows zero), dx
+    and dW against zrun_conv_backward_reference within 1e-2; each call
+    counted as one launch of its pass."""
+    rng = np.random.default_rng(cin * cout)
+    nbr, valid = _scene(rng, extent=32, n_pts=6000)
+    n = nbr.shape[0]
+    x = np.zeros((n, cin), np.float32)
+    x[valid] = rng.standard_normal((valid.sum(), cin))
+    w = (rng.standard_normal((27, cin, cout)) * 0.05).astype(np.float32)
+    dy = rng.standard_normal((n, cout)).astype(np.float32)
+    zb, zc = tzr.zrun_plan(torch.from_numpy(nbr).to(cuda_device))
+    vd = torch.from_numpy(valid).to(cuda_device)
+    dyd = torch.from_numpy(dy).to(cuda_device)
+    xd = torch.from_numpy(x).to(cuda_device).requires_grad_(True)
+    wd = torch.from_numpy(w).to(cuda_device).requires_grad_(True)
+    before = dict(tzr.phase_launches)
+    y = tzr.zrun_conv_sym(xd, wd, zb, zc, vd)
+    torch.cuda.synchronize()
+    assert tzr.phase_launches["fwd"] == before["fwd"] + 1
+    assert y.shape == (n, cout) and y.is_contiguous()
+    ref = tzr.zrun_conv_reference(xd.detach(), wd.detach(), zb, zc, vd)
+    assert ((y.detach() - ref).abs().max() / ref.abs().max()).item() <= 1e-2
+    assert not y.detach()[~vd].any()
+    y.backward(dyd)
+    torch.cuda.synchronize()
+    assert tzr.phase_launches["bwd"] == before["bwd"] + 1
+    dx_ref, dw_ref = tzr.zrun_conv_backward_reference(
+        xd.detach(), wd.detach(), zb, zc, vd, dyd)
+    for got, want in ((xd.grad, dx_ref), (wd.grad, dw_ref)):
+        assert got.shape == want.shape
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kernel,cin,cout", [(3, 40, 48), (3, 128, 96),
-                                             (3, 96, 192), (5, 32, 32)])
+@pytest.mark.parametrize("kernel,cin,cout,pad_tiles", [
+    (3, 40, 48, 0), (3, 128, 96, 0), (3, 96, 192, 0), (5, 32, 32, 0),
+    (3, 192, 128, 0), (3, 96, 96, 3)])
 def test_windowed_conv_kernel_matches_plain_version(cuda_device, dtype,
-                                                    kernel, cin, cout):
-    """windowed_conv.cu against windowed_sparse_conv_reference at tile 256,
-    window 512, on a dense Morton-ordered scene whose tiles carry several
-    exceptions on one row; Cin 40 is padded to 48, Cout 192 runs as two
-    column slices of 96, K = 125 is the 5^3 map.  The same bf16 operands,
-    f32 sums in another order: max|diff| / max|ref| <= 1e-3; one launch
-    counted."""
+                                                    kernel, cin, cout,
+                                                    pad_tiles):
+    """windowed_conv.cu over the folded plan against its plain version
+    (windowed_sparse_conv_folded_reference) and the plain version over
+    JAX's plan, at tile 256, window 512, on a dense Morton-ordered scene
+    whose tiles carry several exceptions on one row (so many extra slab
+    rows); Cin 40 is padded to 48, Cout 192 runs as two column slices of
+    96, Cin 192 -> 128 stages the slab in K chunks, K = 125 is the 5^3
+    map, and the last case ends in whole tiles of padding rows, which load
+    nothing: blocks of y's size are filled with NaN and freed first, so a
+    skipped tile that wrote nothing would leave NaN.  The same bf16
+    operands, f32 sums in another order: max|diff| / max|ref| <= 1e-3;
+    padding rows exactly zero; one launch counted."""
     tile, window = 256, 512
     rng = np.random.default_rng(cin + cout + kernel)
     coords = np.unique(rng.integers(0, 32, (20000, 3)).astype(np.int32),
                        axis=0)
     coords = coords[kernel_maps.morton_order(coords)]
-    n = -(-len(coords) // tile) * tile
+    n = (-(-len(coords) // tile) + pad_tiles) * tile
     nbr = kernel_maps.build_neighbor_map(coords, kernel, n_pad=n)
     plan = twc.build_window_map(nbr, tile=tile, window=window)
     rows = plan["exc_row_tile"]
     assert any(len(r[r >= 0]) > len(np.unique(r[r >= 0])) for r in rows)
+    folded = twc.fold_exceptions(plan, nbr, tile, window)
+    assert folded["exc_src"].shape[1] >= 16
     x = np.zeros((n, cin), np.float32)
     x[:len(coords)] = rng.standard_normal((len(coords), cin))
     w = (rng.standard_normal((kernel ** 3, cin, cout)) * 0.05
          ).astype(np.float32)
     xd = torch.from_numpy(x).to(cuda_device, dtype)
     wd = torch.from_numpy(w).to(cuda_device)
-    pd = {key: torch.from_numpy(plan[key]).to(cuda_device) for key in
-          ("win_lo", "nbr_local", "exc_in_k", "exc_row_tile",
-           "exc_src_tile")}
+    pd = {key: torch.from_numpy(folded[key]).to(cuda_device)
+          for key in twc.FOLDED_KEYS}
+    junk = [torch.full((n, cout), float("nan"), device=cuda_device)
+            for _ in range(2)]
+    del junk
     before = twc.launches
     got = twc.windowed_sparse_conv(xd, wd, *pd.values(), tile=tile,
                                    window=window)
     torch.cuda.synchronize()
     assert twc.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (n, cout)
-    ref = twc.windowed_sparse_conv_reference(xd, wd, pd, tile, window)
-    err = (got - ref).abs().max() / ref.abs().max()
-    assert err.item() <= 1e-3
+    assert torch.isfinite(got).all()
+    assert not got[len(coords):].any()
+    ref = twc.windowed_sparse_conv_folded_reference(xd, wd, pd, tile, window)
+    jax_plan = twc.windowed_sparse_conv_reference(
+        xd, wd, {key: torch.from_numpy(plan[key]).to(cuda_device) for key in
+                 ("win_lo", "nbr_local", "exc_in_k", "exc_row_tile",
+                  "exc_src_tile")}, tile, window)
+    for want in (ref, jax_plan):
+        err = (got - want).abs().max() / want.abs().max()
+        assert err.item() <= 1e-3
 
 
 @pytest.mark.cuda

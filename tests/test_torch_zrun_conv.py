@@ -118,6 +118,55 @@ def test_predicate_matches_pallas_zt_applicable(monkeypatch):
     assert not tzr.applicable(32768, 128, 128)
 
 
+def test_every_routed_shape_passes_the_kernel_shape_rule():
+    """Every (Cin, Cout) that ``applicable`` admits in its channel range
+    (96 <= max < 256) gets a launch plan the CUDA kernel takes: Cin padded
+    to a multiple of 16, Cout covered by column slices that are multiples
+    of 16 and at most 240 wide (the kernel's instantiations)."""
+    n = 262144          # past the z-run gather's N * C bound
+    taken = set(range(16, 241, 16))
+    routed = 0
+    for cin in range(1, 256):
+        for cout in range(1, 256):
+            if not tzr.applicable(n, cin, cout):
+                continue
+            routed += 1
+            cin_p, slices = tzr.kernel_shape(cin, cout)
+            assert cin_p % 16 == 0 and cin <= cin_p < cin + 16
+            assert slices[0][0] == 0 and all(w in taken for _, w in slices)
+            assert all(a + wa == b for (a, wa), (b, _) in zip(slices,
+                                                             slices[1:]))
+            end = slices[-1][0] + slices[-1][1]
+            assert cout <= end < cout + 16
+            assert len(slices) == (1 if end <= 240 else 2)
+    assert routed == 255 * 255 - 95 * 95
+
+
+@pytest.mark.parametrize("cin,cout", [(100, 96), (96, 248), (248, 96)])
+def test_padded_column_slices_give_the_conv(cin, cout):
+    """The CUDA path's arithmetic, done with the plain version: x and W
+    zero-padded as ``kernel_shape`` says, one conv per column slice, the
+    slices joined and the pad cut off, equals the unpadded conv."""
+    rng = np.random.default_rng(cin + cout)
+    nbr, valid = _scene(rng, extent=12, n_pts=600)
+    n = nbr.shape[0]
+    x = torch.from_numpy(rng.standard_normal((n, cin)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((27, cin, cout)) * 0.1
+                          ).astype(np.float32))
+    zb, zc = tzr.zrun_plan(torch.from_numpy(nbr))
+    v = torch.from_numpy(valid)
+    cin_p, slices = tzr.kernel_shape(cin, cout)
+    end = slices[-1][0] + slices[-1][1]
+    xp = torch.nn.functional.pad(x, (0, cin_p - cin))
+    wp = torch.nn.functional.pad(w, (0, end - cout, 0, cin_p - cin))
+    got = torch.cat([tzr.zrun_conv_reference(xp, wp[:, :, c0:c0 + width], zb,
+                                             zc, v)
+                     for c0, width in slices], 1)[:, :cout]
+    ref = tzr.zrun_conv(x, w, zb, zc, v)
+    assert got.shape == ref.shape == (n, cout)
+    assert _rel(ref.numpy(), got.numpy()) <= 1e-6
+
+
 @pytest.mark.parametrize("extent,n_pts,pad_tiles", [(28, 4000, 0),
                                                     (40, 5000, 3)])
 def test_tile_tap_mask_matches_neighbor_map(extent, n_pts, pad_tiles):
