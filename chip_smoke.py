@@ -60,15 +60,41 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                version (routed-conv weight gradients), and each routed conv
                replayed at the step's own x and dy against its plain
                backward, all within 2e-2;
+10. unified -- stage-2 serving end to end: the full-width
+               unified_tasks_sceneverse model (PointNet++ on 80 objects x
+               1024 points, the CLIP-large text tower, the mixed query
+               decoder, the grounding head, T5-small greedy decode of 50
+               tokens; random weights from a seed) behind
+               UnifiedServer(batch_size=8) answers 64 requests that cycle
+               through SyntheticRefer, SyntheticQA and SyntheticCaption
+               (scenes of 50,000 points, 32 instances; TXT and LOC
+               prompts): scenes/s, p50/p99, the server's stage seconds,
+               peak memory, the device-clock ms (CUDA-event spans around
+               each module, median of 3 forwards of one batch) of
+               PointNet++, the CLIP tower, the query decoder and the
+               decode; gates: every request
+               resolves, ground_obj is a valid object with a finite score,
+               tokens are EOS-frozen (also on one batch decoded with the
+               EOS logit raised until some row emits it early, since
+               random weights do not), on one batch the card's
+               ground_logits and teacher-forced generation logits agree
+               with the same model on the CPU (f32, TF32 off) within 1e-4
+               relative while the same batch with TF32 on (the control,
+               printed) does not, and the greedy tokens are equal or
+               differ first where the CPU's top-2 logit margin is below
+               1e-4; B1 and B2 are on no stage-2 path (their launches
+               here are printed);
 then a summary line (B1 against B2 in this run), one JSON line with every
 hand kernel's numbers, and the result line.
 
     python3 chip_smoke.py --profile PATH
 
-adds torch.profiler traces of one served forward (after phase 5) and of one
-train step (after phase 9): device busy time against the host clock, the
-idle share and the device time by kernel (the top rows printed, the whole
-tables written to PATH and to PATH with ``_train`` before its extension).
+adds torch.profiler traces of one served forward (after phase 5), of one
+train step (after phase 9) and of one unified batch (forward and decode,
+phase 10): device busy time against the host clock, the idle share and the
+device time by kernel (the top rows printed, the whole tables written to
+PATH, to PATH with ``_train`` and to PATH with ``_unified`` before its
+extension).
 """
 import argparse
 import contextlib
@@ -732,6 +758,291 @@ def train_check_phase(trainer, zrun_conv, batch):
             "all_plain_rel": all_plain_rel, "run_to_run_rel": floor}
 
 
+UNIFIED_REQUESTS = 64    # 8 batches of 8
+# card against the CPU, max|diff| / max|ref|: between the f32 reading
+# (about 3e-6) and the TF32 control's (about 7e-4 to 1.4e-3) on an H100
+UNIFIED_GATE = 1e-4
+MARGIN_GATE = 1e-4       # CPU top-2 logit margin where tokens may differ
+EOS_SCALES = (1.5, 3.0, 6.0, 12.0, 24.0)   # EOS embedding row, after x0.1
+
+
+def eos_frozen(toks, n_tokens):
+    """The step of each row's first EOS (None where there is none); fails
+    unless every token after it is PAD."""
+    import numpy as np
+    from pq3d_tpu_torch.models.t5 import T5_EOS_ID, T5_PAD_ID
+    firsts = []
+    for row in toks:
+        if row.shape != (n_tokens,):
+            fail(f"generation tokens of shape {row.shape}")
+        eos = np.flatnonzero(row == T5_EOS_ID)
+        if len(eos) and (row[eos[0] + 1:] != T5_PAD_ID).any():
+            fail("tokens after the first EOS are not all PAD")
+        firsts.append(int(eos[0]) if len(eos) else None)
+    return firsts
+
+
+def eos_biased_decode(model, b, n_tokens):
+    """Greedy decode of batch ``b`` with T5's embedding (tied to the
+    logits) scaled by 0.1 and its EOS row by each of ``EOS_SCALES`` in turn,
+    until some row emits EOS before its last step: random weights never
+    emit it at full width, so this is what exercises the EOS freeze on the
+    card.  The embedding is restored after.  Returns the scale and each
+    row's first EOS step."""
+    import torch
+    from pq3d_tpu_torch.models.t5 import T5_EOS_ID
+    emb = model.generation_head.decoder.embed.weight
+    saved = emb.detach().clone()
+    try:
+        for scale in EOS_SCALES:
+            with torch.no_grad():
+                emb.copy_(saved * 0.1)
+                emb[T5_EOS_ID] *= scale
+            with torch.inference_mode():
+                toks = model(b)["generation_tokens"].cpu().numpy()
+            firsts = eos_frozen(toks, n_tokens)
+            if any(f is not None and f < n_tokens - 1 for f in firsts):
+                return scale, firsts
+    finally:
+        with torch.no_grad():
+            emb.copy_(saved)
+    fail(f"no row emitted EOS before its last step at EOS scales "
+         f"{EOS_SCALES}: the EOS freeze was not exercised")
+
+
+def unified_requests(n, seed):
+    """``n`` (scene, lang) requests cycling through the three synthetic
+    unified datasets: scenes of 50,000 points and 32 instances."""
+    from pq3d_tpu_torch.data import unified_datasets as uds
+    cfg = {"data": {"synthetic": {"num_train": n, "n_points": 50_000,
+                                  "n_instances": 32}}}
+    sets = [uds.SyntheticRefer(cfg, "train"), uds.SyntheticQA(cfg, "train"),
+            uds.SyntheticCaption(cfg, "train")]
+    return [sets[i % 3].get_item(seed * 1000 + i) for i in range(n)]
+
+
+def part_times(model, b, reps=3):
+    """Device ms of PointNet++, the CLIP tower, the query decoder and the
+    greedy decode inside one forward of batch ``b`` (CUDA events recorded
+    by hooks around each module; median of ``reps`` forwards)."""
+    import torch
+    parts = {"pointnet": model.pc_encoder.backbone,
+             "clip_tower": model.txt_encoder.tower,
+             "query_decoder": model.unified_encoder,
+             "decode": model.generation_head}
+    events = {k: [] for k in parts}
+    hooks = []
+
+    def record(name, opening):
+        def hook(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            if opening:
+                events[name].append([ev])
+            else:
+                events[name][-1].append(ev)
+        return hook
+    for name, mod in parts.items():
+        hooks.append(mod.register_forward_pre_hook(record(name, True)))
+        hooks.append(mod.register_forward_hook(record(name, False)))
+    try:
+        forward_ms = []
+        for _ in range(reps):
+            forward_ms.append(cuda_time(lambda: model(b), 1))
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    out = {k: sorted(a.elapsed_time(e) for a, e in v)[len(v) // 2]
+           for k, v in events.items()}
+    out["forward"] = sorted(forward_ms)[len(forward_ms) // 2]
+    return out
+
+
+def unified_phase(card, dev, profile):
+    """Stage-2 serving at full width through UnifiedServer; returns the
+    phase's numbers."""
+    import copy
+    import numpy as np
+    import torch
+    from pq3d_tpu_torch.config import load_config
+    from pq3d_tpu_torch.data import unified_datasets as uds
+    from pq3d_tpu_torch.data.unified_pipeline import (UnifiedPipelineConfig,
+                                                      collate_unified,
+                                                      process_item)
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.models.t5 import T5_PAD_ID
+    from pq3d_tpu_torch.ops import windowed_conv, zrun_conv
+    from pq3d_tpu_torch.serve import UnifiedServer, to_device
+
+    # f32 matmuls in f32 on the card: the CPU gate below measures the
+    # port, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = load_config("unified_tasks_sceneverse")
+    pipe = UnifiedPipelineConfig(**cfg["data"]["unified_options"])
+    n_tokens = cfg["model"]["generation_head"]["args"]["max_new_tokens"]
+    feature_dims = {"mv": 768, "voxel": 128}
+    import threading
+    alive = [t.name for t in threading.enumerate()]
+    print(f"unified: {len(alive)} Python threads alive at the phase's start "
+          f"({', '.join(alive)}); torch intra-op threads "
+          f"{torch.get_num_threads()}", flush=True)
+    t0 = time.time()
+    model = build_model(cfg, device="cuda", seed=0)
+    print(f"unified: model built in {time.time() - t0:.1f} s, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+          f"params | pipeline {pipe}", flush=True)
+    b1_before, b2_before = zrun_conv.launches, windowed_conv.launches
+    srv = UnifiedServer(model, pipe, batch_size=8,
+                        feature_dims=feature_dims, max_delay_s=0.02,
+                        detokenize=uds.detokenize, device="cuda")
+    try:
+        for f in [srv.submit(r) for r in unified_requests(8, seed=1)]:
+            f.result(timeout=900)
+        settle(srv, 8)
+        srv.stats = type(srv.stats)()
+        reqs = unified_requests(UNIFIED_REQUESTS, seed=2)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        results = [f.result(timeout=900)
+                   for f in [srv.submit(r) for r in reqs]]
+        wall = time.time() - t0
+        settle(srv, len(reqs))
+    finally:
+        srv.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = srv.stats.summary()
+    n_valid = [min(len(scene["inst_labels"]), pipe.max_obj_len)
+               for scene, _ in reqs]
+    eos_rows = 0
+    for r, n in zip(results, n_valid):
+        if not isinstance(r, dict) or r.get("ground_obj") is None:
+            fail("a unified request did not resolve to an answer")
+        g = r["ground_obj"]
+        if not (0 <= g < n and np.isfinite(r["ground_scores"][g])):
+            fail(f"ground_obj {g} is not a valid object of {n} with a "
+                 f"finite score")
+        if eos_frozen([np.asarray(r["generation_tokens"])],
+                      n_tokens)[0] is not None:
+            eos_rows += 1
+    stages = " ".join(f"{k}={v:.3f}s" for k, v in sorted(
+        st["stage_s"].items()))
+    print(f"unified: {st['scenes']} requests in {st['steps']} batches of 8 "
+          f"| {st['scenes_per_sec']:.3f} scenes/s (wall {wall:.2f} s) p50 "
+          f"{st['p50_latency_s'] * 1e3:.1f} ms p99 "
+          f"{st['p99_latency_s'] * 1e3:.1f} ms | {stages} | "
+          f"max_memory_allocated {peak:.2f} GiB | rows with EOS "
+          f"{eos_rows} of {len(reqs)} | ({card})", flush=True)
+
+    # one batch (with its responses) on the card and on the CPU
+    rng = np.random.default_rng(5)
+    items = [process_item(s, l, pipe, rng, False, feature_dims)
+             for s, l in reqs[:8]]
+    np_batch = collate_unified([{k: v for k, v in it.items()
+                                 if not k.startswith("meta_")}
+                                for it in items], pipe, feature_dims,
+                               train=False)
+    np_batch.pop("obj_fts")
+    b = to_device(np_batch, dev)
+    serve_b = {k: v for k, v in b.items() if k != "response"}
+    with torch.inference_mode():
+        parts = part_times(model, serve_b)
+    print("unified: device-clock ms on one batch of 8 (CUDA-event spans "
+          "around each module, waits for the host's launches included; "
+          "median of 3) "
+          + " ".join(f"{k} {v:.3f}" for k, v in parts.items())
+          + f" ({card})", flush=True)
+    with torch.inference_mode():
+        got = model(b)
+    cpu_model = copy.deepcopy(model).cpu()
+    t0 = time.time()
+    with torch.inference_mode():
+        ref = cpu_model(to_device(np_batch, torch.device("cpu")))
+        valid = b["query_pad_masks"].cpu()
+        ground_rel = rel_err(got["ground_logits"].cpu()[valid],
+                             ref["ground_logits"][valid])
+        gen_rel = rel_err(got["generation_logits"].cpu(),
+                          ref["generation_logits"])
+        toks_gpu = got["generation_tokens"].cpu()
+        toks_cpu = ref["generation_tokens"]
+        # the CPU decode's logits at every step: its own tokens fed back,
+        # every position attended, as the decode loop does
+        head = cpu_model.generation_head
+        enc = head.LayerNorm_0(head.input_proj(ref["query"]))
+        prev = torch.nn.functional.pad(toks_cpu[:, :-1].long(), (1, 0),
+                                       value=T5_PAD_ID)
+        step_logits = head.decoder(prev, enc, valid)
+    cpu_s = time.time() - t0
+    top2 = step_logits.topk(2, dim=-1).values
+    margins = top2[..., 0] - top2[..., 1]                 # (B, steps)
+    differ = (toks_gpu != toks_cpu)
+    first_margin = None
+    if differ.any():
+        rows, steps = torch.nonzero(differ, as_tuple=True)
+        first = {}
+        for r_, s_ in zip(rows.tolist(), steps.tolist()):
+            first.setdefault(r_, s_)
+        first_margin = max(margins[r_, s_].item()
+                           for r_, s_ in first.items())
+    print(f"unified: card vs CPU (f32, TF32 off) on one batch: "
+          f"ground_logits rel {ground_rel:.3e}, teacher-forced generation "
+          f"logits rel {gen_rel:.3e} (gate {UNIFIED_GATE:g}) | greedy "
+          f"tokens {'equal' if first_margin is None else 'differ'}"
+          + ("" if first_margin is None else
+             f", CPU top-2 margin at the first differing step "
+             f"{first_margin:.3e} (gate {MARGIN_GATE:g})")
+          + f" | smallest CPU top-2 margin over all steps "
+          f"{margins.min().item():.3e} | CPU forward {cpu_s:.1f} s",
+          flush=True)
+    # control: the same batch with f32 matmuls in TF32, against the same
+    # CPU reference, so the gate's distance from both readings is on record
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            got32 = model(b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ground_rel32 = rel_err(got32["ground_logits"].cpu()[valid],
+                           ref["ground_logits"][valid])
+    gen_rel32 = rel_err(got32["generation_logits"].cpu(),
+                        ref["generation_logits"])
+    print(f"unified: TF32 control (the same batch, TF32 on) against the "
+          f"CPU: ground_logits rel {ground_rel32:.3e}, teacher-forced "
+          f"generation logits rel {gen_rel32:.3e} (gate {UNIFIED_GATE:g})",
+          flush=True)
+    scale, firsts = eos_biased_decode(model, serve_b, n_tokens)
+    print(f"unified: EOS freeze on the card (one batch, T5 embedding x0.1, "
+          f"EOS row x{scale:g}): first EOS at steps "
+          f"{[f if f is not None else '-' for f in firsts]} of {n_tokens}, "
+          f"only PAD after it", flush=True)
+    b1 = zrun_conv.launches - b1_before
+    b2 = windowed_conv.launches - b2_before
+    print(f"unified: launches of B1 {b1} and B2 {b2} (neither is on the "
+          f"stage-2 path)", flush=True)
+    if not (ground_rel <= UNIFIED_GATE and gen_rel <= UNIFIED_GATE):
+        fail("the card's unified forward disagrees with the CPU's")
+    if ground_rel32 <= UNIFIED_GATE and gen_rel32 <= UNIFIED_GATE:
+        fail("the TF32 control passes the card-against-CPU gate: the gate "
+             "would not catch f32 matmuls run in TF32")
+    if first_margin is not None and first_margin >= MARGIN_GATE:
+        fail(f"greedy tokens differ where the CPU's top-2 margin is "
+             f"{first_margin:.3e}")
+    if profile:
+        stem, ext = os.path.splitext(profile)
+
+        def unified_batch():
+            with torch.inference_mode():
+                model(serve_b)
+        profile_run(unified_batch, "unified batch (forward and decode)",
+                    f"{stem}_unified{ext}")
+    return {"scenes_per_sec": st["scenes_per_sec"],
+            "p50_s": st["p50_latency_s"], "p99_s": st["p99_latency_s"],
+            "stage_s": st["stage_s"], "peak_gib": peak, "device_ms": parts,
+            "ground_rel": ground_rel, "gen_rel": gen_rel,
+            "ground_rel_tf32": ground_rel32, "gen_rel_tf32": gen_rel32,
+            "eos_scale": scale, "tokens_equal": first_margin is None}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -1064,6 +1375,11 @@ def main():
     finally:
         import shutil
         shutil.rmtree(exp_dir, ignore_errors=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ---- 10. unified: stage-2 serving at full width ---------------------
+    unified_phase(card, dev, args.profile)
 
     # ---- kernels line + result -----------------------------------------
     def per_fwd(key):

@@ -1,13 +1,16 @@
-"""The slices' configuration as plain dicts (no YAML parser needed).
+"""The slices' configurations as plain dicts (no YAML parser needed).
 
 ``INSTSEG_SCENEVERSE`` is ``pq3d_tpu/config/configs/instseg_sceneverse.yaml``
 as ``yaml.safe_load`` reads it (``${...}`` interpolations left as
 strings); ``INSTSEG_SCENEVERSE_MODEL`` and ``INSTSEG_SCENEVERSE_OPTIONS``
-are its ``model`` and ``data.instseg_options`` sections.  The slices add
-one override, ``model.voxel_encoder.args.pallas_conv: true``, which routes
-the decoder's 96/128-channel stride-1 3^3 convs to the z-run CUDA kernel.
-``load_config`` resolves a named config with ``key=value`` overrides, as
-the JAX package's loader does for its YAML files.
+are its ``model`` and ``data.instseg_options`` sections.  The stage-1
+slices add one override, ``model.voxel_encoder.args.pallas_conv: true``,
+which routes the decoder's 96/128-channel stride-1 3^3 convs to the z-run
+CUDA kernel.  ``UNIFIED_TASKS_SCENEVERSE`` and ``UNIFIED_TASKS_SYNTHETIC``
+are ``unified_tasks_{sceneverse,synthetic}.yaml``, the stage-2 unified
+model, read the same way.  ``load_config`` resolves a named config with
+``key=value`` overrides, as the JAX package's loader does for its YAML
+files.
 """
 from __future__ import annotations
 
@@ -136,7 +139,142 @@ INSTSEG_SCENEVERSE: Dict[str, Any] = {
     "model": INSTSEG_SCENEVERSE_MODEL,
 }
 
-CONFIGS = {"instseg_sceneverse": INSTSEG_SCENEVERSE}
+
+def _unified_model(hidden, txt_tower, freeze_pc, n_heads, n_layers,
+                   ground_hidden, gen_args):
+    """The ``model`` section the two unified YAML files share the form of."""
+    def obj_enc(**args):
+        return {"name": "ObjectEncoder",
+                "args": {**args, "hidden_size": "${model.hidden_size}",
+                         "dropout": 0.1, "use_cls_head": False}}
+    return {
+        "name": "Query3DUnified",
+        "memories": ["mv", "pc", "voxel", "prompt"],
+        "hidden_size": hidden,
+        "use_offline_voxel_fts": True,
+        "use_offline_attn_mask": False,
+        "skip_query_encoder_mask_pred": True,
+        "obj_loc": {"spatial_dim": 5, "dim_loc": 6,
+                    "pairwise_rel_type": "center"},
+        "txt_encoder": {"name": "CLIPLanguageEncoder",
+                        "args": {"use_projection": True,
+                                 "projection_type": "mlp",
+                                 "num_projection_layers": 1}},
+        "txt_tower": txt_tower,
+        "mv_encoder": obj_enc(input_feat_size=768, use_projection=True),
+        "voxel_encoder": obj_enc(input_feat_size=128, use_projection=True),
+        "pc_encoder": obj_enc(backbone="pointnet++",
+                              freeze_backbone=freeze_pc),
+        "unified_encoder": {
+            "name": "QueryMaskEncoder",
+            "args": {"hidden_size": "${model.hidden_size}",
+                     "num_attention_heads": n_heads, "num_layers": n_layers,
+                     "spatial_selfattn": True,
+                     "memories": "${model.memories}",
+                     "drop_memories_test": [], "memory_dropout": 0.6,
+                     "structure": "mixed", "use_self_mask": False,
+                     "num_blocks": 1}},
+        "heads": ["ground", "generation"],
+        "ground_head": {"name": "GroundHead",
+                        "args": {"hidden_size": ground_hidden,
+                                 "input_size": "${model.hidden_size}",
+                                 "dropout": 0.3}},
+        "generation_head": {
+            "name": "T5",
+            "args": {**gen_args, "input_size": "${model.hidden_size}",
+                     "use_projection": True},
+            "lr": "1e-5"},
+        "loss_list": ["ground_loss", "generation_loss"],
+        "loss_weights": {"ground_loss": 10},
+    }
+
+
+def _unified_solver(warmup_steps, epochs, epochs_per_eval):
+    return {"gradient_accumulation_steps": 1, "lr": "1e-4", "grad_norm": 5.0,
+            "optim": {"name": "AdamW", "args": {"betas": [0.9, 0.98]}},
+            "sched": {"name": "warmup_cosine",
+                      "args": {"warmup_steps": warmup_steps}},
+            "epochs": epochs, "epochs_per_eval": epochs_per_eval}
+
+
+UNIFIED_TASKS_SCENEVERSE: Dict[str, Any] = {
+    "name": "unified-sceneverse",
+    "base_dir": "outputs",
+    "exp_dir": "",
+    "rng_seed": 42,
+    "mode": "train",
+    "resume": False,
+    "pretrain_ckpt_path": "",
+    "log_every": 50,
+    "debug": {"flag": False, "debug_size": 4},
+    "data": {
+        "scene_verse_base": None,
+        "scene_verse_aux": None,
+        "scene_verse_pred": None,
+        "load_scan_options": {"load_image_obj_feat": True,
+                              "load_voxel_obj_feat": True},
+        "train": ["ScanReferSceneVerse", "Sr3DSceneVerse", "Nr3DSceneVerse",
+                  "Multi3DReferSceneVerse", "ScanQASceneVerse",
+                  "SQA3DSceneVerse", "Scan2CapSceneVerse"],
+        "val": "${data.train}",
+        "test": "${data.train}",
+        "Nr3DSceneVerse": {"sr3d_plus_aug": True},
+        "unified_options": {"max_obj_len": 80, "num_points": 1024,
+                            "prompt_len": 77, "response_len": 50},
+    },
+    "task": "Query3D",
+    "data_wrapper": {"train": "UnifiedTaskDatasetWrapper",
+                     "tokenizer": "openai/clip-vit-large-patch14",
+                     "generation_tokenizer": "t5-small"},
+    "trainer": "MultitaskTrainer",
+    "dataloader": {"batchsize": 128, "batchsize_eval": 128,
+                   "num_workers": 0},
+    "solver": _unified_solver(5000, 50, 10),
+    "eval": {"save": False},
+    "model": _unified_model(
+        768, {"vocab_size": 49408, "width": 768, "layers": 12, "heads": 12},
+        freeze_pc=True, n_heads=12, n_layers=4, ground_hidden=384,
+        gen_args={"variant": "t5-small", "vocab_size": 32128,
+                  "d_model": 512, "d_kv": 64, "d_ff": 2048,
+                  "num_layers": 6, "num_heads": 8, "max_new_tokens": 50}),
+}
+
+UNIFIED_TASKS_SYNTHETIC: Dict[str, Any] = {
+    "name": "unified-synthetic",
+    "base_dir": "outputs",
+    "exp_dir": "",
+    "rng_seed": 42,
+    "mode": "train",
+    "resume": False,
+    "pretrain_ckpt_path": "",
+    "log_every": 5,
+    "debug": {"flag": False, "debug_size": 4},
+    "data": {
+        "train": ["SyntheticRefer", "SyntheticQA", "SyntheticCaption"],
+        "val": "${data.train}",
+        "test": "${data.train}",
+        "synthetic": {"num_train": 32, "num_val": 8, "n_points": 3000,
+                      "n_instances": 8},
+        "unified_options": {"max_obj_len": 32, "num_points": 256,
+                            "prompt_len": 16, "response_len": 8},
+    },
+    "task": "Query3D",
+    "data_wrapper": {"train": "UnifiedTaskDatasetWrapper"},
+    "trainer": "MultitaskTrainer",
+    "dataloader": {"batchsize": 8, "batchsize_eval": 8, "num_workers": 0},
+    "solver": _unified_solver(10, 2, 2),
+    "eval": {"save": False},
+    "model": _unified_model(
+        128, {"vocab_size": 64, "width": 64, "layers": 2, "heads": 4},
+        freeze_pc=False, n_heads=8, n_layers=2, ground_hidden=64,
+        gen_args={"variant": "t5-synthetic", "vocab_size": 64,
+                  "d_model": 64, "d_kv": 16, "d_ff": 128, "num_layers": 2,
+                  "num_heads": 4, "max_new_tokens": 8}),
+}
+
+CONFIGS = {"instseg_sceneverse": INSTSEG_SCENEVERSE,
+           "unified_tasks_sceneverse": UNIFIED_TASKS_SCENEVERSE,
+           "unified_tasks_synthetic": UNIFIED_TASKS_SYNTHETIC}
 
 _REF = re.compile(r"^\$\{([\w.]+)\}$")
 

@@ -3,7 +3,9 @@
 
 - SegVoxelEncoder: Res16UNet -> per-scale segment-pooled features
   (rectangular layout);
-- ObjectEncoder: per-segment feature projection without a point backbone.
+- ObjectEncoder: per-object (or per-segment) feature projection, with an
+  optional PointNet++ backbone over raw object point clouds (the padded
+  (B, O, P, 3+C) layout).
 """
 from __future__ import annotations
 
@@ -106,15 +108,47 @@ class SegVoxelEncoder(nn.Module):
 
 
 class ObjectEncoder(nn.Module):
-    """Per-object/segment feature projection (Linear + LayerNorm +
-    Dropout), without a point backbone."""
+    """Per-object/segment feature projection (Linear + LayerNorm, then
+    Dropout), optionally behind a PointNet++ backbone.
+
+    With ``backbone="pointnet++"`` the input is (B, O, P, 3+C) object
+    clouds and the projection reads the backbone's output width, not
+    ``input_feat_size``.  A frozen backbone runs in BatchNorm eval mode
+    (running statistics) under ``torch.no_grad``, also inside a model in
+    train mode."""
 
     def __init__(self, input_feat_size: int, hidden_size: int = 768,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, use_projection: bool = True,
+                 backbone: str = "none", freeze_backbone: bool = False):
         super().__init__()
-        self.input_feat_proj = nn.Linear(input_feat_size, hidden_size)
-        self.LayerNorm_0 = nn.LayerNorm(hidden_size, eps=FLAX_LN_EPS)
+        if backbone not in ("none", "pointnet++"):
+            raise NotImplementedError(f"object backbone {backbone!r}")
+        self.freeze_backbone = freeze_backbone
+        self.use_projection = use_projection
+        if backbone == "pointnet++":
+            from pq3d_tpu_torch.models.pointnet import PointNetPP
+            self.backbone = PointNetPP()      # xyz + rgb points
+            input_feat_size = self.backbone.out_channels
+        else:
+            self.backbone = None
+        if use_projection:
+            self.input_feat_proj = nn.Linear(input_feat_size, hidden_size)
+            self.LayerNorm_0 = nn.LayerNorm(hidden_size, eps=FLAX_LN_EPS)
         self.drop = nn.Dropout(dropout)
 
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if self.backbone is not None and self.freeze_backbone:
+            self.backbone.eval()
+        return self
+
     def forward(self, obj_feats):
-        return self.drop(self.LayerNorm_0(self.input_feat_proj(obj_feats)))
+        if self.backbone is not None:
+            b, o = obj_feats.shape[:2]
+            pts = obj_feats.reshape((b * o,) + obj_feats.shape[2:])
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and not self.freeze_backbone):
+                obj_feats = self.backbone(pts).reshape(b, o, -1)
+        if self.use_projection:
+            obj_feats = self.LayerNorm_0(self.input_feat_proj(obj_feats))
+        return self.drop(obj_feats)

@@ -1,9 +1,10 @@
-"""Mask head (PyTorch); counterpart of ``MaskHeadSegLevel`` in
-``pq3d_tpu/models/heads.py``.  Mask logits are (B, S, Q) (segments x
-queries); attend masks are (B, Q, S) with True = attend."""
+"""Task heads (PyTorch); counterpart of ``MaskHeadSegLevel`` and
+``GroundHead`` in ``pq3d_tpu/models/heads.py`` (the T5 generation head is
+in ``generation.py``).  Mask logits are (B, S, Q) (segments x queries);
+attend masks are (B, Q, S) with True = attend."""
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -61,3 +62,19 @@ class MaskHeadSegLevel(nn.Module):
         mask_logits = torch.where(seg_valid[..., None], mask_logits, -1e6)
         attend = torch.sigmoid(mask_logits).transpose(1, 2) >= 0.5
         return cls_logits, mask_logits, attend
+
+
+class GroundHead(nn.Module):
+    """Per-query grounding logit; invalid queries get NEG_INF."""
+
+    def __init__(self, in_size: int, hidden_size: int = 384,
+                 dropout: float = 0.3):
+        super().__init__()
+        self.og3d_head = MLPHead(in_size, hidden_size, 1, dropout)
+
+    def forward(self, obj_embeds: torch.Tensor,
+                obj_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        logits = self.og3d_head(obj_embeds)[..., 0]
+        if obj_valid is not None:
+            logits = torch.where(obj_valid, logits, NEG_INF)
+        return logits

@@ -240,3 +240,36 @@ class MaskedBatchNorm(nn.Module):
         y = y * self.scale + self.bias
         y = y * valid[..., None].to(y.dtype)
         return y.to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the last axis with flax's conventions: train mode
+    normalises with the batch's mean and BIASED variance over every other
+    axis and moves the running statistics by ``momentum`` (torch's sense:
+    ``new = (1-m)*old + m*batch``, flax's momentum 0.9 is m = 0.1) with the
+    same biased variance; eval mode uses the running statistics.  It keeps
+    no ``num_batches_tracked``, which flax has no leaf for."""
+
+    momentum = 0.1
+    eps = 1e-5
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x):
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dims)
+            var = (x - mean).square().mean(dims)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(m * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias

@@ -1,7 +1,12 @@
 """Promptable query decoder (PyTorch); counterpart of
 ``pq3d_tpu/models/query_encoder.py``: ``num_blocks`` x ``num_layers``
 rounds of [mask prediction -> masked cross-attention over memories ->
-spatial self-attention -> FFN], parallel memory structure.
+(spatial) self-attention -> FFN].  Memory structures: ``parallel`` (the
+cross attentions see the same query, their updates averaged),
+``sequential`` (one after another) and ``mixed`` (the scene memories in
+parallel, then the prompt).  ``drop_memories_test`` leaves the named
+memories out in eval mode; ``memory_dropout`` (train mode) and the ``gate``
+structure are not ported and raise.
 
 Memories are a dict name -> (feat, attend_mask, pos) with True = attend.
 With ``use_self_mask`` the thresholded mask logits of each round become
@@ -23,18 +28,22 @@ Memory = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
 
 class QueryEncoderLayer(nn.Module):
-    """One decoder layer, parallel structure: the per-memory cross
-    attentions see the same query and their updates are averaged."""
+    """One decoder layer: per-memory cross attention in the given
+    structure, then self-attention and FFN."""
 
     def __init__(self, d_model: int, n_head: int, memories: Sequence[str],
                  dim_feedforward: int = 2048, dropout: float = 0.1,
                  spatial_selfattn: bool = False,
-                 structure: str = "parallel"):
+                 structure: str = "parallel", memory_dropout: float = 0.0,
+                 drop_memories_test: Sequence[str] = ()):
         super().__init__()
-        if structure != "parallel":
+        if structure not in ("parallel", "sequential", "mixed"):
             raise NotImplementedError(
                 f"query encoder structure {structure!r} is not ported")
         self.memories = list(memories)
+        self.structure = structure
+        self.memory_dropout = memory_dropout
+        self.drop_memories_test = set(drop_memories_test)
         self.spatial_selfattn = spatial_selfattn
         if spatial_selfattn:
             self.self_attn = SpatialSelfAttentionLayer(d_model, n_head,
@@ -46,13 +55,37 @@ class QueryEncoderLayer(nn.Module):
                             CrossAttentionLayer(d_model, n_head, dropout))
         self.ffn = FFNLayer(d_model, dim_feedforward, dropout)
 
+    def _cross(self, m, query, inputs, query_pos):
+        feat, mask, pos = inputs[m]
+        return getattr(self, f"cross_attns_{m}")(
+            query, feat, attend_mask=mask, query_pos=query_pos, pos=pos)
+
+    def _sequential_ca(self, query, names, inputs, query_pos):
+        for m in names:
+            query = self._cross(m, query, inputs, query_pos)
+        return query
+
+    def _parallel_ca(self, query, names, inputs, query_pos):
+        if self.training and self.memory_dropout > 0.0:
+            raise NotImplementedError("memory_dropout is not ported")
+        updates = [self._cross(m, query, inputs, query_pos) for m in names]
+        return torch.stack(updates, 1).mean(1)
+
     def forward(self, query: torch.Tensor, inputs: Dict[str, Memory],
                 pairwise_locs: Optional[torch.Tensor] = None):
         _, query_valid, query_pos = inputs["query"]
-        updates = [getattr(self, f"cross_attns_{m}")(
-            query, inputs[m][0], attend_mask=inputs[m][1],
-            query_pos=query_pos, pos=inputs[m][2]) for m in self.memories]
-        query = torch.stack(updates, 1).mean(1)
+        names = [m for m in self.memories
+                 if self.training or m not in self.drop_memories_test]
+        if self.structure == "sequential":
+            query = self._sequential_ca(query, names, inputs, query_pos)
+        elif self.structure == "parallel":
+            query = self._parallel_ca(query, names, inputs, query_pos)
+        else:   # mixed: scene memories in parallel, then the prompt
+            query = self._parallel_ca(
+                query, [m for m in names if m != "prompt"], inputs,
+                query_pos)
+            query = self._sequential_ca(query, ["prompt"], inputs,
+                                        query_pos)
         if self.spatial_selfattn:
             query = self.self_attn(query, pairwise_locs,
                                    key_attend_mask=query_valid,
@@ -72,7 +105,8 @@ class QueryMaskEncoder(nn.Module):
                  num_layers: int = 4, num_blocks: int = 1,
                  memories: Sequence[str] = ("voxel", "mv", "pc"),
                  structure: str = "parallel", spatial_selfattn: bool = True,
-                 use_self_mask: bool = False):
+                 use_self_mask: bool = False, memory_dropout: float = 0.0,
+                 drop_memories_test: Sequence[str] = ()):
         super().__init__()
         self.num_layers = num_layers
         self.num_blocks = num_blocks
@@ -81,7 +115,9 @@ class QueryMaskEncoder(nn.Module):
         for i in range(num_layers):
             self.add_module(f"layer{i}", QueryEncoderLayer(
                 hidden_size, num_attention_heads, self.memories,
-                spatial_selfattn=spatial_selfattn, structure=structure))
+                spatial_selfattn=spatial_selfattn, structure=structure,
+                memory_dropout=memory_dropout,
+                drop_memories_test=drop_memories_test))
 
     def forward(self, inputs: Dict[str, Memory],
                 pairwise_locs: Optional[torch.Tensor] = None,

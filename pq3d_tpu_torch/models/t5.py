@@ -1,0 +1,229 @@
+"""T5 decoder stack (PyTorch); counterpart of ``pq3d_tpu/models/t5.py``.
+
+Only the decoder of T5 runs: the generation head feeds projected query
+embeddings in as the encoder states.  Token embedding, pre-RMSNorm blocks
+of [self-attention with a relative position bias, cross-attention over the
+queries, ReLU FFN], a final RMSNorm, and logits tied to the embedding and
+scaled by d_model^-0.5.  T5 attention has no 1/sqrt(d) scale; the relative
+bias lives in block 0 and is shared down the stack.  The decoder's start
+token is PAD (0); EOS is 1.
+
+``T5Decoder.forward`` is teacher forcing.  ``T5Decoder.decode`` is greedy
+decoding over a per-layer KV cache: each step embeds one token, writes its
+K/V into the cache and attends over the cached keys; the cross-attention
+K/V and the bias table are computed once before the loop.  A row that has
+emitted EOS emits PAD from then on.  ``early_exit`` stops once every row
+has emitted EOS (one device-to-host read a step), token-exact with the
+fixed-length loop.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from pq3d_tpu_torch.models.layers import masked_softmax
+
+T5_PAD_ID = 0          # also the decoder start token
+T5_EOS_ID = 1
+NUM_BUCKETS = 32       # relative-position buckets
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        var = x.float().square().mean(-1, keepdim=True)
+        return (x * torch.rsqrt(var + self.eps)).to(x.dtype) * self.weight
+
+
+def relative_position_bucket(rel_pos: torch.Tensor,
+                             num_buckets: int = NUM_BUCKETS,
+                             max_distance: int = 128) -> torch.Tensor:
+    """T5's causal relative position bucketing (the decoder's: negative
+    distances only, no bidirectional split); the log bucket is truncated
+    towards zero, as the JAX cast to int32 does."""
+    rp = -torch.clamp_max(rel_pos, 0)
+    max_exact = num_buckets // 2
+    log_ratio = torch.log(rp.clamp_min(1).float() / max_exact)
+    log_denom = torch.log(torch.tensor(max_distance / max_exact,
+                                       dtype=torch.float32))
+    large = max_exact + (log_ratio / log_denom
+                         * (num_buckets - max_exact)).to(torch.int32)
+    large = torch.clamp_max(large, num_buckets - 1)
+    return torch.where(rp < max_exact, rp.to(torch.int32), large)
+
+
+class T5Attention(nn.Module):
+    def __init__(self, d_model: int, d_kv: int, heads: int,
+                 has_rel_bias: bool = False):
+        super().__init__()
+        inner = heads * d_kv
+        self.heads = heads
+        self.d_kv = d_kv
+        self.q = nn.Linear(d_model, inner, bias=False)
+        self.k = nn.Linear(d_model, inner, bias=False)
+        self.v = nn.Linear(d_model, inner, bias=False)
+        self.o = nn.Linear(inner, d_model, bias=False)
+        self.relative_attention_bias = (
+            nn.Embedding(NUM_BUCKETS, heads) if has_rel_bias else None)
+
+    def _split(self, t):
+        return t.reshape(t.shape[0], t.shape[1], self.heads,
+                         self.d_kv).transpose(1, 2)
+
+    def pos_bias_table(self, qlen: int, klen: int) -> torch.Tensor:
+        """(1, h, qlen, klen) relative position bias."""
+        dev = self.relative_attention_bias.weight.device
+        rel = torch.arange(klen, device=dev)[None, :] \
+            - torch.arange(qlen, device=dev)[:, None]
+        bucket = relative_position_bucket(rel)
+        return self.relative_attention_bias(bucket.long()).permute(
+            2, 0, 1)[None]
+
+    def kv_proj(self, kv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._split(self.k(kv)), self._split(self.v(kv))
+
+    def attend(self, q, k, v, mask, pos_bias):
+        logits = torch.einsum("bhqd,bhkd->bhqk", q, k)   # no 1/sqrt(d)
+        if pos_bias is not None:
+            logits = logits + pos_bias
+        probs = masked_softmax(logits, mask)
+        out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
+        out = out.transpose(1, 2).reshape(out.shape[0], -1,
+                                          self.heads * self.d_kv)
+        return self.o(out)
+
+    def forward(self, x, kv, mask, pos_bias: Optional[torch.Tensor] = None):
+        q = self._split(self.q(x))
+        k, v = self.kv_proj(kv)
+        if self.relative_attention_bias is not None and pos_bias is None:
+            pos_bias = self.pos_bias_table(x.shape[1], kv.shape[1])
+        return self.attend(q, k, v, mask, pos_bias), pos_bias
+
+
+class T5DecoderBlock(nn.Module):
+    def __init__(self, d_model: int, d_kv: int, heads: int, d_ff: int,
+                 has_rel_bias: bool = False, dropout: float = 0.1):
+        super().__init__()
+        self.ln_self = RMSNorm(d_model)
+        self.self_attn = T5Attention(d_model, d_kv, heads,
+                                     has_rel_bias=has_rel_bias)
+        self.ln_cross = RMSNorm(d_model)
+        self.cross_attn = T5Attention(d_model, d_kv, heads)
+        self.ln_ff = RMSNorm(d_model)
+        self.wi = nn.Linear(d_model, d_ff, bias=False)
+        self.wo = nn.Linear(d_ff, d_model, bias=False)
+        self.drop = nn.Dropout(dropout)
+
+    def forward(self, x, enc, self_mask, cross_mask, pos_bias):
+        normed = self.ln_self(x)
+        h, pos_bias = self.self_attn(normed, normed, self_mask, pos_bias)
+        x = x + self.drop(h)
+        h, _ = self.cross_attn(self.ln_cross(x), enc, cross_mask)
+        x = x + self.drop(h)
+        f = self.drop(F.relu(self.wi(self.ln_ff(x))))
+        return x + self.drop(self.wo(f)), pos_bias
+
+    def decode_step(self, x, cache, t, cross_mask, bias_row):
+        """One token (x (B, 1, D)) at position ``t``: its K/V go into the
+        self-attention cache, which it attends over up to ``t``."""
+        normed = self.ln_self(x)
+        k_new, v_new = self.self_attn.kv_proj(normed)
+        cache["self_k"][:, :, t] = k_new[:, :, 0]
+        cache["self_v"][:, :, t] = v_new[:, :, 0]
+        q = self.self_attn._split(self.self_attn.q(normed))
+        x = x + self.self_attn.attend(q, cache["self_k"][:, :, :t + 1],
+                                      cache["self_v"][:, :, :t + 1], None,
+                                      bias_row)
+        q = self.cross_attn._split(self.cross_attn.q(self.ln_cross(x)))
+        x = x + self.cross_attn.attend(q, cache["cross_k"], cache["cross_v"],
+                                       cross_mask, None)
+        return x + self.wo(F.relu(self.wi(self.ln_ff(x))))
+
+
+class T5Decoder(nn.Module):
+    """Decoder-only T5 over external encoder states."""
+
+    def __init__(self, vocab_size: int = 32128, d_model: int = 512,
+                 d_kv: int = 64, d_ff: int = 2048, num_layers: int = 6,
+                 heads: int = 8, dropout: float = 0.1):
+        super().__init__()
+        self.d_model = d_model
+        self.heads = heads
+        self.d_kv = d_kv
+        self.num_layers = num_layers
+        self.embed = nn.Embedding(vocab_size, d_model)
+        for i in range(num_layers):
+            self.add_module(f"block{i}", T5DecoderBlock(
+                d_model, d_kv, heads, d_ff, has_rel_bias=(i == 0),
+                dropout=dropout))
+        self.ln_final = RMSNorm(d_model)
+        self.drop_final = nn.Dropout(dropout)
+
+    def _blocks(self):
+        return [getattr(self, f"block{i}") for i in range(self.num_layers)]
+
+    def _logits(self, x):
+        # tied embeddings, scaled
+        return (x * self.d_model ** -0.5) @ self.embed.weight.T
+
+    def forward(self, tokens: torch.Tensor, enc: torch.Tensor,
+                enc_mask: torch.Tensor,
+                dec_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Teacher-forced logits (B, L, vocab)."""
+        x = self.embed(tokens)
+        L = tokens.shape[1]
+        self_mask = torch.ones(L, L, dtype=torch.bool,
+                               device=tokens.device).tril()[None, None]
+        if dec_valid is not None:
+            self_mask = self_mask & dec_valid[:, None, None, :]
+        cross_mask = enc_mask[:, None, None, :]
+        pos_bias = None
+        for block in self._blocks():
+            x, pos_bias = block(x, enc, self_mask, cross_mask, pos_bias)
+        return self._logits(self.drop_final(self.ln_final(x)))
+
+    def decode(self, enc: torch.Tensor, enc_mask: torch.Tensor,
+               max_tokens: int, early_exit: bool = False) -> torch.Tensor:
+        """Greedy decode: (B, M, D) encoder states -> (B, max_tokens) token
+        ids (EOS-frozen, start token stripped)."""
+        b = enc.shape[0]
+        dev = enc.device
+        blocks = self._blocks()
+        caches = []
+        for blk in blocks:
+            ck, cv = blk.cross_attn.kv_proj(enc)
+            caches.append({
+                "self_k": ck.new_zeros(b, self.heads, max_tokens,
+                                       self.d_kv),
+                "self_v": ck.new_zeros(b, self.heads, max_tokens,
+                                       self.d_kv),
+                "cross_k": ck, "cross_v": cv})
+        bias_full = blocks[0].self_attn.pos_bias_table(max_tokens,
+                                                       max_tokens)
+        cross_mask = enc_mask[:, None, None, :]
+        cur = torch.full((b,), T5_PAD_ID, dtype=torch.long, device=dev)
+        finished = torch.zeros(b, dtype=torch.bool, device=dev)
+        out = torch.full((b, max_tokens), T5_PAD_ID, dtype=torch.long,
+                         device=dev)
+        for t in range(max_tokens):
+            x = self.embed(cur[:, None])
+            bias_row = bias_full[:, :, t:t + 1, :t + 1]
+            for blk, cache in zip(blocks, caches):
+                x = blk.decode_step(x, cache, t, cross_mask, bias_row)
+            logits = self._logits(self.ln_final(x))[:, 0]
+            nxt = torch.argmax(logits, dim=-1)
+            nxt = torch.where(finished, T5_PAD_ID, nxt)
+            finished = finished | (nxt == T5_EOS_ID)
+            out[:, t] = nxt
+            cur = nxt
+            if early_exit and bool(finished.all()):
+                break
+        return out.to(torch.int32)

@@ -1,8 +1,8 @@
-"""Serving loop: queued scenes -> batches -> one forward on the card ->
-per-scene instance predictions.
+"""Serving loop: queued requests -> batches -> one forward on the card ->
+per-request answers.
 
-Counterpart of ``pq3d_tpu/serve.py`` (``ServerStats``, ``_MicroBatchServer``
-and ``InstSegServer``), single device:
+Counterpart of ``pq3d_tpu/serve.py`` (``ServerStats``, ``_MicroBatchServer``,
+``InstSegServer`` and ``UnifiedServer``), single device:
 
 - a submit() queue with futures, so callers get per-scene results;
 - micro-batching: up to ``batch_size`` scenes per step, waiting at most
@@ -10,8 +10,10 @@ and ``InstSegServer``), single device:
   last processed scene (results for the padding rows are dropped);
 - a depth-1 pipeline: while batch N's forward runs on the card (kernels
   are queued asynchronously), batch N+1's host work runs;
-- per-scene ranking (eval/instseg_eval.rank_instances) at full point
-  resolution.
+- stage 1 (``InstSegServer``): per-scene ranking
+  (eval/instseg_eval.rank_instances) at full point resolution;
+- stage 2 (``UnifiedServer``): per-request grounding scores and object,
+  and greedy-decoded generation tokens and text.
 
 The forward runs under ``torch.inference_mode()`` on the server's device;
 device results are read back in ``_finish``.
@@ -33,6 +35,9 @@ import torch
 from pq3d_tpu_torch.data.instseg_pipeline import (InstSegPipelineConfig,
                                                   collate_processed,
                                                   process_scene)
+from pq3d_tpu_torch.data.unified_pipeline import (UnifiedPipelineConfig,
+                                                  collate_unified,
+                                                  process_item)
 from pq3d_tpu_torch.device import resolve_device
 from pq3d_tpu_torch.eval.instseg_eval import rank_instances
 
@@ -280,3 +285,83 @@ class InstSegServer(_MicroBatchServer):
                for i in range(n_real)]
         self.stats.add_stage("rank", time.time() - t1)
         return out
+
+
+class UnifiedServer(_MicroBatchServer):
+    """Micro-batching server for the stage-2 unified model: submit
+    ``(scene, lang)`` request pairs (the payloads the unified task datasets
+    produce: object points, offline features, a tokenized prompt), receive
+    ``{"ground_obj", "ground_scores", "generation_tokens", "generation"}``
+    per request (the last only with a ``detokenize``).  ``model`` must
+    already live on ``device``.
+
+    Stage seconds (``stats.stage_s``): preprocess (``process_item``),
+    collate, forward_decode (host-to-device copy and the enqueue of the
+    forward and the greedy decode) and finish (waiting for the device,
+    readback, the per-request answers)."""
+
+    def __init__(self, model, pipe_cfg: UnifiedPipelineConfig,
+                 batch_size: int, feature_dims: Dict[str, int],
+                 detokenize=None, max_delay_s: float = 0.05,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model
+        self.pipe_cfg = pipe_cfg
+        self.feature_dims = feature_dims
+        self.detokenize = detokenize
+        super().__init__(batch_size, max_delay_s)
+
+    def _forward(self, batch):
+        with torch.inference_mode():
+            out = self.model(batch)
+        return {k: out[k] for k in ("ground_logits", "generation_tokens")
+                if k in out}
+
+    def _dispatch(self, reqs):
+        n_real = len(reqs)
+        t0 = time.time()
+        processed = []
+        for scene, lang in reqs:
+            item = process_item(scene, lang, self.pipe_cfg, self._rng,
+                                False, self.feature_dims)
+            processed.append({k: v for k, v in item.items()
+                              if not k.startswith("meta_")})
+        t1 = time.time()
+        self.stats.add_stage("preprocess", t1 - t0)
+        processed += [processed[-1]] * (self.batch_size - n_real)
+        np_batch = collate_unified(processed, self.pipe_cfg,
+                                   self.feature_dims, train=False)
+        # obj_fts is the array pc_seg_fts holds; without a response the
+        # model skips the teacher-forced logits, which serving does not use
+        np_batch = {k: v for k, v in np_batch.items()
+                    if k not in ("obj_fts", "response")}
+        t2 = time.time()
+        self.stats.add_stage("collate", t2 - t1)
+        out = self._forward(to_device(np_batch, self.device))
+        self.stats.add_stage("forward_decode", time.time() - t2)
+        return (n_real, out, np_batch["query_pad_masks"])
+
+    def _finish(self, state):
+        n_real, out, obj_valid = state
+        t0 = time.time()
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        # object slots are query slots in the unified batch (one query per
+        # candidate object)
+        results = []
+        for i in range(n_real):
+            r: Dict[str, Any] = {}
+            if "ground_logits" in out:
+                scores = np.where(obj_valid[i], out["ground_logits"][i],
+                                  -np.inf)
+                r["ground_scores"] = scores
+                # no valid candidate: None, not an argmax over padding
+                r["ground_obj"] = (int(np.argmax(scores))
+                                   if obj_valid[i].any() else None)
+            if "generation_tokens" in out:
+                toks = out["generation_tokens"][i]
+                r["generation_tokens"] = toks
+                if self.detokenize is not None:
+                    r["generation"] = self.detokenize(toks.tolist())
+            results.append(r)
+        self.stats.add_stage("finish", time.time() - t0)
+        return results

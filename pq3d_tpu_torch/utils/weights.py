@@ -7,8 +7,14 @@ Conversions by module type:
 - ``nn.Linear``: Dense ``kernel`` (in, out) -> ``weight`` (out, in);
 - ``nn.LayerNorm``: ``scale`` -> ``weight`` (eps is set at construction:
   1e-6, the flax default, and 1e-12 in ``MLPHead``);
+- ``nn.Embedding``: ``embedding`` -> ``weight``;
+- ``BatchNorm`` (flax ``nn.BatchNorm``, PointNet++'s shared MLPs):
+  ``scale``/``bias`` -> ``weight``/``bias``, ``batch_stats`` ``mean``/``var``
+  -> ``running_mean``/``running_var`` (it keeps no ``num_batches_tracked``);
 - ``MaskedBatchNorm``: ``scale``/``bias`` params, ``batch_stats``
   ``mean``/``var`` buffers;
+- raw parameters keep their flax names (CLIP's ``positional_embedding``
+  and ``text_projection``, ``RMSNorm``'s ``weight``);
 - sparse convs keep their (K, Cin, Cout) layout and tap order;
 - ``DenseStemConv``'s kernel keeps the (k^3, Cin, Cout) layout too
   (``ops/sparse.conv0_dense_block`` reshapes it for ``F.conv3d``);
@@ -25,6 +31,16 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from pq3d_tpu_torch.models.layers import BatchNorm
+
+_RENAMES = {
+    nn.Linear: {"bias": "bias"},
+    nn.LayerNorm: {"scale": "weight", "bias": "bias"},
+    nn.Embedding: {"embedding": "weight"},
+    BatchNorm: {"scale": "weight", "bias": "bias", "mean": "running_mean",
+                "var": "running_var"},
+}
+
 
 def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
             ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -38,18 +54,13 @@ def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
 def _target(module: nn.Module, leaf: str, value: np.ndarray
             ) -> Tuple[str, np.ndarray]:
     """(torch attribute name, converted value) for one flax leaf."""
-    if isinstance(module, nn.Linear):
-        if leaf == "kernel":
-            return "weight", value.T
-        if leaf == "bias":
-            return "bias", value
-    elif isinstance(module, nn.LayerNorm):
-        if leaf == "scale":
-            return "weight", value
-        if leaf == "bias":
-            return "bias", value
-    else:
+    renames = _RENAMES.get(type(module))
+    if renames is None:
         return leaf, value
+    if isinstance(module, nn.Linear) and leaf == "kernel":
+        return "weight", value.T
+    if leaf in renames:
+        return renames[leaf], value
     raise KeyError(f"no counterpart for leaf {leaf!r} on "
                    f"{type(module).__name__}")
 

@@ -298,3 +298,55 @@ def test_zrun_conv_refuses_misaligned_rows(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         tzr.zrun_conv(xd, wd, zb, zc, torch.from_numpy(valid).to(cuda_device))
     assert tzr.launches == before
+
+
+@pytest.mark.cuda
+def test_unified_forward_on_the_card_matches_the_cpu(cuda_device):
+    """The stage-2 unified model (unified_tasks_synthetic: PointNet++,
+    the CLIP tower, the mixed decoder, the grounding head, T5 decode) on
+    the card against the same weights on the CPU, f32 with TF32 off:
+    ground_logits and teacher-forced logits within 1e-4 relative, greedy
+    tokens equal; then UnifiedServer answers on the card."""
+    import copy
+    from pq3d_tpu_torch.config import load_config
+    from pq3d_tpu_torch.data import unified_datasets as uds
+    from pq3d_tpu_torch.data.unified_pipeline import (
+        UnifiedPipelineConfig, collate_unified, process_item)
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.serve import UnifiedServer, to_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = load_config("unified_tasks_synthetic")
+    pipe = UnifiedPipelineConfig(**cfg["data"]["unified_options"])
+    dims = {"mv": 768, "voxel": 128}
+    sets = [cls(cfg, "train") for cls in (uds.SyntheticRefer,
+                                          uds.SyntheticQA,
+                                          uds.SyntheticCaption)]
+    reqs = [sets[i % 3].get_item(i) for i in range(6)]
+    rng = np.random.default_rng(0)
+    items = [process_item(s, l, pipe, rng, False, dims) for s, l in reqs]
+    batch = collate_unified(
+        [{k: v for k, v in it.items() if not k.startswith("meta_")}
+         for it in items], pipe, dims, train=False)
+    model = build_model(cfg, device="cpu", seed=0)
+    card = copy.deepcopy(model).to(cuda_device)
+    with torch.inference_mode():
+        ref = model(to_device(batch, torch.device("cpu")))
+        got = card(to_device(batch, cuda_device))
+    valid = torch.from_numpy(batch["query_pad_masks"])
+    for key, mask in (("ground_logits", valid), ("generation_logits", None)):
+        r = ref[key] if mask is None else ref[key][mask]
+        g = got[key].cpu() if mask is None else got[key].cpu()[mask]
+        assert ((g - r).abs().max() / r.abs().max()).item() <= 1e-4, key
+    assert torch.equal(got["generation_tokens"].cpu(),
+                       ref["generation_tokens"])
+    srv = UnifiedServer(card, pipe, batch_size=4, feature_dims=dims,
+                        max_delay_s=0.01, detokenize=uds.detokenize,
+                        device="cuda")
+    try:
+        answers = [f.result(timeout=300) for f in
+                   [srv.submit(r) for r in reqs]]
+    finally:
+        srv.close()
+    for (scene, _), a in zip(reqs, answers):
+        assert 0 <= a["ground_obj"] < len(scene["inst_labels"])
+        assert a["generation_tokens"].shape == (8,)
