@@ -84,17 +84,38 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                differ first where the CPU's top-2 logit margin is below
                1e-4; B1 and B2 are on no stage-2 path (their launches
                here are printed);
+11. unified_train -- stage-2 training end to end: the trainer that
+               pq3d_tpu_torch.run builds (build_multitask_trainer) for
+               unified_tasks_sceneverse at its widths and batch (128) on
+               SyntheticRefer, SyntheticQA and SyntheticCaption (scenes of
+               50,000 points, 32 instances; warmup set to 0); one epoch of
+               6 steps (1 warm, 5 timed) with the loaders in process
+               (num_workers=0), then one with one spawn pool of
+               min(8, cpu_count - 1) workers: per step the loss parts, the
+               gradient norm, the host pipeline's seconds and the device
+               ms of forward, loss, backward and optimizer (CUDA events);
+               steps/s, items/s, peak memory; gates: finite losses, the
+               generation head's AdamW groups at 1e-5 beside 1e-4, B1 and
+               B2 launched 0 times, one batch's loss (every dropout and
+               memory dropout off) falls over 5 steps on it; one step at
+               batch 4 on the card against a deep copy on the CPU (f32,
+               TF32 off: loss parts within 1e-5, gradient norm 1e-4, all
+               gradients together within 1e-3 in L2, every updated
+               parameter within 2.1 x the rate; the updates' L2 printed)
+               and a TF32 control that must exceed a gate; then
+               every val set evaluated (132 items each,
+               the last batch wrap-padded to 128), every item scored once;
 then a summary line (B1 against B2 in this run), one JSON line with every
 hand kernel's numbers, and the result line.
 
     python3 chip_smoke.py --profile PATH
 
 adds torch.profiler traces of one served forward (after phase 5), of one
-train step (after phase 9) and of one unified batch (forward and decode,
-phase 10): device busy time against the host clock, the idle share and the
-device time by kernel (the top rows printed, the whole tables written to
-PATH, to PATH with ``_train`` and to PATH with ``_unified`` before its
-extension).
+train step (after phase 9), of one unified batch (forward and decode,
+phase 10) and of one unified train step (phase 11): device busy time
+against the host clock, the idle share and the device time by kernel (the
+top rows printed, the whole tables written to PATH and to PATH with
+``_train``, ``_unified`` and ``_unified_train`` before its extension).
 """
 import argparse
 import contextlib
@@ -299,17 +320,24 @@ def smoke_trainer(exp_dir):
 
 @contextlib.contextmanager
 def dropout_off(model):
-    """Every dropout of ``model`` at rate 0 inside the block."""
+    """Every dropout of ``model`` at rate 0 inside the block, memory
+    dropout (the query decoder's) included."""
     import torch
     drops = [m for m in model.modules() if isinstance(m, torch.nn.Dropout)]
     rates = [m.p for m in drops]
+    layers = [m for m in model.modules() if hasattr(m, "memory_dropout")]
+    mem_rates = [m.memory_dropout for m in layers]
     for m in drops:
         m.p = 0.0
+    for m in layers:
+        m.memory_dropout = 0.0
     try:
         yield
     finally:
         for m, p in zip(drops, rates):
             m.p = p
+        for m, p in zip(layers, mem_rates):
+            m.memory_dropout = p
 
 
 def batch_loss(trainer, b):
@@ -1043,6 +1071,374 @@ def unified_phase(card, dev, profile):
             "eos_scale": scale, "tokens_equal": first_margin is None}
 
 
+UNIFIED_TRAIN_ITEMS_VAL = 132   # one full eval batch of 128 and one of 4
+# card against the CPU on one train step at batch 4 (f32, TF32 off),
+# relative; four runs on an H100 80GB HBM3 at 700 W read: the loss parts
+# at most 2.0e-7 (the TF32 control 8.8e-8 to 5.4e-5), the gradient norm
+# 2.7e-6 to 9.4e-6 (3.3e-4 to 1.4e-3), all gradients together in L2
+# 1.0e-5 to 2.9e-4 (1.0e-2 to 2.1e-2).  All updates together in L2 read
+# 1.4e-4 to 1.6e-2 (1.0e-1 to 1.5e-1) and are not gated: AdamW's first
+# step moves an element by up to the rate whatever the size of its
+# gradient, so one element with a gradient near eps reads as a whole
+# update; every element is held to 2.1 x the rate instead (one correct
+# AdamW step moves it by at most lr * (1 + wd * |p|), |p| < 5 here)
+UNIFIED_TRAIN_GATE = 1e-5    # the loss parts
+UNIFIED_TRAIN_GATES = {"grad_norm": 1e-4, "gradients": 1e-3}
+GRAD_NOISE = 1e-6   # a gradient below this share of the largest is f32 noise
+
+
+def timed_train_run(trainer, loader, epoch, label, card):
+    """One epoch of ``loader`` through ``trainer.train_epoch`` (its
+    prefetching loader included), every step synchronised and split by
+    CUDA events into forward, loss, backward and optimizer; the seconds
+    each batch took to come out of the loader (in the prefetch thread).
+    Step 1 is the warm step; steps 2-6 are timed."""
+    import torch
+    from pq3d_tpu_torch.train.state import make_train_step
+    parts = ("forward", "loss", "backward", "optimizer")
+    marks = []
+
+    def mark(part):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[-1][part] = ev
+    inner = make_train_step(trainer.model, trainer._optimizer,
+                            trainer._scheduler, trainer.loss_fn,
+                            trainer._grad_norm, mark=mark)
+    steps, host_s = [], []
+
+    def timed_step(batch):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        marks.append({"start": start})
+        out = inner(batch)
+        marks[-1]["optimizer"].synchronize()
+        m = marks[-1]
+        edges = ("start",) + parts
+        steps.append({"end": time.time(),
+                      **{p: m[a].elapsed_time(m[p])
+                         for a, p in zip(edges, parts)},
+                      **{k: float(v) for k, v in out.items()}})
+        return out
+
+    def timed_loader(ep):
+        it = iter(loader(ep))
+        while True:
+            t = time.time()
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            host_s.append(time.time() - t)
+            yield b
+
+    saved = trainer._train_step, trainer.train_data
+    trainer._train_step, trainer.train_data = timed_step, timed_loader
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        trainer.train_epoch(epoch)
+    finally:
+        trainer._train_step, trainer.train_data = saved
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    bs = loader.loaders[0].batch_size
+    for i, (s, h) in enumerate(zip(steps, host_s)):
+        print(f"unified_train {label}: step {i + 1}{' (warm)' if i == 0 else ''}"
+              f" loss {s['loss']:.4f} ground {s.get('ground_loss', 0):.4f} "
+              f"generation {s.get('generation_loss', 0):.4f} grad_norm "
+              f"{s['grad_norm']:.3f} | host pipeline {h:.3f} s | device ms "
+              + " ".join(f"{p} {s[p]:.1f}" for p in parts)
+              + f" = {sum(s[p] for p in parts):.1f}", flush=True)
+    if len(steps) != 6:
+        fail(f"unified_train {label}: the epoch ran {len(steps)} steps, "
+             f"expected 6")
+    if not all(math.isfinite(s[k]) for s in steps for k in s):
+        fail(f"unified_train {label}: a loss or gradient norm is not finite")
+    span = steps[-1]["end"] - steps[0]["end"]
+    dev = {p: sorted(s[p] for s in steps[1:])[2] for p in parts}
+    rec = {"steps_per_s": 5 / span, "items_per_s": 5 * bs / span,
+           "wall_s": wall, "host_s": host_s,
+           "host_s_timed_mean": sum(host_s[1:]) / 5,
+           "device_ms_median": dev,
+           "device_step_ms_median": sorted(
+               sum(s[p] for p in parts) for s in steps[1:])[2],
+           "peak_gib": peak / 2**30, "steps": steps}
+    print(f"unified_train {label}: 5 timed steps (2-6) in {span:.2f} s: "
+          f"{rec['steps_per_s']:.3f} steps/s, {rec['items_per_s']:.1f} "
+          f"items/s at batch {bs} | host pipeline {rec['host_s_timed_mean']:.3f}"
+          f" s a batch (steps 2-6; warm {host_s[0]:.3f}) | device ms a step "
+          f"(median of 2-6) {rec['device_step_ms_median']:.1f}: "
+          + " ".join(f"{p} {v:.1f}" for p, v in dev.items())
+          + f" | epoch wall {wall:.2f} s | max_memory_allocated "
+          f"{rec['peak_gib']:.2f} GiB | os.cpu_count() {os.cpu_count()} "
+          f"({card})", flush=True)
+    return rec
+
+
+def unified_train_check(trainer, cfg, np_batch, total_steps):
+    """One train step at batch 4 from the same weights on the card (TF32
+    off, then TF32 on as the control) and on a deep copy of the model on
+    the CPU, every dropout and memory dropout off.  Returns the readings
+    of both card runs against the CPU ({tf32: readings}) and the CPU
+    step's seconds."""
+    import copy
+    import torch
+    from pq3d_tpu_torch.optim.optimizers import build_from_config
+    from pq3d_tpu_torch.serve import to_device
+    from pq3d_tpu_torch.train.state import make_train_step
+    model = trainer.model
+    model.unified_encoder.set_memory_generator(None)
+    cpu_model = copy.deepcopy(model).cpu()
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    old = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+
+    def one_step(net, device):
+        opt, sched, gn = build_from_config(cfg, net, total_steps)
+        step = make_train_step(net, opt, sched, trainer.loss_fn, gn)
+        with dropout_off(net):
+            m = step(to_device(np_batch, device))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return ({k: float(v) for k, v in m.items()},
+                {n: p.grad.detach().cpu() for n, p in
+                 net.named_parameters()},
+                {n: p.detach().cpu() for n, p in net.named_parameters()})
+    dev = next(model.parameters()).device
+    card = {}
+    for tf32 in (False, True):
+        model.load_state_dict(start)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            card[tf32] = one_step(model, dev)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    model.unified_encoder.set_memory_generator(torch.Generator(
+        device=dev).manual_seed(int(cfg.get("rng_seed", 42))))
+    t0 = time.time()
+    ref = one_step(cpu_model, torch.device("cpu"))
+    cpu_s = time.time() - t0
+    lr = float(cfg["solver"]["lr"])
+    return ({k: step_readings(card[k], ref, old, lr) for k in card},
+            cpu_s)
+
+
+def step_readings(got, ref, old, lr):
+    """One train step against a reference step from the same weights
+    ``old``: (metrics, gradients, updated parameters) each.  Relative
+    differences of the loss parts and the gradient norm; of all gradients
+    together and of all updates (new minus old) together, in L2 (a single
+    element whose gradient is near AdamW's eps moves its update by up to
+    the rate, so per-tensor maxima say little); the per-tensor worst,
+    max|diff| / max|ref|, beside them.  Tensors whose reference gradient is
+    f32 noise (below ``GRAD_NOISE`` of the largest, but not 0) are left
+    out and their largest update is reported in units of the rate."""
+    metrics, grads, params = ref
+    gmax = max(g.abs().max().item() for g in grads.values())
+    noise = sorted(n for n, g in grads.items()
+                   if 0 < g.abs().max().item() <= GRAD_NOISE * gmax)
+    r = {k: abs(got[0][k] - v) / abs(v) for k, v in metrics.items() if v}
+    sums = {"gradients": [0.0, 0.0], "updates": [0.0, 0.0]}
+    worst = {"gradients": (0.0, ""), "updates": (0.0, "")}
+    for n, g in grads.items():
+        if n in noise:
+            continue
+        for key, a, b in (("gradients", got[1][n], g),
+                          ("updates", got[2][n] - old[n],
+                           params[n] - old[n])):
+            a, b = a.double(), b.double()
+            sums[key][0] += (a - b).square().sum().item()
+            sums[key][1] += b.square().sum().item()
+            den = b.abs().max().item()
+            if den > 0 and (a - b).abs().max().item() / den > worst[key][0]:
+                worst[key] = ((a - b).abs().max().item() / den, n)
+    for key, (num, den) in sums.items():
+        r[key] = math.sqrt(num / den)
+    r["worst"] = worst
+    r["noise"] = noise
+    r["noise_update_over_lr"] = max(
+        [(got[2][n] - old[n]).abs().max().item() / lr for n in noise]
+        or [0.0])
+    r["param_diff_over_lr"] = max(
+        (got[2][n] - p).abs().max().item() / lr for n, p in params.items())
+    return r
+
+
+def unified_train_phase(card, dev, profile):
+    """Stage-2 training at full width through the trainer that
+    ``python -m pq3d_tpu_torch.run`` builds; returns the phase's
+    numbers."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from pq3d_tpu_torch import run
+    from pq3d_tpu_torch.config import load_config
+    from pq3d_tpu_torch.data.unified_loader import (MixedTaskLoader,
+                                                    UnifiedTaskLoader)
+    from pq3d_tpu_torch.data.unified_pipeline import (collate_unified,
+                                                      process_item)
+    from pq3d_tpu_torch.ops import windowed_conv, zrun_conv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # dropout draws from the global generators: seed them so the phase's
+    # weights do not depend on what ran before it
+    torch.manual_seed(0)
+    t_phase = time.time()
+    exp_dir = tempfile.mkdtemp(prefix="pq3d_unified_train_")
+    bs = int(load_config("unified_tasks_sceneverse")["dataloader"]
+             ["batchsize"])
+    overrides = [
+        "data.train=[SyntheticRefer,SyntheticQA,SyntheticCaption]",
+        "data.synthetic.n_points=50000", "data.synthetic.n_instances=32",
+        # two train batches a dataset: 6 steps an epoch, 1 warm + 5 timed
+        f"data.synthetic.num_train={2 * bs}",
+        f"data.synthetic.num_val={UNIFIED_TRAIN_ITEMS_VAL}",
+        # the YAML's 5000-step warmup makes the first steps' updates vanish
+        "solver.sched.args.warmup_steps=0",
+        "log_every=1", "device=cuda", f"exp_dir={exp_dir}"]
+    try:
+        cfg = load_config("unified_tasks_sceneverse", overrides)
+        print("unified_train: unified_tasks_sceneverse at its widths, batch "
+              f"{cfg['dataloader']['batchsize']} (eval "
+              f"{cfg['dataloader']['batchsize_eval']}), overrides: "
+              + " ".join(overrides[:-1]), flush=True)
+        t0 = time.time()
+        trainer = run.build_multitask_trainer(cfg)
+        trainer._lazy_init()
+        model = trainer.model
+        print(f"unified_train: trainer built in {time.time() - t0:.1f} s, "
+              f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+              f"params", flush=True)
+        groups = trainer._optimizer.param_groups
+        gen_ids = {id(p) for p in model.generation_head.parameters()}
+        gen = [g for g in groups if id(g["params"][0]) in gen_ids]
+        rest = [g for g in groups if id(g["params"][0]) not in gen_ids]
+        print("unified_train: AdamW groups (initial lr, weight decay, "
+              "tensors): " + "; ".join(
+                  f"{g['initial_lr']:g}, {g['weight_decay']:g}, "
+                  f"{len(g['params'])}" for g in groups), flush=True)
+        if not (len(gen) == 2 and all(
+                all(id(p) in gen_ids for p in g["params"])
+                and g["initial_lr"] == 1e-5 for g in gen)
+                and all(g["initial_lr"] == 1e-4 for g in rest)):
+            fail("the generation head's AdamW groups are not at 1e-5 beside "
+                 "1e-4")
+
+        zrun_conv.reset_counts()            # main path starts here
+        windowed_conv.reset_counts()
+        base = trainer.train_data
+        runs = {"workers0": timed_train_run(trainer, base, 0, "workers=0",
+                                            card)}
+        nw = min(8, (os.cpu_count() or 2) - 1)
+        pooled = MixedTaskLoader(
+            [UnifiedTaskLoader(lo.dataset, lo.cfg, lo.batch_size, True,
+                               seed=lo.seed, feature_dims=lo.feature_dims,
+                               num_workers=nw) for lo in base.loaders],
+            seed=base.seed)
+        try:
+            runs[f"workers{nw}"] = timed_train_run(
+                trainer, pooled, 1, f"workers={nw}", card)
+        finally:
+            pooled.close()
+        b1, b2 = zrun_conv.launches, windowed_conv.launches  # path ends
+        lrs = [g["lr"] for g in groups]
+        print(f"unified_train: rates after {trainer.step} steps: generation "
+              f"head {gen[0]['lr']:.4e}, the rest {rest[0]['lr']:.4e} "
+              f"(ratio {gen[0]['lr'] / rest[0]['lr']:.6f}) | launches of B1 "
+              f"{b1} and B2 {b2} over both runs (neither is on the "
+              f"stage-2 path)", flush=True)
+        if abs(gen[0]["lr"] / rest[0]["lr"] - 0.1) > 1e-9 or b1 or b2 \
+                or len(set(lrs)) != 2:
+            fail("rates not at 1:10 after the steps, or a hand kernel ran on "
+                 "the stage-2 training path")
+
+        # learning: one QA batch's loss (ground and generation; train
+        # mode, every dropout and memory dropout off) before and after 5
+        # steps on it
+        one = next(iter(base.loaders[1](99)))
+        wb = trainer._put(one)
+        before = batch_loss(trainer, wb)
+        losses = [float(trainer.train_batch(one)["loss"]) for _ in range(5)]
+        after = batch_loss(trainer, wb)
+        print(f"unified_train: 5 steps on one batch, loss {losses} (dropout "
+              f"and memory dropout on); both off {before:.4f} before, "
+              f"{after:.4f} after", flush=True)
+        if not after < before:
+            fail("the unified loss did not fall over 5 steps on one batch")
+
+        # card against the CPU, one train step at batch 4
+        lo0 = base.loaders[0]
+        sets = [lo.dataset for lo in base.loaders]
+        rng = np.random.default_rng(7)
+        items = [process_item(*sets[i % 3].get_item(i), lo0.cfg, rng, True,
+                              lo0.feature_dims) for i in range(4)]
+        np_batch = collate_unified(
+            [{k: v for k, v in it.items() if not k.startswith("meta_")}
+             for it in items], lo0.cfg, lo0.feature_dims, train=True)
+        check, cpu_s = unified_train_check(trainer, cfg, np_batch,
+                                           trainer._total_steps)
+        f32, tf32 = check[False], check[True]
+        keys = [k for k in f32 if k not in (
+            "worst", "noise", "noise_update_over_lr", "param_diff_over_lr",
+            "updates")]
+        gates = {k: UNIFIED_TRAIN_GATES.get(k, UNIFIED_TRAIN_GATE)
+                 for k in keys}
+        print("unified_train: one step at batch 4, card (f32, TF32 off) vs "
+              "CPU, relative: " + " ".join(
+                  f"{k} {f32[k]:.3e} (gate {gates[k]:g})" for k in keys)
+              + " | per-tensor worst, max|diff| / max|ref|: "
+              + " ".join(f"{k} {v:.3e} {n}" for k, (v, n) in
+                         f32["worst"].items())
+              + f" | updates {f32['updates']:.3e} (not gated), updated "
+              f"parameters at most {f32['param_diff_over_lr']:.3f} x lr "
+              f"apart (gate 2.1) | TF32 control: " + " ".join(
+                  f"{k} {tf32[k]:.3e}" for k in keys + ["updates"])
+              + f" | f32-noise gradients {f32['noise']}: update "
+              f"{f32['noise_update_over_lr']:.3f} x lr | CPU step "
+              f"{cpu_s:.1f} s", flush=True)
+        if any(f32[k] > gates[k] for k in keys) \
+                or f32["noise_update_over_lr"] > 1.01 \
+                or f32["param_diff_over_lr"] > 2.1:
+            fail("the card's unified train step disagrees with the CPU's")
+        if all(tf32[k] <= gates[k] for k in keys):
+            fail("the TF32 control passes the train-step gates: they would "
+                 "not catch f32 matmuls run in TF32")
+
+        # evaluation of the three val sets, the last batch of each
+        # wrap-padded (128 + 4 real rows)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        results = trainer.eval_epoch(0)
+        torch.cuda.synchronize()
+        eval_s = time.time() - t0
+        counts = {name: ev.total_count for name, _, ev in trainer.val_sets}
+        cap = [ev for _, _, ev in trainer.val_sets if hasattr(ev, "_items")]
+        keys_scored = [len({it["key"] for it in ev._items}) for ev in cap]
+        print(f"unified_train: eval of 3 x {UNIFIED_TRAIN_ITEMS_VAL} items "
+              f"(the metrics: the [eval 0] line above) in {eval_s:.2f} s | "
+              f"items scored {counts}, distinct caption keys {keys_scored} "
+              f"| target_metric {results['target_metric']:.4f}",
+              flush=True)
+        if not all(math.isfinite(v) for v in results.values()) \
+                or set(counts.values()) != {UNIFIED_TRAIN_ITEMS_VAL} \
+                or keys_scored != [UNIFIED_TRAIN_ITEMS_VAL]:
+            fail("an eval metric is not finite or an item was not scored "
+                 "exactly once")
+        if profile:
+            stem, ext = os.path.splitext(profile)
+            profile_run(lambda: trainer.train_batch(one),
+                        "unified train step", f"{stem}_unified_train{ext}")
+        trainer._close_loaders()
+    finally:
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    total = time.time() - t_phase
+    print(f"unified_train: phase {total:.1f} s ({card})", flush=True)
+    return {"runs": runs, "check": f32, "check_tf32": tf32, "cpu_s": cpu_s,
+            "eval_s": eval_s, "loss_before": before, "loss_after": after,
+            "phase_s": total}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -1380,6 +1776,10 @@ def main():
 
     # ---- 10. unified: stage-2 serving at full width ---------------------
     unified_phase(card, dev, args.profile)
+    torch.cuda.empty_cache()
+
+    # ---- 11. unified_train: stage-2 training at full width --------------
+    unified_train_phase(card, dev, args.profile)
 
     # ---- kernels line + result -----------------------------------------
     def per_fwd(key):

@@ -2,11 +2,12 @@
 ``SyntheticInstSeg``, ``_assemble_instseg_batch`` and ``InstSegLoader`` in
 ``pq3d_tpu/data/datasets.py``.
 
-Configs are plain dicts (``pq3d_tpu_torch/config.py``).  The loader builds
-batches in the calling process (``num_workers=0``): the same per-epoch
-permutation, the same sequential rng and the same random mv/pc segment
-features as the JAX loader, so both give identical batches.  The JAX
-package's process pool and its SceneVerse reader are not ported.
+Configs are plain dicts (``pq3d_tpu_torch/config.py``).  With
+``num_workers=0`` the loader builds batches in the calling process from one
+sequential rng per epoch; with ``num_workers > 0`` in a spawn pool
+(``data/pool.py``), each batch from its own ``SeedSequence([seed, epoch,
+b])``.  Both are the JAX loader's, so either gives the JAX package's
+batches.  The SceneVerse reader is not ported.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 from pq3d_tpu_torch.data import synthetic
 from pq3d_tpu_torch.data.instseg_pipeline import (InstSegPipelineConfig,
                                                   make_batch)
+from pq3d_tpu_torch.data.pool import BatchPool
 
 
 class SyntheticInstSeg:
@@ -87,23 +89,40 @@ def _assemble_instseg_batch(dataset, pipe_cfg: InstSegPipelineConfig,
     return batch
 
 
+# worker-process state (set by the spawn initializer: the dataset is
+# pickled once per worker, not once per batch)
+_WORKER: Dict[str, Any] = {}
+
+
+def _init_instseg_worker(dataset, pipe_cfg, extra_features):
+    _WORKER["args"] = (dataset, pipe_cfg, extra_features)
+
+
+def _instseg_worker_batch(idxs, seed_key, train):
+    dataset, pipe_cfg, extra = _WORKER["args"]
+    rng = np.random.default_rng(np.random.SeedSequence(seed_key))
+    return _assemble_instseg_batch(dataset, pipe_cfg, extra, idxs, rng, train)
+
+
 class InstSegLoader:
     """Batch iterator: dataset scenes -> host pipeline -> fixed batches.
     Callable(epoch) so the trainer reshuffles per epoch; eval pads the
-    last batch by wrap-around and marks ``_meta['n_real']``."""
+    last batch by wrap-around and marks ``_meta['n_real']``.
+    ``num_workers > 0`` builds the batches in an epoch-persistent spawn
+    pool, each from ``SeedSequence([seed, epoch, b])``, in order; release
+    it with ``close()``."""
 
     def __init__(self, dataset, pipe_cfg: InstSegPipelineConfig,
                  batch_size: int, train: bool, seed: int = 0,
                  extra_features: Optional[Dict[str, int]] = None,
                  num_workers: int = 0):
-        if num_workers > 0:
-            raise NotImplementedError(
-                "the process-pool loader is not ported: num_workers=0")
         self.dataset = dataset
         self.pipe_cfg = pipe_cfg
         self.batch_size = batch_size
         self.train = train
         self.seed = seed
+        self.num_workers = num_workers
+        self._pool = None
         self.extra_features = extra_features or {"mv": 768, "pc": 768}
 
     def _batch_indices(self, epoch: int):
@@ -123,9 +142,28 @@ class InstSegLoader:
 
     def __call__(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
         batches, n_real, rng = self._batch_indices(epoch)
-        for idxs, nr in zip(batches, n_real):
-            batch = _assemble_instseg_batch(
-                self.dataset, self.pipe_cfg, self.extra_features, idxs, rng,
-                self.train)
+        if self.num_workers <= 0:
+            for idxs, nr in zip(batches, n_real):
+                batch = _assemble_instseg_batch(
+                    self.dataset, self.pipe_cfg, self.extra_features, idxs,
+                    rng, self.train)
+                batch["_meta"]["n_real"] = nr
+                yield batch
+            return
+        if self._pool is None:
+            self._pool = BatchPool(self.num_workers, _init_instseg_worker,
+                                   (self.dataset, self.pipe_cfg,
+                                    self.extra_features))
+        for batch, nr in zip(self._pool.run(
+                _instseg_worker_batch,
+                ((idxs, [self.seed, epoch, b], self.train)
+                 for b, idxs in enumerate(batches))), n_real):
             batch["_meta"]["n_real"] = nr
             yield batch
+
+    def close(self) -> None:
+        """Shut the worker pool down (each worker holds a copy of the
+        dataset)."""
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None

@@ -452,10 +452,11 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
     gen = GenerationHeadCfg()
     if m.get("generation_head") is not None:
         a = m["generation_head"]["args"]
-        if not a.get("use_projection", True):
+        if not a.get("use_projection", True) or a.get("two_phase"):
             raise NotImplementedError(
                 "the port's generation head projects the queries "
-                "(use_projection: True)")
+                "(use_projection: True) and decodes in the forward "
+                "(two_phase: False)")
         gen = GenerationHeadCfg(
             vocab_size=a.get("vocab_size", 32128),
             d_model=a.get("d_model", 512), d_kv=a.get("d_kv", 64),

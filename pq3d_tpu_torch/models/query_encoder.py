@@ -5,8 +5,12 @@ rounds of [mask prediction -> masked cross-attention over memories ->
 cross attentions see the same query, their updates averaged),
 ``sequential`` (one after another) and ``mixed`` (the scene memories in
 parallel, then the prompt).  ``drop_memories_test`` leaves the named
-memories out in eval mode; ``memory_dropout`` (train mode) and the ``gate``
-structure are not ported and raise.
+memories out in eval mode.  In train mode ``memory_dropout`` drops each
+parallel memory of each sample with that probability, keeps at least one,
+and averages the survivors; its uniform draws come from the generator
+that ``set_memory_generator`` gives (the trainer seeds it from
+``rng_seed``), never from the global RNG.  The ``gate`` structure is not
+ported and raises.
 
 Memories are a dict name -> (feat, attend_mask, pos) with True = attend.
 With ``use_self_mask`` the thresholded mask logits of each round become
@@ -27,6 +31,19 @@ from pq3d_tpu_torch.models.layers import (CrossAttentionLayer, FFNLayer,
 Memory = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
 
+def memory_keep_mean(stacked: torch.Tensor, u: torch.Tensor,
+                     p: float) -> torch.Tensor:
+    """Memory dropout of the parallel cross-attention updates ``stacked``
+    (B, M, Q, D): per sample keep memory m where ``u[b, m] > p``, keep all
+    of a sample that would keep none (at least one survivor), and average
+    the kept updates (sum over kept / number kept)."""
+    keep = u > p
+    keep = keep | (keep.sum(1, keepdim=True) == 0)
+    n_keep = keep.sum(1).to(stacked.dtype)
+    w = keep[..., None, None].to(stacked.dtype)
+    return (stacked * w).sum(1) / n_keep[:, None, None]
+
+
 class QueryEncoderLayer(nn.Module):
     """One decoder layer: per-memory cross attention in the given
     structure, then self-attention and FFN."""
@@ -43,6 +60,7 @@ class QueryEncoderLayer(nn.Module):
         self.memories = list(memories)
         self.structure = structure
         self.memory_dropout = memory_dropout
+        self.memory_generator: Optional[torch.Generator] = None
         self.drop_memories_test = set(drop_memories_test)
         self.spatial_selfattn = spatial_selfattn
         if spatial_selfattn:
@@ -66,10 +84,18 @@ class QueryEncoderLayer(nn.Module):
         return query
 
     def _parallel_ca(self, query, names, inputs, query_pos):
-        if self.training and self.memory_dropout > 0.0:
-            raise NotImplementedError("memory_dropout is not ported")
         updates = [self._cross(m, query, inputs, query_pos) for m in names]
-        return torch.stack(updates, 1).mean(1)
+        stacked = torch.stack(updates, 1)            # (B, M, Q, D)
+        if self.training and self.memory_dropout > 0.0:
+            if self.memory_generator is None:
+                raise RuntimeError(
+                    "memory_dropout draws from its own generator: call "
+                    "set_memory_generator (the trainer seeds it)")
+            u = torch.rand((query.shape[0], len(names)),
+                           generator=self.memory_generator,
+                           device=query.device)
+            return memory_keep_mean(stacked, u, self.memory_dropout)
+        return stacked.mean(1)
 
     def forward(self, query: torch.Tensor, inputs: Dict[str, Memory],
                 pairwise_locs: Optional[torch.Tensor] = None):
@@ -118,6 +144,11 @@ class QueryMaskEncoder(nn.Module):
                 spatial_selfattn=spatial_selfattn, structure=structure,
                 memory_dropout=memory_dropout,
                 drop_memories_test=drop_memories_test))
+
+    def set_memory_generator(self, generator: torch.Generator) -> None:
+        """The generator every layer's memory dropout draws from."""
+        for i in range(self.num_layers):
+            getattr(self, f"layer{i}").memory_generator = generator
 
     def forward(self, inputs: Dict[str, Memory],
                 pairwise_locs: Optional[torch.Tensor] = None,

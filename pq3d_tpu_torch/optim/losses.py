@@ -1,6 +1,8 @@
-"""Stage-1 set criterion (PyTorch); counterpart of ``batch_class_cost``,
-``batch_mask_cost``, ``instseg_layer_loss`` and ``instseg_set_loss`` in
-``pq3d_tpu/optim/losses.py``.
+"""Losses (PyTorch); counterpart of ``pq3d_tpu/optim/losses.py``: the
+stage-1 set criterion (``batch_class_cost``, ``batch_mask_cost``,
+``instseg_layer_loss``, ``instseg_set_loss``) and the stage-2 head losses
+(``cross_entropy``, ``ground_loss``, ``generation_loss``).  The direct
+criterion and ``query3d_mask_loss`` are not ported.
 
 All target tensors are padded; validity masks make the math exact.  The
 matching costs of every prediction round are built at once, read back to
@@ -179,3 +181,40 @@ def instseg_set_loss(predictions_class: List[torch.Tensor],
         total = total + losses[f"loss_ce{suffix}"] + \
             losses[f"loss_mask{suffix}"] + losses[f"loss_dice{suffix}"]
     return total, losses
+
+
+# ---------------------------------------------------------------------------
+# stage-2 head losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """Cross entropy along the last dim, in f32, after clamping the logits
+    at -100 from below; a label of the logits' shape takes the BCE branch,
+    averaged over every entry (padded object slots, whose logits are the
+    clamped -1e9, included), else the label holds class indices."""
+    logits = logits.float().clamp_min(-100)
+    if label.shape == logits.shape:
+        return _bce_logits(logits, label.float()).mean()
+    logp = torch.log_softmax(logits, -1)
+    return -torch.gather(logp.reshape(-1, logp.shape[-1]), 1,
+                         label.reshape(-1, 1).long()).mean()
+
+
+def ground_loss(out: Dict, batch: Dict) -> torch.Tensor:
+    return cross_entropy(out["ground_logits"], batch["tgt_object_id"])
+
+
+def generation_loss(out: Dict, batch: Dict, pad_id: int = 0
+                    ) -> torch.Tensor:
+    """Teacher-forced sequence cross entropy (f32 log-softmax over the
+    vocabulary), averaged over the valid response tokens
+    (``response_valid``, else the tokens that are not ``pad_id``)."""
+    logits = out["generation_logits"].float()
+    labels = batch["response"]
+    valid = batch.get("response_valid")
+    if valid is None:
+        valid = labels != pad_id
+    valid = valid.float()
+    logp = torch.log_softmax(logits, -1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    return (nll * valid).sum() / valid.sum().clamp_min(1)

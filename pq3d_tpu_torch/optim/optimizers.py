@@ -1,14 +1,18 @@
 """Optimizer, LR schedule and gradient clipping (PyTorch); counterpart of
-``pq3d_tpu/optim/optimizers.py`` for the stage-1 solver: AdamW with the
-``no_decay_mask`` rule, the reference-exact ``warmup_cosine`` schedule as
-a ``LambdaLR``, and optax's ``clip_by_global_norm``.  Adam, SGD, Lion,
-the other schedules, per-module LRs and gradient accumulation are not
-ported.
+``pq3d_tpu/optim/optimizers.py``: AdamW with the ``no_decay_mask`` rule,
+per-module learning rates (``lr_scale_mask``), the reference-exact
+``warmup_cosine`` schedule as a ``LambdaLR``, and optax's
+``clip_by_global_norm``.  Adam, SGD, Lion, the other schedules and
+gradient accumulation are not ported.
+
+A per-module rate is its own AdamW parameter groups at that rate under the
+same ``LambdaLR``: JAX scales the whole AdamW update, decay term included,
+by ``lr_module / lr`` after the optimizer, which is the same update.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterable, List, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -42,46 +46,63 @@ def lr_lambda(name: str, total_steps: int, warmup_steps: int = 0):
     return f
 
 
-def param_groups(model: nn.Module, weight_decay: float
+def param_groups(model: nn.Module, weight_decay: float,
+                 lr: Optional[float] = None,
+                 module_lrs: Optional[Dict[str, float]] = None
                  ) -> List[Dict[str, Any]]:
-    """AdamW's two groups: the trainable parameters that :func:`decays`
-    selects, with ``weight_decay``, and the rest without."""
-    groups: Dict[bool, List[torch.Tensor]] = {True: [], False: []}
+    """AdamW's groups: the trainable parameters split by rate (a top-level
+    module named in ``module_lrs`` at its own, the rest at ``lr``, the
+    optimizer's default when None; the base-rate groups first) and by
+    :func:`decays` (``weight_decay`` or none).  Up to four groups with one
+    module rate."""
+    module_lrs = module_lrs or {}
+    groups: Dict[Tuple[Optional[float], bool], List[torch.Tensor]] = {
+        (lr, True): [], (lr, False): []}
     for name, p in model.named_parameters():
         if p.requires_grad:
-            groups[decays(name, p)].append(p)
-    return [{"params": ps, "weight_decay": weight_decay if dec else 0.0}
-            for dec, ps in groups.items() if ps]
+            rate = module_lrs.get(name.split(".", 1)[0], lr)
+            groups.setdefault((rate, decays(name, p)), []).append(p)
+    return [{"params": ps, "weight_decay": weight_decay if dec else 0.0,
+             **({} if rate is None else {"lr": float(rate)})}
+            for (rate, dec), ps in groups.items() if ps]
 
 
 def build_optimizer(model: nn.Module, name: str = "AdamW", lr: float = 1e-4,
                     total_steps: int = 10000, warmup_steps: int = 0,
                     sched_name: str = "warmup_cosine", betas=(0.9, 0.98),
-                    weight_decay: float = 0.01):
-    """(AdamW, LambdaLR).  AdamW's eps is optax's 1e-8; torch's update
-    equals optax's ``adamw`` up to float rounding."""
+                    weight_decay: float = 0.01,
+                    module_lrs: Optional[Dict[str, float]] = None):
+    """(AdamW, LambdaLR); the schedule scales every group's rate.  AdamW's
+    eps is optax's 1e-8; torch's update equals optax's ``adamw`` up to
+    float rounding."""
     if name.lower() != "adamw":
         raise NotImplementedError(f"optimizer {name!r} is not ported "
                                   "(AdamW only)")
-    opt = torch.optim.AdamW(param_groups(model, weight_decay), lr=lr,
-                            betas=tuple(betas), eps=1e-8)
+    opt = torch.optim.AdamW(param_groups(model, weight_decay, lr,
+                                         module_lrs),
+                            lr=lr, betas=tuple(betas), eps=1e-8)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lr_lambda(sched_name, total_steps, warmup_steps))
     return opt, sched
 
 
+def module_lrs_of(model_cfg: Dict[str, Any]) -> Dict[str, float]:
+    """The per-module rates a model config sets: ``<head>_head.lr`` for
+    each of its heads and ``<enc>.lr`` for the four encoders."""
+    names = [f"{h}_head" for h in model_cfg.get("heads") or ()]
+    names += ["txt_encoder", "mv_encoder", "pc_encoder", "voxel_encoder"]
+    return {n: float(model_cfg[n]["lr"]) for n in names
+            if isinstance(model_cfg.get(n), dict)
+            and model_cfg[n].get("lr") is not None}
+
+
 def build_from_config(cfg: Dict[str, Any], model: nn.Module,
                       total_steps: int):
     """(optimizer, scheduler, grad_norm max or None) from the config's
-    ``solver`` section."""
+    ``solver`` section and the model's per-module rates."""
     solver = cfg["solver"]
     if int(solver.get("gradient_accumulation_steps", 1) or 1) > 1:
         raise NotImplementedError("gradient accumulation is not ported")
-    lr_set = [k for k, v in cfg["model"].items()
-              if isinstance(v, dict) and v.get("lr") is not None]
-    if lr_set:
-        raise NotImplementedError(f"per-module LRs ({lr_set}) are not "
-                                  "ported")
     optim = solver.get("optim") or {}
     oargs = optim.get("args") or {}
     sched = solver.get("sched") or {}
@@ -92,7 +113,8 @@ def build_from_config(cfg: Dict[str, Any], model: nn.Module,
         warmup_steps=int(sargs.get("warmup_steps", 0)),
         sched_name=sched.get("name", "warmup_cosine"),
         betas=tuple(oargs.get("betas", [0.9, 0.98])),
-        weight_decay=float(oargs.get("weight_decay", 0.01)))
+        weight_decay=float(oargs.get("weight_decay", 0.01)),
+        module_lrs=module_lrs_of(cfg["model"]))
     grad_norm = float(solver.get("grad_norm", 0) or 0) or None
     return opt, lr_sched, grad_norm
 

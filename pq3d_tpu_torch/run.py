@@ -1,13 +1,16 @@
-"""Experiment runner (CLI); counterpart of ``build_instseg_trainer`` and
-``main`` in ``pq3d_tpu/run.py``:
+"""Experiment runner (CLI); counterpart of ``build_instseg_trainer``,
+``build_multitask_trainer`` and ``main`` in ``pq3d_tpu/run.py``:
 
     python -m pq3d_tpu_torch.run --config-name instseg_sceneverse \\
         data.train=[SyntheticInstSeg] data.val=[SyntheticInstSeg] \\
         solver.epochs=2 device=cpu
+    python -m pq3d_tpu_torch.run --config-name unified_tasks_sceneverse \\
+        data.train=[SyntheticRefer,SyntheticQA,SyntheticCaption]
 
 Loads the named config dict (``pq3d_tpu_torch/config.py``), applies dotted
 overrides, names the experiment dir, snapshots the resolved config as
-``config.json``, builds the stage-1 trainer and runs train or test.
+``config.json``, builds the trainer of the config's ``task`` (``InstSeg``:
+stage 1; ``Query3D``: stage 2, the unified tasks) and runs train or test.
 ``device`` (default ``cuda``) picks where the model runs; ``resume=True``
 with ``exp_dir=...`` reloads that dir's snapshot and continues from its
 ``latest`` checkpoint.
@@ -90,6 +93,81 @@ def build_instseg_trainer(cfg: Dict[str, Any]):
                           device=device)
 
 
+def build_multitask_trainer(cfg: Dict[str, Any]):
+    """The stage-2 trainer of a resolved config: for each dataset of
+    ``data.train`` a train loader (``dataloader.num_workers``) and a val
+    loader with the evaluator the dataset names; the train loaders mixed;
+    the model (``build_model``); the weighted ``Loss`` of ``loss_list``."""
+    from pq3d_tpu_torch.data import unified_datasets
+    from pq3d_tpu_torch.data.tokenizers import build_tokenizers
+    from pq3d_tpu_torch.data.unified_loader import (MixedTaskLoader,
+                                                    UnifiedTaskLoader)
+    from pq3d_tpu_torch.data.unified_pipeline import UnifiedPipelineConfig
+    from pq3d_tpu_torch.eval import caption_eval, grounding_eval, qa_eval
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.optim.loss_aggregator import Loss
+    from pq3d_tpu_torch.train.trainer import MultitaskTrainer
+
+    if cfg.get("trainer", "MultitaskTrainer") != "MultitaskTrainer":
+        raise NotImplementedError(f"trainer {cfg['trainer']!r} is not ported")
+    datasets = {n: getattr(unified_datasets, n) for n in
+                ("SyntheticRefer", "SyntheticQA", "SyntheticCaption")}
+    evaluators = {n: getattr(mod, n) for mod, names in (
+        (grounding_eval, ("ScanReferEval", "ReferIt3DEval",
+                          "Multi3DReferEval")),
+        (qa_eval, ("ScanQAEval", "ScanQAGenEval", "SQA3DEval",
+                   "SQA3DGenEval")),
+        (caption_eval, ("Scan2CapEval",))) for n in names}
+    uo = cfg["data"].get("unified_options") or {}
+    if uo.get("flat_obj"):
+        raise NotImplementedError("the flat object layout is not ported")
+    pipe_cfg = UnifiedPipelineConfig(
+        max_obj_len=int(uo.get("max_obj_len", 80)),
+        num_points=int(uo.get("num_points", 1024)),
+        prompt_len=int(uo.get("prompt_len", 32)),
+        response_len=int(uo.get("response_len", 32)),
+        dim_loc=int(cfg["model"]["obj_loc"]["dim_loc"]))
+    seed = int(cfg.get("rng_seed", 42))
+    dl = cfg["dataloader"]
+    bs = int(dl["batchsize"])
+    bs_eval = int(dl.get("batchsize_eval", bs))
+    nw = int(dl.get("num_workers", 0))
+    save = bool((cfg.get("eval") or {}).get("save"))
+    train_loaders, val_sets = [], []
+    steps_per_epoch = 0
+    for ds_name in cfg["data"]["train"]:
+        if ds_name not in datasets:
+            raise NotImplementedError(
+                f"dataset {ds_name!r} is not ported; the port trains on "
+                f"{sorted(datasets)}")
+        train_ds = datasets[ds_name](cfg, "train")
+        train_loaders.append(UnifiedTaskLoader(train_ds, pipe_cfg, bs, True,
+                                               seed=seed, num_workers=nw))
+        steps_per_epoch += len(train_ds) // bs
+        val_loader = UnifiedTaskLoader(datasets[ds_name](cfg, "val"),
+                                       pipe_cfg, bs_eval, False, seed=seed)
+        ev_name = train_ds.evaluator
+        save_dir = (os.path.join(cfg["exp_dir"], "eval_results", ev_name)
+                    if save else None)
+        val_sets.append((ds_name, val_loader,
+                         evaluators[ev_name](save_dir=save_dir)))
+
+    device = cfg.get("device", "cuda")
+    model = build_model(cfg, device=device, seed=seed)
+    loss_fn = Loss(list(cfg["model"].get("loss_list",
+                                         ["ground_loss", "generation_loss"])),
+                   cfg["model"].get("loss_weights") or {})
+    return MultitaskTrainer(
+        cfg, model, loss_fn, MixedTaskLoader(train_loaders, seed=seed),
+        val_sets=val_sets, detokenize=build_tokenizers(cfg).detokenize,
+        total_steps=_optimizer_total_steps(cfg, steps_per_epoch),
+        device=device)
+
+
+BUILDERS = {"InstSeg": build_instseg_trainer,
+            "Query3D": build_multitask_trainer}
+
+
 def experiment_name(cfg: Dict[str, Any]) -> str:
     """The config's name (``Debug_test`` under ``debug.flag``); the JAX
     runner's ``naming_keywords`` suffixes are not ported (no port config
@@ -131,9 +209,10 @@ def main(argv: Optional[List[str]] = None):
         json.dump(cfg, f, indent=1)
 
     task = cfg.get("task", "InstSeg")
-    if task != "InstSeg":
-        raise NotImplementedError(f"task {task!r} is not ported (InstSeg)")
-    trainer = build_instseg_trainer(cfg)
+    if task not in BUILDERS:
+        raise NotImplementedError(f"task {task!r} is not ported "
+                                  f"({sorted(BUILDERS)})")
+    trainer = BUILDERS[task](cfg)
     if cfg.get("mode", "train") == "train":
         trainer.run()
     else:

@@ -21,17 +21,25 @@ LossFn = Callable[[Dict, Dict], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     scheduler, loss_fn: LossFn,
-                    grad_norm_max: Optional[float] = None):
+                    grad_norm_max: Optional[float] = None,
+                    mark: Optional[Callable[[str], None]] = None):
     """``step(batch) -> metrics``: ``loss``, ``grad_norm`` (before the
-    clip) and the loss parts, as detached device scalars."""
+    clip) and the loss parts, as detached device scalars.  ``mark``, when
+    given, is called with ``"forward"``, ``"loss"``, ``"backward"`` and
+    ``"optimizer"`` as each part of the step has been issued (a profiler
+    records an event there)."""
     params = [p for p in model.parameters() if p.requires_grad]
+    mark = mark or (lambda part: None)
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
         model.train()
         out = model(batch)
+        mark("forward")
         total, parts = loss_fn(out, batch)
+        mark("loss")
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        mark("backward")
         grads = []
         for p in params:
             if p.grad is None:
@@ -42,6 +50,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             clip_by_global_norm_(grads, grad_norm_max, norm)
         optimizer.step()
         scheduler.step()
+        mark("optimizer")
         return {"loss": total.detach(), "grad_norm": norm,
                 **{k: v.detach() for k, v in parts.items()}}
 

@@ -1,6 +1,6 @@
-"""Stage-1 trainer: config-driven host orchestration of the train and eval
-steps; counterpart of ``prefetch_batches`` and ``Query3DTrainer`` in
-``pq3d_tpu/train/trainer.py``.
+"""Trainers: config-driven host orchestration of the train and eval steps;
+counterpart of ``prefetch_batches``, ``Query3DTrainer`` (stage 1) and
+``MultitaskTrainer`` (stage 2) in ``pq3d_tpu/train/trainer.py``.
 
 One card, no mesh (multi-GPU data parallelism is a later slice).  The host
 pipeline runs in a background thread (``prefetch_batches``) so it overlaps
@@ -10,7 +10,10 @@ the step on the card.  The optimizer and schedule are built once
 epoch saves ``latest``, every ``epochs_per_save`` epochs ``ckpt_N``, and
 every improvement of the evaluator's target metric ``best``.  SIGUSR1 or
 SIGTERM saves ``latest`` after the current step and ends the run, so a
-requeued job resumes.
+requeued job resumes.  Train-mode memory dropout draws from a generator
+on the model's device that ``_lazy_init`` seeds from ``rng_seed`` (a resume
+seeds it afresh; its state is not checkpointed).  Loaders with worker
+pools are closed when ``run`` ends.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from pq3d_tpu_torch.device import resolve_device
+from pq3d_tpu_torch.eval.base import truncate_batch_rows
 from pq3d_tpu_torch.serve import to_device
 from pq3d_tpu_torch.train.checkpoints import CheckpointManager
 from pq3d_tpu_torch.train.metrics import ExpTracker, MetricsLogger
@@ -55,30 +59,6 @@ def prefetch_batches(batch_iter: Iterable, n_prefetch: int = 2):
                 raise RuntimeError("data loader thread failed") from err[0]
             break
         yield b
-
-
-def truncate_batch_rows(tree: Any, n_real: int, batch_rows: int) -> Any:
-    """Drop the wrap-padding rows of a final eval batch (the JAX package's
-    ``eval/base.truncate_batch_rows``): numpy arrays led by the batch
-    dimension, lists of them, and per-row lists are cut to ``n_real``."""
-    if n_real >= batch_rows:
-        return tree
-
-    def cut(x):
-        if isinstance(x, dict):
-            return {k: cut(v) for k, v in x.items()}
-        if isinstance(x, np.ndarray):
-            return x[:n_real] if (x.ndim >= 1
-                                  and x.shape[0] == batch_rows) else x
-        if isinstance(x, (list, tuple)):
-            if x and all(isinstance(v, np.ndarray) and v.ndim >= 1
-                         and v.shape[0] == batch_rows for v in x):
-                return type(x)(v[:n_real] for v in x)
-            if len(x) == batch_rows:
-                return type(x)(x[:n_real])
-            return type(x)(cut(v) for v in x)
-        return x
-    return cut(tree)
 
 
 def _to_numpy(out: Dict[str, Any]) -> Dict[str, Any]:
@@ -116,7 +96,7 @@ class Query3DTrainer:
         self.ckpt = CheckpointManager(os.path.join(self.exp_dir, "ckpt"))
         self.step = 0
         self._total_steps = total_steps
-        self._optimizer = self._scheduler = None
+        self._optimizer = self._scheduler = self._grad_norm = None
         self._train_step = self._eval_step = None
         self._preempted = False
 
@@ -125,12 +105,15 @@ class Query3DTrainer:
         if self.cfg.get("pretrain_ckpt_path"):
             raise NotImplementedError(
                 "warm start from a pretrained checkpoint is not ported")
+        self.model.unified_encoder.set_memory_generator(torch.Generator(
+            device=self.device).manual_seed(int(self.cfg.get("rng_seed",
+                                                             42))))
         total = self._total_steps or (self.epochs * 1000)
-        self._optimizer, self._scheduler, grad_norm = build_from_config(
-            self.cfg, self.model, total)
+        self._optimizer, self._scheduler, self._grad_norm = \
+            build_from_config(self.cfg, self.model, total)
         self._train_step = make_train_step(self.model, self._optimizer,
                                            self._scheduler, self.loss_fn,
-                                           grad_norm)
+                                           self._grad_norm)
         self._eval_step = make_eval_step(self.model, self.loss_fn)
         n_params = sum(p.numel() for p in self.model.parameters())
         print(f"[trainer] initialized: {n_params / 1e6:.2f}M params, "
@@ -226,22 +209,101 @@ class Query3DTrainer:
         if self.epochs_per_save and (epoch + 1) % self.epochs_per_save == 0:
             self._save(f"ckpt_{epoch + 1}")
 
+    def _close_loaders(self) -> None:
+        """Release the loaders' worker pools (each worker holds a copy of
+        its dataset)."""
+        for ld in (self.train_data, self.val_data):
+            if hasattr(ld, "close"):
+                ld.close()
+
     def run(self):
         self.install_preemption_handler()
         if self._train_step is None:
             # restores the tracker on resume before the epoch range is set
             self._lazy_init()
-        for epoch in range(self.tracker.epoch, self.epochs):
-            metrics = self.train_epoch(epoch)
-            if self._handle_preemption():
-                return
-            print(f"[epoch {epoch}] loss={metrics.get('loss', float('nan')):.4f}"
-                  f" ({metrics.get('batches', 0)} steps, "
-                  f"{metrics.get('epoch_time_s', 0):.1f}s)")
-            self.tracker.epoch = epoch + 1
-            if self.epochs_per_eval and \
-                    (epoch + 1) % self.epochs_per_eval == 0:
-                results = self.eval_epoch(epoch)
-                if self.tracker.is_better(results.get("target_metric", 0.0)):
-                    self._save("best")
-            self._save_epoch_ckpts(epoch)
+        try:
+            for epoch in range(self.tracker.epoch, self.epochs):
+                metrics = self.train_epoch(epoch)
+                if self._handle_preemption():
+                    return
+                print(f"[epoch {epoch}] loss="
+                      f"{metrics.get('loss', float('nan')):.4f} "
+                      f"({metrics.get('batches', 0)} steps, "
+                      f"{metrics.get('epoch_time_s', 0):.1f}s)")
+                self.tracker.epoch = epoch + 1
+                if self.epochs_per_eval and \
+                        (epoch + 1) % self.epochs_per_eval == 0:
+                    results = self.eval_epoch(epoch)
+                    if self.tracker.is_better(
+                            results.get("target_metric", 0.0)):
+                        self._save("best")
+                self._save_epoch_ckpts(epoch)
+        finally:
+            self._close_loaders()
+
+
+class MultitaskTrainer(Query3DTrainer):
+    """Stage-2 trainer: ``train_data`` is the mixed task loader,
+    ``val_sets`` a list of ``(name, loader, evaluator)``.  Evaluation
+    detokenizes the greedy tokens into ``answer_pred`` / ``caption_pred``
+    (with each row's ``task_id``), gives the evaluators the batch with its
+    ``_meta`` fields and the integer ``tgt_object_id``, scores only the
+    real rows of a wrap-padded batch, prefixes every metric with its
+    dataset's name and sums the datasets' ``target_metric``."""
+
+    def __init__(self, cfg: Dict[str, Any], model, loss_fn, train_data,
+                 val_sets=None, detokenize=None,
+                 total_steps: Optional[int] = None, device="cuda"):
+        super().__init__(cfg, model, loss_fn, train_data, None, None,
+                         total_steps=total_steps, device=device)
+        self.val_sets = list(val_sets or [])
+        self.detokenize = detokenize or (lambda toks: "")
+
+    def postprocess_for_eval(self, out: Dict[str, Any],
+                             batch: Dict[str, Any]) -> Dict[str, Any]:
+        host_out: Dict[str, Any] = {
+            k: v.float().cpu().numpy() for k, v in out.items()
+            if k in ("og3d_logits", "ground_logits", "generation_logits",
+                     "answer_scores")}
+        if "generation_tokens" in out:
+            texts = [self.detokenize(t)
+                     for t in out["generation_tokens"].cpu().numpy()]
+            host_out["answer_pred"] = texts
+            host_out["caption_pred"] = texts
+            host_out["task_id"] = np.asarray(batch["task_id"])
+        return host_out
+
+    def eval_epoch(self, epoch: int) -> Dict[str, float]:
+        all_results: Dict[str, float] = {}
+        target = 0.0
+        for name, loader, evaluator in self.val_sets:
+            evaluator.reset()
+            for batch in prefetch_batches(loader(epoch)):
+                meta = batch.get("_meta") or {}
+                n_real = int(meta.get("n_real", 0))
+                if self._eval_step is None:     # eval before any training
+                    self._lazy_init()
+                out = self._eval_step(self._put(batch))
+                host_out = self.postprocess_for_eval(out, batch)
+                eval_batch = {k: np.asarray(v) for k, v in batch.items()
+                              if not k.startswith("_")}
+                eval_batch.update({k: v for k, v in meta.items()
+                                   if k != "n_real"})
+                if "tgt_object_id_int" in eval_batch:
+                    eval_batch["tgt_object_id"] = \
+                        eval_batch["tgt_object_id_int"]
+                if n_real:
+                    rows = int(eval_batch["query_pad_masks"].shape[0])
+                    host_out = truncate_batch_rows(host_out, n_real, rows)
+                    eval_batch = truncate_batch_rows(eval_batch, n_real,
+                                                     rows)
+                evaluator.update(host_out, eval_batch)
+            results = evaluator.record()
+            for k, v in results.items():
+                all_results[f"{name}/{k}"] = v
+            target += results.get("target_metric", 0.0)
+            self.logger.log(results, self.step, prefix=f"val-{name}")
+        all_results["target_metric"] = target
+        print(f"[eval {epoch}] " + " ".join(
+            f"{k}={v:.4f}" for k, v in all_results.items()))
+        return all_results

@@ -350,3 +350,82 @@ def test_unified_forward_on_the_card_matches_the_cpu(cuda_device):
     for (scene, _), a in zip(reqs, answers):
         assert 0 <= a["ground_obj"] < len(scene["inst_labels"])
         assert a["generation_tokens"].shape == (8,)
+
+
+@pytest.mark.cuda
+def test_unified_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One stage-2 train step (unified_tasks_synthetic, memory dropout and
+    every dropout off, PointNet++ trained, AdamW with the T5 head at 1e-5,
+    warmup off) on the card against the same step on the CPU from the same
+    weights, f32 with TF32 off: loss parts and gradient norm within 1e-5
+    relative; all gradients together within 1e-3 and all updates (new
+    minus old) together within 1e-2, relative in L2 (an H100 read 5.6e-5
+    and 2.5e-3; one element whose
+    gradient is near AdamW's eps moves its update by up to the rate, so a
+    per-tensor maximum would read that element alone); a tensor whose CPU
+    gradient is f32 noise, below 1e-6 of the largest, is held to the rate
+    instead."""
+    import copy
+    from pq3d_tpu_torch.config import load_config
+    from pq3d_tpu_torch.data import unified_datasets as uds
+    from pq3d_tpu_torch.data.unified_pipeline import (
+        UnifiedPipelineConfig, collate_unified, process_item)
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.optim.loss_aggregator import Loss
+    from pq3d_tpu_torch.optim.optimizers import build_from_config
+    from pq3d_tpu_torch.serve import to_device
+    from pq3d_tpu_torch.train.state import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_config("unified_tasks_synthetic", [
+        "model.unified_encoder.args.memory_dropout=0.0",
+        "solver.sched.args.warmup_steps=0"])
+    pipe = UnifiedPipelineConfig(**cfg["data"]["unified_options"])
+    dims = {"mv": 768, "voxel": 128}
+    sets = [cls(cfg, "train") for cls in (uds.SyntheticRefer,
+                                          uds.SyntheticQA,
+                                          uds.SyntheticCaption)]
+    rng = np.random.default_rng(0)
+    items = [process_item(*sets[i % 3].get_item(i), pipe, rng, True, dims)
+             for i in range(6)]
+    batch = collate_unified(
+        [{k: v for k, v in it.items() if not k.startswith("meta_")}
+         for it in items], pipe, dims, train=True)
+    model = build_model(cfg, device="cpu", seed=0).train()
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    card = copy.deepcopy(model).to(cuda_device)
+    old = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loss = Loss(cfg["model"]["loss_list"], cfg["model"]["loss_weights"])
+    metrics = {}
+    for name, net, dev in (("cpu", model, torch.device("cpu")),
+                           ("card", card, cuda_device)):
+        opt, sched, gn = build_from_config(cfg, net, 100)
+        step = make_train_step(net, opt, sched, loss, gn)
+        metrics[name] = {k: float(v) for k, v in
+                         step(to_device(batch, dev)).items()}
+    for key, ref in metrics["cpu"].items():
+        got = metrics["card"][key]
+        assert abs(got - ref) <= 1e-5 * abs(ref), (key, ref, got)
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    gmax = max(g.abs().max().item() for g in grads.values())
+    noise = {n for n, g in grads.items()
+             if 0 < g.abs().max().item() <= 1e-6 * gmax}
+    lr = float(cfg["solver"]["lr"])
+    card_p = {n: p.detach().cpu() for n, p in card.named_parameters()}
+    card_g = {n: p.grad.cpu() for n, p in card.named_parameters()}
+    sums = {"gradients": [0.0, 0.0], "updates": [0.0, 0.0]}
+    for n, p in model.named_parameters():
+        if n in noise:
+            assert (card_p[n] - old[n]).abs().max().item() <= 1.01 * lr * (
+                1 + 0.01 * old[n].abs().max().item()), n
+            continue
+        for key, a, b in (("gradients", card_g[n], grads[n]),
+                          ("updates", card_p[n] - old[n],
+                           p.detach() - old[n])):
+            sums[key][0] += (a.double() - b.double()).square().sum().item()
+            sums[key][1] += b.double().square().sum().item()
+    rel = {k: (num / den) ** 0.5 for k, (num, den) in sums.items()}
+    print(f"unified train step, card vs CPU (L2, relative): {rel}")
+    assert rel["gradients"] <= 1e-3 and rel["updates"] <= 1e-2, rel

@@ -20,7 +20,10 @@ NEEDED = ["pq3d_tpu_torch." + m for m in (
     "run", "train.trainer", "train.state", "train.checkpoints",
     "train.metrics", "optim.losses", "optim.optimizers", "data.datasets",
     "eval.instseg_eval", "eval.scannet_protocol", "ops.zrun_conv",
-    "ops.sparse", "ops.windowed_conv")]
+    "ops.sparse", "ops.windowed_conv", "data.pool", "data.unified_loader",
+    "optim.loss_aggregator", "eval.base", "eval.grounding_eval",
+    "eval.qa_eval", "eval.caption_eval", "eval.caption_metrics",
+    "eval.text_utils")]
 import pq3d_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(pq3d_tpu_torch.__path__,
                                               "pq3d_tpu_torch.")]

@@ -192,7 +192,7 @@ def test_unified_model_matches_jax(pair):
                 got["generation_logits"].numpy()) <= TOL
     np.testing.assert_array_equal(got["generation_tokens"].numpy(),
                                   np.asarray(ref["generation_tokens"]))
-    # the prompt image path and train-mode memory dropout are not ported
+    # the prompt image path is not ported
     with pytest.raises(NotImplementedError, match="image"):
         tm(dict(to_device(batch, torch.device("cpu")),
                 prompt_img_fts=torch.zeros(6, 12, 8)))

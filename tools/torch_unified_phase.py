@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Phase ``unified`` of chip_smoke.py alone, in a fresh process, on one card.
+"""Phase ``unified`` (or ``unified_train``) of chip_smoke.py alone, in a
+fresh process, on one card.
 
-    python3 tools/torch_unified_phase.py
+    python3 tools/torch_unified_phase.py           # stage-2 serving
+    python3 tools/torch_unified_phase.py --train   # stage-2 training
 
-Serves the full-width unified_tasks_sceneverse model exactly as the phase
-does inside chip_smoke.py (same requests, gates and prints), without the
-stage-1 phases before it, so the two runs' host-side numbers (scenes/s,
-forward_decode seconds, the decode span) can be set side by side.
+Runs the phase exactly as chip_smoke.py does (same inputs, gates and
+prints), without the phases before it, so its host-side numbers
+(scenes/s or steps/s, host seconds, device spans) can be set beside the
+whole script's.
 """
 import os
 import subprocess
@@ -27,9 +29,13 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(card, flush=True)
+    train = "--train" in sys.argv[1:]
+    phase = chip_smoke.unified_train_phase if train \
+        else chip_smoke.unified_phase
     t0 = time.time()
-    chip_smoke.unified_phase(card, torch.device("cuda"), None)
-    print(f"unified phase alone: {time.time() - t0:.1f} s", flush=True)
+    phase(card, torch.device("cuda"), None)
+    print(f"{'unified_train' if train else 'unified'} phase alone: "
+          f"{time.time() - t0:.1f} s", flush=True)
 
 
 if __name__ == "__main__":
