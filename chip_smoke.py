@@ -105,6 +105,29 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                and a TF32 control that must exceed a gate; then
                every val set evaluated (132 items each,
                the last batch wrap-padded to 128), every item scored once;
+12. recipe -- the JAX package's two-stage recipe (tools/dress_rehearsal.py)
+               on files in the SceneVerse layout: write_replica writes 8 + 2
+               scans at real-scan statistics (150,000 points, 28 objects
+               plus wall, floor and ceiling, 8 annotations a task a scan;
+               seconds, bytes, voxels, segments and instances a scan);
+               through pq3d_tpu_torch.run: stage 1 (instseg_sceneverse,
+               pallas_conv: true, offline segment features) for one epoch
+               at batch 4 with the official-protocol eval at full
+               resolution, its resume for a second epoch, the GT-query
+               variant (instseg_sceneverse_gt) for 2 steps, and stage 2
+               (unified_tasks_sceneverse at its widths, batch 8, the seven
+               SceneVerse datasets with predicted objects) warm-started from
+               stage 1's checkpoint for one epoch with every dataset's
+               evaluator; per run the seconds, steps/s, host-pipeline
+               seconds a batch, peak memory and B1's launches, which must
+               equal the routed convs of every forward (forward) and of
+               every train forward (dx); gates: finite metrics, no metric
+               lost across the resume, every GT batch with its offline
+               mask, a finite direct loss, train_check (phase 9) on a GT
+               batch, the warm start loading RECIPE_WARM_START_LOADED
+               tensors, finite metrics of all seven datasets; B1 against its
+               plain version at the routed shapes of 4 replica scans, with
+               its ms a forward beside phase 3's;
 then a summary line (B1 against B2 in this run), one JSON line with every
 hand kernel's numbers, and the result line.
 
@@ -524,6 +547,76 @@ def winconv_phase(scenes, batch, pipe, shapes, b1_ms, dev, flops_peak,
     del plans
     torch.cuda.empty_cache()
     return {"levels": level_recs, "shapes": recs, "launches": launches}
+
+
+def b1_shapes(zrun_conv, fm, routed, dev, flops_peak, bw_peak, label):
+    """B1 against its plain version (f32 and bf16 x, within 1e-2 of
+    max|ref|) at each routed (level, Cin, Cout) of one forward over the
+    flat maps ``fm``, on random x and W: its median ms over 20 launches,
+    the wrapper's host ms per call, the plain version's ms, the bound and
+    the slot and (tile, tap) shares.  Returns a record per shape."""
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    shapes = {}          # (level, cin, cout) -> routed convs per forward
+    for _, lvl, cin, cout in routed:
+        shapes[(lvl, cin, cout)] = shapes.get((lvl, cin, cout), 0) + 1
+    per_shape = []
+    for (lvl, cin, cout), per_fwd in sorted(shapes.items()):
+        nbr, valid = fm[f"nbr3_{lvl}"], fm[f"valid_{lvl}"]
+        n = nbr.shape[0]
+        if not zrun_conv.applicable(n, cin, cout):
+            fail(f"shape (N={n}, {cin}->{cout}) does not route")
+        zb, zc = zrun_conv.zrun_plan(nbr)
+        x = torch.randn(n, cin, generator=gen).to(dev) * valid[:, None]
+        w = (torch.randn(27, cin, cout, generator=gen) * 0.05).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt)
+            got = zrun_conv.zrun_conv(xd, w, zb, zc, valid)
+            ref = zrun_conv.zrun_conv_reference(xd, w, zb, zc, valid)
+            torch.cuda.synchronize()
+            diff = (got.float() - ref.float()).abs().max().item()
+            rel = diff / max(ref.float().abs().max().item(), 1e-12)
+            if not (rel <= 1e-2 and torch.isfinite(got).all().item()):
+                fail(f"zrun_conv disagrees with its plain version at "
+                     f"L{lvl} {cin}->{cout} {dt}: rel {rel:.3e}")
+            if dt is torch.float32:      # the main path feeds f32 x
+                ms = cuda_time(lambda: zrun_conv.zrun_conv(xd, w, zb, zc,
+                                                           valid), 20)
+                host_ms = host_time(lambda: zrun_conv.zrun_conv(
+                    xd, w, zb, zc, valid), 20)
+                plain_ms = cuda_time(lambda: zrun_conv.zrun_conv_reference(
+                    xd, w, zb, zc, valid), 5)
+                pairs = int((zc != -2).sum().item())
+                bound, by, flops, nbytes = conv_bound(
+                    n, cin, cout, pairs, zrun_plan_bytes(n, True),
+                    flops_peak, bw_peak)
+                slots, staged, mult = tap_shares(zrun_conv, zc)
+                rec = {"level": lvl, "n": n, "cin": cin, "cout": cout,
+                       "per_forward": per_fwd, "ms": ms,
+                       "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": by, "flops": flops, "dense27_flops":
+                           2.0 * n * 27 * cin * cout, "bytes": nbytes,
+                       "slot_share": slots, "tile_tap_share": staged,
+                       "mult_share": mult,
+                       "mult_flops": mult * 2.0 * n * 27 * cin * cout}
+            rec[f"max_abs_err_{'f32' if dt is torch.float32 else 'bf16'}"] \
+                = diff
+            rec[f"max_rel_err_{'f32' if dt is torch.float32 else 'bf16'}"] \
+                = rel
+        per_shape.append(rec)
+        print(f"{label}: zrun_conv L{lvl} N={n} {cin}->{cout} "
+              f"rel_err f32 {rec['max_rel_err_f32']:.2e} "
+              f"bf16 {rec['max_rel_err_bf16']:.2e} | {rec['ms']:.3f} ms "
+              f"(host {rec['host_ms']:.3f} ms a call, plain "
+              f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f}"
+              f" ms by {rec['bound_by']}, {rec['flops'] / rec['ms'] / 1e9:.1f}"
+              f" TFLOP/s on valid taps, "
+              f"{rec['mult_flops'] / rec['ms'] / 1e9:.1f} on multiplied "
+              f"tiles) | slots {rec['slot_share']:.4f}, (tile, tap) pairs "
+              f"staged {rec['tile_tap_share']:.4f}, multiplied "
+              f"{rec['mult_share']:.4f}", flush=True)
+        del x, w, zb, zc
+    return per_shape
 
 
 def kernel_bwd_phase(zrun_conv, fm, shapes, dev, flops_peak, bw_peak):
@@ -1264,6 +1357,13 @@ def step_readings(got, ref, old, lr):
     return r
 
 
+# tensors (parameters and BatchNorm statistics) of the full-width
+# unified_tasks_sceneverse model that share name and shape with the
+# instseg_sceneverse one: what the recipe's warm start must load
+# (tests/test_torch_warm_start.py::test_published_warm_start_count)
+RECIPE_WARM_START_LOADED = 200
+
+
 def unified_train_phase(card, dev, profile):
     """Stage-2 training at full width through the trainer that
     ``python -m pq3d_tpu_torch.run`` builds; returns the phase's
@@ -1439,6 +1539,297 @@ def unified_train_phase(card, dev, profile):
             "phase_s": total}
 
 
+RECIPE_SPEC = {"n_train": 8, "n_val": 2}   # real-scan statistics otherwise
+RECIPE_GATE = 2e-2                         # train_check's
+
+
+@contextlib.contextmanager
+def patched(owner, name, wrap):
+    """``owner.name`` replaced by ``wrap(original)`` inside the block."""
+    orig = getattr(owner, name)
+    setattr(owner, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def last_metrics(exp_dir, prefix):
+    """The last value of each eval metric a run logged under a prefix that
+    starts with ``prefix`` (``val`` for stage 1, ``val-<dataset>`` for
+    stage 2), keyed ``prefix/name``."""
+    out = {}
+    with open(os.path.join(exp_dir, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            p = str(rec.get("prefix", ""))
+            if p.startswith(prefix):
+                out.update({f"{p}/{k}": v for k, v in rec.items()
+                            if k not in ("step", "time", "prefix")})
+    return out
+
+
+def all_finite(metrics):
+    return bool(metrics) and all(
+        isinstance(v, (int, float)) and math.isfinite(v)
+        for v in metrics.values())
+
+
+def recipe_stage(label, argv, zrun_conv, stage1, card):
+    """One ``python -m pq3d_tpu_torch.run`` call in this process, with the
+    B1 counts set to 0 just before it and read just after.  Records each
+    batch's host-pipeline seconds (and the first train batch), each model
+    forward's mode and routed convs (stage 1), each epoch's metrics and
+    the peak memory; restores the signal handlers the trainer installs."""
+    import signal
+    import torch
+    from pq3d_tpu_torch import run
+    from pq3d_tpu_torch.data import datasets, unified_loader
+    from pq3d_tpu_torch.models.query3d import Query3DUnified
+    from pq3d_tpu_torch.train.trainer import Query3DTrainer
+    rec = {"host": [], "forwards": [], "epochs": [], "first": None,
+           "offline_mask": []}
+
+    def assembler(orig):
+        def timed(*args):
+            t = time.time()
+            batch = orig(*args)
+            train = bool(args[5])
+            rec["host"].append((train, time.time() - t))
+            if train:
+                rec["offline_mask"].append("offline_attn_mask" in batch)
+                if rec["first"] is None:
+                    rec["first"] = batch
+            return batch
+        return timed
+
+    def forward(orig):
+        def counted(self, batch):
+            if stage1:
+                rec["forwards"].append((self.training, len(
+                    self.voxel_encoder.backbone.routed_convs(
+                        level_rows(batch)))))
+            return orig(self, batch)
+        return counted
+
+    def epoch(orig):
+        def recorded(self, e):
+            out = orig(self, e)
+            rec["epochs"].append(out)
+            return out
+        return recorded
+
+    owner = (datasets, "_assemble_instseg_batch") if stage1 else \
+        (unified_loader, "_assemble_unified_batch")
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGUSR1,
+                                                 signal.SIGTERM)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zrun_conv.reset_counts()                   # this path starts here
+    t0 = time.time()
+    try:
+        with patched(*owner, assembler), \
+                patched(Query3DUnified, "forward", forward), \
+                patched(Query3DTrainer, "train_epoch", epoch):
+            trainer = run.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
+    rec["wall_s"] = time.time() - t0
+    rec["counts"] = dict(zrun_conv.phase_launches)   # and ends here
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    steps = sum(int(e["batches"]) for e in rec["epochs"])
+    epoch_s = sum(e["epoch_time_s"] for e in rec["epochs"])
+    host_train = [h for tr, h in rec["host"] if tr]
+    host_eval = [h for tr, h in rec["host"] if not tr]
+    rec.update(steps=steps, epoch_s=epoch_s,
+               steps_per_s=steps / max(epoch_s, 1e-9),
+               host_train_s=sum(host_train) / max(len(host_train), 1),
+               host_eval_s=sum(host_eval) / max(len(host_eval), 1))
+    train_routed = [n for tr, n in rec["forwards"] if tr]
+    eval_routed = [n for tr, n in rec["forwards"] if not tr]
+    rec.update(train_routed=train_routed, eval_routed=eval_routed)
+    print(f"recipe: {label}: {rec['wall_s']:.1f} s in all, {steps} steps "
+          f"in {epoch_s:.2f} s ({rec['steps_per_s']:.3f} steps/s), host "
+          f"pipeline {rec['host_train_s']:.3f} s a train batch "
+          f"({len(host_train)}), {rec['host_eval_s']:.3f} s an eval batch "
+          f"({len(host_eval)}) | max_memory_allocated "
+          f"{rec['peak'] / 2**30:.2f} GiB | zrun_conv launches fwd "
+          f"{rec['counts']['fwd']} bwd {rec['counts']['bwd']}, routed "
+          f"convs per train forward {train_routed}, per eval forward "
+          f"{eval_routed} ({card})", flush=True)
+    if stage1:
+        if len(train_routed) != steps or not all(train_routed):
+            fail(f"{label}: {len(train_routed)} train forwards with "
+                 f"routed convs {train_routed} for {steps} steps")
+        # forward: every forward's routed convs; dx: the train steps'
+        if rec["counts"]["fwd"] != sum(train_routed) + sum(eval_routed) \
+                or rec["counts"]["bwd"] != sum(train_routed):
+            fail(f"{label}: zrun_conv launches fwd {rec['counts']['fwd']} "
+                 f"bwd {rec['counts']['bwd']} against routed convs "
+                 f"{train_routed} (train) and {eval_routed} (eval)")
+    elif rec["counts"]["fwd"] or rec["counts"]["bwd"]:
+        fail(f"{label}: zrun_conv ran on the stage-2 path")
+    return trainer, rec
+
+
+def recipe_phase(card, dev, zrun_conv, synth_ms, flops_peak, bw_peak):
+    """The JAX package's two-stage recipe (tools/dress_rehearsal.py) on a
+    SceneVerse-layout replica at real-scan statistics, through
+    ``python -m pq3d_tpu_torch.run``; returns the phase's numbers."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from pq3d_tpu_torch.data.datasets import SceneVerseInstSeg, load_pth
+    from pq3d_tpu_torch.data.instseg_pipeline import (make_batch,
+                                                      pipeline_config)
+    from pq3d_tpu_torch.data.replica import ReplicaSpec, write_replica
+    from pq3d_tpu_torch.models.sparse_unet import flatten_maps
+    from pq3d_tpu_torch.ops.voxelize import quantize
+    from pq3d_tpu_torch.serve import to_device
+
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="pq3d_recipe_")
+    base, pred, aux = (os.path.join(root, d) for d in ("base", "pred",
+                                                        "aux"))
+    out = {}
+    try:
+        # ---- the replica --------------------------------------------------
+        spec = ReplicaSpec(**RECIPE_SPEC)
+        t0 = time.time()
+        ids = write_replica(base, pred, aux, spec)
+        write_s = time.time() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(root) for f in fs)
+        sd = os.path.join(base, "ScanNet", "scan_data")
+        voxels, segments, instances = [], [], []
+        for scan in ids:
+            pts = load_pth(os.path.join(sd, "pcd_with_global_alignment",
+                                        f"{scan}.pth"))[0]
+            voxels.append(len(quantize(np.asarray(pts, np.float32),
+                                       0.02)[0]))
+            segments.append(int(np.asarray(load_pth(os.path.join(
+                sd, "segment_id", f"{scan}.pth"))).max()) + 1)
+            instances.append(len(load_pth(os.path.join(
+                sd, "instance_id_to_label", f"{scan}.pth"))))
+        print(f"recipe: replica of {spec.n_train} + {spec.n_val} scans "
+              f"written in {write_s:.1f} s, {nbytes / 2**20:.1f} MiB; "
+              f"{spec.n_points} points a scan; voxels at 0.02 m {voxels}, "
+              f"segments {segments}, instances {instances}", flush=True)
+        out["replica"] = {"write_s": write_s, "bytes": nbytes,
+                          "voxels": voxels, "segments": segments,
+                          "instances": instances}
+
+        # ---- stage 1, its resume, the GT-query variant --------------------
+        s1, gtd, s2 = (os.path.join(root, d) for d in ("stage1", "gt",
+                                                        "stage2"))
+        common = [f"data.scene_verse_base={base}",
+                  f"data.scene_verse_aux={aux}",
+                  "data.load_scan_options.load_image_segment_feat=true",
+                  "data.load_scan_options.load_point_segment_feat=true",
+                  "model.voxel_encoder.args.pallas_conv=true",
+                  "log_every=1", "device=cuda"]
+        t1, r1 = recipe_stage("stage 1 (instseg_sceneverse)", [
+            "--config-name", "instseg_sceneverse", *common, f"exp_dir={s1}",
+            "solver.epochs=1", "solver.epochs_per_eval=1"], zrun_conv, True,
+            card)
+        m1 = last_metrics(s1, "val")
+        del t1
+        t1b, r1b = recipe_stage("stage 1 resumed", [
+            "--config-name", "instseg_sceneverse", f"exp_dir={s1}",
+            "resume=true", "solver.epochs=2", "solver.epochs_per_eval=2"],
+            zrun_conv, True, card)
+        m1b = last_metrics(s1, "val")
+        lost = sorted(set(m1) - set(m1b))
+        print(f"recipe: stage 1 eval (official protocol, full resolution) "
+              f"{ {k: m1[k] for k in sorted(m1)[:4]} } ...; after the "
+              f"resume (epoch {t1b.tracker.epoch}) "
+              f"{ {k: m1b[k] for k in sorted(m1b)[:4]} } ...; "
+              f"{len(m1b)} metrics", flush=True)
+        if not (all_finite(m1) and all_finite(m1b)) or lost \
+                or t1b.tracker.epoch != 2:
+            fail(f"stage 1: metrics not finite or lost across the resume "
+                 f"{lost}")
+
+        # B1 on a batch of 4 of these scans (eval mode), beside the
+        # synthetic phase's 4 served scenes
+        cfg1 = t1b.cfg
+        scenes_ds = SceneVerseInstSeg(cfg1, "train")
+        batch = make_batch([scenes_ds.get_scene(i) for i in range(4)],
+                           pipeline_config(cfg1["data"]["instseg_options"]),
+                           np.random.default_rng(0))
+        rows = level_rows(batch)
+        routed = t1b.model.voxel_encoder.backbone.routed_convs(rows)
+        print(f"recipe: 4 replica scans collated, flat level rows {rows}, "
+              f"{len(routed)} routed convs a forward: "
+              f"{[r[0] for r in routed]}", flush=True)
+        fm = flatten_maps(to_device(batch["maps"], dev))
+        b1 = b1_shapes(zrun_conv, fm, routed, dev, flops_peak, bw_peak,
+                       "recipe")
+        b1_ms = sum(r["ms"] * r["per_forward"] for r in b1)
+        print(f"recipe: B1 {b1_ms:.3f} ms a forward (median per call, "
+              f"summed over the {len(routed)} routed convs) on SceneVerse-"
+              f"statistics scans against {synth_ms:.3f} ms on the synthetic "
+              f"phase's scenes ({card})", flush=True)
+        del t1b, fm, batch, scenes_ds
+        torch.cuda.empty_cache()
+
+        tgt, rgt = recipe_stage("GT-query variant (instseg_sceneverse_gt)", [
+            "--config-name", "instseg_sceneverse_gt", *common,
+            f"exp_dir={gtd}", "solver.epochs=1", "solver.epochs_per_eval=0"],
+            zrun_conv, True, card)
+        gt_loss = [e.get("loss", float("nan")) for e in rgt["epochs"]]
+        if not rgt["offline_mask"] or not all(rgt["offline_mask"]) \
+                or not all(math.isfinite(x) for x in gt_loss):
+            fail(f"GT variant: offline masks {rgt['offline_mask']}, loss "
+                 f"{gt_loss}")
+        print(f"recipe: GT variant: every batch carries offline_attn_mask "
+              f"{rgt['first']['offline_attn_mask'].shape}, direct loss "
+              f"{gt_loss}", flush=True)
+        tc = train_check_phase(tgt, zrun_conv, rgt["first"])
+        del tgt
+        torch.cuda.empty_cache()
+
+        # ---- stage 2, warm-started from stage 1 ---------------------------
+        t2, r2 = recipe_stage("stage 2 (unified_tasks_sceneverse)", [
+            "--config-name", "unified_tasks_sceneverse",
+            f"data.scene_verse_base={base}", f"data.scene_verse_aux={aux}",
+            f"data.scene_verse_pred={pred}", "dataloader.batchsize=8",
+            "dataloader.batchsize_eval=8", "solver.epochs=1",
+            "solver.epochs_per_eval=1", "solver.sched.args.warmup_steps=10",
+            f"pretrain_ckpt_path={os.path.join(s1, 'ckpt', 'latest')}",
+            "log_every=1", "device=cuda", f"exp_dir={s2}"], zrun_conv,
+            False, card)
+        m2 = last_metrics(s2, "val-")
+        sets = sorted({k.split("/")[0] for k in m2})
+        print(f"recipe: stage 2 warm start loaded {len(t2.warm_started)} "
+              f"tensors (predicted {RECIPE_WARM_START_LOADED}); eval of "
+              f"{len(sets)} datasets, {len(m2)} metrics, target_metric "
+              f"{ {k: m2[k] for k in m2 if k.endswith('target_metric')} }",
+              flush=True)
+        if len(t2.warm_started) != RECIPE_WARM_START_LOADED:
+            fail("the warm start loaded another count than predicted")
+        if not all_finite(m2) or len(sets) != 7:
+            fail(f"stage 2: eval metrics not finite or missing: {sets}")
+        del t2
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    runs = {"stage1": r1, "stage1_resume": r1b, "gt": rgt, "stage2": r2}
+    for r in runs.values():
+        r.pop("first", None)
+    total = time.time() - t_phase
+    print(f"recipe: phase {total:.1f} s ({card})", flush=True)
+    out.update(runs=runs, b1=b1, b1_ms=b1_ms, train_check=tc,
+               warm_started=RECIPE_WARM_START_LOADED, phase_s=total,
+               launches={k: sum(runs[n]["counts"][k] for n in
+                                ("stage1", "stage1_resume", "gt"))
+                         for k in ("fwd", "bwd")})
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -1521,71 +1912,15 @@ def main():
           f"level rows {rows}, most voxels in one scene per level {most} "
           f"(level caps {pipe.level_caps})", flush=True)
     fm = flatten_maps(to_device(batch["maps"], dev))
-    gen = torch.Generator(device="cpu").manual_seed(0)
     routed = backbone.routed_convs(rows)
-    shapes = {}          # (level, cin, cout) -> routed convs per forward
-    for _, lvl, cin, cout in routed:
-        shapes[(lvl, cin, cout)] = shapes.get((lvl, cin, cout), 0) + 1
     print(f"routing: {len(routed)} convs per forward run zrun_conv: "
           f"{[r[0] for r in routed]}", flush=True)
     if not routed:
         fail("no conv of the slice routes to zrun_conv")
-    per_shape = []
-    for (lvl, cin, cout), per_fwd in sorted(shapes.items()):
-        nbr, valid = fm[f"nbr3_{lvl}"], fm[f"valid_{lvl}"]
-        n = nbr.shape[0]
-        if not zrun_conv.applicable(n, cin, cout):
-            fail(f"shape (N={n}, {cin}->{cout}) does not route")
-        zb, zc = zrun_conv.zrun_plan(nbr)
-        x = torch.randn(n, cin, generator=gen).to(dev) * valid[:, None]
-        w = (torch.randn(27, cin, cout, generator=gen) * 0.05).to(dev)
-        for dt in (torch.float32, torch.bfloat16):
-            xd = x.to(dt)
-            got = zrun_conv.zrun_conv(xd, w, zb, zc, valid)
-            ref = zrun_conv.zrun_conv_reference(xd, w, zb, zc, valid)
-            torch.cuda.synchronize()
-            diff = (got.float() - ref.float()).abs().max().item()
-            rel = diff / max(ref.float().abs().max().item(), 1e-12)
-            if not (rel <= 1e-2 and torch.isfinite(got).all().item()):
-                fail(f"zrun_conv disagrees with its plain version at "
-                     f"L{lvl} {cin}->{cout} {dt}: rel {rel:.3e}")
-            if dt is torch.float32:      # the main path feeds f32 x
-                ms = cuda_time(lambda: zrun_conv.zrun_conv(xd, w, zb, zc,
-                                                           valid), 20)
-                host_ms = host_time(lambda: zrun_conv.zrun_conv(
-                    xd, w, zb, zc, valid), 20)
-                plain_ms = cuda_time(lambda: zrun_conv.zrun_conv_reference(
-                    xd, w, zb, zc, valid), 5)
-                pairs = int((zc != -2).sum().item())
-                bound, by, flops, nbytes = conv_bound(
-                    n, cin, cout, pairs, zrun_plan_bytes(n, True),
-                    flops_peak, bw_peak)
-                slots, staged, mult = tap_shares(zrun_conv, zc)
-                rec = {"level": lvl, "n": n, "cin": cin, "cout": cout,
-                       "per_forward": per_fwd, "ms": ms,
-                       "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": by, "flops": flops, "dense27_flops":
-                           2.0 * n * 27 * cin * cout, "bytes": nbytes,
-                       "slot_share": slots, "tile_tap_share": staged,
-                       "mult_share": mult,
-                       "mult_flops": mult * 2.0 * n * 27 * cin * cout}
-            rec[f"max_abs_err_{'f32' if dt is torch.float32 else 'bf16'}"] \
-                = diff
-            rec[f"max_rel_err_{'f32' if dt is torch.float32 else 'bf16'}"] \
-                = rel
-        per_shape.append(rec)
-        print(f"kernel: zrun_conv L{lvl} N={n} {cin}->{cout} "
-              f"rel_err f32 {rec['max_rel_err_f32']:.2e} "
-              f"bf16 {rec['max_rel_err_bf16']:.2e} | {rec['ms']:.3f} ms "
-              f"(host {rec['host_ms']:.3f} ms a call, plain "
-              f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f}"
-              f" ms by {rec['bound_by']}, {rec['flops'] / rec['ms'] / 1e9:.1f}"
-              f" TFLOP/s on valid taps, "
-              f"{rec['mult_flops'] / rec['ms'] / 1e9:.1f} on multiplied "
-              f"tiles) | slots {rec['slot_share']:.4f}, (tile, tap) pairs "
-              f"staged {rec['tile_tap_share']:.4f}, multiplied "
-              f"{rec['mult_share']:.4f}", flush=True)
-        del x, w, zb, zc
+    per_shape = b1_shapes(zrun_conv, fm, routed, dev, flops_peak, bw_peak,
+                          "kernel")
+    shapes = {(r["level"], r["cin"], r["cout"]): r["per_forward"]
+              for r in per_shape}
     torch.cuda.empty_cache()
 
     # ---- 4. serve -------------------------------------------------------
@@ -1780,6 +2115,12 @@ def main():
 
     # ---- 11. unified_train: stage-2 training at full width --------------
     unified_train_phase(card, dev, args.profile)
+    torch.cuda.empty_cache()
+
+    # ---- 12. recipe: the two-stage recipe on SceneVerse-layout files ----
+    rc = recipe_phase(card, dev, zrun_conv,
+                      sum(r["ms"] * r["per_forward"] for r in per_shape),
+                      flops_peak, bw_peak)
 
     # ---- kernels line + result -----------------------------------------
     def per_fwd(key):
@@ -1792,10 +2133,13 @@ def main():
         "source": "pq3d_tpu_torch/csrc/zrun_conv.cu",
         "replaces": "pq3d_tpu/ops/pallas_zt.py:386",
         "launches": main_launches + tr["counts"]["fwd"]
-        + tr["counts"]["bwd"],
+        + tr["counts"]["bwd"] + rc["launches"]["fwd"]
+        + rc["launches"]["bwd"],
         "launches_by_path": {"serve": main_launches,
                              "train_fwd": tr["counts"]["fwd"],
-                             "train_bwd": tr["counts"]["bwd"]},
+                             "train_bwd": tr["counts"]["bwd"],
+                             "recipe_fwd": rc["launches"]["fwd"],
+                             "recipe_bwd": rc["launches"]["bwd"]},
         "max_abs_err": max(r["max_abs_err_f32"] for r in per_shape),
         "ms": per_fwd("ms"), "host_ms": per_fwd("host_ms"),
         "plain_ms": per_fwd("plain_ms"), "bound_ms": per_fwd("bound_ms"),
@@ -1806,8 +2150,12 @@ def main():
                  f"ms the median device-clock time of a call, host_ms the "
                  f"wrapper's host time per call; bwd_*: sum of the dx "
                  f"launches over the {len(troutes)} routed convs of one "
-                 f"train step (B=4); launches: the serving run plus the "
-                 f"5 timed train steps",
+                 f"train step (B=4); launches: the serving run, the "
+                 f"5 timed train steps and the recipe's stage-1 runs "
+                 f"(train and eval forwards, dx); recipe_ms: the same sum "
+                 f"as ms over one forward of 4 SceneVerse-replica scans",
+        "recipe_ms": rc["b1_ms"], "recipe_shapes": rc["b1"],
+        "recipe_train_check": rc["train_check"],
         "shapes": per_shape,
         "bwd_launches": tr["counts"]["bwd"],
         "bwd_ms": per_step("ms"), "bwd_host_ms": per_step("host_ms"),

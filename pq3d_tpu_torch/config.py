@@ -3,7 +3,9 @@
 ``INSTSEG_SCENEVERSE`` is ``pq3d_tpu/config/configs/instseg_sceneverse.yaml``
 as ``yaml.safe_load`` reads it (``${...}`` interpolations left as
 strings); ``INSTSEG_SCENEVERSE_MODEL`` and ``INSTSEG_SCENEVERSE_OPTIONS``
-are its ``model`` and ``data.instseg_options`` sections.  The stage-1
+are its ``model`` and ``data.instseg_options`` sections, and
+``INSTSEG_SCENEVERSE_GT`` is ``instseg_sceneverse_gt.yaml``, the GT-query
+variant.  The stage-1
 slices add one override, ``model.voxel_encoder.args.pallas_conv: true``,
 which routes the decoder's 96/128-channel stride-1 3^3 convs to the z-run
 CUDA kernel.  ``UNIFIED_TASKS_SCENEVERSE`` and ``UNIFIED_TASKS_SYNTHETIC``
@@ -140,6 +142,24 @@ INSTSEG_SCENEVERSE: Dict[str, Any] = {
 }
 
 
+
+def _gt_variant(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """``instseg_sceneverse_gt.yaml`` from ``instseg_sceneverse.yaml``:
+    queries at the GT object centres, the GT segment masks as the
+    decoder's offline attention masks, the direct criterion, 200 epochs."""
+    gt = copy.deepcopy(cfg)
+    gt["name"] = "instseg-sceneverse-gt"
+    gt["data"]["instseg_options"].update(query_sample_strategy="gt",
+                                         offline_mask_source="gt")
+    gt["solver"].update(epochs=200, epochs_per_eval=50)
+    gt["model"]["use_offline_attn_mask"] = True
+    gt["model"]["InstSegLoss"]["criterion_type"] = "direct"
+    return gt
+
+
+INSTSEG_SCENEVERSE_GT: Dict[str, Any] = _gt_variant(INSTSEG_SCENEVERSE)
+
+
 def _unified_model(hidden, txt_tower, freeze_pc, n_heads, n_layers,
                    ground_hidden, gen_args):
     """The ``model`` section the two unified YAML files share the form of."""
@@ -273,6 +293,7 @@ UNIFIED_TASKS_SYNTHETIC: Dict[str, Any] = {
 }
 
 CONFIGS = {"instseg_sceneverse": INSTSEG_SCENEVERSE,
+           "instseg_sceneverse_gt": INSTSEG_SCENEVERSE_GT,
            "unified_tasks_sceneverse": UNIFIED_TASKS_SCENEVERSE,
            "unified_tasks_synthetic": UNIFIED_TASKS_SYNTHETIC}
 

@@ -1,16 +1,18 @@
 """Scene sources and the batch loader for stage-1 training; counterpart of
-``SyntheticInstSeg``, ``_assemble_instseg_batch`` and ``InstSegLoader`` in
-``pq3d_tpu/data/datasets.py``.
+``SyntheticInstSeg``, ``SceneVerseInstSeg`` (registered as
+``ScanNetInstSegSceneVerse``), ``_assemble_instseg_batch`` and
+``InstSegLoader`` in ``pq3d_tpu/data/datasets.py``.
 
 Configs are plain dicts (``pq3d_tpu_torch/config.py``).  With
 ``num_workers=0`` the loader builds batches in the calling process from one
 sequential rng per epoch; with ``num_workers > 0`` in a spawn pool
 (``data/pool.py``), each batch from its own ``SeedSequence([seed, epoch,
 b])``.  Both are the JAX loader's, so either gives the JAX package's
-batches.  The SceneVerse reader is not ported.
+batches.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
@@ -51,7 +53,105 @@ class SyntheticInstSeg:
         return s
 
 
-DATASETS = {"SyntheticInstSeg": SyntheticInstSeg}
+def load_pth(path: str):
+    """A SceneVerse ``.pth`` payload (pickled tuples, dicts, numpy arrays
+    and tensors) read on the CPU."""
+    import torch
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+class SceneVerseInstSeg:
+    """ScanNet scans in the SceneVerse layout under
+    ``cfg["data"]["scene_verse_base"]`` (raises ``FileNotFoundError``
+    without it).  ``get_scene`` gives per-point continuous instance ids
+    (-1 = background or not an object) and each instance's ScanNet200
+    class: wall and floor (``filter_out_classes``) and empty instances are
+    dropped, names the tsv cannot map keep ``ignore_label``, and instances
+    are ordered by their raw id.  With ``load_scan_options``'
+    ``load_image_segment_feat`` / ``load_point_segment_feat`` the scene
+    carries the offline per-segment features ``mv_seg_fts`` / ``pc_seg_fts``
+    from ``scene_verse_aux`` (default: the base).  Holds only paths and
+    plain values, so the spawn pools can pickle it."""
+
+    def __init__(self, cfg: Dict[str, Any], split: str):
+        from pq3d_tpu_torch.data.label_utils import LabelConverter
+        data = cfg["data"]
+        base = data.get("scene_verse_base")
+        if not base or not os.path.isdir(str(base)):
+            raise FileNotFoundError(
+                f"SceneVerse base dir not found: {base!r} (set "
+                f"data.scene_verse_base, or use SyntheticInstSeg)")
+        self.base = str(base)
+        self.aux = str(data.get("scene_verse_aux") or self.base)
+        self.split = split
+        split_file = os.path.join(
+            self.base, "ScanNet", "annotations", "splits",
+            f"scannetv2_{'val' if split != 'train' else 'train'}.txt")
+        with open(split_file) as f:
+            self.scan_ids = [l.strip() for l in f if l.strip()]
+        debug = cfg.get("debug") or {}
+        if debug.get("flag"):
+            self.scan_ids = self.scan_ids[:int(debug.get("debug_size", 4))]
+        iopt = data.get("instseg_options") or {}
+        self.filter_out_classes = set(iopt.get("filter_out_classes", (0, 2)))
+        self.ignore_label = int(iopt.get("ignore_label", -100))
+        opts = data.get("load_scan_options") or {}
+        self.load_image_segment_feat = bool(
+            opts.get("load_image_segment_feat", False))
+        self.load_point_segment_feat = bool(
+            opts.get("load_point_segment_feat", False))
+        self.converter = LabelConverter(os.path.join(
+            self.base, "ScanNet", "annotations", "meta_data",
+            "scannetv2-labels.combined.tsv"))
+
+    def __len__(self):
+        return len(self.scan_ids)
+
+    def get_scene(self, idx: int) -> Dict[str, np.ndarray]:
+        scan_id = self.scan_ids[idx]
+        sd = os.path.join(self.base, "ScanNet", "scan_data")
+        pcds, colors, _, instance_labels = load_pth(os.path.join(
+            sd, "pcd_with_global_alignment", f"{scan_id}.pth"))
+        segment_id = load_pth(os.path.join(sd, "segment_id",
+                                           f"{scan_id}.pth"))
+        inst_to_label = load_pth(os.path.join(sd, "instance_id_to_label",
+                                              f"{scan_id}.pth"))
+        instance_labels = np.asarray(instance_labels)
+        keep_ids, keep_labels = [], []
+        for inst_id, name in inst_to_label.items():
+            sem = self.converter.name_to_scannet200(str(name),
+                                                    self.ignore_label)
+            if sem in self.filter_out_classes:
+                continue
+            if not np.any(instance_labels == inst_id):
+                continue
+            keep_ids.append(int(inst_id))
+            keep_labels.append(sem)
+        remap = {v: i for i, v in enumerate(sorted(keep_ids))}
+        order = np.argsort(keep_ids)
+        inst = np.vectorize(lambda x: remap.get(int(x), -1))(instance_labels)
+        scene = {
+            "points": np.asarray(pcds, np.float32),
+            "colors": np.asarray(colors, np.float32) / 127.5 - 1.0,
+            "instance_labels": inst.astype(np.int64),
+            "segment_id": np.asarray(segment_id, np.int64),
+            "inst_labels": np.asarray(keep_labels, np.int64)[order],
+            "scan_id": scan_id,
+        }
+        for flag, stem, key, out in (
+                (self.load_image_segment_feat, "image_seg_feat",
+                 "image_seg_feature", "mv_seg_fts"),
+                (self.load_point_segment_feat, "point_seg_feat",
+                 "point_seg_feature", "pc_seg_fts")):
+            if flag:
+                d = load_pth(os.path.join(self.aux, "ScanNet", stem,
+                                          f"{scan_id}.pth"))
+                scene[out] = np.asarray(d[key], np.float32)
+        return scene
+
+
+DATASETS = {"SyntheticInstSeg": SyntheticInstSeg,
+            "ScanNetInstSegSceneVerse": SceneVerseInstSeg}
 
 
 def build_dataset(cfg: Dict[str, Any], split: str):
@@ -60,7 +160,7 @@ def build_dataset(cfg: Dict[str, Any], split: str):
     if name not in DATASETS:
         raise NotImplementedError(
             f"dataset {name!r} is not ported; the port trains on "
-            f"{sorted(DATASETS)} (set data.{split}=[SyntheticInstSeg])")
+            f"{sorted(DATASETS)}")
     return DATASETS[name](cfg, split)
 
 

@@ -2,12 +2,13 @@
 
 Counterpart of ``pq3d_tpu/data/instseg_pipeline.py``, trimmed to the
 stage-1 slices: train-time augmentation, color normalization,
-voxelization, FPS query sampling, sparse kernel maps and the dense-block
-stem pack, collated into the rectangular (B, ...) layout with host-built
-maps.  The flat, compact, swin and device-maps layouts of the JAX package
-are not ported.  Everything here is numpy; the batch it returns is
-bit-identical to the JAX package's on the same scenes and rng, with or
-without augmentation.
+voxelization, query sampling (FPS, or the GT object centres), sparse
+kernel maps and the dense-block stem pack, collated into the rectangular
+(B, ...) layout with host-built maps, and in GT-query mode the GT segment
+masks as the decoder's offline attention masks.  The flat, compact, swin
+and device-maps layouts of the JAX package are not ported.  Everything
+here is numpy; the batch it returns is bit-identical to the JAX package's
+on the same scenes and rng, with or without augmentation.
 """
 from __future__ import annotations
 
@@ -29,7 +30,9 @@ COLOR_STD = np.array([0.2834475483823543, 0.27566157565723015,
 class InstSegPipelineConfig:
     voxel_size: float = 0.02
     num_queries: int = 120
-    query_sample_strategy: str = "fps"      # the only one ported
+    # 'fps' samples queries over the voxels; 'gt' puts query i at GT
+    # object i's centre (valid only for the scene's instances)
+    query_sample_strategy: str = "fps"
     max_segments: int = 512
     max_instances: int = 120
     use_aug: bool = True                    # train-time only
@@ -39,6 +42,9 @@ class InstSegPipelineConfig:
     level_caps: Optional[Sequence[int]] = None
     filter_out_classes: Sequence[int] = (0, 2)
     ignore_label: int = -100
+    # 'gt' collates each scene's GT segment masks as ``offline_attn_mask``
+    # (B, Q, S), True = attend: query i attends instance i's segments
+    offline_mask_source: Optional[str] = None
     # 'dense_block' packs level-0 voxels + features into dense 8^3 blocks so
     # conv0 runs as a dense conv (ops/sparse.conv0_dense_block); the only
     # stem the port ships
@@ -49,10 +55,14 @@ class InstSegPipelineConfig:
     stem_block_cap: Optional[int] = None
 
     def __post_init__(self):
-        if self.query_sample_strategy != "fps":
+        if self.query_sample_strategy not in ("fps", "gt"):
             raise ValueError(
                 f"query_sample_strategy {self.query_sample_strategy!r} is not "
-                "ported; the PyTorch pipeline samples queries by FPS")
+                "'fps' or 'gt'")
+        if self.offline_mask_source not in (None, "gt"):
+            raise ValueError(
+                f"offline_mask_source {self.offline_mask_source!r} is not "
+                "None or 'gt'")
         if self.stem_mode != "dense_block":
             raise ValueError(
                 f"stem_mode {self.stem_mode!r} is not ported; the PyTorch "
@@ -159,11 +169,15 @@ def process_scene(scene: Dict[str, np.ndarray], cfg: InstSegPipelineConfig,
     voxel_feats = color_n[unique_map]
     voxel2segment = segment_id[unique_map].astype(np.int32)
 
-    fps_idx = sampling.fps_numpy(vox_coords.astype(np.float32),
-                                 cfg.num_queries,
-                                 subsample=cfg.fps_subsample, rng=rng)
-    query_locs = points[unique_map][fps_idx]
-    query_valid = np.ones(cfg.num_queries, bool)
+    if cfg.query_sample_strategy == "fps":
+        fps_idx = sampling.fps_numpy(vox_coords.astype(np.float32),
+                                     cfg.num_queries,
+                                     subsample=cfg.fps_subsample, rng=rng)
+        query_locs = points[unique_map][fps_idx]
+        query_valid = np.ones(cfg.num_queries, bool)
+    else:
+        query_locs = obj_center
+        query_valid = np.ones(len(obj_center), bool)
 
     hierarchy = kernel_maps.build_hierarchy(
         vox_coords,
@@ -278,6 +292,12 @@ def collate(scenes: List[Dict[str, np.ndarray]],
 
     out = {k: np.stack(v) for k, v in batch.items()}
     out["maps"] = maps
+    if cfg.offline_mask_source == "gt":
+        oam = np.zeros((b, Q, S), bool)
+        for i, s in enumerate(scenes):
+            sm = s["segment_masks"][:Q, :S]
+            oam[i, :sm.shape[0], :sm.shape[1]] = sm
+        out["offline_attn_mask"] = oam
 
     blk = cfg.stem_block
     b3 = blk ** 3

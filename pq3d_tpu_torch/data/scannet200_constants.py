@@ -4,7 +4,8 @@ Class names / valid ids and head-common-tail splits of the ScanNet200
 benchmark (Rozenberszki et al., "Language-Grounded Indoor 3D Semantic
 Segmentation in the Wild"), as used by the reference's evaluation
 (reference: data/datasets/constant.py).  These are benchmark data, not code.
-Copy of ``pq3d_tpu/data/scannet200_constants.py`` for the port's evaluator.
+Copy of ``pq3d_tpu/data/scannet200_constants.py``; the one copy that the
+port's label converter, replica writer and evaluator share.
 """
 
 CLASS_LABELS_200 = (

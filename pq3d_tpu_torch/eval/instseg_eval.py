@@ -225,7 +225,7 @@ class InstSegEval:
         return table
 
     def record(self) -> Dict[str, float]:
-        from pq3d_tpu_torch.eval.scannet200_constants import (
+        from pq3d_tpu_torch.data.scannet200_constants import (
             CLASS_LABELS_200, HEAD_CATS_200, COMMON_CATS_200, TAIL_CATS_200)
         classes_present = sorted({int(l) for g in self._gts
                                   for l in g["labels"] if int(l) >= 0})

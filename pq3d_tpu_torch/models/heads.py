@@ -28,7 +28,9 @@ class MaskPredictionLayer(nn.Module):
 class MaskHeadSegLevel(nn.Module):
     """Class + segment-mask prediction from queries.  Returns
     ``(cls_logits (B,Q,T), mask_logits (B,S,Q), attend_mask (B,Q,S))``
-    where attend is True where sigmoid(mask logit) >= 0.5."""
+    where attend is True where sigmoid(mask logit) >= 0.5, or is
+    ``offline_attn_masks`` when one is given; ``skip_prediction`` returns
+    ``(None, None, offline_attn_masks)`` without predicting."""
 
     def __init__(self, hidden_size: int, num_targets: int,
                  num_memories: int = 1,
@@ -45,7 +47,11 @@ class MaskHeadSegLevel(nn.Module):
 
     def forward(self, query: torch.Tensor,
                 seg_fts_for_match: List[Tuple[torch.Tensor, torch.Tensor]],
-                seg_valid: torch.Tensor):
+                seg_valid: torch.Tensor,
+                offline_attn_masks: Optional[torch.Tensor] = None,
+                skip_prediction: bool = False):
+        if skip_prediction:
+            return None, None, offline_attn_masks
         cls_logits = self.cls_head(query)
         if self.filter_out_classes:
             cls_logits = cls_logits.clone()
@@ -60,7 +66,10 @@ class MaskHeadSegLevel(nn.Module):
             cnt = cnt + w
         mask_logits = mask_sum / (cnt + 1e-8)
         mask_logits = torch.where(seg_valid[..., None], mask_logits, -1e6)
-        attend = torch.sigmoid(mask_logits).transpose(1, 2) >= 0.5
+        if offline_attn_masks is not None:
+            attend = offline_attn_masks
+        else:
+            attend = torch.sigmoid(mask_logits).transpose(1, 2) >= 0.5
         return cls_logits, mask_logits, attend
 
 

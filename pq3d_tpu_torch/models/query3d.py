@@ -12,6 +12,10 @@ Two branches of the JAX model are ported:
   features, and the prompt encoded by type: TXT through the CLIP text
   encoder, LOC through the location embedding.
 
+With ``use_offline_attn_mask`` (the GT-query stage-1 variant) every call
+of the mask head returns the batch's ``offline_attn_mask`` as its attend
+mask, and a batch without one raises ``ValueError``.
+
 Data flow: query_locs -> positional queries; memories -> (feat,
 attend_mask, pos) triples; the mask head bound with segment features (when
 there is one); the unified query decoder; the task heads.  Consumes the
@@ -129,6 +133,8 @@ class Query3DUnified(nn.Module):
                  dim_loc: int = 3, spatial_dim: int = 5,
                  pairwise_rel_type: str = "center",
                  use_offline_voxel_fts: bool = False,
+                 use_offline_attn_mask: bool = False,
+                 skip_query_encoder_mask_pred: bool = False,
                  unified: UnifiedEncoderCfg = UnifiedEncoderCfg(),
                  mv_enc: EncoderCfg = EncoderCfg(),
                  pc_enc: EncoderCfg = EncoderCfg(),
@@ -155,6 +161,8 @@ class Query3DUnified(nn.Module):
         self.dim_loc = dim_loc
         self.spatial_dim = spatial_dim
         self.use_offline_voxel_fts = use_offline_voxel_fts
+        self.use_offline_attn_mask = use_offline_attn_mask
+        self.skip_query_encoder_mask_pred = skip_query_encoder_mask_pred
         self.unified = unified
         if dim_loc > 3:
             self.coord_dense = nn.Linear(3, hidden_size)
@@ -281,6 +289,16 @@ class Query3DUnified(nn.Module):
             else:
                 inputs[mem] = self._encode_prompt(batch, rng) + (None,)
 
+        offline_attn = None
+        if self.use_offline_attn_mask:
+            offline_attn = batch.get("offline_attn_mask")
+            if offline_attn is None:
+                # falling back to predicted self-masks would quietly run
+                # another model than the configured one
+                raise ValueError(
+                    "use_offline_attn_mask=True but the batch has no "
+                    "'offline_attn_mask' — set data.instseg_options."
+                    "offline_mask_source='gt' (or unset the model flag)")
         mask_head = None
         if "mask" in self.heads:
             seg_fts_for_match = []
@@ -290,8 +308,10 @@ class Query3DUnified(nn.Module):
                     feat = feat[-1]    # final voxel scale for matching
                 seg_fts_for_match.append((feat, mask))
 
-            def mask_head(query):
-                return self.mask_head(query, seg_fts_for_match, seg_valid)
+            def mask_head(query, skip=self.skip_query_encoder_mask_pred):
+                return self.mask_head(query, seg_fts_for_match, seg_valid,
+                                      offline_attn_masks=offline_attn,
+                                      skip_prediction=skip)
 
         pairwise_locs = None
         if self.unified.spatial_selfattn:
@@ -301,7 +321,7 @@ class Query3DUnified(nn.Module):
             inputs, pairwise_locs, mask_head=mask_head)
         out: Dict[str, Any] = {"query": query}
         if "mask" in self.heads:
-            cls_logits, mask_logits, _ = mask_head(query)
+            cls_logits, mask_logits, _ = mask_head(query, skip=False)
             out["predictions_class"] = pred_cls + [cls_logits]
             out["predictions_mask"] = pred_mask + [mask_logits]
         if "ground" in self.heads:
@@ -487,6 +507,9 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
         spatial_dim=m["obj_loc"]["spatial_dim"],
         pairwise_rel_type=m["obj_loc"]["pairwise_rel_type"],
         use_offline_voxel_fts=use_offline_voxel,
+        use_offline_attn_mask=m.get("use_offline_attn_mask", False),
+        skip_query_encoder_mask_pred=m.get("skip_query_encoder_mask_pred",
+                                           False),
         unified=UnifiedEncoderCfg(
             num_layers=ue["num_layers"],
             num_blocks=ue.get("num_blocks", 1),

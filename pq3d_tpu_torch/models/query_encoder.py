@@ -124,8 +124,9 @@ class QueryEncoderLayer(nn.Module):
 
 class QueryMaskEncoder(nn.Module):
     """Iterative mask-guided decoder.  ``mask_head`` is a callable
-    ``query -> (cls_logits, mask_logits, attend_mask)``; rounds are
-    unrolled (num_blocks x num_layers is small and static)."""
+    ``query -> (cls_logits, mask_logits, attend_mask)`` (the logits None
+    when the head skips its prediction); rounds are unrolled (num_blocks x
+    num_layers is small and static)."""
 
     def __init__(self, hidden_size: int = 768, num_attention_heads: int = 12,
                  num_layers: int = 4, num_blocks: int = 1,
@@ -162,9 +163,10 @@ class QueryMaskEncoder(nn.Module):
             for i in range(self.num_layers):
                 if mask_head is not None:
                     cls_logits, mask_logits, attend = mask_head(query)
-                    predictions_class.append(cls_logits)
-                    predictions_mask.append(mask_logits)
-                    if self.use_self_mask:
+                    if cls_logits is not None:
+                        predictions_class.append(cls_logits)
+                        predictions_mask.append(mask_logits)
+                    if self.use_self_mask and attend is not None:
                         # unblock queries that can attend nowhere
                         none_ok = ~attend.any(-1, keepdim=True)
                         attend = attend | none_ok

@@ -1,8 +1,10 @@
 """Losses (PyTorch); counterpart of ``pq3d_tpu/optim/losses.py``: the
 stage-1 set criterion (``batch_class_cost``, ``batch_mask_cost``,
-``instseg_layer_loss``, ``instseg_set_loss``) and the stage-2 head losses
-(``cross_entropy``, ``ground_loss``, ``generation_loss``).  The direct
-criterion and ``query3d_mask_loss`` are not ported.
+``instseg_layer_loss``, ``instseg_set_loss``), the direct criterion of the
+GT-query variant (``batch_mask_loss``, ``batch_dice_loss``,
+``instseg_direct_loss``) and the stage-2 head losses (``cross_entropy``,
+``ground_loss``, ``generation_loss``).  ``query3d_mask_loss`` is not
+ported.
 
 All target tensors are padded; validity masks make the math exact.  The
 matching costs of every prediction round are built at once, read back to
@@ -180,6 +182,72 @@ def instseg_set_loss(predictions_class: List[torch.Tensor],
         losses[f"loss_dice{suffix}"] = ld["loss_dice"] * cfg.cost_dice
         total = total + losses[f"loss_ce{suffix}"] + \
             losses[f"loss_mask{suffix}"] + losses[f"loss_dice{suffix}"]
+    return total, losses
+
+
+# ---------------------------------------------------------------------------
+# direct (GT-matched) criterion: query i supervises instance i
+# ---------------------------------------------------------------------------
+
+def batch_mask_loss(logits: torch.Tensor, targets: torch.Tensor,
+                    padding_mask: torch.Tensor) -> torch.Tensor:
+    """Masked BCE per instance, averaged over the instances with a valid
+    segment; logits, targets and padding_mask (B, M, S)."""
+    w = padding_mask.float()
+    loss = _bce_logits(logits.float(), targets.float())
+    per_inst = (loss * w).sum(-1) / (w.sum(-1) + 1e-6)
+    inst_ok = w.sum(-1) > 0
+    return (per_inst * inst_ok).sum() / inst_ok.sum().clamp_min(1)
+
+
+def batch_dice_loss(logits: torch.Tensor, targets: torch.Tensor,
+                    padding_mask: torch.Tensor) -> torch.Tensor:
+    """Masked dice per instance, averaged as ``batch_mask_loss``."""
+    w = padding_mask.float()
+    p = torch.sigmoid(logits.float())
+    t = targets.float()
+    inter = (p * t * w).sum(-1)
+    union = ((p + t) * w).sum(-1)
+    dice = 1 - (2 * inter + 1e-6) / (union + 1e-6)
+    inst_ok = w.sum(-1) > 0
+    return (dice * inst_ok).sum() / inst_ok.sum().clamp_min(1)
+
+
+def instseg_direct_loss(predictions_class: List[torch.Tensor],
+                        predictions_mask: List[torch.Tensor],
+                        batch: Dict[str, torch.Tensor],
+                        ignore_label: int = -100
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """GT-matched criterion, no assignment: query i supervises instance i
+    in every round with mask BCE, dice and CE (unweighted, aux rounds
+    suffixed ``_i``).  The CE counts an instance only when its label is
+    not ignored and it has a valid segment: collate pads
+    ``instance_labels`` with 0, so the label alone would make every padded
+    slot a class-0 target."""
+    labels = batch["instance_labels"]
+    tgt = batch["segment_masks"]
+    pad = batch["instance_valid"][..., None] & \
+        batch["seg_pad_masks"][:, None, :]
+    losses: Dict[str, torch.Tensor] = {}
+    total = 0.0
+    n = len(predictions_mask)
+    for i in range(n):
+        pred = predictions_mask[i].transpose(1, 2)        # (B, Q, S)
+        m = min(pred.shape[1], tgt.shape[1])
+        lm = batch_mask_loss(pred[:, :m], tgt[:, :m], pad[:, :m])
+        ld = batch_dice_loss(pred[:, :m], tgt[:, :m], pad[:, :m])
+        logits = predictions_class[i][:, :m]
+        valid = (labels[:, :m] != ignore_label) & pad[:, :m].any(-1)
+        logp = torch.log_softmax(logits.float().clamp_min(-100), -1)
+        nll = -torch.gather(logp, 2,
+                            labels[:, :m].clamp_min(0).long()[..., None]
+                            )[..., 0]
+        lc = (nll * valid).sum() / valid.sum().clamp_min(1)
+        sfx = "" if i == n - 1 else f"_{i}"
+        losses[f"loss_mask{sfx}"] = lm
+        losses[f"loss_dice{sfx}"] = ld
+        losses[f"loss_ce{sfx}"] = lc
+        total = total + lm + ld + lc
     return total, losses
 
 

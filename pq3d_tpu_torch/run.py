@@ -6,6 +6,8 @@
         solver.epochs=2 device=cpu
     python -m pq3d_tpu_torch.run --config-name unified_tasks_sceneverse \\
         data.train=[SyntheticRefer,SyntheticQA,SyntheticCaption]
+    python -m pq3d_tpu_torch.run --config-name instseg_sceneverse_gt \\
+        data.scene_verse_base=SCENEVERSE_ROOT
 
 Loads the named config dict (``pq3d_tpu_torch/config.py``), applies dotted
 overrides, names the experiment dir, snapshots the resolved config as
@@ -13,7 +15,11 @@ overrides, names the experiment dir, snapshots the resolved config as
 stage 1; ``Query3D``: stage 2, the unified tasks) and runs train or test.
 ``device`` (default ``cuda``) picks where the model runs; ``resume=True``
 with ``exp_dir=...`` reloads that dir's snapshot and continues from its
-``latest`` checkpoint.
+``latest`` checkpoint; otherwise ``pretrain_ckpt_path=...`` warm-starts
+the model from another run's checkpoint (stage 2 from stage 1).  The
+datasets are the synthetic ones or, with ``data.scene_verse_base``, the
+SceneVerse layout's (stage 1: ``ScanNetInstSegSceneVerse``; stage 2: the
+seven from ``ScanReferSceneVerse`` to ``Scan2CapSceneVerse``).
 """
 from __future__ import annotations
 
@@ -32,12 +38,14 @@ def _optimizer_total_steps(cfg: Dict[str, Any], steps_per_epoch: int) -> int:
 
 def build_instseg_trainer(cfg: Dict[str, Any]):
     """The stage-1 trainer of a resolved config: datasets and loaders, the
-    model (``build_model``), the set loss, the evaluator."""
+    model (``build_model``), the set loss (or, with ``criterion_type:
+    'direct'``, the direct one), the evaluator."""
     from pq3d_tpu_torch.data.datasets import InstSegLoader, build_dataset
     from pq3d_tpu_torch.data.instseg_pipeline import pipeline_config
     from pq3d_tpu_torch.eval.instseg_eval import InstSegEval
     from pq3d_tpu_torch.models.query3d import build_model
     from pq3d_tpu_torch.optim.losses import (InstSegLossConfig,
+                                             instseg_direct_loss,
                                              instseg_set_loss)
     from pq3d_tpu_torch.train.trainer import Query3DTrainer
 
@@ -62,8 +70,10 @@ def build_instseg_trainer(cfg: Dict[str, Any]):
     device = cfg.get("device", "cuda")
     model = build_model(cfg, device=device, seed=seed)
     m_loss = cfg["model"].get("InstSegLoss") or {}
-    if str(m_loss.get("criterion_type", "set")) != "set":
-        raise NotImplementedError("only the set criterion is ported")
+    criterion = str(m_loss.get("criterion_type", "set"))
+    if criterion not in ("set", "direct"):
+        raise NotImplementedError(f"criterion_type {criterion!r} is not "
+                                  "'set' or 'direct'")
     matcher = m_loss.get("matcher") or {}
     loss_cfg = InstSegLossConfig(
         cost_class=float(matcher.get("cost_class", 2.0)),
@@ -73,6 +83,11 @@ def build_instseg_trainer(cfg: Dict[str, Any]):
         ignore_label=int(iopt.get("ignore_label", -100)))
 
     def loss_fn(out, batch):
+        if criterion == "direct":
+            # the GT-query variant: query i is instance i, no assignment
+            return instseg_direct_loss(out["predictions_class"],
+                                       out["predictions_mask"], batch,
+                                       ignore_label=loss_cfg.ignore_label)
         return instseg_set_loss(out["predictions_class"],
                                 out["predictions_mask"], batch, loss_cfg)
 
@@ -98,7 +113,7 @@ def build_multitask_trainer(cfg: Dict[str, Any]):
     ``data.train`` a train loader (``dataloader.num_workers``) and a val
     loader with the evaluator the dataset names; the train loaders mixed;
     the model (``build_model``); the weighted ``Loss`` of ``loss_list``."""
-    from pq3d_tpu_torch.data import unified_datasets
+    from pq3d_tpu_torch.data import sceneverse, unified_datasets
     from pq3d_tpu_torch.data.tokenizers import build_tokenizers
     from pq3d_tpu_torch.data.unified_loader import (MixedTaskLoader,
                                                     UnifiedTaskLoader)
@@ -112,6 +127,11 @@ def build_multitask_trainer(cfg: Dict[str, Any]):
         raise NotImplementedError(f"trainer {cfg['trainer']!r} is not ported")
     datasets = {n: getattr(unified_datasets, n) for n in
                 ("SyntheticRefer", "SyntheticQA", "SyntheticCaption")}
+    sceneverse_names = ("ScanReferSceneVerse", "Sr3DSceneVerse",
+                        "Nr3DSceneVerse", "Multi3DReferSceneVerse",
+                        "ScanQASceneVerse", "SQA3DSceneVerse",
+                        "Scan2CapSceneVerse")
+    datasets.update({n: getattr(sceneverse, n) for n in sceneverse_names})
     evaluators = {n: getattr(mod, n) for mod, names in (
         (grounding_eval, ("ScanReferEval", "ReferIt3DEval",
                           "Multi3DReferEval")),
@@ -133,6 +153,15 @@ def build_multitask_trainer(cfg: Dict[str, Any]):
     bs_eval = int(dl.get("batchsize_eval", bs))
     nw = int(dl.get("num_workers", 0))
     save = bool((cfg.get("eval") or {}).get("save"))
+    toks = build_tokenizers(cfg)
+
+    def make_ds(ds_name, split):
+        # SceneVerse tasks tokenize text; the synthetic ones carry ids
+        if ds_name in sceneverse_names:
+            return datasets[ds_name](cfg, split, tokenizer=toks.tokenize,
+                                     gen_tokenizer=toks.gen_tokenize)
+        return datasets[ds_name](cfg, split)
+
     train_loaders, val_sets = [], []
     steps_per_epoch = 0
     for ds_name in cfg["data"]["train"]:
@@ -140,11 +169,11 @@ def build_multitask_trainer(cfg: Dict[str, Any]):
             raise NotImplementedError(
                 f"dataset {ds_name!r} is not ported; the port trains on "
                 f"{sorted(datasets)}")
-        train_ds = datasets[ds_name](cfg, "train")
+        train_ds = make_ds(ds_name, "train")
         train_loaders.append(UnifiedTaskLoader(train_ds, pipe_cfg, bs, True,
                                                seed=seed, num_workers=nw))
         steps_per_epoch += len(train_ds) // bs
-        val_loader = UnifiedTaskLoader(datasets[ds_name](cfg, "val"),
+        val_loader = UnifiedTaskLoader(make_ds(ds_name, "val"),
                                        pipe_cfg, bs_eval, False, seed=seed)
         ev_name = train_ds.evaluator
         save_dir = (os.path.join(cfg["exp_dir"], "eval_results", ev_name)
@@ -159,7 +188,7 @@ def build_multitask_trainer(cfg: Dict[str, Any]):
                    cfg["model"].get("loss_weights") or {})
     return MultitaskTrainer(
         cfg, model, loss_fn, MixedTaskLoader(train_loaders, seed=seed),
-        val_sets=val_sets, detokenize=build_tokenizers(cfg).detokenize,
+        val_sets=val_sets, detokenize=toks.detokenize,
         total_steps=_optimizer_total_steps(cfg, steps_per_epoch),
         device=device)
 

@@ -6,9 +6,11 @@ One card, no mesh (multi-GPU data parallelism is a later slice).  The host
 pipeline runs in a background thread (``prefetch_batches``) so it overlaps
 the step on the card.  The optimizer and schedule are built once
 (``_lazy_init``, at the start of ``run`` or on the first batch), where
-``resume`` also restores ``latest`` and the epoch to continue from.  Each
-epoch saves ``latest``, every ``epochs_per_save`` epochs ``ckpt_N``, and
-every improvement of the evaluator's target metric ``best``.  SIGUSR1 or
+``resume`` also restores ``latest`` and the epoch to continue from; without
+a resume, ``pretrain_ckpt_path`` warm-starts the model non-strictly (same
+name and shape) from another run's checkpoint.  Each epoch saves
+``latest``, every ``epochs_per_save`` epochs ``ckpt_N``, and every
+improvement of the evaluator's target metric ``best``.  SIGUSR1 or
 SIGTERM saves ``latest`` after the current step and ends the run, so a
 requeued job resumes.  Train-mode memory dropout draws from a generator
 on the model's device that ``_lazy_init`` seeds from ``rng_seed`` (a resume
@@ -21,7 +23,7 @@ import os
 import queue
 import threading
 import time
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -29,7 +31,8 @@ import torch
 from pq3d_tpu_torch.device import resolve_device
 from pq3d_tpu_torch.eval.base import truncate_batch_rows
 from pq3d_tpu_torch.serve import to_device
-from pq3d_tpu_torch.train.checkpoints import CheckpointManager
+from pq3d_tpu_torch.train.checkpoints import (CheckpointManager,
+                                              find_pretrain, load_pretrain)
 from pq3d_tpu_torch.train.metrics import ExpTracker, MetricsLogger
 from pq3d_tpu_torch.train.state import make_eval_step, make_train_step
 
@@ -99,12 +102,10 @@ class Query3DTrainer:
         self._optimizer = self._scheduler = self._grad_norm = None
         self._train_step = self._eval_step = None
         self._preempted = False
+        self.warm_started: List[str] = []   # names a warm start loaded
 
     def _lazy_init(self):
         from pq3d_tpu_torch.optim.optimizers import build_from_config
-        if self.cfg.get("pretrain_ckpt_path"):
-            raise NotImplementedError(
-                "warm start from a pretrained checkpoint is not ported")
         self.model.unified_encoder.set_memory_generator(torch.Generator(
             device=self.device).manual_seed(int(self.cfg.get("rng_seed",
                                                              42))))
@@ -123,6 +124,24 @@ class Query3DTrainer:
                 "latest", self.model, self._optimizer, self._scheduler)
             self.tracker.load_state_dict(tr)
             print(f"[trainer] resumed from epoch {self.tracker.epoch}")
+        elif self.cfg.get("pretrain_ckpt_path"):
+            self.warm_started = self._warm_start(
+                str(self.cfg["pretrain_ckpt_path"]))
+
+    def _warm_start(self, path: str) -> List[str]:
+        """Non-strict warm start from another run's checkpoint (stage 2
+        from stage 1): same-named, same-shaped parameters and BatchNorm
+        statistics; returns the loaded names."""
+        ckpt = find_pretrain(path)
+        if ckpt is None:
+            print(f"[trainer] warm start: nothing loadable at {path!r}")
+            return []
+        state = torch.load(ckpt, map_location="cpu",
+                           weights_only=False)["model"]
+        loaded = load_pretrain(self.model, state)
+        print(f"[trainer] warm start from {ckpt}: {len(loaded)} tensors "
+              f"loaded")
+        return loaded
 
     def _put(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         return to_device({k: v for k, v in batch.items()

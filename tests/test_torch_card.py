@@ -429,3 +429,55 @@ def test_unified_train_step_on_the_card_matches_the_cpu(cuda_device):
     rel = {k: (num / den) ** 0.5 for k, (num, den) in sums.items()}
     print(f"unified train step, card vs CPU (L2, relative): {rel}")
     assert rel["gradients"] <= 1e-3 and rel["updates"] <= 1e-2, rel
+
+
+@pytest.mark.cuda
+def test_gt_train_step_with_b1_matches_all_plain(cuda_device, tmp_path):
+    """The GT-query variant (instseg_sceneverse_gt, pallas_conv: true, at
+    its widths) on a batch of 2 SceneVerse-replica scans at real-scan
+    statistics: one train step (dropout off) with kernel B1 on the routed
+    convs against the same step with every conv on its plain version, loss
+    within 2e-2 relative (chip_smoke.py's train_check gate); B1 ran its
+    forward and dx once per routed conv, and every gradient is finite."""
+    import copy
+    from pq3d_tpu_torch import run
+    from pq3d_tpu_torch.config import load_config
+    from pq3d_tpu_torch.data.replica import ReplicaSpec, write_replica
+    base, pred, aux = (str(tmp_path / d) for d in ("base", "pred", "aux"))
+    write_replica(base, pred, aux, ReplicaSpec(n_train=2, n_val=1))
+    cfg = load_config("instseg_sceneverse_gt", [
+        f"data.scene_verse_base={base}", f"data.scene_verse_aux={aux}",
+        "data.load_scan_options.load_image_segment_feat=true",
+        "data.load_scan_options.load_point_segment_feat=true",
+        "model.voxel_encoder.args.pallas_conv=true", "dataloader.batchsize=2",
+        "device=cuda", f"exp_dir={tmp_path / 'exp'}"])
+    trainer = run.build_instseg_trainer(cfg)
+    batch = next(iter(trainer.train_data(0)))
+    assert batch["offline_attn_mask"].any()
+    model = trainer.model.train()
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    b = trainer._put(batch)
+    backbone = model.voxel_encoder.backbone
+    routed = backbone.routed_convs(
+        [int(np.prod(batch["maps"][f"valid_{l}"].shape)) for l in range(5)])
+    assert routed
+    plain = copy.deepcopy(model)
+    plain.voxel_encoder.backbone.pallas_conv = False
+    losses = []
+    for net in (model, plain):
+        tzr.reset_counts()
+        net.zero_grad(set_to_none=True)
+        total, _ = trainer.loss_fn(net(b), b)
+        total.backward()
+        torch.cuda.synchronize()
+        losses.append(total.item())
+        assert all(torch.isfinite(p.grad).all().item()
+                   for p in net.parameters() if p.grad is not None)
+        counts = dict(tzr.phase_launches)
+        if net is model:
+            assert counts == {"fwd": len(routed), "bwd": len(routed)}
+        else:
+            assert counts == {"fwd": 0, "bwd": 0}
+    assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1]), losses

@@ -23,7 +23,8 @@ NEEDED = ["pq3d_tpu_torch." + m for m in (
     "ops.sparse", "ops.windowed_conv", "data.pool", "data.unified_loader",
     "optim.loss_aggregator", "eval.base", "eval.grounding_eval",
     "eval.qa_eval", "eval.caption_eval", "eval.caption_metrics",
-    "eval.text_utils")]
+    "eval.text_utils", "data.sceneverse", "data.replica",
+    "data.label_utils", "data.scannet200_constants")]
 import pq3d_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(pq3d_tpu_torch.__path__,
                                               "pq3d_tpu_torch.")]
@@ -98,3 +99,32 @@ def test_slice_config_equals_yaml():
     assert cfg["model"]["mask_head"]["args"]["filter_out_classes"] == [0, 2]
     assert "pallas_conv" not in \
         config.INSTSEG_SCENEVERSE_MODEL["voxel_encoder"]["args"]
+    path = os.path.join(REPO, "pq3d_tpu", "config", "configs",
+                        "instseg_sceneverse_gt.yaml")
+    with open(path) as f:
+        assert config.INSTSEG_SCENEVERSE_GT == yaml.safe_load(f)
+    gt = config.load_config("instseg_sceneverse_gt")
+    assert gt["data"]["instseg_options"]["query_sample_strategy"] == "gt"
+    assert gt["model"]["use_offline_attn_mask"] is True
+    assert gt["model"]["InstSegLoss"]["criterion_type"] == "direct"
+    # the GT variant leaves the FPS config's shared sections untouched
+    assert config.INSTSEG_SCENEVERSE_OPTIONS["query_sample_strategy"] == \
+        "fps"
+
+
+def test_recipe_entry_points_refuse_cuda_without_a_card(tmp_path):
+    """The GT-query variant and a warm-started stage 2 refuse CUDA on a
+    machine without a card, as the other entry points do."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal path is moot")
+    from pq3d_tpu_torch import run
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run.main(["--config-name", "instseg_sceneverse_gt",
+                  "data.train=[SyntheticInstSeg]",
+                  "data.val=[SyntheticInstSeg]",
+                  f"exp_dir={tmp_path / 'gt'}"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run.main(["--config-name", "unified_tasks_sceneverse",
+                  "data.train=[SyntheticRefer]",
+                  f"pretrain_ckpt_path={tmp_path}",
+                  f"exp_dir={tmp_path / 's2'}"])
