@@ -26,6 +26,30 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                routed-convs x forwards times (and the windowed conv never);
 5. check    -- the served forward against the same model with every conv on
                its plain version, on one batch;
+5b. serve_layouts -- the same model at one set of random weights, level
+               caps 65536 / 40960 / 16384 / 4096 / 2048 (the JAX
+               package's serving bench's, which hold these scenes at every
+               level), behind InstSegServer(batch_size=4) in four setups:
+               rect (host maps), dev_maps (maps and the z-run plans of
+               levels 1-3 built on the card from biased voxel coords, so
+               B1 reads per-scene card-built plans), flat_zt (the flat pack with the z-run
+               gather conv on levels 1-3) and rect on a spawn pool of
+               min(4, cpu_count - 1) workers; each serves 4 warm scenes
+               and phase 4's 8 and prints scenes/s, p50/p99, the stage
+               seconds, host-to-device bytes a batch, peak memory, the
+               map build's device ms (dev_maps, CUDA events) and B1's
+               routed convs per forward and launches; then one forward of
+               one batch per layout on the device clock.  Gates: every
+               request resolves; B1's launches equal routed convs x
+               forwards per setup; on one batch the maps and z-run plans
+               built on the card equal the host's key by key, exactly; dev_maps'
+               served logits equal rect's within 1e-5 relative; the flat
+               forward all-plain equals the rectangular all-plain one on
+               each scene within 1e-4 (segment features, final class and
+               mask logits); the flat forward with B1 against its own
+               all-plain forward within phase 5's 2e-2; the pool's
+               batches equal in-process process_scene with the same
+               seeds;
 6. winconv  -- the windowed conv kernel (B2), which no model calls, on the
                served batch's coordinates rebuilt level by level and put in
                Morton order per scene: per level the host seconds of
@@ -134,10 +158,11 @@ hand kernel's numbers, and the result line.
     python3 chip_smoke.py --profile PATH
 
 adds torch.profiler traces of one served forward (after phase 5), of one
-train step (after phase 9), of one unified batch (forward and decode,
-phase 10) and of one unified train step (phase 11): device busy time
-against the host clock, the idle share and the device time by kernel (the
-top rows printed, the whole tables written to PATH and to PATH with
+forward per layout (phase 5b), of one train step (after phase 9), of one
+unified batch (forward and decode, phase 10) and of one unified train step
+(phase 11): device busy time against the host clock, the idle share and
+the device time by kernel (the top rows printed, the whole tables written
+to PATH and to PATH with ``_rect``, ``_dev_maps``, ``_flat_zt``,
 ``_train``, ``_unified`` and ``_unified_train`` before its extension).
 """
 import argparse
@@ -375,6 +400,394 @@ def batch_loss(trainer, b):
 
 PLAN_KEYS = ("win_lo", "nbr_local", "exc_in_k", "exc_row_tile",
              "exc_src_tile")         # build_window_map's plan, as JAX's
+
+
+# the JAX package's full-size serving caps (tools/bench_serve.py): unlike
+# the YAML's they hold the synthetic scenes at every level, which maps built
+# on the card need (their shapes are the caps; collate refuses a scene
+# that outgrows one)
+LAYOUT_CAPS = [65536, 40960, 16384, 4096, 2048]
+LAYOUT_GATE = {"dev_maps": 1e-5, "flat_plain": 1e-4}
+
+
+def tree_nbytes(tree):
+    """Bytes of the numpy arrays in a (nested) batch dict."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    return tree.nbytes
+
+
+def level_counts(scene, voxel_size):
+    """True voxels per hierarchy level of one raw scene (voxelize, then
+    halve the coordinates level by level)."""
+    import numpy as np
+    from pq3d_tpu_torch.ops import voxelize
+    coords = voxelize.quantize(scene["points"].astype(np.float32),
+                               voxel_size)[0]
+    out = [len(coords)]
+    for _ in range(4):
+        coords = np.unique(coords >> 1, axis=0)
+        out.append(len(coords))
+    return out
+
+
+def per_scene_rel(got, ref, valid=None):
+    """max over scenes of max|got - ref| / max|ref| within each scene
+    (``valid`` masks the compared entries)."""
+    worst = 0.0
+    for i in range(ref.shape[0]):
+        g, r = got[i].float(), ref[i].float()
+        if valid is not None:
+            g, r = g[valid[i]], r[valid[i]]
+        worst = max(worst, rel_err(g, r))
+    return worst
+
+
+def serve_layouts_phase(card, dev, zrun_conv, profile=None):
+    """Phase ``serve_layouts``: the full-width stage-1 model, one set of
+    random weights, behind InstSegServer(batch_size=4) in the rectangular
+    layout with host maps (``rect``), with maps built on the card
+    (``dev_maps``), the flat pack with the z-run gather conv (``flat_zt``)
+    and ``rect`` on a spawn pool of min(4, cpu_count - 1) workers; 4 warm
+    and the serve phase's 8 timed scenes each.  Returns the phase's
+    numbers; fails on any gate (see the module docstring)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from pq3d_tpu_torch import serve as serve_mod
+    from pq3d_tpu_torch.config import serving_config
+    from pq3d_tpu_torch.data.instseg_pipeline import (collate_processed,
+                                                      make_batch,
+                                                      pipeline_config,
+                                                      process_scene)
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.ops import device_maps, kernel_maps
+    from pq3d_tpu_torch.serve import InstSegServer, to_device
+
+    class Recording(InstSegServer):
+        """Keeps each batch's served logits and, on a pool, the scenes and
+        first seed of each preprocessing call."""
+
+        def __init__(self, *a, **k):
+            self.logits, self.pre = [], []
+            super().__init__(*a, **k)
+
+        def _forward(self, batch):
+            cls_l, mask_l = super()._forward(batch)
+            self.logits.append((cls_l, mask_l))
+            return cls_l, mask_l
+
+        def _preprocess(self, scenes):
+            self.pre.append((list(scenes), self._pool_seed))
+            return super()._preprocess(scenes)
+
+    over = [f"data.instseg_options.level_caps={LAYOUT_CAPS}"]
+    cfgs = {lay: serving_config(lay, over)
+            for lay in ("rect", "dev_maps", "flat_zt")}
+    pipes = {lay: pipeline_config(c["data"]["instseg_options"])
+             for lay, c in cfgs.items()}
+    model = build_model(cfgs["rect"], device="cuda", seed=0)
+    backbone = model.voxel_encoder.backbone
+    host_ve = model.voxel_enc
+    # the voxel encoder's settings that build_model reads from the
+    # dev_maps config: the same model and weights, maps and z-run plans
+    # built on the card
+    dev_args = cfgs["dev_maps"]["model"]["voxel_encoder"]["args"]
+    dev_ve = dataclasses.replace(
+        host_ve, device_maps=tuple(dev_args["device_maps"]),
+        device_ztriple=dev_args["device_ztriple"])
+    warm = make_scenes(4, seed=2)
+    scenes = make_scenes(8, seed=3)
+    most = np.max([level_counts(s, pipes["rect"].voxel_size)
+                   for s in warm + scenes], 0).tolist()
+    print(f"serve_layouts: level caps {LAYOUT_CAPS} (tools/bench_serve.py), "
+          f"most voxels in one scene per level {most}", flush=True)
+    if any(m > c for m, c in zip(most, LAYOUT_CAPS)):
+        fail("a scene outgrows the layouts' level caps")
+    extra = {"mv": 768, "pc": 768}
+    workers = max(1, min(4, (os.cpu_count() or 2) - 1))
+
+    def run(label, pipe, ve, num_workers=0):
+        model.voxel_enc = ve
+        expected, h2d, builds, np_batches = [], [], [], []
+
+        def count(mod, args):
+            b = args[0]
+            rows = ([b["vox_coords"].shape[0] * c for c in ve.device_maps]
+                    if ve.device_maps else level_rows(b))
+            expected.append(len(backbone.routed_convs(rows)))
+
+        def wrap_put(orig):
+            def put(np_batch, device):
+                h2d.append(tree_nbytes(np_batch))
+                np_batches.append(np_batch)
+                return orig(np_batch, device)
+            return put
+
+        def wrap_build(orig):
+            def build(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = orig(*a, **k)
+                e1.record()
+                builds.append((e0, e1))
+                return out
+            return build
+
+        hook = model.register_forward_pre_hook(count)
+        srv = Recording(model, pipe, batch_size=4, num_classes=200,
+                        topk=100, max_delay_s=0.02, extra_features=extra,
+                        device="cuda", num_workers=num_workers)
+        try:
+            with patched(serve_mod, "to_device", wrap_put), \
+                    patched(device_maps, "build_batch_maps", wrap_build):
+                zrun_conv.reset_counts()
+                for f in [srv.submit(s) for s in warm]:
+                    f.result(timeout=900)
+                settle(srv, len(warm))
+                if zrun_conv.launches != sum(expected):
+                    fail(f"{label}: warm-up ran zrun_conv "
+                         f"{zrun_conv.launches} times; routing expects "
+                         f"{expected}")
+                srv.stats = type(srv.stats)()
+                for log in (expected, h2d, builds, np_batches, srv.logits,
+                            srv.pre):
+                    log.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zrun_conv.reset_counts()          # this path starts here
+                t0 = time.time()
+                results = [f.result(timeout=900)
+                           for f in [srv.submit(s) for s in scenes]]
+                wall = time.time() - t0
+                settle(srv, len(scenes))
+                launches = zrun_conv.launches     # and ends here
+                torch.cuda.synchronize()
+        finally:
+            srv.close()
+            hook.remove()
+            model.voxel_enc = host_ve
+        st = srv.stats.summary()
+        for s, preds in zip(scenes, results):
+            if not isinstance(preds, list):
+                fail(f"{label}: a request did not resolve")
+            for p in preds:
+                if p["mask"].shape != (len(s["points"]),) \
+                        or not np.isfinite(p["score"]) \
+                        or not 0 <= p["class"] < 200:
+                    fail(f"{label}: an instance has a wrong mask shape, "
+                         f"score or class")
+        if st["scenes"] != len(scenes) or launches != sum(expected) \
+                or len(expected) != st["steps"]:
+            fail(f"{label}: zrun_conv launches {launches} != routed convs "
+                 f"per forward {expected} (scenes {st['scenes']})")
+        build_ms = [a.elapsed_time(b) for a, b in builds]
+        rec = {"layout": label, "workers": num_workers,
+               "scenes_per_sec": st["scenes_per_sec"], "wall_s": wall,
+               "p50_ms": st["p50_latency_s"] * 1e3,
+               "p99_ms": st["p99_latency_s"] * 1e3,
+               "stage_s": st["stage_s"],
+               "h2d_bytes_per_batch": float(np.mean(h2d)),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "map_build_ms": build_ms,
+               "routed_per_forward": list(expected),
+               "launches": launches,
+               "logits": [(c.float().cpu(), m.float().cpu())
+                          for c, m in srv.logits],
+               "pre": list(srv.pre), "np_batches": list(np_batches)}
+        stages = " ".join(f"{k}={v:.3f}s" for k, v in sorted(
+            st["stage_s"].items()))
+        maps_txt = (f" | map build {np.median(build_ms):.3f} ms a batch "
+                    f"(CUDA events, {len(build_ms)} batches)"
+                    if build_ms else "")
+        print(f"serve_layouts: {label}{f' ({num_workers} workers)' if num_workers else ''} | "
+              f"{st['scenes_per_sec']:.3f} scenes/s (wall {wall:.2f} s) "
+              f"p50 {rec['p50_ms']:.1f} ms p99 {rec['p99_ms']:.1f} ms | "
+              f"{stages} | host-to-device {rec['h2d_bytes_per_batch'] / 2**20:.2f} "
+              f"MiB a batch | max_memory_allocated {rec['peak_gib']:.2f} GiB"
+              f"{maps_txt} | zrun_conv launches {launches} = routed convs "
+              f"per forward {expected} ({card})", flush=True)
+        return rec
+
+    runs = {"rect": run("rect", pipes["rect"], host_ve),
+            "dev_maps": run("dev_maps", pipes["dev_maps"], dev_ve),
+            "flat_zt": run("flat_zt", pipes["flat_zt"], host_ve),
+            "rect_pool": run("rect_pool", pipes["rect"], host_ve, workers)}
+
+    # gate: the served logits with maps built on the card against the host
+    # maps' (same maps, same kernels), scene by scene in submission order
+    def per_scene(rec):
+        cls = torch.cat([c for c, _ in rec["logits"]])
+        mask = torch.cat([m for _, m in rec["logits"]])
+        return cls, mask
+    cls_r, mask_r = per_scene(runs["rect"])
+    cls_d, mask_d = per_scene(runs["dev_maps"])
+    keep = torch.ones(cls_r.shape[-1], dtype=torch.bool)
+    keep[[0, 2]] = False
+    dm_rel = max(rel_err(cls_d[..., keep], cls_r[..., keep]),
+                 rel_err(mask_d, mask_r))
+    print(f"serve_layouts: dev_maps served logits vs rect: rel {dm_rel:.2e} "
+          f"(gate {LAYOUT_GATE['dev_maps']:.0e})", flush=True)
+    if not dm_rel <= LAYOUT_GATE["dev_maps"]:
+        fail("dev_maps' served logits differ from rect's")
+
+    # gate: the pool's batches against process_scene in process with the
+    # same seeds, collated the same way
+    pool = runs["rect_pool"]
+    for (pscenes, seed0), got in zip(pool["pre"], pool["np_batches"]):
+        procs = [process_scene(s, pipes["rect"],
+                               np.random.default_rng(
+                                   np.random.SeedSequence(seed0 + i)))
+                 for i, s in enumerate(pscenes)]
+        procs += [procs[-1]] * (4 - len(procs))
+        want = collate_processed(procs, pipes["rect"])
+        want.pop("_meta")
+        for key, val in want.items():
+            pairs = (val.items() if isinstance(val, dict)
+                     else [(None, val)])
+            for kk, v in pairs:
+                g = got[key] if kk is None else got[key][kk]
+                if g.dtype != v.dtype or g.shape != v.shape \
+                        or not np.array_equal(g, v):
+                    fail(f"rect_pool: batch array {key} {kk or ''} differs "
+                         f"from in-process process_scene")
+    print(f"serve_layouts: the pool's {len(pool['pre'])} batches equal "
+          f"in-process process_scene with the same seeds", flush=True)
+
+    # gate: on one batch, the maps and z-run plans built on the card equal
+    # the host's (its plans from kernel_maps.build_ztriple_plan, as the
+    # ztriple_conv collate ships them)
+    b4 = scenes[:4]
+    rb = make_batch([dict(s) for s in b4], pipes["rect"],
+                    np.random.default_rng(0))
+    db = make_batch([dict(s) for s in b4], pipes["dev_maps"],
+                    np.random.default_rng(0))
+    fb = make_batch([dict(s) for s in b4], pipes["flat_zt"],
+                    np.random.default_rng(0))
+    dt = to_device({k: v for k, v in db.items() if k != "_meta"}, dev)
+
+    def build_maps():
+        return device_maps.build_batch_maps(
+            dt["vox_coords"], dt["n_voxels"], dt["voxel_feats"],
+            LAYOUT_CAPS, ztriple=dev_ve.device_ztriple)
+    built = build_maps()
+    host_maps = dict(rb["maps"])
+    if dev_ve.device_ztriple:
+        for lvl in device_maps.ZTRIPLE_LEVELS:
+            nbr = host_maps[f"nbr3_{lvl}"]
+            base, code = kernel_maps.build_ztriple_plan(
+                nbr.reshape(-1, 27), n_pad=nbr.shape[1])
+            host_maps[f"zt{lvl}_base"] = base.reshape(nbr.shape[:2] + (9,))
+            host_maps[f"zt{lvl}_code"] = code.reshape(
+                nbr.shape[:2] + (9, 3))
+    for key, want in host_maps.items():
+        got = built[key].cpu().numpy()
+        if got.dtype != want.dtype or got.shape != want.shape \
+                or not np.array_equal(got, want):
+            fail(f"the map {key} built on the card differs from the host's")
+    build_ms = cuda_time(build_maps, 5)
+    print(f"serve_layouts: the {len(host_maps)} maps built on the card "
+          f"equal the host's key by key | build {build_ms:.3f} ms "
+          f"(median of 5, CUDA events) | host-to-device "
+          f"{tree_nbytes({k: v for k, v in db.items() if k != '_meta'}) / 2**20:.2f} "
+          f"MiB against {tree_nbytes({k: v for k, v in rb.items() if k != '_meta'}) / 2**20:.2f} "
+          f"MiB with host maps", flush=True)
+    del built, dt
+
+    # gates: the flat forward all-plain against the rectangular all-plain
+    # one on each real scene, and the flat forward with B1 against its own
+    # all-plain forward (phase 5's gate)
+    enc = {}
+    h1 = model.voxel_encoder.register_forward_hook(
+        lambda mod, args, out: enc.__setitem__("scales", out))
+    h2 = backbone.register_forward_hook(
+        lambda mod, args, out: enc.__setitem__("maps", [out[0]] + out[1]))
+
+    def on_card(np_batch):
+        b = to_device({k: v for k, v in np_batch.items() if k != "_meta"},
+                      dev)
+        for name, dim in extra.items():
+            b[f"{name}_seg_fts"] = torch.zeros(4, pipes["rect"].max_segments,
+                                               dim, device=dev)
+            b[f"{name}_seg_pad_masks"] = b["seg_pad_masks"]
+        return b
+
+    def forward(b, use_kernel, ve=host_ve):
+        backbone.pallas_conv = use_kernel
+        model.voxel_enc = ve
+        try:
+            with torch.inference_mode():
+                out = model(b)
+        finally:
+            backbone.pallas_conv = True
+            model.voxel_enc = host_ve
+        return {"scales": enc["scales"], "maps": enc["maps"],
+                "cls": [c.float() for c in out["predictions_class"]],
+                "mask": [m.float() for m in out["predictions_mask"]]}
+    rb_d, db_d, fb_d = on_card(rb), on_card(db), on_card(fb)
+    try:
+        rect_plain = forward(rb_d, False)
+        flat_plain = forward(fb_d, False)
+        before = zrun_conv.launches
+        flat_b1 = forward(fb_d, True)
+        flat_launches = zrun_conv.launches - before
+        # one forward of the checked batch per layout on the device clock
+        fwd_ms = {lay: cuda_time(lambda: forward(b, True, ve), 3)
+                  for lay, b, ve in (("rect", rb_d, host_ve),
+                                     ("dev_maps", db_d, dev_ve),
+                                     ("flat_zt", fb_d, host_ve))}
+        if profile:
+            stem, ext = os.path.splitext(profile)
+            for lay, b, ve in (("rect", rb_d, host_ve),
+                               ("dev_maps", db_d, dev_ve),
+                               ("flat_zt", fb_d, host_ve)):
+                profile_run(lambda: forward(b, True, ve), f"{lay} forward",
+                            f"{stem}_{lay}{ext}")
+    finally:
+        h1.remove()
+        h2.remove()
+    print(f"serve_layouts: one forward of the checked batch (CUDA events, "
+          f"median of 3, kernel on; dev_maps with its map build): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in fwd_ms.items()),
+          flush=True)
+    flat_rows = level_rows(fb)
+    if flat_launches != len(backbone.routed_convs(flat_rows)):
+        fail(f"the flat forward launched zrun_conv {flat_launches} times")
+    seg_valid = torch.from_numpy(rb["seg_pad_masks"]).to(dev)
+    scale_rel = max(per_scene_rel(f, r, seg_valid) for f, r in
+                    zip(flat_plain["scales"], rect_plain["scales"]))
+    mvalid = seg_valid[:, :, None].expand_as(rect_plain["mask"][-1])
+    cls_rel = per_scene_rel(flat_plain["cls"][-1][..., keep.to(dev)],
+                            rect_plain["cls"][-1][..., keep.to(dev)])
+    mask_rel = per_scene_rel(flat_plain["mask"][-1], rect_plain["mask"][-1],
+                             mvalid)
+    flips = [int((((g >= 0) != (r >= 0)) & seg_valid[:, :, None]).sum())
+             for g, r in zip(flat_plain["mask"], rect_plain["mask"])]
+    print(f"serve_layouts: flat all-plain vs rect all-plain per scene: "
+          f"segment features rel {scale_rel:.2e}, final class rel "
+          f"{cls_rel:.2e}, mask rel {mask_rel:.2e} (gate "
+          f"{LAYOUT_GATE['flat_plain']:.0e}), attend bits differing per "
+          f"round {flips}", flush=True)
+    if not max(scale_rel, cls_rel, mask_rel) <= LAYOUT_GATE["flat_plain"]:
+        fail("the flat forward disagrees with the rectangular one")
+    feat_rel = max(rel_err(a, r) for a, r in zip(
+        flat_b1["maps"] + flat_b1["scales"],
+        flat_plain["maps"] + flat_plain["scales"]))
+    finite = all(torch.isfinite(t).all().item()
+                 for t in flat_b1["cls"][-1:] + flat_b1["mask"][-1:])
+    print(f"serve_layouts: flat forward with zrun_conv ({flat_launches} "
+          f"launches, flat level rows {flat_rows}) vs its all-plain "
+          f"forward: features rel {feat_rel:.2e} (gate 2e-2)", flush=True)
+    if not (finite and feat_rel <= 2e-2):
+        fail("the flat forward with the kernel disagrees with its plain "
+             "twin")
+    del model, backbone, rect_plain, flat_plain, flat_b1, enc, rb_d, db_d, \
+        fb_d
+    for rec in runs.values():
+        for key in ("logits", "pre", "np_batches"):
+            rec.pop(key)
+    return {"runs": runs, "map_build_ms": build_ms, "forward_ms": fwd_ms}
 
 
 def morton_maps(level_coords, pad, kernel):
@@ -2063,6 +2476,10 @@ def main():
     del model, backbone, srv, outs, got, ref, out, enc_out, b, fm
     torch.cuda.empty_cache()
 
+    # ---- 5b. serve_layouts: rect, dev_maps, flat_zt, rect on a pool ----
+    lay = serve_layouts_phase(card, dev, zrun_conv, args.profile)
+    torch.cuda.empty_cache()
+
     # ---- 6. winconv: kernel B2 on the served batch's coordinates --------
     wc = winconv_phase(served, batch, pipe, shapes,
                        {(r["level"], r["cin"], r["cout"]): r["ms"]
@@ -2134,8 +2551,11 @@ def main():
         "replaces": "pq3d_tpu/ops/pallas_zt.py:386",
         "launches": main_launches + tr["counts"]["fwd"]
         + tr["counts"]["bwd"] + rc["launches"]["fwd"]
-        + rc["launches"]["bwd"],
+        + rc["launches"]["bwd"]
+        + sum(r["launches"] for r in lay["runs"].values()),
         "launches_by_path": {"serve": main_launches,
+                             **{f"serve_{k}": r["launches"]
+                                for k, r in lay["runs"].items()},
                              "train_fwd": tr["counts"]["fwd"],
                              "train_bwd": tr["counts"]["bwd"],
                              "recipe_fwd": rc["launches"]["fwd"],
@@ -2145,14 +2565,20 @@ def main():
         "plain_ms": per_fwd("plain_ms"), "bound_ms": per_fwd("bound_ms"),
         "bound_by": max(per_shape, key=lambda r: r["bound_ms"])["bound_by"],
         "library_ms": None,
+        "serve_layouts": {k: {kk: v for kk, v in r.items()
+                              if kk not in ("map_build_ms",)}
+                          for k, r in lay["runs"].items()},
+        "dev_map_build_ms": lay["map_build_ms"],
+        "layout_forward_ms": lay["forward_ms"],
         "scope": f"ms/host_ms/plain_ms/bound_ms: sum over the "
                  f"{len(routed)} routed convs of one served forward (B=4), "
                  f"ms the median device-clock time of a call, host_ms the "
                  f"wrapper's host time per call; bwd_*: sum of the dx "
                  f"launches over the {len(troutes)} routed convs of one "
                  f"train step (B=4); launches: the serving run, the "
-                 f"5 timed train steps and the recipe's stage-1 runs "
-                 f"(train and eval forwards, dx); recipe_ms: the same sum "
+                 f"serve_layouts runs (rect, dev_maps, flat_zt, rect on a "
+                 f"pool), the 5 timed train steps and the recipe's stage-1 "
+                 f"runs (train and eval forwards, dx); recipe_ms: the same sum "
                  f"as ms over one forward of 4 SceneVerse-replica scans",
         "recipe_ms": rc["b1_ms"], "recipe_shapes": rc["b1"],
         "recipe_train_check": rc["train_check"],

@@ -12,7 +12,7 @@ CUDA kernel.  ``UNIFIED_TASKS_SCENEVERSE`` and ``UNIFIED_TASKS_SYNTHETIC``
 are ``unified_tasks_{sceneverse,synthetic}.yaml``, the stage-2 unified
 model, read the same way.  ``load_config`` resolves a named config with
 ``key=value`` overrides, as the JAX package's loader does for its YAML
-files.
+files, and ``serving_config`` sets one of the stage-1 serving layouts up.
 """
 from __future__ import annotations
 
@@ -365,3 +365,35 @@ def slice_config() -> Dict[str, Any]:
     with the ``pallas_conv: true`` override applied."""
     return load_config("instseg_sceneverse",
                        ["model.voxel_encoder.args.pallas_conv=true"])
+
+
+# the stage-1 serving layouts (the JAX package's tools/bench_serve.py
+# variants) as overrides of the slices' config: device-built maps need the
+# model's caps to equal the pipeline's level_caps, which the interpolation
+# keeps true under a level_caps override, and carry the z-run plans of
+# levels 1-3 built on the device, as the bench's dev_maps variant does
+SERVING_LAYOUTS: Dict[str, Sequence[str]] = {
+    "rect": (),
+    "dev_maps": ("data.instseg_options.device_maps=true",
+                 "model.voxel_encoder.args.device_maps="
+                 "${data.instseg_options.level_caps}",
+                 "model.voxel_encoder.args.device_ztriple=true"),
+    "flat_zt": ("data.instseg_options.flat_pack=true",
+                "data.instseg_options.ztriple_conv=true"),
+}
+
+
+def serving_config(layout: str = "rect",
+                   overrides: Sequence[str] = ()) -> Dict[str, Any]:
+    """The slices' config set up to serve ``layout``: ``rect``
+    (rectangular, host-built maps), ``dev_maps`` (rectangular, maps and
+    z-run plans built on the device: ``voxel_enc.device_maps ==
+    level_caps``; the caps must hold every served scene) or ``flat_zt``
+    (the flat pack with the z-run gather conv on levels 1-3); further
+    ``key=value`` overrides after the layout's."""
+    if layout not in SERVING_LAYOUTS:
+        raise KeyError(f"unknown serving layout {layout!r}; known: "
+                       f"{sorted(SERVING_LAYOUTS)}")
+    return load_config("instseg_sceneverse",
+                       ["model.voxel_encoder.args.pallas_conv=true",
+                        *SERVING_LAYOUTS[layout], *overrides])

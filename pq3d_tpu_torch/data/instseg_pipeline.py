@@ -3,22 +3,35 @@
 Counterpart of ``pq3d_tpu/data/instseg_pipeline.py``, trimmed to the
 stage-1 slices: train-time augmentation, color normalization,
 voxelization, query sampling (FPS, or the GT object centres), sparse
-kernel maps and the dense-block stem pack, collated into the rectangular
-(B, ...) layout with host-built maps, and in GT-query mode the GT segment
-masks as the decoder's offline attention masks.  The flat, compact, swin
-and device-maps layouts of the JAX package are not ported.  Everything
-here is numpy; the batch it returns is bit-identical to the JAX package's
-on the same scenes and rng, with or without augmentation.
+kernel maps and the dense-block stem pack, and in GT-query mode the GT
+segment masks as the decoder's offline attention masks.  Three layouts:
+
+- rectangular (B, ...) with host-built maps (``collate``), optionally
+  with the z-run plans of levels 1-3 (``ztriple_conv``);
+- rectangular with maps built on the device (``device_maps``): the batch
+  ships each scene's biased voxel coords and count, and the model's
+  forward builds the maps (``ops/device_maps``) at the static level caps;
+  ``process_scene`` then skips the hierarchy, and ``collate`` refuses a
+  scene that outgrows a cap;
+- the flat pack (``flat_pack``, ``collate_flat``): voxel-level arrays
+  concatenate the scenes' true rows into one bucketed total per level,
+  with the maps pre-offset, for single-device serving.
+
+The compact-conv, level-cap-ladder, Swin3D and flat device-maps layouts of
+the JAX package are not ported.  Everything here is numpy; the batch it
+returns is bit-identical to the JAX package's on the same scenes and rng,
+with or without augmentation.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from pq3d_tpu_torch.ops import kernel_maps, sampling, voxelize, window_maps
+from pq3d_tpu_torch.ops.device_maps import ZTRIPLE_LEVELS, bias_coords_16
 
 COLOR_MEAN = np.array([0.47793125906962, 0.4303257521323044,
                        0.3749598901421883], np.float32)
@@ -50,9 +63,30 @@ class InstSegPipelineConfig:
     # stem the port ships
     stem_mode: str = "dense_block"
     stem_block: int = 8
-    # fixed pad (in blocks) for the dense-block stem pack; with level_caps
-    # and no explicit cap, level_caps[0] // 16 (bucketed) is used
+    # fixed pad (in blocks) for the host-built dense-block stem pack; with
+    # level_caps and no explicit cap, level_caps[0] // 16 (bucketed) is
+    # used, which is also the cap of the stem pack built on the device
     stem_block_cap: Optional[int] = None
+    # serving layout: voxel-level arrays concatenate the scenes' true rows
+    # (one bucketed total per level instead of B x the largest scene) and
+    # the maps ship pre-offset with no batch dim, plus 'voxel_scene',
+    # 'anc_local' and 'rect_{l}'; single device only
+    flat_pack: bool = False
+    # ship z-run plans (kernel_maps.build_ztriple_plan) for ZTRIPLE_LEVELS,
+    # so the 3^3 convs that ops/sparse.ztriple_applicable claims run as 9
+    # wide gathers instead of 27 (ops/sparse.sparse_conv_ztriple)
+    ztriple_conv: bool = False
+    # kernel maps built on the device (ops/device_maps): the batch ships
+    # only biased voxel coords and counts beside the features, and
+    # process_scene skips the hierarchy; needs static level_caps, and the
+    # model built with voxel_enc.device_maps equal to them; collate refuses
+    # a scene that outgrows them
+    device_maps: bool = False
+    # flat-pack shape lock: the least size of each batch-varying flat dim
+    # ('tot_{l}', 'rect_{l}', 'stem_nb'), so batches collate to one shape
+    # set; a batch that overflows a cap takes its bucketed size (with a
+    # warning).  Derive with flat_shape_caps_from
+    flat_shape_caps: Optional[Dict[str, int]] = None
 
     def __post_init__(self):
         if self.query_sample_strategy not in ("fps", "gt"):
@@ -67,6 +101,31 @@ class InstSegPipelineConfig:
             raise ValueError(
                 f"stem_mode {self.stem_mode!r} is not ported; the PyTorch "
                 "pipeline ships the 'dense_block' stem only")
+        if self.device_maps and self.flat_pack:
+            raise NotImplementedError(
+                "device_maps + flat_pack (the flat device maps) is not "
+                "ported; use one of them")
+        if self.device_maps and not self.level_caps:
+            raise ValueError(
+                "device_maps needs static level_caps (the device builds "
+                "every level at its cap)")
+        if self.device_maps and self.stem_block_cap is not None:
+            raise ValueError(
+                "device_maps builds the stem pack at bucket(level_caps[0] "
+                "// 16) blocks; stem_block_cap is for host maps only")
+
+    def flat_dim(self, name: str, computed: int) -> int:
+        """Apply the flat shape lock to one batch-varying dimension."""
+        cap = (self.flat_shape_caps or {}).get(name)
+        if cap is None:
+            return computed
+        if computed > cap:
+            warnings.warn(
+                f"flat dim {name} overflows its shape cap ({computed} > "
+                f"{cap}); taking the bucketed size for this batch. Raise "
+                f"flat_shape_caps['{name}'].", stacklevel=2)
+            return computed
+        return int(cap)
 
     def stem_pad_blocks(self, n_win_max: int) -> int:
         """Static block-pad for the dense stem pack (see stem_block_cap)."""
@@ -179,10 +238,12 @@ def process_scene(scene: Dict[str, np.ndarray], cfg: InstSegPipelineConfig,
         query_locs = obj_center
         query_valid = np.ones(len(obj_center), bool)
 
-    hierarchy = kernel_maps.build_hierarchy(
-        vox_coords,
-        pad_sizes=list(cfg.level_caps) if cfg.level_caps else None,
-        bucket=cfg.voxel_bucket)
+    hierarchy = None
+    if not cfg.device_maps:
+        hierarchy = kernel_maps.build_hierarchy(
+            vox_coords,
+            pad_sizes=list(cfg.level_caps) if cfg.level_caps else None,
+            bucket=cfg.voxel_bucket)
 
     full_instance_masks = None
     if not train:
@@ -212,57 +273,18 @@ def process_scene(scene: Dict[str, np.ndarray], cfg: InstSegPipelineConfig,
     }
 
 
-def collate(scenes: List[Dict[str, np.ndarray]],
-            cfg: InstSegPipelineConfig) -> Dict[str, np.ndarray]:
-    """Stack processed scenes into one fixed-shape rectangular batch with
-    host-built maps (per-level pads: ``level_caps`` or the bucketed batch
-    maximum) and the dense-block stem pack."""
-    b = len(scenes)
-    n_levels = kernel_maps.NUM_LEVELS
-    if cfg.level_caps:
-        # a scene that overflowed a cap was bucket-padded by build_hierarchy;
-        # follow its pad so the batch buffers fit
-        pad = [max(int(c), max(s["hierarchy"].pad_sizes[l] for s in scenes))
-               for l, c in enumerate(cfg.level_caps)]
-    else:
-        pad = [max(s["hierarchy"].pad_sizes[l] for s in scenes)
-               for l in range(n_levels)]
+def _scene_arrays(scenes: List[Dict[str, np.ndarray]],
+                  cfg: InstSegPipelineConfig) -> Dict[str, np.ndarray]:
+    """The arrays every layout ships rectangular (B, ...): segments,
+    queries and instances, the GT-query ``offline_attn_mask``, and the
+    host-only ``_meta`` side channel (full-resolution reconstruction)."""
     S, M, Q = cfg.max_segments, cfg.max_instances, cfg.num_queries
-
-    maps: Dict[str, np.ndarray] = {}
-    for l in range(n_levels):
-        maps[f"valid_{l}"] = np.zeros((b, pad[l]), bool)
-        maps[f"nbr3_{l}"] = np.full((b, pad[l], 27), -1, np.int32)
-    for l in range(n_levels - 1):
-        maps[f"child_{l}"] = np.full((b, pad[l + 1], 8), -1, np.int32)
-        maps[f"parent_{l}"] = np.full((b, pad[l]), -1, np.int32)
-        maps[f"parent_off_{l}"] = np.zeros((b, pad[l]), np.int32)
-    maps["ancestor"] = np.zeros((b, n_levels, pad[0]), np.int32)
-
     batch: Dict[str, List[np.ndarray]] = {k: [] for k in [
-        "voxel_feats", "voxel2segment", "seg_center", "seg_pad_masks",
-        "segment_sizes", "query_locs", "query_pad_masks", "coord_min",
-        "coord_max", "instance_labels", "segment_masks", "instance_valid",
-        "obj_center", "obj_pad_masks",
+        "seg_center", "seg_pad_masks", "segment_sizes", "query_locs",
+        "query_pad_masks", "coord_min", "coord_max", "instance_labels",
+        "segment_masks", "instance_valid", "obj_center", "obj_pad_masks",
     ]}
-
-    for i, s in enumerate(scenes):
-        h: kernel_maps.SparseHierarchy = s["hierarchy"]
-        nv = [min(n, p) for n, p in zip(h.num_voxels, pad)]
-        for l in range(n_levels):
-            maps[f"valid_{l}"][i, :nv[l]] = h.valid[l][:nv[l]]
-            maps[f"nbr3_{l}"][i, :nv[l]] = h.nbr3[l][:nv[l]]
-        for l in range(n_levels - 1):
-            maps[f"child_{l}"][i, :nv[l + 1]] = h.child[l][:nv[l + 1]]
-            maps[f"parent_{l}"][i, :nv[l]] = h.parent[l][:nv[l]]
-            maps[f"parent_off_{l}"][i, :nv[l]] = h.parent_off[l][:nv[l]]
-        maps["ancestor"][i, :, :nv[0]] = h.ancestor[:, :nv[0]]
-        n0 = h.num_voxels[0]
-        batch["voxel_feats"].append(
-            kernel_maps.pad_rows(s["voxel_feats"], pad[0]))
-        v2s = kernel_maps.pad_rows(s["voxel2segment"], pad[0], S)
-        v2s[n0:] = S  # trash bucket
-        batch["voxel2segment"].append(np.minimum(v2s, S))
+    for s in scenes:
         ns = len(s["seg_center"])
         batch["seg_center"].append(
             kernel_maps.pad_rows(s["seg_center"][:S], S))
@@ -289,15 +311,108 @@ def collate(scenes: List[Dict[str, np.ndarray]],
             kernel_maps.pad_rows(s["obj_center"][:M], M))
         batch["obj_pad_masks"].append(
             kernel_maps.pad_rows(np.ones(min(no, M), bool), M, False))
-
     out = {k: np.stack(v) for k, v in batch.items()}
-    out["maps"] = maps
     if cfg.offline_mask_source == "gt":
-        oam = np.zeros((b, Q, S), bool)
+        oam = np.zeros((len(scenes), Q, S), bool)
         for i, s in enumerate(scenes):
             sm = s["segment_masks"][:Q, :S]
             oam[i, :sm.shape[0], :sm.shape[1]] = sm
         out["offline_attn_mask"] = oam
+    out["_meta"] = {
+        "segment_to_full": [s["segment_to_full"] for s in scenes],
+        "full_instance_masks": [s.get("full_instance_masks")
+                                for s in scenes],
+        "points": [s["points"] for s in scenes],
+        "scan_id": [s.get("scan_id", "") for s in scenes],
+    }
+    return out
+
+
+def _unique_rows(c: np.ndarray) -> np.ndarray:
+    """The distinct rows of non-negative (N, 3) int64 coords, in
+    ascending lexicographic order."""
+    d = c.max(0) + 1
+    u = np.unique((c[:, 0] * d[1] + c[:, 1]) * d[2] + c[:, 2])
+    return np.stack([u // (d[1] * d[2]), u // d[2] % d[1], u % d[2]], 1)
+
+
+def device_map_counts(biased: np.ndarray, block: int = 8
+                      ) -> Tuple[List[int], int]:
+    """What the device build (``ops/device_maps``) finds in one scene's
+    biased coords: its voxels per hierarchy level and its occupied
+    ``block^3`` stem blocks (level log2(block)'s voxels when that is a
+    level: the 8^3 blocks are level 3's)."""
+    c = biased.astype(np.int64)
+    counts = [len(c)]
+    for _ in range(1, kernel_maps.NUM_LEVELS):
+        c = _unique_rows(c >> 1)
+        counts.append(len(c))
+    lvl = block.bit_length() - 1
+    if block == 1 << lvl and lvl < len(counts):
+        return counts, counts[lvl]
+    return counts, len(_unique_rows(biased.astype(np.int64) // block))
+
+
+def _device_map_inputs(scenes: List[Dict[str, np.ndarray]],
+                       cfg: InstSegPipelineConfig) -> Dict[str, np.ndarray]:
+    """``vox_coords`` (B, cap0, 3) biased and ``n_voxels`` (B,) for the
+    maps the model builds on the device.  Those maps have the caps' static
+    shapes, so a scene that outgrew a level cap or the stem's block cap
+    would lose rows there and its children would index the next scene's
+    rows: such a scene is refused here (the rectangular layout with host
+    maps bucket-pads it instead)."""
+    caps = [int(c) for c in cfg.level_caps]
+    nb_cap = window_maps.bucket(caps[0] // 16)
+    vox_coords = np.zeros((len(scenes), caps[0], 3), np.int32)
+    n_voxels = np.zeros((len(scenes),), np.int32)
+    for i, s in enumerate(scenes):
+        biased = bias_coords_16(s["vox_coords"])[0]
+        counts, nw = device_map_counts(biased, cfg.stem_block)
+        if any(n > c for n, c in zip(counts, caps)) or nw > nb_cap:
+            raise ValueError(
+                f"scene {s.get('scan_id', '')!r} outgrows the device maps' "
+                f"static caps: {counts} voxels per level against level_caps "
+                f"{caps}, {nw} stem blocks against {nb_cap}; raise "
+                "level_caps or serve it with host maps")
+        vox_coords[i, :counts[0]] = biased
+        n_voxels[i] = counts[0]
+    return {"vox_coords": vox_coords, "n_voxels": n_voxels}
+
+
+def _host_maps(scenes: List[Dict[str, np.ndarray]],
+               cfg: InstSegPipelineConfig, pad: List[int]
+               ) -> Dict[str, np.ndarray]:
+    """The scenes' host-built hierarchies at the per-level ``pad``, the
+    dense-block stem pack and, with ``ztriple_conv``, the z-run plans of
+    ZTRIPLE_LEVELS, as (B, ...) maps."""
+    b = len(scenes)
+    n_levels = kernel_maps.NUM_LEVELS
+    maps: Dict[str, np.ndarray] = {}
+    for l in range(n_levels):
+        maps[f"valid_{l}"] = np.zeros((b, pad[l]), bool)
+        maps[f"nbr3_{l}"] = np.full((b, pad[l], 27), -1, np.int32)
+    for l in range(n_levels - 1):
+        maps[f"child_{l}"] = np.full((b, pad[l + 1], 8), -1, np.int32)
+        maps[f"parent_{l}"] = np.full((b, pad[l]), -1, np.int32)
+        maps[f"parent_off_{l}"] = np.zeros((b, pad[l]), np.int32)
+    maps["ancestor"] = np.zeros((b, n_levels, pad[0]), np.int32)
+    for i, s in enumerate(scenes):
+        h: kernel_maps.SparseHierarchy = s["hierarchy"]
+        nv = [min(n, p) for n, p in zip(h.num_voxels, pad)]
+        for l in range(n_levels):
+            maps[f"valid_{l}"][i, :nv[l]] = h.valid[l][:nv[l]]
+            maps[f"nbr3_{l}"][i, :nv[l]] = h.nbr3[l][:nv[l]]
+        for l in range(n_levels - 1):
+            maps[f"child_{l}"][i, :nv[l + 1]] = h.child[l][:nv[l + 1]]
+            maps[f"parent_{l}"][i, :nv[l]] = h.parent[l][:nv[l]]
+            maps[f"parent_off_{l}"][i, :nv[l]] = h.parent_off[l][:nv[l]]
+        maps["ancestor"][i, :, :nv[0]] = h.ancestor[:, :nv[0]]
+    if cfg.ztriple_conv:
+        for l in ZTRIPLE_LEVELS:
+            base, codes = kernel_maps.build_ztriple_plan(
+                maps[f"nbr3_{l}"].reshape(-1, 27), n_pad=pad[l])
+            maps[f"zt{l}_base"] = base.reshape(b, pad[l], 9)
+            maps[f"zt{l}_code"] = codes.reshape(b, pad[l], 9, 3)
 
     blk = cfg.stem_block
     b3 = blk ** 3
@@ -318,22 +433,190 @@ def collate(scenes: List[Dict[str, np.ndarray]],
     maps["stem_c2v"] = c2v
     maps["stem_slot"] = slot
     maps["stem_nbrblk"] = nbrblk
+    return maps
 
-    # host-only side channel: full-resolution reconstruction maps
-    out["_meta"] = {
-        "segment_to_full": [s["segment_to_full"] for s in scenes],
-        "full_instance_masks": [s.get("full_instance_masks")
-                                for s in scenes],
-        "points": [s["points"] for s in scenes],
-        "scan_id": [s.get("scan_id", "") for s in scenes],
-    }
+
+def collate(scenes: List[Dict[str, np.ndarray]],
+            cfg: InstSegPipelineConfig) -> Dict[str, np.ndarray]:
+    """Stack processed scenes into one fixed-shape rectangular batch with
+    host-built maps (per-level pads: ``level_caps`` or the bucketed batch
+    maximum), the dense-block stem pack and, with ``ztriple_conv``, the
+    z-run plans of ZTRIPLE_LEVELS.  Under ``device_maps`` the voxel
+    arrays are padded to ``level_caps[0]`` and the batch ships each
+    scene's biased coords (``vox_coords``, B x cap0 x 3) and count
+    (``n_voxels``) with an empty ``maps``; a scene that outgrows the caps
+    raises ``ValueError``."""
+    out = _scene_arrays(scenes, cfg)
+    if cfg.device_maps:
+        out.update(_device_map_inputs(scenes, cfg))
+        out["maps"] = {}
+        pad0 = int(cfg.level_caps[0])
+    else:
+        if cfg.level_caps:
+            # a scene that overflowed a cap was bucket-padded by
+            # build_hierarchy; follow its pad so the batch buffers fit
+            pad = [max(int(c), max(s["hierarchy"].pad_sizes[l]
+                                   for s in scenes))
+                   for l, c in enumerate(cfg.level_caps)]
+        else:
+            pad = [max(s["hierarchy"].pad_sizes[l] for s in scenes)
+                   for l in range(kernel_maps.NUM_LEVELS)]
+        out["maps"] = _host_maps(scenes, cfg, pad)
+        pad0 = pad[0]
+    S = cfg.max_segments
+    out["voxel_feats"] = np.stack([
+        kernel_maps.pad_rows(s["voxel_feats"], pad0) for s in scenes])
+    v2s = np.full((len(scenes), pad0), S, np.int32)  # pads: trash bucket
+    for i, s in enumerate(scenes):
+        v2s[i, :len(s["voxel2segment"])] = np.minimum(s["voxel2segment"], S)
+    out["voxel2segment"] = v2s
     return out
+
+
+def collate_flat(scenes: List[Dict[str, np.ndarray]],
+                 cfg: InstSegPipelineConfig) -> Dict[str, np.ndarray]:
+    """Flat-pack variant of :func:`collate` (``cfg.flat_pack``): voxel-level
+    arrays concatenate the scenes' true rows, one total per level bucketed
+    by ``voxel_bucket`` (then raised to ``flat_shape_caps``), with the maps
+    offset into the flat rows; segment, query and instance arrays stay
+    rectangular (B, ...).  Side arrays: ``voxel_scene`` (the scene of each
+    level-0 row), ``anc_local`` (scene-local ancestors, 5 x N0) and
+    ``rect_{l}`` (B, Pmax_l: each scene's flat rows of level l, -1 pad);
+    ``_meta['flat_dims']`` holds each flat dim before the lock."""
+    b = len(scenes)
+    n_levels = kernel_maps.NUM_LEVELS
+    hs = [s["hierarchy"] for s in scenes]
+    counts = [[h.num_voxels[l] for h in hs] for l in range(n_levels)]
+    starts = [np.concatenate([[0], np.cumsum(c)]).astype(np.int64)
+              for c in counts]
+    flat_dims: Dict[str, int] = {}
+
+    def _dim(name: str, computed: int) -> int:
+        flat_dims[name] = int(computed)
+        return cfg.flat_dim(name, computed)
+
+    tot = [_dim(f"tot_{l}", window_maps.bucket(int(starts[l][-1]),
+                                               cfg.voxel_bucket))
+           for l in range(n_levels)]
+
+    maps: Dict[str, np.ndarray] = {}
+    for l in range(n_levels):
+        valid = np.zeros(tot[l], bool)
+        valid[:starts[l][-1]] = True
+        nbr = np.full((tot[l], 27), -1, np.int32)
+        for i, h in enumerate(hs):
+            n = counts[l][i]
+            src = h.nbr3[l][:n]
+            nbr[starts[l][i]:starts[l][i] + n] = np.where(
+                src >= 0, src + starts[l][i], -1)
+        maps[f"valid_{l}"] = valid
+        maps[f"nbr3_{l}"] = nbr
+    for l in range(n_levels - 1):
+        child = np.full((tot[l + 1], 8), -1, np.int32)
+        parent = np.full(tot[l], -1, np.int32)
+        poff = np.zeros(tot[l], np.int32)
+        for i, h in enumerate(hs):
+            nf, nc = counts[l][i], counts[l + 1][i]
+            cs = h.child[l][:nc]
+            child[starts[l + 1][i]:starts[l + 1][i] + nc] = np.where(
+                cs >= 0, cs + starts[l][i], -1)
+            ps = h.parent[l][:nf]
+            parent[starts[l][i]:starts[l][i] + nf] = np.where(
+                ps >= 0, ps + starts[l + 1][i], -1)
+            poff[starts[l][i]:starts[l][i] + nf] = h.parent_off[l][:nf]
+        maps[f"child_{l}"] = child
+        maps[f"parent_{l}"] = parent
+        maps[f"parent_off_{l}"] = poff
+    anc = np.zeros((n_levels, tot[0]), np.int32)
+    anc_local = np.zeros((n_levels, tot[0]), np.int32)
+    scene_id = np.zeros(tot[0], np.int32)
+    for i, h in enumerate(hs):
+        n0 = counts[0][i]
+        sl = slice(starts[0][i], starts[0][i] + n0)
+        scene_id[sl] = i
+        for l in range(n_levels):
+            a = h.ancestor[l, :n0]
+            anc[l, sl] = a + starts[l][i]
+            anc_local[l, sl] = a
+    maps["ancestor"] = anc
+    maps["anc_local"] = anc_local
+    maps["voxel_scene"] = scene_id
+    for l in range(n_levels):
+        pmax = _dim(f"rect_{l}",
+                    window_maps.bucket(max(counts[l]) if counts[l] else 1))
+        rect = np.full((b, pmax), -1, np.int32)
+        for i in range(b):
+            rect[i, :counts[l][i]] = np.arange(
+                starts[l][i], starts[l][i] + counts[l][i], dtype=np.int32)
+        maps[f"rect_{l}"] = rect
+
+    blk = cfg.stem_block
+    b3 = blk ** 3
+    packs = [window_maps.build_window_pack(
+        s["vox_coords"], blk, 0, with_neighbors=True) for s in scenes]
+    nwin = [p["n_win"] for p in packs]
+    wstart = np.concatenate([[0], np.cumsum(nwin)]).astype(np.int64)
+    nb_tot = _dim("stem_nb", window_maps.bucket(int(wstart[-1])))
+    cin = scenes[0]["voxel_feats"].shape[1]
+    dense = np.zeros((nb_tot * b3, cin), np.float32)
+    c2v = np.full(nb_tot * b3, -1, np.int32)
+    slot = np.full(tot[0], -1, np.int32)
+    nbrblk = np.full((nb_tot, 27), -1, np.int32)
+    for i, (sc, pk) in enumerate(zip(scenes, packs)):
+        cell0 = wstart[i] * b3
+        dense[cell0 + pk["vox_slot"]] = sc["voxel_feats"]
+        cv = pk["cell_to_vox"]
+        c2v[cell0:cell0 + len(cv)] = np.where(cv >= 0, cv + starts[0][i], -1)
+        slot[starts[0][i]:starts[0][i] + counts[0][i]] = \
+            pk["vox_slot"] + cell0
+        nb = pk["nbr_win"]
+        nbrblk[wstart[i]:wstart[i] + nwin[i]] = np.where(
+            nb >= 0, nb + wstart[i], -1)
+    maps["stem_dense"] = dense.reshape(nb_tot, b3 * cin)
+    maps["stem_c2v"] = c2v
+    maps["stem_slot"] = slot
+    maps["stem_nbrblk"] = nbrblk
+
+    S = cfg.max_segments
+    vf = np.zeros((tot[0], cin), np.float32)
+    v2s = np.full(tot[0], S, np.int32)
+    for i, s in enumerate(scenes):
+        sl = slice(starts[0][i], starts[0][i] + counts[0][i])
+        vf[sl] = s["voxel_feats"]
+        v2s[sl] = np.minimum(s["voxel2segment"], S)
+
+    if cfg.ztriple_conv:
+        for l in ZTRIPLE_LEVELS:
+            maps[f"zt{l}_base"], maps[f"zt{l}_code"] = \
+                kernel_maps.build_ztriple_plan(maps[f"nbr3_{l}"],
+                                               n_pad=tot[l])
+
+    out = _scene_arrays(scenes, cfg)
+    out["maps"] = maps
+    out["voxel_feats"] = vf
+    out["voxel2segment"] = v2s
+    out["_meta"]["flat_dims"] = flat_dims
+    return out
+
+
+def flat_shape_caps_from(dims: Dict[str, int], cfg: InstSegPipelineConfig,
+                         margin: float = 1.3) -> Dict[str, int]:
+    """A ``flat_shape_caps`` lock from one batch's flat dims
+    (``batch['_meta']['flat_dims']``), scaled by ``margin`` and bucketed
+    again (voxel totals by ``voxel_bucket``, the rest by 256)."""
+    return {name: window_maps.bucket(
+                int(n * margin),
+                cfg.voxel_bucket if name.startswith("tot_") else 256)
+            for name, n in dims.items()}
 
 
 def collate_processed(processed: List[Dict[str, np.ndarray]],
                       cfg: InstSegPipelineConfig) -> Dict[str, np.ndarray]:
-    """Single dispatch point for batching pre-processed scenes (the JAX
-    package's layout switch; the port ships the rectangular layout)."""
+    """Single dispatch point for batching pre-processed scenes: the flat
+    pack (``collate_flat``) or the rectangular layout (``collate``, host
+    or device maps)."""
+    if cfg.flat_pack:
+        return collate_flat(processed, cfg)
     return collate(processed, cfg)
 
 

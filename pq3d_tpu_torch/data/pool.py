@@ -21,11 +21,13 @@ executor's result pipe (through it, the first 290 MB stage-2 batch of a
 ``chip_smoke.py``'s phase ``unified_train``): the worker writes each
 into a file of its own under ``tempfile.gettempdir()`` and sends its
 path, shape and dtype; the consumer maps the file, unlinks it, and gets a
-numpy array on the mapping (no copy).  Small arrays and other values are
-pickled as before.
+numpy array on the mapping (no copy).  Arrays inside dicts, lists,
+tuples and dataclasses (a stage-1 scene's ``SparseHierarchy``) go so;
+small arrays and other values are pickled as before.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import mmap
 import os
@@ -46,9 +48,21 @@ class _Mapped(NamedTuple):
     dtype: str
 
 
+class _Fields(NamedTuple):
+    """A dataclass instance, its fields exported one by one."""
+    cls: type
+    fields: dict
+
+
 def _export(x: Any, prefix: str, count: Iterator[int]) -> Any:
     if isinstance(x, dict):
         return {k: _export(v, prefix, count) for k, v in x.items()}
+    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        return type(x)(_export(v, prefix, count) for v in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return _Fields(type(x), {f.name: _export(getattr(x, f.name), prefix,
+                                                 count)
+                                 for f in dataclasses.fields(x)})
     if isinstance(x, np.ndarray) and x.nbytes >= MIN_MAPPED_BYTES \
             and not x.dtype.hasobject:
         path = f"{prefix}_{next(count)}"
@@ -64,6 +78,10 @@ def _export(x: Any, prefix: str, count: Iterator[int]) -> Any:
 def _import(x: Any) -> Any:
     if isinstance(x, dict):
         return {k: _import(v) for k, v in x.items()}
+    if isinstance(x, _Fields):
+        return x.cls(**{k: _import(v) for k, v in x.fields.items()})
+    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        return type(x)(_import(v) for v in x)
     if isinstance(x, _Mapped):
         dtype = np.dtype(x.dtype)
         nbytes = int(np.prod(x.shape)) * dtype.itemsize
@@ -76,8 +94,13 @@ def _import(x: Any) -> Any:
 
 def _discard(x: Any) -> None:
     """Unlink the files of a result nobody will take."""
-    if isinstance(x, dict):
+    if isinstance(x, _Fields):
+        _discard(x.fields)
+    elif isinstance(x, dict):
         for v in x.values():
+            _discard(v)
+    elif isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        for v in x:
             _discard(v)
     elif isinstance(x, _Mapped) and os.path.exists(x.path):
         os.unlink(x.path)

@@ -2,7 +2,7 @@
 ``pq3d_tpu/models/encoders.py``:
 
 - SegVoxelEncoder: Res16UNet -> per-scale segment-pooled features
-  (rectangular layout);
+  (rectangular and flat-pack layouts);
 - ObjectEncoder: per-object (or per-segment) feature projection, with an
   optional PointNet++ backbone over raw object point clouds (the padded
   (B, O, P, 3+C) layout).
@@ -16,7 +16,7 @@ import torch.nn as nn
 
 from pq3d_tpu_torch.models.layers import FLAX_LN_EPS
 from pq3d_tpu_torch.models.sparse_unet import Res16UNet, flatten_maps
-from pq3d_tpu_torch.ops import segment
+from pq3d_tpu_torch.ops import segment, sparse
 
 
 class ProjectLN(nn.Module):
@@ -40,8 +40,11 @@ class SegVoxelEncoder(nn.Module):
     count matrix: ``mean[s] = (counts @ feat)[s] / n_s`` with
     ``counts[j, s]`` = the number of level-0 voxels with ancestor j and
     segment s, which equals broadcasting coarse features to every level-0
-    voxel and scatter-meaning.  Output: list over hlevels+[final] of
-    (B, max_seg, hidden).
+    voxel and scatter-meaning.  In the flat-pack layout the batch's
+    ``voxel_scene`` (scene of each level-0 row), ``anc_local`` (scene-local
+    ancestors) and ``rect_{l}`` (each scene's rows of level l, -1 padded)
+    rectangularize a coarse level with one gather first.  Output: list
+    over hlevels+[final] of (B, max_seg, hidden).
     """
 
     def __init__(self, hidden_size: int = 768,
@@ -72,9 +75,14 @@ class SegVoxelEncoder(nn.Module):
                 max_seg: int) -> List[torch.Tensor]:
         _, feature_maps = self.backbone(voxel_feats, maps)
         fm = flatten_maps(maps)
-        b, p0 = maps["valid_0"].shape
         dev = voxel_feats.device
-        scene = torch.arange(b, device=dev).repeat_interleave(p0)
+        flat_in = maps["valid_0"].dim() == 1
+        if flat_in:
+            b = maps["rect_0"].shape[0]
+            scene = maps["voxel_scene"].long()
+        else:
+            b, p0 = maps["valid_0"].shape
+            scene = torch.arange(b, device=dev).repeat_interleave(p0)
         valid0 = fm["valid_0"]
         v2s = voxel2segment.reshape(-1).long()
         flat_seg = torch.where(v2s < max_seg, scene * max_seg + v2s,
@@ -89,10 +97,17 @@ class SegVoxelEncoder(nn.Module):
         for i, hlevel in enumerate(self.hlevels + [4]):
             feat = feature_maps[hlevel]          # (B*P_{4-hlevel}, C)
             lvl = 4 - hlevel
-            if lvl > 0:
+            if lvl > 0 and flat_in:
+                rect = maps[f"rect_{lvl}"]
+                p_l = rect.shape[1]
+                feat_b = sparse._masked_gather(feat, rect.reshape(-1)) \
+                    .reshape(b, p_l, -1)
+                anc = scene * p_l + maps["anc_local"][lvl].long()
+            elif lvl > 0:
                 p_l = maps[f"valid_{lvl}"].shape[1]
                 anc = fm[f"ancestor_{lvl}"].clamp_min(0).long()
                 feat_b = feat.reshape(b, p_l, -1)
+            if lvl > 0:
                 key = anc * s1 + sl
                 counts = segment.segment_sum(
                     torch.ones(key.shape[0], device=dev), key, b * p_l * s1)

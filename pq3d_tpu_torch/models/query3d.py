@@ -52,6 +52,7 @@ from pq3d_tpu_torch.models.sparse_unet import (DenseStemConv, Res16UNet,
                                                SparseConv,
                                                SparseConvTranspose)
 from pq3d_tpu_torch.models.t5 import RMSNorm, T5Decoder
+from pq3d_tpu_torch.ops import device_maps
 from pq3d_tpu_torch.ops.pairwise import calc_pairwise_locs
 
 
@@ -84,6 +85,11 @@ class VoxelEncoderCfg:
     bn_momentum: float = 0.02
     conv1_kernel_size: int = 5
     pallas_conv: bool = False    # route 3^3 convs to the z-run CUDA kernel
+    # kernel maps built in the forward (ops/device_maps.build_batch_maps)
+    # from the batch's 'vox_coords' / 'n_voxels': the static per-level caps,
+    # equal to the pipeline's level_caps under its device_maps
+    device_maps: Optional[Tuple[int, ...]] = None
+    device_ztriple: bool = False  # also build the z-run plans of levels 1-3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +168,7 @@ class Query3DUnified(nn.Module):
         self.spatial_dim = spatial_dim
         self.use_offline_voxel_fts = use_offline_voxel_fts
         self.use_offline_attn_mask = use_offline_attn_mask
+        self.voxel_enc = voxel_enc
         self.skip_query_encoder_mask_pred = skip_query_encoder_mask_pred
         self.unified = unified
         if dim_loc > 3:
@@ -255,6 +262,22 @@ class Query3DUnified(nn.Module):
         feat = torch.where(is_txt[..., None], txt_feat, loc_feat)
         return feat, torch.where(is_txt, valid, loc_valid)
 
+    def _voxel_maps(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The U-Net's maps: the batch's own, or, with
+        ``voxel_enc.device_maps``, built here on the batch's device from
+        its biased voxel coords (no host maps, no fallback)."""
+        ve = self.voxel_enc
+        if ve.device_maps is None:
+            return batch["maps"]
+        if "vox_coords" not in batch or batch["vox_coords"].dim() != 3:
+            raise ValueError(
+                "voxel_enc.device_maps is set but the batch ships no "
+                "rectangular 'vox_coords': set data.instseg_options."
+                "device_maps=True (and flat_pack=False)")
+        return device_maps.build_batch_maps(
+            batch["vox_coords"], batch["n_voxels"], batch["voxel_feats"],
+            level_caps=ve.device_maps, ztriple=ve.device_ztriple)
+
     def forward(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         rng = (batch.get("coord_min"), batch.get("coord_max"))
         query_locs = batch["query_locs"][..., :self.dim_loc]
@@ -283,7 +306,7 @@ class Query3DUnified(nn.Module):
                                batch["voxel_seg_pad_masks"], fts_pos)
             elif mem == "voxel":
                 scales = self.voxel_encoder(
-                    batch["voxel_feats"], batch["maps"],
+                    batch["voxel_feats"], self._voxel_maps(batch),
                     batch["voxel2segment"], max_seg=fts_locs.shape[1])
                 inputs[mem] = (scales, seg_valid, fts_pos)
             else:
@@ -451,13 +474,22 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
             raise NotImplementedError(
                 "the port trains with grad_mode='scatter_free' and "
                 "remat_policy='none' only")
+        if va.get("device_stem", "dense_block") != "dense_block" \
+                or va.get("device_stem_blocks") is not None:
+            raise NotImplementedError(
+                "the port builds the 'dense_block' stem pack on the device "
+                "and at the pipeline's block cap only (device_stem, "
+                "device_stem_blocks)")
         voxel_enc = VoxelEncoderCfg(
             hlevels=tuple(va.get("hlevels", (0, 1, 2, 3))),
             dropout=va.get("dropout", 0.1),
             out_channels=bk.get("out_channels", 200),
             bn_momentum=bk_cfg.get("bn_momentum", 0.02),
             conv1_kernel_size=bk_cfg.get("conv1_kernel_size", 5),
-            pallas_conv=va.get("pallas_conv", False))
+            pallas_conv=va.get("pallas_conv", False),
+            device_maps=(tuple(int(c) for c in va["device_maps"])
+                         if va.get("device_maps") else None),
+            device_ztriple=bool(va.get("device_ztriple", False)))
 
     mask_head_cfg = None
     if m.get("mask_head") is not None:

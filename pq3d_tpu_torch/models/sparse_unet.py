@@ -1,18 +1,25 @@
-"""Sparse residual U-Net over host-built kernel maps (PyTorch).
+"""Sparse residual U-Net over kernel maps (PyTorch).
 
-Counterpart of ``pq3d_tpu/models/sparse_unet.py`` for the rectangular
-layout: the Res16UNet34C topology -- dense-block 5^3 stem -> 4x stride-2
-encoder ladder -> 4x transpose-conv decoder with skip concats -> final 1x1
-conv -- where every sparse conv is a gather -> GEMM over precomputed
-neighbor maps.  The batch of scenes is flattened into one (B*P_l, C) array
-per level (``flatten_maps``).
+Counterpart of ``pq3d_tpu/models/sparse_unet.py``: the Res16UNet34C
+topology -- dense-block 5^3 stem -> 4x stride-2 encoder ladder -> 4x
+transpose-conv decoder with skip concats -> final 1x1 conv -- where every
+sparse conv is a gather -> GEMM over precomputed neighbor maps.  The batch
+of scenes runs as one (B*P_l, C) array per level: ``flatten_maps`` offsets
+the rectangular layout's per-scene indices; the flat-pack layout
+(``data/instseg_pipeline.collate_flat``) arrives concatenated and offset
+by the host and passes through.
 
-With ``pallas_conv`` the stride-1 3^3 convs whose shape passes
-``ops/zrun_conv.applicable`` run the hand-written CUDA kernel over a z-run
-plan built on the device from the shipped (N, 27) maps, as the JAX package
-routes them to its Pallas kernel.  The JAX package guards its windowed
-kernel with an exception-overflow fallback; the Hopper kernel has no
-window, so every routed conv runs the kernel.
+Routing of a stride-1 3^3 conv, in the JAX package's order: with
+``pallas_conv`` the convs whose shape passes ``ops/zrun_conv.applicable``
+run the hand-written CUDA kernel over a z-run plan (the batch's shipped
+``zt{l}_*`` plan where there is one, else one built on the device from the
+(N, 27) map); next, where the batch ships a z-run plan
+(``ztriple_conv``) and the shape passes ``ops/sparse.ztriple_applicable``,
+the z-run gather conv (``sparse_conv_ztriple``); every other conv is the
+gather conv.  The two predicates claim disjoint shapes, so the shipped
+plans never change which convs the kernel takes.  The JAX package guards
+its windowed kernel with an exception-overflow fallback; the Hopper kernel
+has no window, so every routed conv runs the kernel.
 """
 from __future__ import annotations
 
@@ -40,13 +47,28 @@ def offset_scene_indices(idx: torch.Tensor, target_p: int) -> torch.Tensor:
 
 def flatten_maps(maps: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """(B, P_l, ...) index maps -> flat maps over B*P_l rows; the ancestor
-    table becomes absolute flat indices per level."""
+    table becomes absolute flat indices per level, and z-run plans get the
+    scene offset on every base (a base is never -1: the codes mask it).
+    Flat-pack maps (``valid_0`` without a batch dim) pass through."""
+    if maps["valid_0"].dim() == 1:
+        out = dict(maps)
+        out["stem_block"] = round((maps["stem_c2v"].shape[0]
+                                   // maps["stem_nbrblk"].shape[0])
+                                  ** (1 / 3))
+        return out
     out: Dict[str, torch.Tensor] = {}
     off = offset_scene_indices
+    b = maps["valid_0"].shape[0]
     for l in range(NUM_LEVELS):
         p_l = maps[f"valid_{l}"].shape[1]
         out[f"valid_{l}"] = maps[f"valid_{l}"].reshape(-1)
         out[f"nbr3_{l}"] = off(maps[f"nbr3_{l}"], p_l)
+        if f"zt{l}_base" in maps:
+            zb = maps[f"zt{l}_base"]
+            shift = (torch.arange(b, dtype=zb.dtype, device=zb.device)
+                     * p_l).reshape(b, 1, 1)
+            out[f"zt{l}_base"] = (zb + shift).reshape(-1, 9)
+            out[f"zt{l}_code"] = maps[f"zt{l}_code"].reshape(-1, 9, 3)
     for l in range(NUM_LEVELS - 1):
         p_l = maps[f"valid_{l}"].shape[1]
         p_next = maps[f"valid_{l + 1}"].shape[1]
@@ -56,7 +78,6 @@ def flatten_maps(maps: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     for l in range(NUM_LEVELS):
         p_l = maps[f"valid_{l}"].shape[1]
         out[f"ancestor_{l}"] = off(maps["ancestor"][:, l, :], p_l)
-    b = maps["valid_0"].shape[0]
     nb = maps["stem_nbrblk"].shape[1]
     cells = maps["stem_c2v"].shape[1]
     out["stem_dense"] = maps["stem_dense"].reshape(b * nb, -1)
@@ -86,15 +107,23 @@ class SparseConv(nn.Module):
                                          self.out_channels))
 
     def forward(self, x, nbr, valid, zplan=None, parent=None,
-                parent_off=None, in_valid=None):
+                parent_off=None, in_valid=None, ztplan=None):
         """``parent``/``parent_off``/``in_valid`` (the dual maps) make it a
-        stride-2 down conv over the child map ``nbr``."""
+        stride-2 down conv over the child map ``nbr``; ``zplan`` is the
+        kernel's z-run plan (None: the kernel is off), ``ztplan`` the
+        batch's shipped plan for the z-run gather conv."""
         if parent is not None:
             return sparse.sparse_conv_down(x, nbr, self.kernel, parent,
                                            parent_off, valid, in_valid)
         if self.routes(nbr.shape[0], zplan):
             zb, zc = zplan
             return zrun_conv.zrun_conv_sym(x, self.kernel, zb, zc, valid)
+        if (ztplan is not None and self.kernel.shape[0] == 27
+                and sparse.ztriple_applicable(nbr.shape[0],
+                                              self.kernel.shape[1],
+                                              self.out_channels)):
+            zb, zc = ztplan
+            return sparse.sparse_conv_ztriple(x, zb, zc, self.kernel, valid)
         return sparse.sparse_conv_sym(x, nbr, self.kernel, valid)
 
 
@@ -140,9 +169,11 @@ class BasicBlock(nn.Module):
         else:
             self.downsample_conv = None
 
-    def forward(self, x, nbr, valid, zplan=None):
-        out = F.relu(self.norm1(self.conv1(x, nbr, valid, zplan), valid))
-        out = self.norm2(self.conv2(out, nbr, valid, zplan), valid)
+    def forward(self, x, nbr, valid, zplan=None, ztplan=None):
+        out = F.relu(self.norm1(self.conv1(x, nbr, valid, zplan,
+                                           ztplan=ztplan), valid))
+        out = self.norm2(self.conv2(out, nbr, valid, zplan, ztplan=ztplan),
+                         valid)
         residual = x
         if self.downsample_conv is not None:
             residual = self.downsample_norm(self.downsample_conv(x), valid)
@@ -160,9 +191,9 @@ class ResStage(nn.Module):
                                        planes, bn_momentum))
         self.layers = layers
 
-    def forward(self, x, nbr, valid, zplan=None):
+    def forward(self, x, nbr, valid, zplan=None, ztplan=None):
         for i in range(self.layers):
-            x = getattr(self, f"block{i}")(x, nbr, valid, zplan)
+            x = getattr(self, f"block{i}")(x, nbr, valid, zplan, ztplan)
         return x
 
 
@@ -171,7 +202,9 @@ class Res16UNet(nn.Module):
 
     ``forward(x (B, P0, Cin), maps)`` with the batched rectangular maps of
     ``data/instseg_pipeline.collate`` returns (out (B, P0, Cout),
-    feature_maps) with feature_maps = flat [L4, L3, L2, L1, L0] arrays."""
+    feature_maps) with feature_maps = flat [L4, L3, L2, L1, L0] arrays;
+    with the flat-pack maps of ``collate_flat``, ``x`` is (N, Cin) (padded
+    to the level-0 total here) and ``out`` (1, P0, Cout)."""
 
     def __init__(self, in_channels: int = 3, out_channels: int = 200,
                  init_dim: int = 32,
@@ -231,24 +264,34 @@ class Res16UNet(nn.Module):
 
     def zrun_plans(self, fm) -> List[Optional[Tuple[torch.Tensor,
                                                     torch.Tensor]]]:
-        """Device-built z-run plans for the levels where some 3^3 conv can
-        route to the kernel (probed with the (96, 128) channel pair, the
-        widest-reach pair of the topology; each conv re-checks its own)."""
+        """The kernel's z-run plan per level, for the levels where some 3^3
+        conv can route to it (probed with the (96, 128) channel pair, the
+        widest-reach pair of the topology; each conv re-checks its own):
+        the batch's shipped ``zt{l}_*`` plan where there is one (the same
+        plan, bit for bit), else one built on the device."""
         plans = [None] * NUM_LEVELS
         if self.pallas_conv:
             for l in range(NUM_LEVELS):
                 n_l = fm[f"valid_{l}"].shape[0]
                 if zrun_conv.applicable(n_l, 96, 128):
-                    plans[l] = zrun_conv.zrun_plan(fm[f"nbr3_{l}"])
+                    plans[l] = ((fm[f"zt{l}_base"], fm[f"zt{l}_code"])
+                                if f"zt{l}_base" in fm
+                                else zrun_conv.zrun_plan(fm[f"nbr3_{l}"]))
         return plans
 
     def forward(self, x: torch.Tensor, maps: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        b, p0, _ = x.shape
         fm = flatten_maps(maps)
         v = [fm[f"valid_{l}"] for l in range(NUM_LEVELS)]
         n = [fm[f"nbr3_{l}"] for l in range(NUM_LEVELS)]
         zp = self.zrun_plans(fm)
+        zt = [(fm[f"zt{l}_base"], fm[f"zt{l}_code"])
+              if f"zt{l}_base" in fm else None for l in range(NUM_LEVELS)]
+        if x.dim() == 2:               # flat pack: (N, Cin), N <= P0
+            b, p0 = 1, v[0].shape[0]
+            x = F.pad(x, (0, 0, 0, p0 - x.shape[0]))
+        else:
+            b, p0, _ = x.shape
 
         out = self.conv0(fm["stem_dense"], fm["stem_nbrblk"], fm["stem_slot"],
                          v[0], fm["stem_block"])
@@ -260,7 +303,7 @@ class Res16UNet(nn.Module):
                 parent_off=fm[f"parent_off_{l}"], in_valid=v[l])
             out = F.relu(getattr(self, f"bn{l + 1}")(out, v[l + 1]))
             out = getattr(self, f"stage{l + 1}")(out, n[l + 1], v[l + 1],
-                                                 zp[l + 1])
+                                                 zp[l + 1], zt[l + 1])
             skips.append(out)
         feature_maps = [out]  # L4 (flat)
         for i in range(4):
@@ -271,7 +314,7 @@ class Res16UNet(nn.Module):
             out = F.relu(getattr(self, f"bntr{i + 4}")(out, v[lvl]))
             out = torch.cat([out, skips[lvl]], -1)
             out = getattr(self, f"stage{i + 5}")(out, n[lvl], v[lvl],
-                                                 zp[lvl])
+                                                 zp[lvl], zt[lvl])
             feature_maps.append(out)
         final = torch.where(v[0][:, None], self.final(out), 0)
         return final.reshape(b, p0, -1), feature_maps

@@ -293,3 +293,33 @@ def build_hierarchy(coords0: np.ndarray,
                     for l in range(NUM_LEVELS - 1)],
         ancestor=anc,
     )
+
+
+def build_ztriple_plan(nbr: np.ndarray, n_pad: Optional[int] = None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """z-run fetch plan of a (N, 27) stride-1 neighbor map (the JAX
+    package's ``build_ztriple_plan``; ``ops/zrun_conv.zrun_plan`` builds
+    the same plan on the device).
+
+    Voxel rows are ravel-key sorted with z fastest (ops/voxelize), so the
+    up-to-3 z-neighbours of each of the 9 (dy, dx) kernel columns occupy
+    consecutive rows.  Returns ``(base (N, 9) int32, codes (N, 9, 3)
+    int8)``: ``base[o, c]`` is the first row of output o / column c's
+    z-run, clamped to [0, n_pad-3] so a 3-row fetch stays in bounds (0
+    when the column has no neighbour); ``codes[o, c, p]`` is the kernel
+    z-offset (-1/0/+1) carried by fetched slot p, or -2.  Tap order is
+    z-fastest (kernel_offsets): tap = 3*c + dz + 1.
+    """
+    if n_pad is None:
+        n_pad = nbr.shape[0]
+    big = np.iinfo(np.int64).max
+    nbrr = nbr.reshape(-1, 9, 3).astype(np.int64)
+    base = np.where(nbrr >= 0, nbrr, big).min(2)
+    has = base != big
+    base = np.where(has, np.minimum(base, n_pad - 3), 0)
+    codes = np.full((len(nbr), 9, 3), -2, np.int8)
+    for p in range(3):
+        for d in range(3):
+            m = has & (nbrr[:, :, d] == base + p)
+            codes[:, :, p] = np.where(m, d - 1, codes[:, :, p])
+    return base.astype(np.int32), codes

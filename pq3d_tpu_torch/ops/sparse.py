@@ -69,6 +69,58 @@ def ztriple_applicable(n_rows: int, cin: int, cout: int) -> bool:
     return n_rows * c <= 5_000_000
 
 
+def _column_rows(xb: torch.Tensor, zbase: torch.Tensor, zcode: torch.Tensor):
+    """Yield (c, rows) through a z-run plan: for each of the 9 (dy, dx)
+    kernel columns the (N, 3, Cin) rows its taps 3c + k (k = dz + 1, the
+    z-fastest tap order) read, zero where a tap has no neighbour.  As in
+    the JAX package, ``x3[i] = [x[i-1], x[i], x[i+1]]`` is built once and
+    each column's 3 consecutive rows from ``zbase`` come in one
+    (3*Cin)-wide gather at ``zbase + 1``; ``zcode`` names the fetched slot
+    of each z-offset (at most one), which a second gather moves into
+    place: no arithmetic, so the rows are exact."""
+    n, cin = xb.shape
+    x3 = torch.cat([xb.roll(1, 0), xb, xb.roll(-1, 0)], 1)
+    dzs = torch.arange(-1, 2, dtype=zcode.dtype, device=zcode.device)
+    for c in range(9):
+        idx = (zbase[:, c].long() + 1).clamp_max(n - 1)
+        trip = x3.index_select(0, idx).view(-1, 3, cin)
+        hit = zcode[:, c, :, None] == dzs         # (N, slot, dz)
+        slot = hit.int().argmax(1)                # (N, dz)
+        rows = trip.gather(1, slot[:, :, None].expand(-1, -1, cin))
+        yield c, torch.where(hit.any(1)[:, :, None], rows, 0)
+
+
+def sparse_conv_ztriple(x: torch.Tensor, zbase: torch.Tensor,
+                        zcode: torch.Tensor, w: torch.Tensor,
+                        out_valid: Optional[torch.Tensor] = None,
+                        compute_dtype: torch.dtype = torch.bfloat16
+                        ) -> torch.Tensor:
+    """Stride-1 3^3 sparse conv through the z-run plan: 9 wide gathers
+    instead of 27 (the JAX package's ``sparse_conv_ztriple``, computed
+    there in XLA, so here in plain PyTorch).  Operands rounded to
+    ``compute_dtype``, f32 accumulation; the same function as
+    :func:`sparse_conv` on the (N, 27) map the plan was built from.
+
+    Args:
+      x:     (N, Cin) voxel features (padded rows zero).
+      zbase: (N, 9) int32 run bases (ops/kernel_maps.build_ztriple_plan or
+             ops/zrun_conv.zrun_plan).
+      zcode: (N, 9, 3) int8 kernel z-offset per fetched slot, -2 = none.
+      w:     (27, Cin, Cout), taps z-fastest (kernel_offsets).
+    Returns: (N, Cout) in x.dtype.
+    """
+    xb = _round(x, compute_dtype)
+    wb = _round(w, compute_dtype)
+    acc = torch.zeros(zbase.shape[0], w.shape[2], dtype=torch.float32,
+                      device=x.device)
+    for c, rows in _column_rows(xb, zbase, zcode):
+        for k in range(3):             # the taps in order, as JAX sums them
+            acc.addmm_(rows[:, k], wb[3 * c + k])
+    if out_valid is not None:
+        acc = torch.where(out_valid[:, None], acc, 0)
+    return acc.to(x.dtype)
+
+
 def sparse_conv(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
                 out_valid: Optional[torch.Tensor] = None,

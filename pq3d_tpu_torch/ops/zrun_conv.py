@@ -98,9 +98,10 @@ def kernel_shape(cin: int, cout: int) -> Tuple[int, list]:
 
 
 def zrun_plan(nbr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(N, 27) neighbor map -> ``zbase`` (N, 9) int32, ``zcode`` (N, 9, 3)
-    int8 (the JAX package's ``device_zrun_plan``; bit-identical to
-    ``kernel_maps.build_ztriple_plan``).
+    """(..., N, 27) neighbor maps -> ``zbase`` (..., N, 9) int32, ``zcode``
+    (..., N, 9, 3) int8 (the JAX package's ``device_zrun_plan``, mapped
+    over the leading dims; bit-identical to
+    ``kernel_maps.build_ztriple_plan`` of each (N, 27) map).
 
     ``zbase[o, c]`` is the first existing neighbour row of output o's
     column c, clamped to N-3 so a 3-row fetch stays in bounds (0 when the
@@ -108,19 +109,19 @@ def zrun_plan(nbr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     (-1/0/+1) at row ``zbase + p``, or -2.  Tap order is z-fastest
     (kernel_maps.kernel_offsets), i.e. tap = 3*c + dz + 1.
     """
-    n = nbr.shape[0]
+    n = nbr.shape[-2]
     big = 1 << 24
-    nbrr = nbr.reshape(n, 9, 3).int()
-    zbase = torch.where(nbrr >= 0, nbrr, big).amin(2)
+    nbrr = nbr.reshape(nbr.shape[:-1] + (9, 3)).int()
+    zbase = torch.where(nbrr >= 0, nbrr, big).amin(-1)
     has = zbase != big
     zbase = torch.where(has, zbase.clamp_max(n - 3), 0).int()
-    zcode = torch.full((n, 9, 3), -2, dtype=torch.int8, device=nbr.device)
+    zcode = torch.full(nbrr.shape, -2, dtype=torch.int8, device=nbr.device)
     for p in range(3):
         for d in range(3):
-            m = has & (nbrr[:, :, d] == zbase + p)
-            zcode[:, :, p] = torch.where(
+            m = has & (nbrr[..., d] == zbase + p)
+            zcode[..., p] = torch.where(
                 m, torch.tensor(d - 1, dtype=torch.int8, device=nbr.device),
-                zcode[:, :, p])
+                zcode[..., p])
     return zbase, zcode
 
 
@@ -139,41 +140,17 @@ def tile_tap_mask(zcode: torch.Tensor, tile: int = TILE) -> torch.Tensor:
     return taps.view(-1, tile, 27).any(1)
 
 
-def _tap_rows(xb: torch.Tensor, zbase: torch.Tensor, zcode: torch.Tensor):
-    """Yield (tap, rows): for each of the 27 taps (z-fastest order,
-    tap = 3*c + dz + 1) the (N, Cin) rows of ``xb`` it reads, zero where
-    the tap has no neighbour.  Per column the 3 consecutive rows from
-    ``zbase`` are gathered once; ``zcode`` picks the row carrying each
-    z-offset (each offset sits in at most one slot)."""
-    for c in range(9):
-        base = zbase[:, c].long()
-        trips = [xb.index_select(0, base + p) for p in range(3)]
-        for dz in (-1, 0, 1):
-            xi = torch.zeros_like(trips[0])
-            for p in range(3):
-                m = (zcode[:, c, p] == dz)[:, None]
-                xi = xi + torch.where(m, trips[p], 0)
-            yield c * 3 + dz + 1, xi
-
-
 def zrun_conv_reference(x: torch.Tensor, w: torch.Tensor,
                         zbase: torch.Tensor, zcode: torch.Tensor,
                         out_valid: Optional[torch.Tensor] = None,
                         compute_dtype: torch.dtype = torch.bfloat16
                         ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (the JAX package's
-    ``sparse_conv_ztriple``): the 27 taps' rows (:func:`_tap_rows`) times
-    W, operands rounded to ``compute_dtype``, f32 accumulation.  Returns
-    (N, Cout) in x.dtype."""
-    xb = sparse._round(x, compute_dtype)
-    wb = sparse._round(w, compute_dtype)
-    acc = torch.zeros(zbase.shape[0], w.shape[2], dtype=torch.float32,
-                      device=x.device)
-    for tap, xi in _tap_rows(xb, zbase, zcode):
-        acc.addmm_(xi, wb[tap])
-    if out_valid is not None:
-        acc = torch.where(out_valid[:, None], acc, 0)
-    return acc.to(x.dtype)
+    """Plain PyTorch version of the kernel: the JAX package's
+    ``sparse_conv_ztriple`` (``ops/sparse.sparse_conv_ztriple``), operands
+    rounded to ``compute_dtype``, f32 accumulation.  Returns (N, Cout) in
+    x.dtype."""
+    return sparse.sparse_conv_ztriple(x, zbase, zcode, w, out_valid,
+                                      compute_dtype)
 
 
 def zrun_weight_grad(x: torch.Tensor, zbase: torch.Tensor,
@@ -182,12 +159,13 @@ def zrun_weight_grad(x: torch.Tensor, zbase: torch.Tensor,
                      ) -> torch.Tensor:
     """dW (27, Cin, Cout) f32 of the z-run conv: ``dW[tap] = rows(x)^T @
     dy`` with x and dy rounded to ``compute_dtype`` and f32 accumulation
-    (the JAX package's ``_ztriple_weight_grad``).  Re-gathers x through the
-    plan instead of storing the 27 gathered taps."""
+    (the JAX package's ``_ztriple_weight_grad``).  Re-gathers x through
+    the plan instead of storing the 27 gathered taps."""
     xb = sparse._round(x, compute_dtype)
     dyb = sparse._round(dy, compute_dtype)
-    return torch.stack([xi.t() @ dyb
-                        for _, xi in _tap_rows(xb, zbase, zcode)])
+    return torch.stack([rows[:, k].t() @ dyb
+                        for _, rows in sparse._column_rows(xb, zbase, zcode)
+                        for k in range(3)])
 
 
 def zrun_conv_backward_reference(x: torch.Tensor, w: torch.Tensor,

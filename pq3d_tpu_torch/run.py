@@ -53,6 +53,14 @@ def build_instseg_trainer(cfg: Dict[str, Any]):
         raise NotImplementedError(f"trainer {cfg['trainer']!r} is not ported")
     iopt = cfg["data"]["instseg_options"]
     pipe_cfg = pipeline_config(iopt)
+    layouts = [k for k in ("flat_pack", "ztriple_conv", "device_maps")
+               if getattr(pipe_cfg, k)]
+    if layouts or (cfg["model"].get("voxel_encoder") or {}).get(
+            "args", {}).get("device_maps"):
+        raise NotImplementedError(
+            f"training in the {layouts or ['device_maps']} layout is not "
+            "ported yet (the port serves these layouts; training in the "
+            "flat and z-run layouts is a later slice)")
     dl = cfg["dataloader"]
     seed = int(cfg.get("rng_seed", 42))
 

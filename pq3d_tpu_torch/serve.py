@@ -10,7 +10,9 @@ Counterpart of ``pq3d_tpu/serve.py`` (``ServerStats``, ``_MicroBatchServer``,
   last processed scene (results for the padding rows are dropped);
 - a depth-1 pipeline: while batch N's forward runs on the card (kernels
   are queued asynchronously), batch N+1's host work runs;
-- stage 1 (``InstSegServer``): per-scene ranking
+- stage 1 (``InstSegServer``): the rectangular layout with host-built or
+  device-built maps, or the flat pack; per-scene host preprocessing in
+  process or on a spawn pool (``num_workers``); per-scene ranking
   (eval/instseg_eval.rank_instances) at full point resolution;
 - stage 2 (``UnifiedServer``): per-request grounding scores and object,
   and greedy-decoded generation tokens and text.
@@ -21,6 +23,7 @@ device results are read back in ``_finish``.
 from __future__ import annotations
 
 import concurrent.futures as _futures
+import dataclasses
 import queue
 import threading
 import time
@@ -34,12 +37,31 @@ import torch
 
 from pq3d_tpu_torch.data.instseg_pipeline import (InstSegPipelineConfig,
                                                   collate_processed,
+                                                  flat_shape_caps_from,
                                                   process_scene)
+from pq3d_tpu_torch.data.pool import BatchPool
 from pq3d_tpu_torch.data.unified_pipeline import (UnifiedPipelineConfig,
                                                   collate_unified,
                                                   process_item)
 from pq3d_tpu_torch.device import resolve_device
 from pq3d_tpu_torch.eval.instseg_eval import rank_instances
+
+# spawn-pool worker protocol for the stage-1 host preprocessing: module
+# level, so spawned workers find the functions by name; a worker runs numpy
+# host code only and never touches the card
+_SERVE_WORKER: Dict[str, Any] = {}
+
+
+def _init_serve_worker(pipe_cfg: InstSegPipelineConfig) -> None:
+    _SERVE_WORKER["cfg"] = pipe_cfg
+
+
+def _serve_process_scene(scene, seed: int):
+    """``process_scene`` of one served scene with its own rng,
+    ``default_rng(SeedSequence(seed))`` (the JAX package's
+    ``default_rng(seed)``: the same stream)."""
+    rng = np.random.default_rng(np.random.SeedSequence(seed))
+    return process_scene(scene, _SERVE_WORKER["cfg"], rng)
 
 
 @dataclass
@@ -224,42 +246,103 @@ class InstSegServer(_MicroBatchServer):
     """Micro-batching inference server for the stage-1 instseg model:
     submit one raw scene dict (points/colors/segment_id/...), receive a
     list of {"class", "score", "mask"} instance predictions at full point
-    resolution.  ``model`` must already live on ``device``."""
+    resolution.  ``model`` must already live on ``device``.
+
+    Layouts (from ``pipe_cfg``): rectangular with host maps (needs
+    ``level_caps``), rectangular with device-built maps (``device_maps``:
+    the model must be built with ``voxel_enc.device_maps == level_caps``;
+    the server refuses a mismatch either way), or the
+    flat pack (``flat_pack``: no ``level_caps`` needed; the first batch,
+    and any that overflows it, sets ``pipe_cfg.flat_shape_caps``).  With
+    ``num_workers > 0`` each real scene's ``process_scene`` runs on a
+    spawn pool (``data/pool.BatchPool``) with its own seed, the scenes'
+    running count; otherwise in process from the server's rng."""
 
     def __init__(self, model, pipe_cfg: InstSegPipelineConfig,
                  batch_size: int, num_classes: int, topk: int = 100,
                  score_threshold: float = 0.0, max_delay_s: float = 0.05,
                  extra_features: Optional[Dict[str, int]] = None,
-                 device="cuda"):
-        if not pipe_cfg.level_caps:
+                 device="cuda", num_workers: int = 0):
+        self.device = resolve_device(device)
+        if not pipe_cfg.level_caps and not pipe_cfg.flat_pack:
             raise ValueError(
                 "serving requires pipe_cfg.level_caps: fixed level pads "
-                "keep every batch at one shape")
-        self.device = resolve_device(device)
+                "keep every batch at one shape (the flat pack buckets its "
+                "totals instead)")
+        ve = getattr(model, "voxel_enc", None)
+        caps = tuple(getattr(ve, "device_maps", None) or ())
+        if pipe_cfg.device_maps and caps != tuple(pipe_cfg.level_caps):
+            raise ValueError(
+                "pipe_cfg.device_maps=True needs the model built with "
+                f"voxel_enc.device_maps == level_caps (model: "
+                f"{caps or None}, pipe: {tuple(pipe_cfg.level_caps)})")
+        if caps and not pipe_cfg.device_maps:
+            raise ValueError(
+                "the model's voxel_enc.device_maps is set but the pipeline "
+                "ships host maps: set pipe_cfg.device_maps=True (the model "
+                "would look for 'vox_coords' the batch does not carry)")
         self.model = model
         self.pipe_cfg = pipe_cfg
         self.num_classes = num_classes
         self.topk = topk
         self.score_threshold = score_threshold
         self.extra_features = extra_features or {}
+        self._pool = None
+        self._pool_seed = 0
+        if num_workers > 0:
+            self._pool = BatchPool(num_workers, _init_serve_worker,
+                                   (pipe_cfg,))
         super().__init__(batch_size, max_delay_s)
+
+    def close(self) -> None:
+        super().close()
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None
+
+    def _update_flat_lock(self, dims) -> None:
+        """Flat-pack shape lock from the traffic: the first batch, and any
+        batch that overflows the lock, grows ``pipe_cfg.flat_shape_caps``
+        (margin-scaled), so later batches collate to one shape set."""
+        if not dims:
+            return
+        caps = self.pipe_cfg.flat_shape_caps
+        if caps is not None and all(v <= caps.get(k, 0)
+                                    for k, v in dims.items()):
+            return
+        new = flat_shape_caps_from(dims, self.pipe_cfg)
+        if caps:
+            new = {k: max(new.get(k, 0), caps.get(k, 0))
+                   for k in set(new) | set(caps)}
+        self.pipe_cfg = dataclasses.replace(self.pipe_cfg,
+                                            flat_shape_caps=new)
 
     def _forward(self, batch):
         with torch.inference_mode():
             out = self.model(batch)
         return out["predictions_class"][-1], out["predictions_mask"][-1]
 
+    def _preprocess(self, scenes):
+        if self._pool is None:
+            return [process_scene(s, self.pipe_cfg, self._rng)
+                    for s in scenes]
+        seeds = range(self._pool_seed, self._pool_seed + len(scenes))
+        self._pool_seed += len(scenes)
+        return list(self._pool.run(_serve_process_scene,
+                                   zip(scenes, seeds)))
+
     def _dispatch(self, scenes):
         n_real = len(scenes)
         t0 = time.time()
-        processed = [process_scene(s, self.pipe_cfg, self._rng)
-                     for s in scenes]
+        processed = self._preprocess(scenes)
         t1 = time.time()
         self.stats.add_stage("preprocess", t1 - t0)
         processed += [processed[-1]] * (self.batch_size - n_real)
         np_batch = collate_processed(processed, self.pipe_cfg)
         self.stats.add_stage("collate", time.time() - t1)
         meta = np_batch.pop("_meta")
+        if self.pipe_cfg.flat_pack:
+            self._update_flat_lock(meta.get("flat_dims"))
         S = self.pipe_cfg.max_segments
         for name, dim in self.extra_features.items():
             # offline per-segment features are not served yet: zero-filled

@@ -481,3 +481,69 @@ def test_gt_train_step_with_b1_matches_all_plain(cuda_device, tmp_path):
         else:
             assert counts == {"fwd": 0, "bwd": 0}
     assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1]), losses
+
+
+def _layout_batch(seed, **kw):
+    """A 2-scene batch of synthetic scenes of 40k and 50k points."""
+    from pq3d_tpu_torch.data import synthetic
+    from pq3d_tpu_torch.data.instseg_pipeline import (InstSegPipelineConfig,
+                                                      make_batch)
+    rng = np.random.default_rng(seed)
+    scenes = [synthetic.make_scene(rng, n_points=n, n_instances=5,
+                                   n_segments=40) for n in (40000, 50000)]
+    cfg = InstSegPipelineConfig(num_queries=16, max_segments=64,
+                                max_instances=8, voxel_bucket=8192,
+                                use_aug=False, **kw)
+    return make_batch(scenes, cfg, np.random.default_rng(seed))
+
+
+@pytest.mark.cuda
+def test_device_maps_on_the_card_equal_the_host(cuda_device):
+    """build_batch_maps on the card (sorts, batched searchsorted, index
+    scatters) gives every array of the host's collate exactly, z-run
+    plans included."""
+    from pq3d_tpu_torch.ops import device_maps
+    from pq3d_tpu_torch.serve import to_device
+    caps = (65536, 40960, 16384, 4096, 2048)
+    host = _layout_batch(1, level_caps=caps, ztriple_conv=True)["maps"]
+    dev = _layout_batch(1, level_caps=caps, device_maps=True)
+    t = to_device({k: v for k, v in dev.items() if k != "_meta"},
+                  cuda_device)
+    got = device_maps.build_batch_maps(t["vox_coords"], t["n_voxels"],
+                                       t["voxel_feats"], caps, ztriple=True)
+    for key, want in host.items():
+        g = got[key].cpu().numpy()
+        assert g.dtype == want.dtype and g.shape == want.shape, key
+        np.testing.assert_array_equal(g, want, err_msg=key)
+
+
+@pytest.mark.cuda
+def test_flat_unet_with_b1_matches_plain(cuda_device):
+    """The U-Net on a flat-pack batch with z-run plans: the decoder's
+    96/128-channel convs at L0 and L1 launch the kernel on the flat level
+    totals, the rest run the z-run gather conv or the gather conv; against
+    the same U-Net with every conv plain, the output and feature maps
+    within 2e-2 relative (chip_smoke's gate)."""
+    from pq3d_tpu_torch.models.sparse_unet import Res16UNet
+    from pq3d_tpu_torch.serve import to_device
+    b = _layout_batch(2, flat_pack=True, ztriple_conv=True)
+    torch.manual_seed(0)
+    model = Res16UNet(pallas_conv=True).to(cuda_device).eval()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0, 0.05)
+    maps = to_device(b["maps"], cuda_device)
+    x = torch.from_numpy(b["voxel_feats"]).to(cuda_device)
+    rows = [b["maps"][f"valid_{l}"].shape[0] for l in range(5)]
+    routed = model.routed_convs(rows)
+    assert routed
+    before = tzr.launches
+    with torch.inference_mode():
+        out, fm = model(x, maps)
+        assert tzr.launches - before == len(routed)
+        model.pallas_conv = False
+        ref, fm_ref = model(x, maps)
+    for a, r in zip([out] + fm, [ref] + fm_ref):
+        assert torch.isfinite(a).all()
+        err = (a.float() - r.float()).abs().max() / r.float().abs().max()
+        assert err <= 2e-2

@@ -24,7 +24,7 @@ NEEDED = ["pq3d_tpu_torch." + m for m in (
     "optim.loss_aggregator", "eval.base", "eval.grounding_eval",
     "eval.qa_eval", "eval.caption_eval", "eval.caption_metrics",
     "eval.text_utils", "data.sceneverse", "data.replica",
-    "data.label_utils", "data.scannet200_constants")]
+    "data.label_utils", "data.scannet200_constants", "ops.device_maps")]
 import pq3d_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(pq3d_tpu_torch.__path__,
                                               "pq3d_tpu_torch.")]
