@@ -75,15 +75,31 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                trainer (instseg_sceneverse + pallas_conv: true, batch 4 of
                synthetic 70k-point scenes, AdamW); 1 warm step, 5 timed
                steps (loss, grad norm, host-pipeline s, device ms per step;
-               steps/s, scenes/s, peak memory; B1's forward and backward
-               launches, which must be 2 x routed convs per step), then 5
-               steps on one batch, whose loss (train mode, dropout off,
-               read before and after them) must fall;
+               steps/s, scenes/s, peak memory; per step the level rows,
+               B1's forward and dx launches, each of which must sum to the
+               routed convs of every step's own batch, and the z-run
+               gather conv's calls), then 5 steps on one batch, whose loss
+               (train mode, dropout off, read before and after them) must
+               fall;
 9. train_check -- one train step (dropout off) with B1 against the same
                step all-plain (loss) and with every backward on its plain
                version (routed-conv weight gradients), and each routed conv
                replayed at the step's own x and dy against its plain
                backward, all within 2e-2;
+9b. flat_train -- phases 8 and 9 again for the published training layout:
+               the trainer that pq3d_tpu_torch.run builds with
+               data.instseg_options.flat_pack=true and ztriple_conv=true
+               (the flat pack, B1 on the flat totals it routes, the z-run
+               gather conv with its backward on levels 1-3), the same
+               scenes, seed and batch; phase 8's figures printed beside
+               its own; gates: phase 8's (B1's launches against the routed
+               convs at each step's flat totals, the loss on one batch
+               falls) and phase 9's, the z-run gather conv forward and
+               backward in every step, and one step all-plain in f32
+               (TF32, dropout and the self-mask off, direct criterion) on
+               one batch collated in both layouts: the flat loss within
+               1e-4 relative of the rectangular one, and the gradients,
+               normalised by their largest entry, within 1e-4;
 10. unified -- stage-2 serving end to end: the full-width
                unified_tasks_sceneverse model (PointNet++ on 80 objects x
                1024 points, the CLIP-large text tower, the mixed query
@@ -158,12 +174,13 @@ hand kernel's numbers, and the result line.
     python3 chip_smoke.py --profile PATH
 
 adds torch.profiler traces of one served forward (after phase 5), of one
-forward per layout (phase 5b), of one train step (after phase 9), of one
-unified batch (forward and decode, phase 10) and of one unified train step
-(phase 11): device busy time against the host clock, the idle share and
-the device time by kernel (the top rows printed, the whole tables written
-to PATH and to PATH with ``_rect``, ``_dev_maps``, ``_flat_zt``,
-``_train``, ``_unified`` and ``_unified_train`` before its extension).
+forward per layout (phase 5b), of one train step after phase 9 and one
+after phase 9b, of one unified batch (forward and decode, phase 10) and
+of one unified train step (phase 11): device busy time against the host
+clock, the idle share and the device time by kernel (the top rows
+printed, the whole tables written to PATH and to PATH with ``_rect``,
+``_dev_maps``, ``_flat_zt``, ``_train``, ``_flat_train``, ``_unified``
+and ``_unified_train`` before its extension).
 """
 import argparse
 import contextlib
@@ -350,10 +367,17 @@ def bound_of(flops, nbytes, flops_peak, bw_peak):
             else "bytes")
 
 
-def smoke_trainer(exp_dir):
+# the published training layout (instseg_sceneverse.yaml's comment): the
+# flat pack with the z-run gather conv
+FLAT_ZT = ("data.instseg_options.flat_pack=true",
+           "data.instseg_options.ztriple_conv=true")
+
+
+def smoke_trainer(exp_dir, *layout):
     """The stage-1 trainer as ``python -m pq3d_tpu_torch.run`` builds it:
     the slice config at full width, batch 4 (the YAML's), AdamW, on
-    SyntheticInstSeg scenes of 70k points, 24 instances, 400 segments."""
+    SyntheticInstSeg scenes of 70k points, 24 instances, 400 segments;
+    ``layout`` adds overrides (``FLAT_ZT``)."""
     from pq3d_tpu_torch import run
     from pq3d_tpu_torch.config import load_config
     cfg = load_config("instseg_sceneverse", [
@@ -362,7 +386,7 @@ def smoke_trainer(exp_dir):
         "data.synthetic.num_train=20", "data.synthetic.num_val=4",
         "data.synthetic.n_points=70000", "data.synthetic.n_instances=24",
         "data.synthetic.n_segments=400", "log_every=1", "device=cuda",
-        f"exp_dir={exp_dir}"])
+        f"exp_dir={exp_dir}", *layout])
     return run.build_instseg_trainer(cfg)
 
 
@@ -1039,6 +1063,7 @@ def kernel_bwd_phase(zrun_conv, fm, shapes, dev, flops_peak, bw_peak):
     version's, its bound (Cin and Cout swapped: dy in, dx out) and the dW
     re-gather's ms."""
     import torch
+    from pq3d_tpu_torch.ops import sparse
     gen = torch.Generator(device="cpu").manual_seed(1)
     recs = []
     for (lvl, cin, cout), per_step in sorted(shapes.items()):
@@ -1073,7 +1098,7 @@ def kernel_bwd_phase(zrun_conv, fm, shapes, dev, flops_peak, bw_peak):
                                                         phase="bwd"), 20)
         plain_ms = cuda_time(lambda: zrun_conv.zrun_conv_reference(
             dym, wt, zb, zc), 5)
-        dw_ms = cuda_time(lambda: zrun_conv.zrun_weight_grad(x, zb, zc, dym),
+        dw_ms = cuda_time(lambda: sparse.ztriple_weight_grad(x, zb, zc, dym),
                           5)
         pairs = int((zc != -2).sum().item())
         bound, by, flops, nbytes = conv_bound(
@@ -1110,27 +1135,56 @@ def kernel_bwd_phase(zrun_conv, fm, shapes, dev, flops_peak, bw_peak):
     return recs
 
 
-def train_phase(trainer, zrun_conv, warm, card):
+@contextlib.contextmanager
+def ztriple_calls():
+    """Count the z-run gather conv's forwards and backwards (the plain
+    PyTorch Function ``sparse_conv_ztriple_sym``) inside the block."""
+    from pq3d_tpu_torch.ops import sparse
+    counts = {"fwd": 0, "bwd": 0}
+    orig = sparse.sparse_conv_ztriple_sym
+
+    def counted(*args, **kwargs):
+        y = orig(*args, **kwargs)
+        counts["fwd"] += 1
+        if y.requires_grad:
+            y.register_hook(lambda g: counts.__setitem__(
+                "bwd", counts["bwd"] + 1))
+        return y
+    sparse.sparse_conv_ztriple_sym = counted
+    try:
+        yield counts
+    finally:
+        sparse.sparse_conv_ztriple_sym = orig
+
+
+def train_phase(trainer, zrun_conv, warm, card, label="train"):
     """1 warm step, then one epoch of 5 timed steps through the trainer
     (its prefetching loader included), then 5 steps on the warm batch.
-    Returns the launch counts and the step records."""
+    Per step: the flat rows of each level, B1's forward and dx launches
+    and the z-run gather conv's forward and backward calls.  Returns the
+    launch counts and the step records."""
     import torch
     model = trainer.model
     backbone = model.voxel_encoder.backbone
     expected = []        # routed convs of each train forward
-    hook = model.register_forward_pre_hook(
-        lambda mod, args: expected.append(len(backbone.routed_convs(
-            level_rows(args[0])))))
+    step_rows = []       # the flat rows per level of each train forward
+
+    def count(mod, args):
+        step_rows.append(level_rows(args[0]))
+        expected.append(len(backbone.routed_convs(step_rows[-1])))
+    hook = model.register_forward_pre_hook(count)
     t0 = time.time()
     m = trainer.train_batch(warm)        # builds the optimizer, warms up
     torch.cuda.synchronize()
-    print(f"train: warm step {time.time() - t0:.1f} s, loss "
+    print(f"{label}: warm step {time.time() - t0:.1f} s, loss "
           f"{float(m['loss']):.4f}", flush=True)
 
     inner, loader = trainer._train_step, trainer.train_data
     steps, host_s = [], []
 
     def timed_step(batch):
+        b1 = dict(zrun_conv.phase_launches)
+        zt = dict(zcalls)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1139,7 +1193,11 @@ def train_phase(trainer, zrun_conv, warm, card):
         b.synchronize()
         steps.append({"device_ms": a.elapsed_time(b), "end": time.time(),
                       "loss": float(out["loss"]),
-                      "grad_norm": float(out["grad_norm"])})
+                      "grad_norm": float(out["grad_norm"]),
+                      "rows": step_rows[-1], "routed": expected[-1],
+                      "b1": {k: zrun_conv.phase_launches[k] - b1[k]
+                             for k in b1},
+                      "ztriple": {k: zcalls[k] - zt[k] for k in zt}})
         return out
 
     def timed_loader(epoch):
@@ -1155,19 +1213,25 @@ def train_phase(trainer, zrun_conv, warm, card):
 
     trainer._train_step, trainer.train_data = timed_step, timed_loader
     expected.clear()
+    step_rows.clear()
     torch.cuda.reset_peak_memory_stats()
-    zrun_conv.reset_counts()                # main path starts here
-    t0 = time.time()
-    trainer.train_epoch(0)
-    wall = time.time() - t0
-    counts = dict(zrun_conv.phase_launches)  # main path ends here
+    with ztriple_calls() as zcalls:
+        zrun_conv.reset_counts()            # main path starts here
+        t0 = time.time()
+        trainer.train_epoch(0)
+        wall = time.time() - t0
+        counts = dict(zrun_conv.phase_launches)  # main path ends here
     peak = torch.cuda.max_memory_allocated()
     trainer._train_step, trainer.train_data = inner, loader
     hook.remove()
     for i, (s, h) in enumerate(zip(steps, host_s)):
-        print(f"train: step {i + 1} loss {s['loss']:.4f} grad_norm "
+        print(f"{label}: step {i + 1} loss {s['loss']:.4f} grad_norm "
               f"{s['grad_norm']:.3f} | host pipeline {h:.3f} s | device "
-              f"step {s['device_ms']:.1f} ms", flush=True)
+              f"step {s['device_ms']:.1f} ms | level rows {s['rows']} | "
+              f"B1 fwd {s['b1']['fwd']} dx {s['b1']['bwd']} (routed "
+              f"{s['routed']}) | z-run gather conv fwd "
+              f"{s['ztriple']['fwd']} bwd {s['ztriple']['bwd']}",
+              flush=True)
     if len(steps) != 5 or len(expected) != 5:
         fail(f"the epoch ran {len(steps)} steps, expected 5")
     if not all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
@@ -1178,7 +1242,7 @@ def train_phase(trainer, zrun_conv, warm, card):
             [torch.isfinite(g).all() for g in grads]).all().item():
         fail("a trainable parameter has no gradient or a non-finite one")
     routed = sum(expected)
-    print(f"train: 5 steps in {wall:.2f} s: {5 / wall:.3f} steps/s, "
+    print(f"{label}: 5 steps in {wall:.2f} s: {5 / wall:.3f} steps/s, "
           f"{20 / wall:.3f} scenes/s (steady, steps 2-5: "
           f"{4 / (steps[-1]['end'] - steps[0]['end']):.3f} steps/s) | "
           f"max_memory_allocated {peak / 2**30:.2f} GiB | zrun_conv "
@@ -1195,12 +1259,122 @@ def train_phase(trainer, zrun_conv, warm, card):
     before = batch_loss(trainer, wb)
     losses = [float(trainer.train_batch(warm)["loss"]) for _ in range(5)]
     after = batch_loss(trainer, wb)
-    print(f"train: 5 steps on one batch, loss {losses} (dropout on); "
+    print(f"{label}: 5 steps on one batch, loss {losses} (dropout on); "
           f"dropout off {before:.4f} before, {after:.4f} after", flush=True)
     if not after < before:
         fail("the loss did not fall over 5 steps on one batch")
     return {"counts": counts, "routed_per_step": expected, "steps": steps,
             "host_s": host_s, "wall_s": wall, "peak_bytes": peak}
+
+
+FLAT_RECT_GATE = 1e-4   # the flat step's loss against the rectangular one,
+# and every gradient's max|diff| over the largest entry of all gradients
+
+
+def flat_vs_rect_step(trainer):
+    """One batch of the flat trainer's scenes collated in both layouts
+    (same augmentation, same features), one step each from the same
+    weights: every conv plain in f32 (TF32 off), dropout and the
+    decoder's self-mask off, the direct criterion.  Returns the loss's
+    relative difference, the largest gradient difference over the largest
+    rectangular gradient entry (the gradients normalised by their maximum)
+    and, printed only, the worst max|diff| / max|rect| of a tensor whose
+    own largest entry is at least 1e-3 of that maximum."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from pq3d_tpu_torch.data.datasets import _assemble_instseg_batch
+    from pq3d_tpu_torch.ops import sparse
+    from pq3d_tpu_torch.optim.losses import instseg_direct_loss
+    model = trainer.model
+    loader = trainer.train_data
+    backbone = model.voxel_encoder.backbone
+    encoder = model.unified_encoder
+    rect_pipe = dataclasses.replace(loader.pipe_cfg, flat_pack=False,
+                                    ztriple_conv=False)
+    idxs = np.arange(loader.batch_size)
+    runs = []
+    rnd, tf32 = sparse._round, torch.backends.cuda.matmul.allow_tf32
+    kernel, self_mask = backbone.pallas_conv, encoder.use_self_mask
+    sparse._round = lambda t, dtype: t.float()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backbone.pallas_conv, encoder.use_self_mask = False, False
+    try:
+        with dropout_off(model):
+            for pipe in (rect_pipe, loader.pipe_cfg):
+                batch = trainer._put(_assemble_instseg_batch(
+                    loader.dataset, pipe, loader.extra_features, idxs,
+                    np.random.default_rng(7), True))
+                model.train()
+                model.zero_grad(set_to_none=True)
+                out = model(batch)
+                total, _ = instseg_direct_loss(out["predictions_class"],
+                                               out["predictions_mask"],
+                                               batch)
+                total.backward()
+                runs.append((total.item(), {
+                    n: p.grad.detach().clone() for n, p in
+                    model.named_parameters() if p.grad is not None}))
+    finally:
+        sparse._round = rnd
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        backbone.pallas_conv, encoder.use_self_mask = kernel, self_mask
+        model.zero_grad(set_to_none=True)
+    (loss_r, grads_r), (loss_f, grads_f) = runs
+    if set(grads_r) != set(grads_f):
+        fail("the flat and rectangular steps reach other parameters")
+    largest = max(g.abs().max().item() for g in grads_r.values())
+    worst = per_tensor = 0.0
+    for n, g in grads_r.items():
+        top = g.abs().max().item()
+        diff = (grads_f[n] - g).abs().max().item()
+        worst = max(worst, diff / largest)
+        if top >= 1e-3 * largest:
+            per_tensor = max(per_tensor, diff / top)
+    return (abs(loss_f - loss_r) / abs(loss_r), worst, per_tensor, loss_r,
+            loss_f)
+
+
+def flat_train_phase(trainer, zrun_conv, rect, card):
+    """Phase flat_train: the trainer of ``python -m pq3d_tpu_torch.run
+    ... flat_pack=true ztriple_conv=true`` through train_phase (B1's
+    launches against the routed convs of each step's own flat totals) and
+    train_check_phase, the z-run gather conv in every step forward and
+    backward, and the flat step against the rectangular one (all-plain,
+    f32, direct criterion).  ``rect`` is phase 8's record."""
+    t0 = time.time()
+    warm = next(iter(trainer.train_data(99)))
+    print(f"flat_train setup: one flat batch of 4 augmented scenes collated "
+          f"in {time.time() - t0:.1f} s, flat level rows "
+          f"{level_rows(warm)}", flush=True)
+    tr = train_phase(trainer, zrun_conv, warm, card, label="flat_train")
+    if not all(s["ztriple"]["fwd"] > 0 and s["ztriple"]["bwd"] > 0
+               for s in tr["steps"]):
+        fail("the z-run gather conv did not run forward and backward in "
+             "every flat step")
+
+    def summary(r):
+        ms = [s["device_ms"] for s in r["steps"]]
+        return (f"{5 / r['wall_s']:.3f} steps/s, {20 / r['wall_s']:.3f} "
+                f"scenes/s, device {min(ms):.1f}-{max(ms):.1f} ms a step, "
+                f"host {min(r['host_s']):.3f}-{max(r['host_s']):.3f} s a "
+                f"batch, peak {r['peak_bytes'] / 2**30:.2f} GiB, B1 fwd "
+                f"{r['counts']['fwd']} dx {r['counts']['bwd']}")
+    print(f"flat_train: flat + z-run {summary(tr)} | rectangular (phase 8) "
+          f"{summary(rect)} ({card})", flush=True)
+    tc = train_check_phase(trainer, zrun_conv, warm)
+    loss_rel, grad_rel, per_tensor, loss_r, loss_f = flat_vs_rect_step(
+        trainer)
+    print(f"flat_train: one step all-plain f32, direct criterion: loss "
+          f"rect {loss_r:.6f} flat {loss_f:.6f} (rel {loss_rel:.2e}); "
+          f"gradients' largest difference over their maximum "
+          f"{grad_rel:.2e} (gate for both {FLAT_RECT_GATE:.0e}); not gated: "
+          f"worst tensor over its own maximum {per_tensor:.2e}", flush=True)
+    if not max(loss_rel, grad_rel) <= FLAT_RECT_GATE:
+        fail("the flat train step disagrees with the rectangular one")
+    return {**tr, "train_check": tc, "flat_vs_rect_loss_rel": loss_rel,
+            "flat_vs_rect_grad_rel": grad_rel,
+            "flat_vs_rect_tensor_rel": per_tensor, "warm": warm}
 
 
 def train_check_phase(trainer, zrun_conv, batch):
@@ -2520,6 +2694,20 @@ def main():
             stem, ext = os.path.splitext(args.profile)
             profile_run(lambda: trainer.train_batch(warm), "train step",
                         f"{stem}_train{ext}")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # ---- 9b. flat_train: the flat pack with the z-run gather conv ----
+        t0 = time.time()
+        trainer = smoke_trainer(os.path.join(exp_dir, "flat"), *FLAT_ZT)
+        print(f"flat_train setup: trainer built in {time.time() - t0:.1f} s "
+              f"({' '.join(FLAT_ZT)})", flush=True)
+        windowed_conv.reset_counts()
+        ft = flat_train_phase(trainer, zrun_conv, tr, card)
+        b2_train += windowed_conv.launches
+        if args.profile:
+            profile_run(lambda: trainer.train_batch(ft["warm"]),
+                        "flat train step", f"{stem}_flat_train{ext}")
     finally:
         import shutil
         shutil.rmtree(exp_dir, ignore_errors=True)
@@ -2550,14 +2738,16 @@ def main():
         "source": "pq3d_tpu_torch/csrc/zrun_conv.cu",
         "replaces": "pq3d_tpu/ops/pallas_zt.py:386",
         "launches": main_launches + tr["counts"]["fwd"]
-        + tr["counts"]["bwd"] + rc["launches"]["fwd"]
-        + rc["launches"]["bwd"]
+        + tr["counts"]["bwd"] + ft["counts"]["fwd"] + ft["counts"]["bwd"]
+        + rc["launches"]["fwd"] + rc["launches"]["bwd"]
         + sum(r["launches"] for r in lay["runs"].values()),
         "launches_by_path": {"serve": main_launches,
                              **{f"serve_{k}": r["launches"]
                                 for k, r in lay["runs"].items()},
                              "train_fwd": tr["counts"]["fwd"],
                              "train_bwd": tr["counts"]["bwd"],
+                             "flat_train_fwd": ft["counts"]["fwd"],
+                             "flat_train_bwd": ft["counts"]["bwd"],
                              "recipe_fwd": rc["launches"]["fwd"],
                              "recipe_bwd": rc["launches"]["bwd"]},
         "max_abs_err": max(r["max_abs_err_f32"] for r in per_shape),
@@ -2577,7 +2767,8 @@ def main():
                  f"launches over the {len(troutes)} routed convs of one "
                  f"train step (B=4); launches: the serving run, the "
                  f"serve_layouts runs (rect, dev_maps, flat_zt, rect on a "
-                 f"pool), the 5 timed train steps and the recipe's stage-1 "
+                 f"pool), the 5 timed train steps (rectangular and flat + "
+                 f"z-run) and the recipe's stage-1 "
                  f"runs (train and eval forwards, dx); recipe_ms: the same sum "
                  f"as ms over one forward of 4 SceneVerse-replica scans",
         "recipe_ms": rc["b1_ms"], "recipe_shapes": rc["b1"],
@@ -2593,6 +2784,10 @@ def main():
         "dw_regather_bound_ms": per_step("dw_bound_ms"),
         "bwd_shapes": bwd,
         "train_check": tc,
+        "flat_train_check": ft["train_check"],
+        "flat_vs_rect": {"loss_rel": ft["flat_vs_rect_loss_rel"],
+                         "grad_rel": ft["flat_vs_rect_grad_rel"],
+                         "tensor_rel": ft["flat_vs_rect_tensor_rel"]},
         # shares of one forward's (dx: one step's) N x 27 slots and (tile,
         # tap) pairs, weighted by each conv's dense N x 27 x Cin x Cout work
         "slot_share": per_fwd("flops") / per_fwd("dense27_flops"),

@@ -5,7 +5,8 @@ as ``yaml.safe_load`` reads it (``${...}`` interpolations left as
 strings); ``INSTSEG_SCENEVERSE_MODEL`` and ``INSTSEG_SCENEVERSE_OPTIONS``
 are its ``model`` and ``data.instseg_options`` sections, and
 ``INSTSEG_SCENEVERSE_GT`` is ``instseg_sceneverse_gt.yaml``, the GT-query
-variant.  The stage-1
+variant, and ``INSTSEG_SYNTHETIC`` ``instseg_synthetic.yaml``, the same
+model narrowed on synthetic scenes.  The stage-1
 slices add one override, ``model.voxel_encoder.args.pallas_conv: true``,
 which routes the decoder's 96/128-channel stride-1 3^3 convs to the z-run
 CUDA kernel.  ``UNIFIED_TASKS_SCENEVERSE`` and ``UNIFIED_TASKS_SYNTHETIC``
@@ -160,6 +161,45 @@ def _gt_variant(cfg: Dict[str, Any]) -> Dict[str, Any]:
 INSTSEG_SCENEVERSE_GT: Dict[str, Any] = _gt_variant(INSTSEG_SCENEVERSE)
 
 
+def _synthetic_variant(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """``instseg_synthetic.yaml`` (the JAX runner's first example) from
+    ``instseg_sceneverse.yaml``: the same schema on SyntheticInstSeg
+    scenes of 4000 points, hidden 128, 8 heads, one block a layer, batch
+    2, 2 epochs."""
+    syn = copy.deepcopy(cfg)
+    syn.update(name="instseg-synthetic", log_every=5,
+               debug={"flag": False, "debug_size": 4})
+    data = syn["data"]
+    for key in ("scene_verse_base", "scene_verse_aux", "load_scan_options"):
+        del data[key]
+    data.update(train=["SyntheticInstSeg"], val=["SyntheticInstSeg"],
+                test=["SyntheticInstSeg"],
+                synthetic={"num_train": 16, "num_val": 4, "n_points": 4000,
+                           "n_instances": 8, "n_segments": 64})
+    data["instseg_options"] = {
+        "num_labels": 200, "ignore_label": -100, "filter_out_classes": [0, 2],
+        "voxel_size": 0.05, "num_queries": 120,
+        "query_sample_strategy": "fps", "max_segments": 128,
+        "max_instances": 32, "voxel_bucket": 2048,
+        "stem_mode": "dense_block",
+        "level_caps": [4096, 2048, 1024, 512, 256]}
+    syn["data"] = {k: data[k] for k in ("train", "val", "test", "synthetic",
+                                        "instseg_options")}
+    syn["dataloader"] = {"batchsize": 2, "batchsize_eval": 2,
+                         "num_workers": 0}
+    syn["solver"].update(epochs=2, epochs_per_eval=2)
+    syn["eval"] = {"name": "InstSegEval", "topk_per_scene": 100,
+                   "ignore_label": "${data.instseg_options.ignore_label}"}
+    model = syn["model"]
+    model["hidden_size"] = 128
+    model["unified_encoder"]["args"].update(num_attention_heads=8,
+                                            num_blocks=1)
+    return syn
+
+
+INSTSEG_SYNTHETIC: Dict[str, Any] = _synthetic_variant(INSTSEG_SCENEVERSE)
+
+
 def _unified_model(hidden, txt_tower, freeze_pc, n_heads, n_layers,
                    ground_hidden, gen_args):
     """The ``model`` section the two unified YAML files share the form of."""
@@ -293,6 +333,7 @@ UNIFIED_TASKS_SYNTHETIC: Dict[str, Any] = {
 }
 
 CONFIGS = {"instseg_sceneverse": INSTSEG_SCENEVERSE,
+           "instseg_synthetic": INSTSEG_SYNTHETIC,
            "instseg_sceneverse_gt": INSTSEG_SCENEVERSE_GT,
            "unified_tasks_sceneverse": UNIFIED_TASKS_SCENEVERSE,
            "unified_tasks_synthetic": UNIFIED_TASKS_SYNTHETIC}

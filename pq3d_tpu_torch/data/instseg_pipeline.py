@@ -15,7 +15,7 @@ segment masks as the decoder's offline attention masks.  Three layouts:
   scene that outgrows a cap;
 - the flat pack (``flat_pack``, ``collate_flat``): voxel-level arrays
   concatenate the scenes' true rows into one bucketed total per level,
-  with the maps pre-offset, for single-device serving.
+  with the maps pre-offset, for single-device serving and training.
 
 The compact-conv, level-cap-ladder, Swin3D and flat device-maps layouts of
 the JAX package are not ported.  Everything here is numpy; the batch it
@@ -67,7 +67,7 @@ class InstSegPipelineConfig:
     # level_caps and no explicit cap, level_caps[0] // 16 (bucketed) is
     # used, which is also the cap of the stem pack built on the device
     stem_block_cap: Optional[int] = None
-    # serving layout: voxel-level arrays concatenate the scenes' true rows
+    # flat layout: voxel-level arrays concatenate the scenes' true rows
     # (one bucketed total per level instead of B x the largest scene) and
     # the maps ship pre-offset with no batch dim, plus 'voxel_scene',
     # 'anc_local' and 'rect_{l}'; single device only

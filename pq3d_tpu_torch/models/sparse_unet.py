@@ -15,9 +15,10 @@ run the hand-written CUDA kernel over a z-run plan (the batch's shipped
 ``zt{l}_*`` plan where there is one, else one built on the device from the
 (N, 27) map); next, where the batch ships a z-run plan
 (``ztriple_conv``) and the shape passes ``ops/sparse.ztriple_applicable``,
-the z-run gather conv (``sparse_conv_ztriple``); every other conv is the
-gather conv.  The two predicates claim disjoint shapes, so the shipped
-plans never change which convs the kernel takes.  The JAX package guards
+the z-run gather conv (``sparse_conv_ztriple_sym``); every other conv is
+the gather conv.  Each has the scatter-free backward.  The two
+predicates claim disjoint shapes, so the shipped plans never change which
+convs the kernel takes.  The JAX package guards
 its windowed kernel with an exception-overflow fallback; the Hopper kernel
 has no window, so every routed conv runs the kernel.
 """
@@ -123,7 +124,8 @@ class SparseConv(nn.Module):
                                               self.kernel.shape[1],
                                               self.out_channels)):
             zb, zc = ztplan
-            return sparse.sparse_conv_ztriple(x, zb, zc, self.kernel, valid)
+            return sparse.sparse_conv_ztriple_sym(x, zb, zc, self.kernel,
+                                                  valid)
         return sparse.sparse_conv_sym(x, nbr, self.kernel, valid)
 
 

@@ -121,6 +121,22 @@ def sparse_conv_ztriple(x: torch.Tensor, zbase: torch.Tensor,
     return acc.to(x.dtype)
 
 
+def ztriple_weight_grad(x: torch.Tensor, zbase: torch.Tensor,
+                        zcode: torch.Tensor, dy: torch.Tensor,
+                        compute_dtype: torch.dtype = torch.bfloat16
+                        ) -> torch.Tensor:
+    """dW (27, Cin, Cout) f32 of the z-run conv: ``dW[tap] = rows(x)^T @
+    dy`` with x and dy rounded to ``compute_dtype`` and f32 accumulation
+    (the JAX package's ``_ztriple_weight_grad``).  Re-gathers x through
+    the plan instead of storing the 27 gathered taps; the z-run gather
+    conv and kernel B1 (ops/zrun_conv) both take their dW from here."""
+    xb = _round(x, compute_dtype)
+    dyb = _round(dy, compute_dtype)
+    return torch.stack([rows[:, k].t() @ dyb
+                        for _, rows in _column_rows(xb, zbase, zcode)
+                        for k in range(3)])
+
+
 def sparse_conv(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
                 out_valid: Optional[torch.Tensor] = None,
@@ -385,6 +401,39 @@ class _SparseConvTransposeGF(torch.autograd.Function):
         dw = _offset_weight_grad(xg, _round(dy, torch.bfloat16), parent_off,
                                  w.shape[0])
         return dx, dw.to(w.dtype), None, None, None, None, None
+
+
+class _SparseConvZtripleSym(torch.autograd.Function):
+    """The z-run gather conv with the symmetric-stencil backward: the z-run
+    conv computes conv(., nbr, .) for any weights, so dx runs through the
+    same plan with ``flip_k(W)^T``; dW re-gathers x through it."""
+
+    @staticmethod
+    def forward(ctx, x, w, zbase, zcode, out_valid):
+        ctx.save_for_backward(x, w, zbase, zcode, out_valid)
+        return sparse_conv_ztriple(x, zbase, zcode, w, out_valid)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, zbase, zcode, out_valid = ctx.saved_tensors
+        dy = _mask_rows(dy, out_valid)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = sparse_conv_ztriple(dy, zbase, zcode,
+                                     w.flip(0).transpose(1, 2)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = ztriple_weight_grad(x, zbase, zcode, dy).to(w.dtype)
+        return dx, dw, None, None, None
+
+
+def sparse_conv_ztriple_sym(x: torch.Tensor, zbase: torch.Tensor,
+                            zcode: torch.Tensor, w: torch.Tensor,
+                            out_valid: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """:func:`sparse_conv_ztriple` with the scatter-free backward (the JAX
+    package's ``sparse_conv_ztriple_sym``); saves only x, W and the
+    plan."""
+    return _SparseConvZtripleSym.apply(x, w, zbase, zcode, out_valid)
 
 
 def sparse_conv_sym(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,

@@ -21,8 +21,8 @@ references (:func:`tile_tap_mask` computes the same pairs).
 Training goes through :func:`zrun_conv_sym`, the counterpart of
 ``pallas_zt_conv_sym``: the 3^3 stencil is symmetric, so ``dx`` is the
 same kernel applied to the masked ``dy`` with ``flip_k(W)^T``, and ``dW``
-re-gathers ``x`` through the same plan (:func:`zrun_weight_grad`, plain
-PyTorch, as the JAX package computes it in XLA) instead of storing the
+re-gathers ``x`` through the same plan (``ops/sparse.ztriple_weight_grad``,
+plain PyTorch, as the JAX package computes it in XLA) instead of storing the
 27 x N x Cin gathered taps.
 """
 from __future__ import annotations
@@ -153,21 +153,6 @@ def zrun_conv_reference(x: torch.Tensor, w: torch.Tensor,
                                       compute_dtype)
 
 
-def zrun_weight_grad(x: torch.Tensor, zbase: torch.Tensor,
-                     zcode: torch.Tensor, dy: torch.Tensor,
-                     compute_dtype: torch.dtype = torch.bfloat16
-                     ) -> torch.Tensor:
-    """dW (27, Cin, Cout) f32 of the z-run conv: ``dW[tap] = rows(x)^T @
-    dy`` with x and dy rounded to ``compute_dtype`` and f32 accumulation
-    (the JAX package's ``_ztriple_weight_grad``).  Re-gathers x through
-    the plan instead of storing the 27 gathered taps."""
-    xb = sparse._round(x, compute_dtype)
-    dyb = sparse._round(dy, compute_dtype)
-    return torch.stack([rows[:, k].t() @ dyb
-                        for _, rows in sparse._column_rows(xb, zbase, zcode)
-                        for k in range(3)])
-
-
 def zrun_conv_backward_reference(x: torch.Tensor, w: torch.Tensor,
                                  zbase: torch.Tensor, zcode: torch.Tensor,
                                  out_valid: Optional[torch.Tensor],
@@ -177,7 +162,8 @@ def zrun_conv_backward_reference(x: torch.Tensor, w: torch.Tensor,
     if out_valid is not None:
         dy = torch.where(out_valid[:, None], dy, 0)
     dx = zrun_conv_reference(dy, w.flip(0).transpose(1, 2), zbase, zcode)
-    return dx.to(x.dtype), zrun_weight_grad(x, zbase, zcode, dy).to(w.dtype)
+    dw = sparse.ztriple_weight_grad(x, zbase, zcode, dy)
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def build() -> ctypes.CDLL:
@@ -317,7 +303,7 @@ class _ZrunConvSym(torch.autograd.Function):
             dx = zrun_conv(dy, w.flip(0).transpose(1, 2), zbase, zcode,
                            phase="bwd").to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = zrun_weight_grad(x, zbase, zcode, dy).to(w.dtype)
+            dw = sparse.ztriple_weight_grad(x, zbase, zcode, dy).to(w.dtype)
         return dx, dw, None, None, None
 
 
@@ -326,5 +312,5 @@ def zrun_conv_sym(x: torch.Tensor, w: torch.Tensor, zbase: torch.Tensor,
                   out_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`zrun_conv` with a backward: dx launches the same kernel on
     the masked dy with ``flip_k(W)^T`` (the plain version on the CPU), dW
-    is :func:`zrun_weight_grad`."""
+    is ``ops/sparse.ztriple_weight_grad``."""
     return _ZrunConvSym.apply(x, w, zbase, zcode, out_valid)

@@ -1,13 +1,15 @@
-"""Optimizer, LR schedule and gradient clipping (PyTorch); counterpart of
-``pq3d_tpu/optim/optimizers.py``: AdamW with the ``no_decay_mask`` rule,
+"""Optimizers, LR schedules, gradient clipping and gradient accumulation
+(PyTorch); counterpart of ``pq3d_tpu/optim/optimizers.py``: AdamW, Adam,
+SGD (momentum 0.9) and Lion by name, weight decay under the
+``no_decay_mask`` rule (AdamW and Lion; optax's Adam and SGD take none),
 per-module learning rates (``lr_scale_mask``), the reference-exact
-``warmup_cosine`` schedule as a ``LambdaLR``, and optax's
-``clip_by_global_norm``.  Adam, SGD, Lion, the other schedules and
-gradient accumulation are not ported.
+``warmup_cosine``, ``warmup_exp`` and ``constant`` schedules as a
+``LambdaLR``, optax's ``clip_by_global_norm``, and ``optax.MultiSteps``'
+gradient accumulation (:class:`GradientAccumulator`).
 
-A per-module rate is its own AdamW parameter groups at that rate under the
-same ``LambdaLR``: JAX scales the whole AdamW update, decay term included,
-by ``lr_module / lr`` after the optimizer, which is the same update.
+A per-module rate is its own parameter groups at that rate under the
+same ``LambdaLR``: JAX scales the whole update, decay term included, by
+``lr_module / lr`` after the optimizer, which is the same update.
 """
 from __future__ import annotations
 
@@ -29,32 +31,76 @@ def decays(name: str, p: torch.Tensor) -> bool:
     return not ("norm" in low or "bias" in low or "scale" in low)
 
 
-def lr_lambda(name: str, total_steps: int, warmup_steps: int = 0):
-    """Multiplier of the base LR at a step (the reference's LambdaLR
-    lambda, the JAX ``make_schedule`` divided by lr): linear warmup to
-    step == warmup_steps, then cosine with a 1e-5 floor."""
-    if name != "warmup_cosine":
-        raise NotImplementedError(f"schedule {name!r} is not ported "
-                                  "(warmup_cosine only)")
+def lr_lambda(name: Optional[str], total_steps: int, warmup_steps: int = 0,
+              gamma: float = 0.1):
+    """Multiplier of the base LR at an optimizer step (the reference's
+    LambdaLR lambdas, the JAX ``make_schedule`` divided by lr): linear
+    warmup to step == warmup_steps, then cosine with a 1e-5 floor
+    (``warmup_cosine``) or ``gamma ** (step / (total - warmup))``
+    (``warmup_exp``); ``constant`` (also for no name) is 1."""
+    name = name or "constant"
+    if name == "constant":
+        return lambda step: 1.0
     denom = max(total_steps - warmup_steps, 1)
+    if name == "warmup_cosine":
+        def after(step):
+            return max(0.5 * (1 + math.cos((step - warmup_steps) / denom
+                                            * math.pi)), 1e-5)
+    elif name == "warmup_exp":
+        def after(step):
+            return gamma ** (step / denom)
+    else:
+        raise NotImplementedError(f"schedule {name!r} is not one of "
+                                  "warmup_cosine, warmup_exp, constant")
 
     def f(step):
         if warmup_steps > 0 and step <= warmup_steps:
             return step / warmup_steps
-        return max(0.5 * (1 + math.cos((step - warmup_steps) / denom
-                                        * math.pi)), 1e-5)
+        return after(step)
     return f
+
+
+class Lion(torch.optim.Optimizer):
+    """``optax.lion``'s update: ``u = sign((1 - b1) g + b1 m)``, then ``m
+    = (1 - b2) g + b2 m``, and ``p -= lr (u + weight_decay p)`` (the decay
+    inside the update, as optax's ``add_decayed_weights`` puts it)."""
+
+    def __init__(self, params, lr: float = 1e-4,
+                 betas: Tuple[float, float] = (0.9, 0.99),
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas),
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Lion takes no closure")
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["exp_avg"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                m, g = state["exp_avg"], p.grad
+                u = torch.sign(g * (1 - b1) + m * b1)
+                m.mul_(b2).add_(g * (1 - b2))
+                if group["weight_decay"]:
+                    u.add_(p * group["weight_decay"])
+                p.sub_(u * group["lr"])
 
 
 def param_groups(model: nn.Module, weight_decay: float,
                  lr: Optional[float] = None,
                  module_lrs: Optional[Dict[str, float]] = None
                  ) -> List[Dict[str, Any]]:
-    """AdamW's groups: the trainable parameters split by rate (a top-level
-    module named in ``module_lrs`` at its own, the rest at ``lr``, the
-    optimizer's default when None; the base-rate groups first) and by
-    :func:`decays` (``weight_decay`` or none).  Up to four groups with one
-    module rate."""
+    """The optimizer's groups: the trainable parameters split by rate (a
+    top-level module named in ``module_lrs`` at its own, the rest at
+    ``lr``, the optimizer's default when None; the base-rate groups first)
+    and by :func:`decays` (``weight_decay`` or none).  Up to four groups
+    with one module rate."""
     module_lrs = module_lrs or {}
     groups: Dict[Tuple[Optional[float], bool], List[torch.Tensor]] = {
         (lr, True): [], (lr, False): []}
@@ -71,18 +117,27 @@ def build_optimizer(model: nn.Module, name: str = "AdamW", lr: float = 1e-4,
                     total_steps: int = 10000, warmup_steps: int = 0,
                     sched_name: str = "warmup_cosine", betas=(0.9, 0.98),
                     weight_decay: float = 0.01,
-                    module_lrs: Optional[Dict[str, float]] = None):
-    """(AdamW, LambdaLR); the schedule scales every group's rate.  AdamW's
-    eps is optax's 1e-8; torch's update equals optax's ``adamw`` up to
-    float rounding."""
-    if name.lower() != "adamw":
-        raise NotImplementedError(f"optimizer {name!r} is not ported "
-                                  "(AdamW only)")
-    opt = torch.optim.AdamW(param_groups(model, weight_decay, lr,
-                                         module_lrs),
-                            lr=lr, betas=tuple(betas), eps=1e-8)
+                    module_lrs: Optional[Dict[str, float]] = None,
+                    gamma: float = 0.1):
+    """(optimizer, LambdaLR); the schedule scales every group's rate.
+    Adam and AdamW take optax's eps 1e-8 and equal optax's updates up to
+    float rounding; SGD is optax's ``sgd(momentum=0.9)``."""
+    key = name.lower()
+    if key not in ("adamw", "adam", "sgd", "lion"):
+        raise NotImplementedError(f"optimizer {name!r} is not one of AdamW, "
+                                  "Adam, SGD, Lion")
+    groups = param_groups(model, weight_decay if key in ("adamw", "lion")
+                          else 0.0, lr, module_lrs)
+    if key == "adamw":
+        opt = torch.optim.AdamW(groups, lr=lr, betas=tuple(betas), eps=1e-8)
+    elif key == "adam":
+        opt = torch.optim.Adam(groups, lr=lr, betas=tuple(betas), eps=1e-8)
+    elif key == "sgd":
+        opt = torch.optim.SGD(groups, lr=lr, momentum=0.9)
+    else:
+        opt = Lion(groups, lr=lr, betas=tuple(betas))
     sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, lr_lambda(sched_name, total_steps, warmup_steps))
+        opt, lr_lambda(sched_name, total_steps, warmup_steps, gamma))
     return opt, sched
 
 
@@ -99,10 +154,9 @@ def module_lrs_of(model_cfg: Dict[str, Any]) -> Dict[str, float]:
 def build_from_config(cfg: Dict[str, Any], model: nn.Module,
                       total_steps: int):
     """(optimizer, scheduler, grad_norm max or None) from the config's
-    ``solver`` section and the model's per-module rates."""
+    ``solver`` section and the model's per-module rates;
+    ``total_steps`` counts optimizer steps."""
     solver = cfg["solver"]
-    if int(solver.get("gradient_accumulation_steps", 1) or 1) > 1:
-        raise NotImplementedError("gradient accumulation is not ported")
     optim = solver.get("optim") or {}
     oargs = optim.get("args") or {}
     sched = solver.get("sched") or {}
@@ -114,9 +168,57 @@ def build_from_config(cfg: Dict[str, Any], model: nn.Module,
         sched_name=sched.get("name", "warmup_cosine"),
         betas=tuple(oargs.get("betas", [0.9, 0.98])),
         weight_decay=float(oargs.get("weight_decay", 0.01)),
-        module_lrs=module_lrs_of(cfg["model"]))
+        module_lrs=module_lrs_of(cfg["model"]),
+        gamma=float(sargs.get("gamma", 0.1)))
     grad_norm = float(solver.get("grad_norm", 0) or 0) or None
     return opt, lr_sched, grad_norm
+
+
+def accumulation_steps(cfg: Dict[str, Any]) -> int:
+    """``solver.gradient_accumulation_steps``: micro-steps a step."""
+    return max(int(cfg["solver"].get("gradient_accumulation_steps", 1)
+                   or 1), 1)
+
+
+class GradientAccumulator:
+    """``optax.MultiSteps(every_k_schedule=k)``: each micro-step's
+    gradients join a running mean (Welford, as optax updates it); on the
+    k-th the mean replaces the gradients and the optimizer steps, so the
+    clip applies to the mean and the schedule advances once per k
+    micro-steps.  ``state_dict`` holds the micro-step count and the mean
+    so far, so a resume continues a window."""
+
+    def __init__(self, every_k: int):
+        self.every_k = int(every_k)
+        self.mini_step = 0
+        self.acc: Optional[List[torch.Tensor]] = None
+
+    def add(self, grads: List[torch.Tensor]) -> bool:
+        """Fold in one micro-step's ``grads``; True (with ``grads`` now
+        the mean of the window) when the optimizer should step."""
+        if self.acc is None:
+            self.acc = [torch.zeros_like(g) for g in grads]
+        n = self.mini_step
+        for a, g in zip(self.acc, grads):
+            a.add_((g - a) / (n + 1))
+        self.mini_step = (n + 1) % self.every_k
+        if self.mini_step:
+            return False
+        for a, g in zip(self.acc, grads):
+            g.copy_(a)
+            a.zero_()
+        return True
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"mini_step": self.mini_step,
+                "acc": None if self.acc is None
+                else [a.detach().cpu() for a in self.acc]}
+
+    def load_state_dict(self, state: Dict[str, Any],
+                        device: torch.device) -> None:
+        self.mini_step = int(state["mini_step"])
+        self.acc = None if state["acc"] is None \
+            else [a.to(device) for a in state["acc"]]
 
 
 def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:

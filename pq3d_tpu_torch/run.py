@@ -33,13 +33,19 @@ from pq3d_tpu_torch.config import load_config, parse_value, set_dotted
 
 
 def _optimizer_total_steps(cfg: Dict[str, Any], steps_per_epoch: int) -> int:
-    return steps_per_epoch * int(cfg["solver"]["epochs"])
+    """The schedule's horizon in optimizer steps: the micro-steps divided
+    by ``solver.gradient_accumulation_steps``."""
+    from pq3d_tpu_torch.optim.optimizers import accumulation_steps
+    return (steps_per_epoch * int(cfg["solver"]["epochs"])
+            // accumulation_steps(cfg))
 
 
 def build_instseg_trainer(cfg: Dict[str, Any]):
     """The stage-1 trainer of a resolved config: datasets and loaders, the
     model (``build_model``), the set loss (or, with ``criterion_type:
-    'direct'``, the direct one), the evaluator."""
+    'direct'``, the direct one), the evaluator.  Trains in the rectangular
+    layout, the flat pack (``flat_pack``) and with the z-run gather conv
+    (``ztriple_conv``), alone or together; ``device_maps`` raises."""
     from pq3d_tpu_torch.data.datasets import InstSegLoader, build_dataset
     from pq3d_tpu_torch.data.instseg_pipeline import pipeline_config
     from pq3d_tpu_torch.eval.instseg_eval import InstSegEval
@@ -53,14 +59,12 @@ def build_instseg_trainer(cfg: Dict[str, Any]):
         raise NotImplementedError(f"trainer {cfg['trainer']!r} is not ported")
     iopt = cfg["data"]["instseg_options"]
     pipe_cfg = pipeline_config(iopt)
-    layouts = [k for k in ("flat_pack", "ztriple_conv", "device_maps")
-               if getattr(pipe_cfg, k)]
-    if layouts or (cfg["model"].get("voxel_encoder") or {}).get(
+    if pipe_cfg.device_maps or (cfg["model"].get("voxel_encoder") or {}).get(
             "args", {}).get("device_maps"):
         raise NotImplementedError(
-            f"training in the {layouts or ['device_maps']} layout is not "
-            "ported yet (the port serves these layouts; training in the "
-            "flat and z-run layouts is a later slice)")
+            "training in the device_maps layout is not ported (the port "
+            "serves it; the JAX package trains it in no test either, so it "
+            "waits for a later slice)")
     dl = cfg["dataloader"]
     seed = int(cfg.get("rng_seed", 42))
 

@@ -2,12 +2,14 @@
 ``CheckpointManager`` in ``pq3d_tpu/train/checkpoints.py``.
 
 Named snapshots (``latest``, ``best``, ``ckpt_N``) each hold the model's
-parameters and buffers, the optimizer, the LR scheduler, the step and the
-experiment tracker, in ``<ckpt_dir>/<name>/state.pt``.  A save writes a
-temporary file and renames it, so an interrupted save leaves the previous
-snapshot whole.  ``load_pretrain`` is the non-strict warm start (stage 2
-from a stage-1 checkpoint): by name and shape, as the JAX package's is by
-flax path and shape.  The JAX package's orbax format and its warm start
+parameters and buffers, the optimizer, the LR scheduler, the step, the
+experiment tracker and what the trainer adds (the generator states that
+dropout draws from, a gradient-accumulation window), in
+``<ckpt_dir>/<name>/state.pt``.  A save writes a temporary file and
+renames it, so an interrupted save leaves the previous snapshot whole.
+``load_pretrain`` is the non-strict warm start (stage 2 from a stage-1
+checkpoint): by name and shape, as the JAX package's is by flax path and
+shape.  The JAX package's orbax format and its warm start
 from reference ``.bin`` files are not ported.
 """
 from __future__ import annotations
@@ -32,26 +34,29 @@ class CheckpointManager:
         return os.path.join(self.ckpt_dir, name, _FILE)
 
     def save(self, name: str, model, optimizer, scheduler, step: int,
-             tracker: Dict[str, Any]) -> None:
+             tracker: Dict[str, Any],
+             extra: Optional[Dict[str, Any]] = None) -> None:
         path = self._path(name)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         payload = {"model": model.state_dict(),
                    "optimizer": optimizer.state_dict(),
                    "scheduler": scheduler.state_dict(),
-                   "step": int(step), "tracker": dict(tracker)}
+                   "step": int(step), "tracker": dict(tracker),
+                   **(extra or {})}
         tmp = path + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, path)
 
     def restore(self, name: str, model, optimizer, scheduler
-                ) -> Tuple[int, Dict[str, Any]]:
-        """Load ``name`` into the given objects; returns (step, tracker)."""
+                ) -> Tuple[int, Dict[str, Any], Dict[str, Any]]:
+        """Load ``name`` into the given objects; returns (step, tracker,
+        the ``extra`` entries it was saved with)."""
         payload = torch.load(self._path(name), map_location="cpu",
                              weights_only=False)
-        model.load_state_dict(payload["model"])
-        optimizer.load_state_dict(payload["optimizer"])
-        scheduler.load_state_dict(payload["scheduler"])
-        return payload["step"], payload["tracker"]
+        model.load_state_dict(payload.pop("model"))
+        optimizer.load_state_dict(payload.pop("optimizer"))
+        scheduler.load_state_dict(payload.pop("scheduler"))
+        return payload.pop("step"), payload.pop("tracker"), payload
 
     def exists(self, name: str) -> bool:
         return os.path.exists(self._path(name))

@@ -4,7 +4,9 @@
 One train step: forward in train mode, loss, backward, clip of the global
 gradient norm, optimizer step, schedule step.  Parameters that the loss
 does not reach get a zero gradient, so AdamW decays them as optax does
-(torch's AdamW skips a parameter whose ``.grad`` is ``None``).
+(torch's AdamW skips a parameter whose ``.grad`` is ``None``).  Under
+gradient accumulation (``optim/optimizers.GradientAccumulator``) a call is
+one micro-step, and only every k-th clips and steps, on the mean.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from pq3d_tpu_torch.optim.optimizers import (clip_by_global_norm_,
+from pq3d_tpu_torch.optim.optimizers import (GradientAccumulator,
+                                             clip_by_global_norm_,
                                              global_norm)
 
 LossFn = Callable[[Dict, Dict], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -22,12 +25,14 @@ LossFn = Callable[[Dict, Dict], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     scheduler, loss_fn: LossFn,
                     grad_norm_max: Optional[float] = None,
-                    mark: Optional[Callable[[str], None]] = None):
-    """``step(batch) -> metrics``: ``loss``, ``grad_norm`` (before the
-    clip) and the loss parts, as detached device scalars.  ``mark``, when
-    given, is called with ``"forward"``, ``"loss"``, ``"backward"`` and
-    ``"optimizer"`` as each part of the step has been issued (a profiler
-    records an event there)."""
+                    mark: Optional[Callable[[str], None]] = None,
+                    accumulator: Optional[GradientAccumulator] = None):
+    """``step(batch) -> metrics``: ``loss``, ``grad_norm`` (of this call's
+    gradients, before the clip) and the loss parts, as detached device
+    scalars.  ``mark``, when given, is called with ``"forward"``,
+    ``"loss"``, ``"backward"`` and ``"optimizer"`` as each part of the
+    step has been issued (a profiler records an event there).  With an
+    ``accumulator`` the optimizer steps only when it closes a window."""
     params = [p for p in model.parameters() if p.requires_grad]
     mark = mark or (lambda part: None)
 
@@ -46,10 +51,13 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
         norm = global_norm(grads)
-        if grad_norm_max:
-            clip_by_global_norm_(grads, grad_norm_max, norm)
-        optimizer.step()
-        scheduler.step()
+        if accumulator is None or accumulator.add(grads):
+            if grad_norm_max:
+                clip_by_global_norm_(grads, grad_norm_max,
+                                     norm if accumulator is None
+                                     else global_norm(grads))
+            optimizer.step()
+            scheduler.step()
         mark("optimizer")
         return {"loss": total.detach(), "grad_norm": norm,
                 **{k: v.detach() for k, v in parts.items()}}

@@ -12,10 +12,16 @@ name and shape) from another run's checkpoint.  Each epoch saves
 ``latest``, every ``epochs_per_save`` epochs ``ckpt_N``, and every
 improvement of the evaluator's target metric ``best``.  SIGUSR1 or
 SIGTERM saves ``latest`` after the current step and ends the run, so a
-requeued job resumes.  Train-mode memory dropout draws from a generator
-on the model's device that ``_lazy_init`` seeds from ``rng_seed`` (a resume
-seeds it afresh; its state is not checkpointed).  Loaders with worker
-pools are closed when ``run`` ends.
+requeued job resumes.  Randomness is seeded and checkpointed: before
+the first step ``_lazy_init`` seeds torch's default generators (the CPU's
+and the cards'), which every dropout draws from, and the generator on the
+model's device that train-mode memory dropout draws from, all from
+``rng_seed``; each checkpoint holds their states, and a resume restores
+them over the seeding, so a resumed run takes the masks an unbroken one
+would.  Under ``gradient_accumulation_steps`` k a batch is a micro-step:
+``step`` counts optimizer steps, one every k batches, and the window in
+progress is checkpointed too.  Loaders with worker pools are closed when
+``run`` ends.
 """
 from __future__ import annotations
 
@@ -97,32 +103,46 @@ class Query3DTrainer:
         self.logger = MetricsLogger(self.exp_dir)
         self.tracker = ExpTracker()
         self.ckpt = CheckpointManager(os.path.join(self.exp_dir, "ckpt"))
-        self.step = 0
+        self.step = 0                       # optimizer steps
         self._total_steps = total_steps
         self._optimizer = self._scheduler = self._grad_norm = None
+        self._accumulator = self._memory_generator = None
         self._train_step = self._eval_step = None
         self._preempted = False
         self.warm_started: List[str] = []   # names a warm start loaded
 
     def _lazy_init(self):
-        from pq3d_tpu_torch.optim.optimizers import build_from_config
-        self.model.unified_encoder.set_memory_generator(torch.Generator(
-            device=self.device).manual_seed(int(self.cfg.get("rng_seed",
-                                                             42))))
+        from pq3d_tpu_torch.optim.optimizers import (GradientAccumulator,
+                                                     accumulation_steps,
+                                                     build_from_config)
+        seed = int(self.cfg.get("rng_seed", 42))
+        torch.manual_seed(seed)
+        self._memory_generator = torch.Generator(
+            device=self.device).manual_seed(seed)
+        self.model.unified_encoder.set_memory_generator(
+            self._memory_generator)
         total = self._total_steps or (self.epochs * 1000)
         self._optimizer, self._scheduler, self._grad_norm = \
             build_from_config(self.cfg, self.model, total)
+        k = accumulation_steps(self.cfg)
+        self._accumulator = GradientAccumulator(k) if k > 1 else None
         self._train_step = make_train_step(self.model, self._optimizer,
                                            self._scheduler, self.loss_fn,
-                                           self._grad_norm)
+                                           self._grad_norm,
+                                           accumulator=self._accumulator)
         self._eval_step = make_eval_step(self.model, self.loss_fn)
         n_params = sum(p.numel() for p in self.model.parameters())
         print(f"[trainer] initialized: {n_params / 1e6:.2f}M params, "
               f"exp_dir={self.exp_dir}")
         if self.cfg.get("resume") and self.ckpt.exists("latest"):
-            self.step, tr = self.ckpt.restore(
+            self.step, tr, extra = self.ckpt.restore(
                 "latest", self.model, self._optimizer, self._scheduler)
             self.tracker.load_state_dict(tr)
+            if "rng" in extra:          # absent from older checkpoints
+                self._set_rng_state(extra["rng"])
+            if self._accumulator is not None and "accumulator" in extra:
+                self._accumulator.load_state_dict(extra["accumulator"],
+                                                  self.device)
             print(f"[trainer] resumed from epoch {self.tracker.epoch}")
         elif self.cfg.get("pretrain_ckpt_path"):
             self.warm_started = self._warm_start(
@@ -147,16 +167,36 @@ class Query3DTrainer:
         return to_device({k: v for k, v in batch.items()
                           if not k.startswith("_")}, self.device)
 
+    def _rng_state(self) -> Dict[str, torch.Tensor]:
+        """The states of the generators the train step draws from."""
+        state = {"cpu": torch.get_rng_state(),
+                 "memory": self._memory_generator.get_state()}
+        if self.device.type == "cuda":
+            state["cuda"] = torch.cuda.get_rng_state(self.device)
+        return state
+
+    def _set_rng_state(self, state: Dict[str, torch.Tensor]) -> None:
+        torch.set_rng_state(state["cpu"])
+        self._memory_generator.set_state(state["memory"])
+        if self.device.type == "cuda":
+            torch.cuda.set_rng_state(state["cuda"], self.device)
+
     def _save(self, name: str) -> None:
+        extra = {"rng": self._rng_state()}
+        if self._accumulator is not None:
+            extra["accumulator"] = self._accumulator.state_dict()
         self.ckpt.save(name, self.model, self._optimizer, self._scheduler,
-                       self.step, self.tracker.state_dict())
+                       self.step, self.tracker.state_dict(), extra)
 
     def train_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """One train step on a numpy batch; logs every ``log_every``."""
+        """One train step (under accumulation, one micro-step) on a numpy
+        batch; logs every ``log_every`` optimizer steps."""
         dev_batch = self._put(batch)
         if self._train_step is None:
             self._lazy_init()
         metrics = self._train_step(dev_batch)
+        if self._accumulator is not None and self._accumulator.mini_step:
+            return metrics              # inside an accumulation window
         self.step += 1
         if self.step % int(self.cfg.get("log_every", 10)) == 0:
             host = {k: float(v) for k, v in metrics.items()}

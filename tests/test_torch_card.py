@@ -547,3 +547,75 @@ def test_flat_unet_with_b1_matches_plain(cuda_device):
         assert torch.isfinite(a).all()
         err = (a.float() - r.float()).abs().max() / r.float().abs().max()
         assert err <= 2e-2
+
+
+@pytest.mark.cuda
+def test_flat_train_batch_backwards_match_plain(cuda_device):
+    """On a flat + z-run training batch (two augmented scenes of 40k and
+    50k points): the z-run gather conv's Function at the shapes it takes
+    (levels 1-3, 32 and 64 channels) against autograd through the plain
+    gather conv, and B1's Function at every shape the U-Net routes on
+    these flat totals against its plain backward; forward, dx and dW
+    within 1e-2 of max|ref|, one dx launch per B1 call."""
+    from pq3d_tpu_torch.data import synthetic
+    from pq3d_tpu_torch.data.instseg_pipeline import (InstSegPipelineConfig,
+                                                      make_batch)
+    from pq3d_tpu_torch.models.sparse_unet import Res16UNet
+    from pq3d_tpu_torch.ops import sparse
+    rng = np.random.default_rng(4)
+    scenes = [synthetic.make_scene(rng, n_points=n, n_instances=5,
+                                   n_segments=40) for n in (40000, 50000)]
+    cfg = InstSegPipelineConfig(num_queries=16, max_segments=64,
+                                max_instances=8, voxel_bucket=8192,
+                                flat_pack=True, ztriple_conv=True)
+    maps = make_batch(scenes, cfg, rng, train=True)["maps"]
+    rows = [maps[f"valid_{l}"].shape[0] for l in range(5)]
+    routed = {(lvl, cin, cout) for _, lvl, cin, cout
+              in Res16UNet(pallas_conv=True).routed_convs(rows)}
+    assert routed
+    gen = torch.Generator().manual_seed(0)
+
+    def inputs(lvl, cin, cout):
+        valid = torch.from_numpy(maps[f"valid_{lvl}"]).to(cuda_device)
+        n = valid.shape[0]
+        x = (torch.randn(n, cin, generator=gen).to(cuda_device)
+             * valid[:, None]).requires_grad_(True)
+        w = (torch.randn(27, cin, cout, generator=gen) * 0.05).to(
+            cuda_device).requires_grad_(True)
+        dy = torch.randn(n, cout, generator=gen).to(cuda_device)
+        return valid, x, w, dy
+
+    def close(got, ref):
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        return ((got.float() - ref.float()).abs().max()
+                / ref.float().abs().max()).item() <= 1e-2
+
+    for lvl, c in ((1, 32), (2, 64), (3, 64)):
+        zb, zc = (torch.from_numpy(maps[f"zt{lvl}_{k}"]).to(cuda_device)
+                  for k in ("base", "code"))
+        nbr = torch.from_numpy(maps[f"nbr3_{lvl}"]).to(cuda_device)
+        valid, x, w, dy = inputs(lvl, c, c)
+        y = sparse.sparse_conv_ztriple_sym(x, zb, zc, w, valid)
+        y.backward(dy)
+        xr = x.detach().clone().requires_grad_(True)
+        wr = w.detach().clone().requires_grad_(True)
+        yr = sparse.sparse_conv(xr, nbr, wr, None, valid)
+        yr.backward(dy)
+        assert close(y, yr) and close(x.grad, xr.grad) \
+            and close(w.grad, wr.grad), (lvl, c)
+    for lvl, cin, cout in sorted(routed):
+        zb, zc = tzr.zrun_plan(torch.from_numpy(
+            maps[f"nbr3_{lvl}"]).to(cuda_device))
+        valid, x, w, dy = inputs(lvl, cin, cout)
+        before = dict(tzr.phase_launches)
+        y = tzr.zrun_conv_sym(x, w, zb, zc, valid)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        assert tzr.phase_launches["fwd"] == before["fwd"] + 1
+        assert tzr.phase_launches["bwd"] == before["bwd"] + 1
+        dx_ref, dw_ref = tzr.zrun_conv_backward_reference(
+            x.detach(), w.detach(), zb, zc, valid, dy)
+        y_ref = tzr.zrun_conv_reference(x.detach(), w.detach(), zb, zc,
+                                        valid)
+        assert close(y, y_ref) and close(x.grad, dx_ref) \
+            and close(w.grad, dw_ref), (lvl, cin, cout)

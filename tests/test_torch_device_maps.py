@@ -306,10 +306,10 @@ def test_layout_config_refusals():
 
 
 @pytest.mark.parametrize("layout", ["rect", "dev_maps", "flat_zt"])
-def test_serving_config_and_training_refusal(layout):
+def test_serving_config_and_training_refusal(layout, monkeypatch):
     """serving_config sets the layout up (model caps == level_caps under
-    dev_maps, also after a level_caps override); the trainer refuses the
-    serving layouts."""
+    dev_maps, also after a level_caps override); the trainer refuses
+    dev_maps and takes flat_zt (as far as the model build)."""
     from pq3d_tpu_torch import run
     from pq3d_tpu_torch.config import serving_config
     caps = [1024, 512, 256, 128, 64]
@@ -326,7 +326,19 @@ def test_serving_config_and_training_refusal(layout):
     if layout == "rect":
         return
     cfg["device"] = "cpu"
-    with pytest.raises(NotImplementedError, match="later slice"):
+    if layout == "dev_maps":
+        with pytest.raises(NotImplementedError, match="later slice"):
+            run.build_instseg_trainer(cfg)
+        return
+
+    class Built(Exception):
+        pass
+
+    def build_model(cfg, device, seed):
+        raise Built
+    cfg["data"].update(train=["SyntheticInstSeg"], val=["SyntheticInstSeg"])
+    monkeypatch.setattr(tq3d, "build_model", build_model)
+    with pytest.raises(Built):
         run.build_instseg_trainer(cfg)
 
 
