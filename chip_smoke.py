@@ -168,6 +168,31 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                tensors, finite metrics of all seven datasets; B1 against its
                plain version at the routed shapes of 4 replica scans, with
                its ms a forward beside phase 3's;
+13. ddp    -- data parallelism through the launcher: stage 1 (DDP_STAGE1:
+               phase 8's trainer, full width, 70k-point scenes, a global
+               batch of 4) as ``python -m pq3d_tpu_torch.launch
+               --nproc-per-node 2 --backend gloo --devices cuda:0,cuda:0``
+               (two ranks on the one card: nccl refuses that) and as one
+               nccl rank, four steps each; stage 2 (DDP_STAGE2:
+               unified_tasks_sceneverse at its widths and batch of 128,
+               64 a rank) likewise for three steps.  In each rank
+               (``ddp_rank``) step 1 runs all-plain in f32 with dropout
+               and the self-mask off, and the later steps are the main
+               path: B1's counts are set to 0 after step 1 and read after
+               the last.  Gates: both ranks end with equal weight
+               checksums (and the checkpoint's), step 1's logged global
+               loss of the two ranks within DDP_GATE of the one rank's, B1
+               launched forward and dx in each stage-1 rank as often as
+               its rows route (and never on stage 2), rank 0's B1 against
+               its plain version at its last batch's routed shapes;
+               printed: steps/s of 2 ranks against 1, peak memory per
+               rank, the synced batch norms' all-reduces a step and their
+               share of it.  Then ReplicatedServer with two stage-1
+               replicas on cuda:0 against one InstSegServer on 8 scenes
+               (phase 5b's caps, exact FPS): every answer, both replicas
+               busy, each scene's final logits within REPLICA_GATE with
+               the decoder's self-mask off (with it on, segment pooling's
+               atomic sums flip attend bits: printed, not gated);
 then a summary line (B1 against B2 in this run), one JSON line with every
 hand kernel's numbers, and the result line.
 
@@ -410,6 +435,36 @@ def dropout_off(model):
             m.p = p
         for m, p in zip(layers, mem_rates):
             m.memory_dropout = p
+
+
+@contextlib.contextmanager
+def all_plain(model):
+    """Every conv of ``model`` plain in f32 (TF32 off), its dropout, memory
+    dropout and decoder self-mask off inside the block: the setting in
+    which two runs that sum the same numbers in another order agree to
+    float rounding (phase 9b's)."""
+    import torch
+    from pq3d_tpu_torch.ops import sparse
+    backbone = getattr(getattr(model, "voxel_encoder", None), "backbone",
+                       None)
+    encoder = model.unified_encoder
+    saved = (sparse._round, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32, encoder.use_self_mask,
+             backbone.pallas_conv if backbone is not None else None)
+    sparse._round = lambda t, dtype: t.float()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    encoder.use_self_mask = False
+    if backbone is not None:
+        backbone.pallas_conv = False
+    try:
+        with dropout_off(model):
+            yield
+    finally:
+        (sparse._round, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32, encoder.use_self_mask) = saved[:4]
+        if backbone is not None:
+            backbone.pallas_conv = saved[4]
 
 
 def batch_loss(trainer, b):
@@ -1282,25 +1337,16 @@ def flat_vs_rect_step(trainer):
     own largest entry is at least 1e-3 of that maximum."""
     import dataclasses
     import numpy as np
-    import torch
     from pq3d_tpu_torch.data.datasets import _assemble_instseg_batch
-    from pq3d_tpu_torch.ops import sparse
     from pq3d_tpu_torch.optim.losses import instseg_direct_loss
     model = trainer.model
     loader = trainer.train_data
-    backbone = model.voxel_encoder.backbone
-    encoder = model.unified_encoder
     rect_pipe = dataclasses.replace(loader.pipe_cfg, flat_pack=False,
                                     ztriple_conv=False)
     idxs = np.arange(loader.batch_size)
     runs = []
-    rnd, tf32 = sparse._round, torch.backends.cuda.matmul.allow_tf32
-    kernel, self_mask = backbone.pallas_conv, encoder.use_self_mask
-    sparse._round = lambda t, dtype: t.float()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    backbone.pallas_conv, encoder.use_self_mask = False, False
     try:
-        with dropout_off(model):
+        with all_plain(model):
             for pipe in (rect_pipe, loader.pipe_cfg):
                 batch = trainer._put(_assemble_instseg_batch(
                     loader.dataset, pipe, loader.extra_features, idxs,
@@ -1316,9 +1362,6 @@ def flat_vs_rect_step(trainer):
                     n: p.grad.detach().clone() for n, p in
                     model.named_parameters() if p.grad is not None}))
     finally:
-        sparse._round = rnd
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        backbone.pallas_conv, encoder.use_self_mask = kernel, self_mask
         model.zero_grad(set_to_none=True)
     (loss_r, grads_r), (loss_f, grads_f) = runs
     if set(grads_r) != set(grads_f):
@@ -2417,6 +2460,364 @@ def recipe_phase(card, dev, zrun_conv, synth_ms, flops_peak, bw_peak):
     return out
 
 
+# ---- phase ddp: data-parallel training and replicated serving ----------
+
+# the stage-1 run of phase ddp: phase 8's trainer (full width, the
+# 70k-point scenes) at a global batch of 4, four steps of one epoch
+DDP_STAGE1 = ["model.voxel_encoder.args.pallas_conv=true",
+              "data.train=[SyntheticInstSeg]", "data.val=[SyntheticInstSeg]",
+              "data.synthetic.num_train=16", "data.synthetic.num_val=4",
+              "data.synthetic.n_points=70000",
+              "data.synthetic.n_instances=24",
+              "data.synthetic.n_segments=400", "dataloader.batchsize=4",
+              # the YAML's eval batch of 1 does not split over 2 ranks
+              "dataloader.batchsize_eval=4", "solver.epochs=1", "solver.epochs_per_eval=0",
+              "solver.epochs_per_save=0", "log_every=1"]
+# stage 2: phase 11's widths and scenes at the YAML's batch of 128, one
+# batch a dataset (three steps)
+DDP_STAGE2 = ["data.train=[SyntheticRefer,SyntheticQA,SyntheticCaption]",
+              "data.synthetic.n_points=50000",
+              "data.synthetic.n_instances=32",
+              "data.synthetic.num_train=128", "data.synthetic.num_val=4",
+              "solver.sched.args.warmup_steps=0", "solver.epochs=1",
+              "solver.epochs_per_eval=0", "solver.epochs_per_save=0",
+              "log_every=1"]
+DDP_GATE = FLAT_RECT_GATE       # step 1's global loss, 2 ranks against 1
+REPLICA_GATE = 1e-5             # replicated against one server's logits
+
+
+def ddp_rank(argv):
+    """One rank of phase ddp, run by ``python -m pq3d_tpu_torch.launch
+    --entry chip_smoke:ddp_rank -- REPORT_DIR <run arguments>``: it runs
+    ``pq3d_tpu_torch.run.main`` with the trainer's ``train_batch`` wrapped
+    to take step 1 all-plain (``all_plain``), set B1's counts to 0 after
+    it (the main path is steps 2 on), time every later step (host clock
+    to a synchronize) with the synced batch norms' all-reduces inside it
+    (forward and backward, each between two synchronizes) and count its
+    routed convs; then rank 0 holds B1 against its plain version at the
+    routed shapes of its last batch; each rank writes REPORT_DIR/
+    rank{r}.json."""
+    import torch
+    from pq3d_tpu_torch import run
+    from pq3d_tpu_torch.models.sparse_unet import flatten_maps
+    from pq3d_tpu_torch.ops import zrun_conv
+    from pq3d_tpu_torch.parallel import dist
+    from pq3d_tpu_torch.serve import to_device
+    from pq3d_tpu_torch.train.trainer import Query3DTrainer
+    report_dir, run_args = argv[0], argv[1:]
+    rank = dist.rank()
+    rec = {"rank": rank, "world": dist.world(),
+           "backend": (torch.distributed.get_backend()
+                       if dist.is_initialized() else None),
+           "steps": [], "bn_s": 0.0, "bn_calls": 0}
+    last = {}
+    timed = {"on": False}
+    sum_fn = dist._AllReduceSum
+    fwd, bwd = sum_fn.forward, sum_fn.backward
+
+    def timing(fn):
+        def call(ctx, t):
+            if not timed["on"]:
+                return fn(ctx, t)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(ctx, t)
+            torch.cuda.synchronize()
+            rec["bn_s"] += time.perf_counter() - t0
+            rec["bn_calls"] += 1
+            return out
+        return staticmethod(call)
+    sum_fn.forward, sum_fn.backward = timing(fwd), timing(bwd)
+    plain = staticmethod(fwd), staticmethod(bwd)
+    inner = Query3DTrainer.train_batch
+
+    def train_batch(self, batch):
+        backbone = getattr(getattr(self.model, "voxel_encoder", None),
+                           "backbone", None)
+        if "first" not in rec:
+            with all_plain(self.model):
+                m = inner(self, batch)
+            rec["first"] = {k: float(v) for k, v in m.items()}
+            torch.cuda.synchronize()
+            rec["first_end"] = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            zrun_conv.reset_counts()        # the main path starts here
+            return m
+        routed = (len(backbone.routed_convs(level_rows(batch)))
+                  if backbone is not None else 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed["on"] = True
+        m = inner(self, batch)
+        torch.cuda.synchronize()
+        timed["on"] = False
+        rec["steps"].append({"s": time.perf_counter() - t0,
+                             "end": time.perf_counter(),
+                             "routed": routed, "loss": float(m["loss"])})
+        last["batch"] = batch
+        return m
+    Query3DTrainer.train_batch = train_batch
+    try:
+        trainer = run.main(run_args)
+    finally:
+        Query3DTrainer.train_batch = inner
+        sum_fn.forward, sum_fn.backward = plain
+    torch.cuda.synchronize()
+    rec["launches"] = dict(zrun_conv.phase_launches)   # main path ends
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["checksum"] = dist.param_checksum(trainer.model)
+    backbone = getattr(getattr(trainer.model, "voxel_encoder", None),
+                       "backbone", None)
+    if rank == 0 and backbone is not None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        b = last["batch"]
+        flops_peak, bw_peak = peaks_for(torch.cuda.get_device_name(dev))
+        rec["b1"] = b1_shapes(
+            zrun_conv, flatten_maps(to_device(b["maps"], dev)),
+            backbone.routed_convs(level_rows(b)), dev, flops_peak,
+            bw_peak, f"ddp rank {rank}")
+    with open(os.path.join(report_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def ddp_launch(label, nproc, backend, config, overrides, work):
+    """``python -m pq3d_tpu_torch.launch`` of ``nproc`` ranks on cuda:0
+    over ``backend`` with ``ddp_rank`` as the entry; returns the ranks'
+    reports and the run's logged metrics (rank 0's ``metrics.jsonl``).
+    Fails the phase when the launch exits non-zero."""
+    out = os.path.join(work, label)
+    os.makedirs(out)
+    cmd = [sys.executable, "-m", "pq3d_tpu_torch.launch", "--nproc-per-node",
+           str(nproc), "--backend", backend, "--devices",
+           ",".join(["cuda:0"] * nproc), "--entry", "chip_smoke:ddp_rank",
+           "--", out, "--config-name", config, *overrides,
+           f"exp_dir={os.path.join(out, 'run')}"]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.time()
+    with open(os.path.join(out, "log.txt"), "w") as log:
+        proc = subprocess.run(cmd, cwd=HERE, env=env, stdout=log,
+                              stderr=subprocess.STDOUT, timeout=900)
+    wall = time.time() - t0
+    text = open(os.path.join(out, "log.txt")).read()
+    if proc.returncode:
+        print(text[-6000:], flush=True)
+        fail(f"ddp: {label} ({nproc} rank(s), {backend}) exited "
+             f"{proc.returncode}")
+    reports = []
+    for r in range(nproc):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    with open(os.path.join(out, "run", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    return {"reports": reports, "logged": logged, "wall_s": wall,
+            "ckpt": os.path.join(out, "run", "ckpt", "latest", "state.pt")}
+
+
+def ddp_summary(run):
+    """steps/s from the end of step 1 to the end of the last (each step a
+    global batch; the loader's waits included), the seconds of each step's
+    ``train_batch``, the peaks, the synced batch norms' all-reduce share of
+    those seconds."""
+    reps = run["reports"]
+    step_s = [sum(s["s"] for s in r["steps"]) for r in reps]
+    wall = max(r["steps"][-1]["end"] - r["first_end"] for r in reps)
+    return {"steps_per_s": len(reps[0]["steps"]) / wall,
+            "step_s": [[s["s"] for s in r["steps"]] for r in reps],
+            "peak_gib": [r["peak_bytes"] / 2**30 for r in reps],
+            "bn_share": [r["bn_s"] / s for r, s in zip(reps, step_s)],
+            "bn_calls_a_step": [r["bn_calls"] / len(r["steps"])
+                                for r in reps],
+            "launches": [r["launches"] for r in reps]}
+
+
+def ddp_stage(label, config, overrides, work, card, with_b1):
+    """One stage of phase ddp: 2 gloo ranks on cuda:0, then one nccl rank
+    at the same global batch; gates and prints; returns the numbers."""
+    import torch
+    two = ddp_launch(f"{label}_gloo2", 2, "gloo", config, overrides, work)
+    one = ddp_launch(f"{label}_nccl1", 1, "nccl", config, overrides, work)
+    r0, r1 = two["reports"]
+    if not (r0["backend"] == r1["backend"] == "gloo" and r0["world"] == 2
+            and one["reports"][0]["backend"] == "nccl"):
+        fail(f"ddp: {label} ran on the wrong groups: "
+             f"{[(r['backend'], r['world']) for r in two['reports']]}, "
+             f"{one['reports'][0]['backend']}")
+    if r0["checksum"] != r1["checksum"]:
+        fail(f"ddp: {label}: the two ranks end with different weights")
+    sums = torch.load(two["ckpt"], map_location="cpu",
+                      weights_only=False)["rank_checksums"]
+    if sums != [r0["checksum"]] * 2:
+        fail(f"ddp: {label}: the checkpoint's rank checksums {sums}")
+    loss2 = [x["loss"] for x in two["logged"] if x["prefix"] == "train"
+             and x["step"] == 1][0]
+    loss1 = [x["loss"] for x in one["logged"] if x["prefix"] == "train"
+             and x["step"] == 1][0]
+    rel = abs(loss2 - loss1) / abs(loss1)
+    if not (r0["first"]["loss"] == r1["first"]["loss"] == loss2
+            and rel <= DDP_GATE):
+        fail(f"ddp: {label}: step 1's global loss {loss2!r} (ranks "
+             f"{r0['first']['loss']!r}, {r1['first']['loss']!r}) against "
+             f"one rank's {loss1!r}: rel {rel:.2e} (gate {DDP_GATE:.0e})")
+    for run in (two, one):
+        for r in run["reports"]:
+            routed = sum(s["routed"] for s in r["steps"])
+            fwd, bwd = r["launches"]["fwd"], r["launches"]["bwd"]
+            if with_b1 and not fwd == bwd == routed > 0:
+                fail(f"ddp: {label} rank {r['rank']}: B1 launched {fwd} "
+                     f"forward, {bwd} dx for {routed} routed convs")
+            if not with_b1 and fwd + bwd:
+                fail(f"ddp: {label}: B1 ran on stage 2")
+    s2, s1 = ddp_summary(two), ddp_summary(one)
+    print(f"ddp: {label}: step 1 all-plain f32 global loss, 2 gloo ranks "
+          f"{loss2:.6f} against 1 nccl rank {loss1:.6f} (rel {rel:.2e}, "
+          f"gate {DDP_GATE:.0e}); weights checksums equal on both ranks "
+          f"and in the checkpoint", flush=True)
+    print(f"ddp: {label}: {s2['steps_per_s']:.3f} steps/s with 2 gloo ranks "
+          f"on one card against {s1['steps_per_s']:.3f} with 1 nccl rank "
+          f"(a step: the global batch, steps 2 on; train_batch s "
+          f"{s2['step_s']} against {s1['step_s']}); peak per rank {s2['peak_gib']} GiB against "
+          f"{s1['peak_gib']} GiB; synced batch norm all-reduces "
+          f"{s2['bn_calls_a_step']} a step, their share of train_batch "
+          f"{s2['bn_share']}; B1 launches per rank {s2['launches']} "
+          f"against {s1['launches']}; launch wall {two['wall_s']:.1f} s "
+          f"and {one['wall_s']:.1f} s ({card})", flush=True)
+    return {"loss_2": loss2, "loss_1": loss1, "loss_rel": rel,
+            "two": s2, "one": s1, "b1": r0.get("b1"),
+            "launches": {"fwd": sum(r["launches"]["fwd"]
+                                    for r in two["reports"]),
+                         "bwd": sum(r["launches"]["bwd"]
+                                    for r in two["reports"])}}
+
+
+def replicated_phase(card, zrun_conv):
+    """ReplicatedServer with two stage-1 replicas on cuda:0 (one model)
+    against one InstSegServer on 8 scenes: every request answered, both
+    replicas used, each scene's final logits within REPLICA_GATE of the
+    single server's.  A scene meets other batch mates on a replica, so its
+    forward must not depend on them: exact FPS (no scene's queries depend
+    on which replica's generator it met) and phase 5b's caps, which hold
+    every level of these scenes (the YAML's overflow, and then a level
+    pads to its batch's largest scene).  Segment pooling sums with
+    atomics, whose order moves the features by about 1e-6, and the
+    decoder's self-mask turns that into flipped attend bits and logits
+    1e-4 apart from run to run: the gate reads both servers with the
+    self-mask off, and the self-mask-on difference is printed.  The main
+    path is the replicated serving with the model as built (self-mask
+    on)."""
+    import dataclasses
+    import torch
+    from pq3d_tpu_torch.config import serving_config
+    from pq3d_tpu_torch.data.instseg_pipeline import pipeline_config
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.serve import InstSegServer, ReplicatedServer
+
+    class Recording(InstSegServer):
+        def __init__(self, *a, **k):
+            self.logits, self._ids = {}, []
+            super().__init__(*a, **k)
+
+        def _dispatch(self, scenes):
+            self._ids = [id(s) for s in scenes]
+            return super()._dispatch(scenes)
+
+        def _forward(self, batch):
+            cls_l, mask_l = super()._forward(batch)
+            for i, sid in enumerate(self._ids):
+                self.logits[sid] = (cls_l[i].float(), mask_l[i].float(),
+                                    batch["seg_pad_masks"][i])
+            return cls_l, mask_l
+
+    cfg = serving_config("rect",
+                         [f"data.instseg_options.level_caps={LAYOUT_CAPS}"])
+    pipe = dataclasses.replace(pipeline_config(cfg["data"]
+                                               ["instseg_options"]),
+                               fps_subsample=0)
+    model = build_model(cfg, device="cuda", seed=0)
+    encoder = model.unified_encoder
+    scenes = make_scenes(8, seed=3)
+
+    def server(device):
+        return Recording(model, pipe, batch_size=4, num_classes=200,
+                         topk=100, max_delay_s=0.02,
+                         extra_features={"mv": 768, "pc": 768},
+                         device=device)
+
+    def serve(replicated):
+        srv = (ReplicatedServer(server, devices=["cuda:0", "cuda:0"])
+               if replicated else server("cuda:0"))
+        t0 = time.time()
+        try:
+            answers = [f.result(timeout=900)
+                       for f in [srv.submit(s) for s in scenes]]
+            wall = time.time() - t0
+            deadline = time.time() + 30   # the workers book a batch just
+            while sum(r.stats.scenes for r in getattr(  # after resolving
+                    srv, "replicas", [srv])) < 8 and time.time() < deadline:
+                time.sleep(0.01)
+        finally:
+            srv.close()
+        logits = {}
+        for r in getattr(srv, "replicas", [srv]):
+            logits.update(r.logits)
+        return srv, answers, logits, wall
+
+    def worst(a, b):
+        out = 0.0
+        for s in scenes:
+            ca, ma, va = a[id(s)]
+            cb, mb, vb = b[id(s)]
+            out = max(out, rel_err(cb, ca), rel_err(mb[vb], ma[va]))
+        return out
+    rels = {}
+    for self_mask in (False, True):
+        encoder.use_self_mask = self_mask
+        _, want, one, _ = serve(False)
+        if self_mask:
+            zrun_conv.reset_counts()             # main path starts here
+        rep, got, many, wall = serve(True)
+        if self_mask:
+            launches = zrun_conv.launches        # main path ends here
+        for a, b in zip(want, got):
+            if not (isinstance(b, list) and len(a) == len(b)):
+                fail("replicated: a request got no answer or another count "
+                     "of instances")
+        rels[self_mask] = worst(one, many)
+    st = rep.stats_summary()
+    print(f"replicated: 2 replicas on cuda:0 answered {st['scenes']} "
+          f"scenes ({[p['scenes'] for p in st['replicas']]} each) in "
+          f"{wall:.2f} s, {st['scenes_per_sec']:.3f} scenes/s summed; "
+          f"final logits against one InstSegServer: rel "
+          f"{rels[False]:.2e} with the self-mask off (gate "
+          f"{REPLICA_GATE:.0e}), {rels[True]:.2e} with it on (not gated); "
+          f"B1 launches {launches} ({card})", flush=True)
+    if not (st["scenes"] == 8 and all(p["scenes"] > 0
+                                      for p in st["replicas"])
+            and rels[False] <= REPLICA_GATE and launches > 0):
+        fail("replicated: the replicas disagree with one server or one "
+             "replica idled")
+    del model
+    torch.cuda.empty_cache()
+    return {"logits_rel": rels[False], "logits_rel_self_mask": rels[True],
+            "launches": launches, "scenes_per_s": st["scenes_per_sec"]}
+
+
+def ddp_phase(card, zrun_conv):
+    """Phase ddp: stage 1 and stage 2 through the launcher (2 gloo ranks
+    on cuda:0 against 1 nccl rank), then ReplicatedServer."""
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="pq3d_ddp_")
+    try:
+        s1 = ddp_stage("stage1", "instseg_sceneverse", DDP_STAGE1, work,
+                       card, with_b1=True)
+        s2 = ddp_stage("stage2", "unified_tasks_sceneverse", DDP_STAGE2,
+                       work, card, with_b1=False)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rp = replicated_phase(card, zrun_conv)
+    return {"stage1": s1, "stage2": s2, "replicated": rp}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -2726,6 +3127,10 @@ def main():
     rc = recipe_phase(card, dev, zrun_conv,
                       sum(r["ms"] * r["per_forward"] for r in per_shape),
                       flops_peak, bw_peak)
+    torch.cuda.empty_cache()
+
+    # ---- 13. ddp: data-parallel training and replicated serving ---------
+    dd = ddp_phase(card, zrun_conv)
 
     # ---- kernels line + result -----------------------------------------
     def per_fwd(key):
@@ -2740,7 +3145,9 @@ def main():
         "launches": main_launches + tr["counts"]["fwd"]
         + tr["counts"]["bwd"] + ft["counts"]["fwd"] + ft["counts"]["bwd"]
         + rc["launches"]["fwd"] + rc["launches"]["bwd"]
-        + sum(r["launches"] for r in lay["runs"].values()),
+        + sum(r["launches"] for r in lay["runs"].values())
+        + dd["stage1"]["launches"]["fwd"] + dd["stage1"]["launches"]["bwd"]
+        + dd["replicated"]["launches"],
         "launches_by_path": {"serve": main_launches,
                              **{f"serve_{k}": r["launches"]
                                 for k, r in lay["runs"].items()},
@@ -2749,7 +3156,10 @@ def main():
                              "flat_train_fwd": ft["counts"]["fwd"],
                              "flat_train_bwd": ft["counts"]["bwd"],
                              "recipe_fwd": rc["launches"]["fwd"],
-                             "recipe_bwd": rc["launches"]["bwd"]},
+                             "recipe_bwd": rc["launches"]["bwd"],
+                             "ddp_train_fwd": dd["stage1"]["launches"]["fwd"],
+                             "ddp_train_bwd": dd["stage1"]["launches"]["bwd"],
+                             "ddp_serve": dd["replicated"]["launches"]},
         "max_abs_err": max(r["max_abs_err_f32"] for r in per_shape),
         "ms": per_fwd("ms"), "host_ms": per_fwd("host_ms"),
         "plain_ms": per_fwd("plain_ms"), "bound_ms": per_fwd("bound_ms"),
@@ -2768,11 +3178,16 @@ def main():
                  f"train step (B=4); launches: the serving run, the "
                  f"serve_layouts runs (rect, dev_maps, flat_zt, rect on a "
                  f"pool), the 5 timed train steps (rectangular and flat + "
-                 f"z-run) and the recipe's stage-1 "
-                 f"runs (train and eval forwards, dx); recipe_ms: the same sum "
+                 f"z-run), the recipe's stage-1 "
+                 f"runs (train and eval forwards, dx), phase ddp's timed "
+                 f"stage-1 steps on both ranks (forward, dx) and its "
+                 f"replicated serving; recipe_ms: the same sum "
                  f"as ms over one forward of 4 SceneVerse-replica scans",
         "recipe_ms": rc["b1_ms"], "recipe_shapes": rc["b1"],
         "recipe_train_check": rc["train_check"],
+        "ddp_rank0_shapes": dd["stage1"]["b1"],
+        "ddp": {k: {kk: v for kk, v in r.items() if kk != "b1"}
+                for k, r in dd.items()},
         "shapes": per_shape,
         "bwd_launches": tr["counts"]["bwd"],
         "bwd_ms": per_step("ms"), "bwd_host_ms": per_step("host_ms"),

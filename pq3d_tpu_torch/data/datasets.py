@@ -21,6 +21,7 @@ from pq3d_tpu_torch.data import synthetic
 from pq3d_tpu_torch.data.instseg_pipeline import (InstSegPipelineConfig,
                                                   make_batch)
 from pq3d_tpu_torch.data.pool import BatchPool
+from pq3d_tpu_torch.eval.base import rank_share
 
 
 class SyntheticInstSeg:
@@ -210,12 +211,14 @@ class InstSegLoader:
     last batch by wrap-around and marks ``_meta['n_real']``.
     ``num_workers > 0`` builds the batches in an epoch-persistent spawn
     pool, each from ``SeedSequence([seed, epoch, b])``, in order; release
-    it with ``close()``."""
+    it with ``close()``.  Rank ``rank`` of ``world`` data-parallel ranks
+    builds every global batch of ``batch_size`` rows as one process does
+    and yields its own contiguous rows (``eval/base.rank_share``)."""
 
     def __init__(self, dataset, pipe_cfg: InstSegPipelineConfig,
                  batch_size: int, train: bool, seed: int = 0,
                  extra_features: Optional[Dict[str, int]] = None,
-                 num_workers: int = 0):
+                 num_workers: int = 0, rank: int = 0, world: int = 1):
         self.dataset = dataset
         self.pipe_cfg = pipe_cfg
         self.batch_size = batch_size
@@ -224,6 +227,7 @@ class InstSegLoader:
         self.num_workers = num_workers
         self._pool = None
         self.extra_features = extra_features or {"mv": 768, "pc": 768}
+        self.rank, self.world = rank, world
 
     def _batch_indices(self, epoch: int):
         rng = np.random.default_rng(self.seed + epoch)
@@ -241,6 +245,11 @@ class InstSegLoader:
         return batches, n_real, rng
 
     def __call__(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        return rank_share(self._global_batches(epoch), self.batch_size,
+                          self.rank, self.world)
+
+    def _global_batches(self, epoch: int
+                        ) -> Iterator[Dict[str, np.ndarray]]:
         batches, n_real, rng = self._batch_indices(epoch)
         if self.num_workers <= 0:
             for idxs, nr in zip(batches, n_real):

@@ -16,6 +16,10 @@ batches; the two do not give each other's.  ``MixedTaskLoader`` runs the
 jobs of all its loaders in one pool of ``num_workers`` processes, where
 the JAX package starts one pool per loader (three times the processes on
 the same cores); the batches are the same.
+
+Under data parallelism every rank draws the same global batches (and the
+same mixture schedule) and yields its own contiguous rows of each
+(``eval/base.rank_share``); each rank runs its own pool.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from pq3d_tpu_torch.data.pool import BatchPool
 from pq3d_tpu_torch.data.unified_pipeline import (UnifiedPipelineConfig,
                                                   collate_unified,
                                                   process_item)
+from pq3d_tpu_torch.eval.base import rank_share
 
 
 def _assemble_unified_batch(dataset, cfg: UnifiedPipelineConfig,
@@ -85,13 +90,14 @@ def _with_n_real(batches, n_real):
 
 class UnifiedTaskLoader:
     """Batches from one task dataset; ``loader(epoch)`` iterates one
-    epoch.  The pool path needs a picklable dataset (the synthetic
-    datasets and tokenizer are)."""
+    epoch (rank ``rank``'s rows of each global batch of ``batch_size``).
+    The pool path needs a picklable dataset (the synthetic datasets and
+    tokenizer are)."""
 
     def __init__(self, dataset, cfg: UnifiedPipelineConfig, batch_size: int,
                  train: bool, seed: int = 0,
                  feature_dims: Optional[Dict[str, int]] = None,
-                 num_workers: int = 0):
+                 num_workers: int = 0, rank: int = 0, world: int = 1):
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
@@ -101,6 +107,7 @@ class UnifiedTaskLoader:
         self._pool = None       # own or shared (MixedTaskLoader), lazy
         self._source = 0
         self.feature_dims = feature_dims or {"mv": 768, "voxel": 128}
+        self.rank, self.world = rank, world
 
     def __call__(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
         """The epoch's batches; with workers, its first jobs are submitted
@@ -129,7 +136,8 @@ class UnifiedTaskLoader:
                 _unified_worker_batch,
                 ((self._source, idxs, [self.seed, epoch, b], self.train)
                  for b, idxs in enumerate(batches)))
-        return _with_n_real(built, n_real)
+        return rank_share(_with_n_real(built, n_real), bs, self.rank,
+                          self.world)
 
     def close(self) -> None:
         """Shut the worker pool down (each worker holds a copy of the

@@ -1,7 +1,10 @@
 """Scan2Cap dense captioning evaluation: CIDEr/BLEU-4/ROUGE-L @ IoU25/50;
 copy of ``pq3d_tpu/eval/caption_eval.py``.  Predictions whose predicted
 box misses the target object at the IoU threshold are scored as empty
-captions; corpus metrics run over the full object set.
+captions; corpus metrics run over the full object set.  Under a process
+group ``record`` gathers every rank's items to rank 0 in the order one
+process meets them, scores them there and gives every rank the result
+(the JAX package's keeps each process's own items).
 """
 from __future__ import annotations
 
@@ -23,10 +26,12 @@ class Scan2CapEval(BaseEvaluator):
         super().__init__(save_dir)
         self.target_metric = "cider@0.5"
         self._items: List[Dict] = []
+        self._bounds: List[int] = []   # items recorded after each update
 
     def reset(self):
         super().reset()
         self._items = []
+        self._bounds = []
 
     def update(self, out: Dict[str, Any], batch: Dict[str, Any]) -> None:
         """Expects out['caption_pred'] (list[str]) and batch with
@@ -52,13 +57,24 @@ class Scan2CapEval(BaseEvaluator):
             self._items.append({"key": keys[i], "pred": preds[i],
                                 "refs": refs[i], "iou": float(ious[i])})
         self.total_count += len(preds)
+        self._bounds.append(len(self._items))
 
     def record(self) -> Dict[str, float]:
+        from pq3d_tpu_torch.parallel import dist
+        if dist.world() == 1:
+            return self._score(self._items)
+        ends = [0] + self._bounds
+        merged = dist.gather_in_order([self._items[a:b]
+                                       for a, b in zip(ends, ends[1:])])
+        return dist.broadcast_object(
+            None if merged is None else self._score(merged))
+
+    def _score(self, items: List[Dict]) -> Dict[str, float]:
         results = {}
         # dedup: keep one prediction per object key (ref scan2cap dedups by
         # unique object, scan2cap.py:4-34)
         by_key: Dict[str, Dict] = {}
-        for it in self._items:
+        for it in items:
             by_key.setdefault(it["key"], it)
         for thr in (0.25, 0.5):
             preds = {}

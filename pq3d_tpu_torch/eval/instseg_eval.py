@@ -92,7 +92,11 @@ def rank_instances(cls_logits: np.ndarray, mask_logits: np.ndarray,
 class InstSegEval:
     """Accumulates per-scene predictions; record() computes AP/AP50/AP25
     (a numpy copy of the JAX package's evaluator without its DBSCAN
-    split, which needs scikit-learn)."""
+    split, which needs scikit-learn).  Under a process group ``record``
+    gathers every rank's scenes to rank 0 in the order one process meets
+    them (``parallel/dist.gather_in_order``), scores them there and gives
+    every rank the result; the JAX package's evaluator keeps each
+    process's own scenes."""
 
     def __init__(self, topk_per_scene: int = 100, num_classes: int = 200,
                  score_threshold: float = 0.0, save_dir: Optional[str] = None,
@@ -112,10 +116,12 @@ class InstSegEval:
         self._preds: List[Dict] = []
         self._gts: List[Dict] = []
         self._have_sizes = False   # vert counts known -> min_region applies
+        self._bounds: List[int] = []   # scenes recorded after each update
 
     def reset(self):
         self._preds, self._gts = [], []
         self._have_sizes = False
+        self._bounds = []
 
     def update(self, out: Dict[str, Any], batch: Dict[str, Any]) -> None:
         cls_logits = np.asarray(out["predictions_class"][-1])   # (B,Q,C+1)
@@ -147,6 +153,7 @@ class InstSegEval:
                                gt_masks[i], gt_labels[i], gt_valid[i],
                                seg_sizes[i], seg_to_full=s2f,
                                full_gt_masks=fgt, points=pts)
+        self._bounds.append(len(self._preds))
 
     def _update_scene(self, cls_logits, mask_logits, seg_valid, gt_masks,
                       gt_labels, gt_valid, seg_sizes, seg_to_full=None,
@@ -225,6 +232,27 @@ class InstSegEval:
         return table
 
     def record(self) -> Dict[str, float]:
+        from pq3d_tpu_torch.parallel import dist
+        if dist.world() == 1:
+            return self._score()
+        ends = [0] + self._bounds
+        chunks = [list(zip(self._preds[a:b], self._gts[a:b]))
+                  for a, b in zip(ends, ends[1:])]
+        have_sizes = any(dist.all_gather_object(self._have_sizes))
+        merged = dist.gather_in_order(chunks)
+        results = None
+        if merged is not None:
+            local = self._preds, self._gts, self._have_sizes
+            self._preds = [p for p, _ in merged]
+            self._gts = [g for _, g in merged]
+            self._have_sizes = have_sizes
+            try:
+                results = self._score()
+            finally:
+                self._preds, self._gts, self._have_sizes = local
+        return dist.broadcast_object(results)
+
+    def _score(self) -> Dict[str, float]:
         from pq3d_tpu_torch.data.scannet200_constants import (
             CLASS_LABELS_200, HEAD_CATS_200, COMMON_CATS_200, TAIL_CATS_200)
         classes_present = sorted({int(l) for g in self._gts

@@ -20,6 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from pq3d_tpu_torch.parallel.dist import all_reduce_sum, world
+
 NEG_INF = -1e9
 FLAX_LN_EPS = 1e-6   # flax.linen.LayerNorm's default epsilon
 
@@ -202,6 +204,19 @@ class SpatialSelfAttentionLayer(nn.Module):
         return self.LayerNorm_0(tgt + self.drop(out))
 
 
+def global_moments(x: torch.Tensor, w: torch.Tensor):
+    """Mean and biased variance per channel of the rows of ``x`` (N, C)
+    weighted by ``w`` (N, 1), over every rank: the weighted sums and the
+    count in one all-reduce, then the squared deviations from the global
+    mean in a second (two passes, as one process computes them); both
+    all-reduces carry the gradient back to every rank's rows."""
+    s = all_reduce_sum(torch.cat([(x * w).sum(0), w.sum()[None]]))
+    cnt = s[-1].clamp_min(1.0)
+    mean = s[:-1] / cnt
+    var = all_reduce_sum(((x - mean).square() * w).sum(0)) / cnt
+    return mean, var
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over valid rows of flat (N, C) voxel features, then a
     float-multiply by the validity mask (the JAX package's form: identical
@@ -211,7 +226,9 @@ class MaskedBatchNorm(nn.Module):
     the BIASED variance, and updates the running statistics in place with
     the same biased variance, ``new = (1-m)*old + m*batch`` (torch's
     ``BatchNorm`` would keep the unbiased one).  Eval mode uses the running
-    statistics."""
+    statistics.  Under a process group of more than one rank the statistics
+    are those of every rank's valid rows (``global_moments``): the JAX
+    package's sync-BN semantics, where the batch is one array."""
 
     def __init__(self, channels: int, momentum: float = 0.02,
                  eps: float = 1e-5):
@@ -227,9 +244,12 @@ class MaskedBatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             w = valid[:, None].float()
-            cnt = w.sum().clamp_min(1.0)
-            mean = (xf * w).sum(0) / cnt
-            var = ((xf - mean).square() * w).sum(0) / cnt
+            if world() > 1:
+                mean, var = global_moments(xf, w)
+            else:
+                cnt = w.sum().clamp_min(1.0)
+                mean = (xf * w).sum(0) / cnt
+                var = ((xf - mean).square() * w).sum(0) / cnt
             with torch.no_grad():
                 m = self.momentum
                 self.mean.mul_(1 - m).add_(m * mean)
@@ -248,7 +268,9 @@ class BatchNorm(nn.Module):
     axis and moves the running statistics by ``momentum`` (torch's sense:
     ``new = (1-m)*old + m*batch``, flax's momentum 0.9 is m = 0.1) with the
     same biased variance; eval mode uses the running statistics.  It keeps
-    no ``num_batches_tracked``, which flax has no leaf for."""
+    no ``num_batches_tracked``, which flax has no leaf for.  Under a
+    process group of more than one rank train mode reduces over every
+    rank's rows, as ``MaskedBatchNorm`` does."""
 
     momentum = 0.1
     eps = 1e-5
@@ -262,9 +284,13 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         if self.training:
-            dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dims)
-            var = (x - mean).square().mean(dims)
+            if world() > 1:
+                rows = x.reshape(-1, x.shape[-1])
+                mean, var = global_moments(rows, rows.new_ones(len(rows), 1))
+            else:
+                dims = tuple(range(x.dim() - 1))
+                mean = x.mean(dims)
+                var = (x - mean).square().mean(dims)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(m * mean)

@@ -14,6 +14,13 @@ package's ``hungarian.solve_scipy_callback`` does.  The JAX package's
 device solver is a ``lax.while_loop``, not a kernel; both give the same
 assignment of the real targets (padded targets cost a constant, so they
 never change it).
+
+Under a process group each rank holds a slice of the global batch, and
+every count a loss divides by is summed over the ranks (``global_sum``):
+a rank's loss is its rows' share of the loss of the global batch, which
+the ranks' shares sum to (the JAX package computes it on the global batch
+at once).  The train step scales the share by the world size, so DDP's
+gradient average is the gradient of the global loss.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 from scipy.optimize import linear_sum_assignment
+
+from pq3d_tpu_torch.parallel.dist import global_sum, world
 
 PAD_COST = 1e4  # constant cost for padded targets (preserves real matching)
 
@@ -130,7 +139,8 @@ def instseg_layer_loss(pred_logits: torch.Tensor, mask_logits: torch.Tensor,
     not_ignored = target != cfg.ignore_label
     safe_t = torch.where(not_ignored, target.clamp_max(cfg.num_classes), 0)
     nll = -torch.gather(logp, 2, safe_t[..., None])[..., 0]
-    loss_ce = (nll * not_ignored).sum() / not_ignored.sum().clamp_min(1)
+    loss_ce = (nll * not_ignored).sum() / global_sum(
+        not_ignored.sum()).clamp_min(1)
 
     # masks: the matched query's mask per target, (B, M, S)
     s = mask_logits.shape[1]
@@ -142,7 +152,7 @@ def instseg_layer_loss(pred_logits: torch.Tensor, mask_logits: torch.Tensor,
     # per-scene normalisation, then the mean over scenes with targets
     num_per_scene = w_inst.sum(-1).clamp_min(1.0)
     scene_ok = (w_inst.sum(-1) > 0).float()
-    n_scenes = scene_ok.sum().clamp_min(1.0)
+    n_scenes = global_sum(scene_ok.sum()).clamp_min(1.0)
 
     bce = _bce_logits(matched, t)
     per_inst_bce = (bce * w_seg).sum(-1) / w_seg.sum(-1).clamp_min(1.0)
@@ -197,7 +207,8 @@ def batch_mask_loss(logits: torch.Tensor, targets: torch.Tensor,
     loss = _bce_logits(logits.float(), targets.float())
     per_inst = (loss * w).sum(-1) / (w.sum(-1) + 1e-6)
     inst_ok = w.sum(-1) > 0
-    return (per_inst * inst_ok).sum() / inst_ok.sum().clamp_min(1)
+    return (per_inst * inst_ok).sum() / global_sum(
+        inst_ok.sum()).clamp_min(1)
 
 
 def batch_dice_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -210,7 +221,7 @@ def batch_dice_loss(logits: torch.Tensor, targets: torch.Tensor,
     union = ((p + t) * w).sum(-1)
     dice = 1 - (2 * inter + 1e-6) / (union + 1e-6)
     inst_ok = w.sum(-1) > 0
-    return (dice * inst_ok).sum() / inst_ok.sum().clamp_min(1)
+    return (dice * inst_ok).sum() / global_sum(inst_ok.sum()).clamp_min(1)
 
 
 def instseg_direct_loss(predictions_class: List[torch.Tensor],
@@ -242,7 +253,7 @@ def instseg_direct_loss(predictions_class: List[torch.Tensor],
         nll = -torch.gather(logp, 2,
                             labels[:, :m].clamp_min(0).long()[..., None]
                             )[..., 0]
-        lc = (nll * valid).sum() / valid.sum().clamp_min(1)
+        lc = (nll * valid).sum() / global_sum(valid.sum()).clamp_min(1)
         sfx = "" if i == n - 1 else f"_{i}"
         losses[f"loss_mask{sfx}"] = lm
         losses[f"loss_dice{sfx}"] = ld
@@ -262,10 +273,18 @@ def cross_entropy(logits: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     clamped -1e9, included), else the label holds class indices."""
     logits = logits.float().clamp_min(-100)
     if label.shape == logits.shape:
-        return _bce_logits(logits, label.float()).mean()
+        return _global_mean(_bce_logits(logits, label.float()))
     logp = torch.log_softmax(logits, -1)
-    return -torch.gather(logp.reshape(-1, logp.shape[-1]), 1,
-                         label.reshape(-1, 1).long()).mean()
+    return -_global_mean(torch.gather(logp.reshape(-1, logp.shape[-1]), 1,
+                                      label.reshape(-1, 1).long()))
+
+
+def _global_mean(x: torch.Tensor) -> torch.Tensor:
+    """This rank's share of the mean of ``x`` over every rank's entries."""
+    if world() == 1:
+        return x.mean()
+    return x.sum() / global_sum(torch.tensor(float(x.numel()),
+                                             device=x.device))
 
 
 def ground_loss(out: Dict, batch: Dict) -> torch.Tensor:
@@ -285,4 +304,4 @@ def generation_loss(out: Dict, batch: Dict, pad_id: int = 0
     valid = valid.float()
     logp = torch.log_softmax(logits, -1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
-    return (nll * valid).sum() / valid.sum().clamp_min(1)
+    return (nll * valid).sum() / global_sum(valid.sum()).clamp_min(1)

@@ -209,6 +209,26 @@ class GradientAccumulator:
             a.zero_()
         return True
 
+    def preload(self, params: List[torch.Tensor]) -> None:
+        """Data parallel, before the backward of the micro-step that closes
+        the window: each parameter's gradient set to the sum of this
+        rank's earlier gradients of the window, so that the backward adds
+        the last one and DDP all-reduces the window's sum."""
+        if self.acc is None or self.mini_step == 0:
+            return
+        for p, a in zip(params, self.acc):
+            p.grad = a * self.mini_step
+
+    def close_synced(self, grads: List[torch.Tensor]) -> None:
+        """Data parallel, after that backward: ``grads`` (the all-reduced
+        sum of the window) become its mean, and a new window opens."""
+        for g in grads:
+            g.div_(self.every_k)
+        self.mini_step = 0
+        if self.acc is not None:
+            for a in self.acc:
+                a.zero_()
+
     def state_dict(self) -> Dict[str, Any]:
         return {"mini_step": self.mini_step,
                 "acc": None if self.acc is None

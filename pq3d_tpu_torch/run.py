@@ -20,6 +20,16 @@ the model from another run's checkpoint (stage 2 from stage 1).  The
 datasets are the synthetic ones or, with ``data.scene_verse_base``, the
 SceneVerse layout's (stage 1: ``ScanNetInstSegSceneVerse``; stage 2: the
 seven from ``ScanReferSceneVerse`` to ``Scan2CapSceneVerse``).
+
+Under a process group (``python -m pq3d_tpu_torch.launch``) every rank
+runs ``main``: the ``parallel:`` node may name only the ``data`` axis
+(``parallel/dist.MeshConfig``), rank 0 picks the experiment dir and
+writes ``config.json``, and each rank trains on its rows of the global
+batch.  The flat pack has no batch dim to split: with more than one rank
+it raises unless ``dataloader.allow_single_device`` is set, and then rank
+0 trains alone while the other ranks return; a ``batchsize`` (or
+``batchsize_eval``) that the world size does not divide takes the same
+rule.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 from pq3d_tpu_torch.config import load_config, parse_value, set_dotted
+from pq3d_tpu_torch.parallel import dist
 
 
 def _optimizer_total_steps(cfg: Dict[str, Any], steps_per_epoch: int) -> int:
@@ -73,7 +84,8 @@ def build_instseg_trainer(cfg: Dict[str, Any]):
         bs = int(dl["batchsize"] if train
                  else dl.get("batchsize_eval", dl["batchsize"]))
         loader = InstSegLoader(ds, pipe_cfg, bs, train, seed=seed,
-                               num_workers=int(dl.get("num_workers", 0)))
+                               num_workers=int(dl.get("num_workers", 0)),
+                               rank=dist.rank(), world=dist.world())
         return loader, len(ds) // bs
 
     train_loader, steps_per_epoch = make_loader("train", True)
@@ -182,11 +194,13 @@ def build_multitask_trainer(cfg: Dict[str, Any]):
                 f"dataset {ds_name!r} is not ported; the port trains on "
                 f"{sorted(datasets)}")
         train_ds = make_ds(ds_name, "train")
-        train_loaders.append(UnifiedTaskLoader(train_ds, pipe_cfg, bs, True,
-                                               seed=seed, num_workers=nw))
+        train_loaders.append(UnifiedTaskLoader(
+            train_ds, pipe_cfg, bs, True, seed=seed, num_workers=nw,
+            rank=dist.rank(), world=dist.world()))
         steps_per_epoch += len(train_ds) // bs
         val_loader = UnifiedTaskLoader(make_ds(ds_name, "val"),
-                                       pipe_cfg, bs_eval, False, seed=seed)
+                                       pipe_cfg, bs_eval, False, seed=seed,
+                                       rank=dist.rank(), world=dist.world())
         ev_name = train_ds.evaluator
         save_dir = (os.path.join(cfg["exp_dir"], "eval_results", ev_name)
                     if save else None)
@@ -220,13 +234,29 @@ def experiment_name(cfg: Dict[str, Any]) -> str:
     return str(cfg.get("name", "exp"))
 
 
+def single_device_reason(cfg: Dict[str, Any]) -> Optional[str]:
+    """Why a run of more than one rank must train on one device (the flat
+    pack, whose arrays have no batch dim to split; a batch size the world
+    size does not divide), or None."""
+    iopt = (cfg.get("data") or {}).get("instseg_options") or {}
+    if cfg.get("task", "InstSeg") == "InstSeg" and iopt.get("flat_pack"):
+        return ("data.instseg_options.flat_pack is a single-device layout "
+                "(its flat arrays have no batch dim to split)")
+    dl = cfg["dataloader"]
+    for key in ("batchsize", "batchsize_eval"):
+        bs = int(dl.get(key, dl["batchsize"]))
+        if bs % dist.world():
+            return (f"dataloader.{key}={bs} does not split over "
+                    f"{dist.world()} ranks")
+    return None
+
+
 def main(argv: Optional[List[str]] = None):
     parser = argparse.ArgumentParser("pq3d_tpu_torch.run")
     parser.add_argument("--config-name", required=True)
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
     cfg = load_config(args.config_name, overrides=args.overrides)
-
     # resume re-loads the snapshot saved in the experiment dir so the run
     # continues under the exact original config (overrides re-applied)
     if cfg.get("resume") and cfg.get("exp_dir"):
@@ -241,13 +271,32 @@ def main(argv: Optional[List[str]] = None):
             set_dotted(cfg, key.strip(), parse_value(val))
         cfg["resume"] = True
 
+    dist.MeshConfig.from_config(cfg)
+    reason = single_device_reason(cfg) if dist.world() > 1 else None
+    if reason:
+        if not (cfg.get("dataloader") or {}).get("allow_single_device"):
+            raise ValueError(f"{reason}; unset it or set "
+                             f"dataloader.allow_single_device=true to "
+                             f"train on one device")
+        if dist.rank() > 0:
+            print(f"[run] rank {dist.rank()}: {reason}; rank 0 trains "
+                  f"alone (dataloader.allow_single_device)")
+            dist.destroy_process_group()
+            return None
+        print(f"[run] {reason}: training on rank 0 alone "
+              f"(dataloader.allow_single_device)")
+        dist.destroy_process_group()
+
     if not cfg.get("exp_dir"):
-        stamp = time.strftime("%Y-%m-%d-%H%M%S")
+        # one stamp for every rank: rank 0's
+        stamp = dist.broadcast_object(time.strftime("%Y-%m-%d-%H%M%S"))
         cfg["exp_dir"] = os.path.join(cfg.get("base_dir", "outputs"),
                                       experiment_name(cfg), stamp)
     os.makedirs(cfg["exp_dir"], exist_ok=True)
-    with open(os.path.join(cfg["exp_dir"], "config.json"), "w") as f:
-        json.dump(cfg, f, indent=1)
+    dist.barrier()          # every rank has read a resumed run's snapshot
+    if dist.rank() == 0:
+        with open(os.path.join(cfg["exp_dir"], "config.json"), "w") as f:
+            json.dump(cfg, f, indent=1)
 
     task = cfg.get("task", "InstSeg")
     if task not in BUILDERS:

@@ -2,7 +2,8 @@
 per-request answers.
 
 Counterpart of ``pq3d_tpu/serve.py`` (``ServerStats``, ``_MicroBatchServer``,
-``InstSegServer`` and ``UnifiedServer``), single device:
+``InstSegServer``, ``UnifiedServer`` and ``ReplicatedServer``, one server
+per device; the sharded-batch mesh server is not ported):
 
 - a submit() queue with futures, so callers get per-scene results;
 - micro-batching: up to ``batch_size`` scenes per step, waiting at most
@@ -448,3 +449,48 @@ class UnifiedServer(_MicroBatchServer):
             results.append(r)
         self.stats.add_stage("finish", time.time() - t0)
         return results
+
+
+class ReplicatedServer:
+    """One server replica per device in one process: ``factory(device)``
+    is called once per device and returns a started server pinned to it
+    (``InstSegServer`` or ``UnifiedServer`` with ``device=device``; the
+    model on that device).  A request goes to the replica with the
+    shallowest queue, ties broken round-robin, so partial batches spread
+    evenly; each replica owns its device, so the single-device layouts
+    (the flat pack, device-built maps) serve on every card unchanged.
+    ``devices`` defaults to every visible card and raises without CUDA
+    (pass ``["cpu", "cpu"]`` to replicate on the host)."""
+
+    def __init__(self, factory, devices=None):
+        if devices is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("CUDA is not available; pass devices= "
+                                   "to replicate on the host")
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        devices = list(devices)
+        if not devices:
+            raise ValueError("no devices to replicate over")
+        self.replicas = [factory(d) for d in devices]
+        self._rr = 0
+        self._lock = threading.Lock()
+
+    def submit(self, request) -> Future:
+        with self._lock:
+            depths = [r._q.qsize() for r in self.replicas]
+            n = len(depths)
+            best = min(range(n),
+                       key=lambda i: (depths[i], (i - self._rr) % n))
+            self._rr = (best + 1) % n
+        return self.replicas[best].submit(request)
+
+    def close(self) -> None:
+        for r in self.replicas:
+            r.close()
+
+    def stats_summary(self) -> Dict[str, Any]:
+        per = [r.stats.summary() for r in self.replicas]
+        return {"replicas": per,
+                "scenes": sum(p["scenes"] for p in per),
+                "scenes_per_sec": sum(p["scenes_per_sec"] for p in per)}

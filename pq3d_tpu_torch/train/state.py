@@ -7,9 +7,22 @@ does not reach get a zero gradient, so AdamW decays them as optax does
 (torch's AdamW skips a parameter whose ``.grad`` is ``None``).  Under
 gradient accumulation (``optim/optimizers.GradientAccumulator``) a call is
 one micro-step, and only every k-th clips and steps, on the mean.
+
+Data parallel (``ddp``, the model wrapped in ``DistributedDataParallel``):
+the loss a rank computes is its rows' share of the global batch's loss
+(``optim/losses.py``), so the backward runs on the share times the world
+size and DDP's average of the ranks' gradients is the gradient of the
+global loss; the logged loss and its parts are the sums of the shares,
+the same on every rank.  The clip reads the all-reduced gradients.  Under
+accumulation the micro-steps that do not step skip DDP's all-reduce
+(``no_sync``); the k-th starts from the window's earlier gradients summed
+(``GradientAccumulator.preload``), so one all-reduce carries the window
+and its mean is taken after it; there ``grad_norm`` is the norm of that
+mean, where one process reports the k-th micro-step's own.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -18,6 +31,7 @@ import torch.nn as nn
 from pq3d_tpu_torch.optim.optimizers import (GradientAccumulator,
                                              clip_by_global_norm_,
                                              global_norm)
+from pq3d_tpu_torch.parallel.dist import global_sum, world
 
 LossFn = Callable[[Dict, Dict], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
@@ -26,41 +40,62 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     scheduler, loss_fn: LossFn,
                     grad_norm_max: Optional[float] = None,
                     mark: Optional[Callable[[str], None]] = None,
-                    accumulator: Optional[GradientAccumulator] = None):
+                    accumulator: Optional[GradientAccumulator] = None,
+                    ddp: Optional[nn.Module] = None):
     """``step(batch) -> metrics``: ``loss``, ``grad_norm`` (of this call's
     gradients, before the clip) and the loss parts, as detached device
     scalars.  ``mark``, when given, is called with ``"forward"``,
     ``"loss"``, ``"backward"`` and ``"optimizer"`` as each part of the
     step has been issued (a profiler records an event there).  With an
-    ``accumulator`` the optimizer steps only when it closes a window."""
+    ``accumulator`` the optimizer steps only when it closes a window.
+    ``ddp`` is ``model`` wrapped in ``DistributedDataParallel``: the
+    forward goes through it."""
     params = [p for p in model.parameters() if p.requires_grad]
     mark = mark or (lambda part: None)
+    forward = model if ddp is None else ddp
+    n_ranks = world()
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
         model.train()
-        out = model(batch)
-        mark("forward")
-        total, parts = loss_fn(out, batch)
-        mark("loss")
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        # data parallel with accumulation: only the micro-step that closes
+        # the window all-reduces, and it carries the window's sum
+        synced = ddp is not None and accumulator is not None
+        closing = synced and \
+            accumulator.mini_step == accumulator.every_k - 1
+        with (ddp.no_sync() if synced and not closing
+              else contextlib.nullcontext()):
+            out = forward(batch)
+            mark("forward")
+            total, parts = loss_fn(out, batch)
+            mark("loss")
+            optimizer.zero_grad(set_to_none=True)
+            if closing:
+                accumulator.preload(params)
+            (total * n_ranks if n_ranks > 1 else total).backward()
         mark("backward")
         grads = []
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
+        if closing:
+            accumulator.close_synced(grads)
         norm = global_norm(grads)
-        if accumulator is None or accumulator.add(grads):
+        if closing or accumulator is None or accumulator.add(grads):
             if grad_norm_max:
                 clip_by_global_norm_(grads, grad_norm_max,
-                                     norm if accumulator is None
+                                     norm if accumulator is None or closing
                                      else global_norm(grads))
             optimizer.step()
             scheduler.step()
         mark("optimizer")
-        return {"loss": total.detach(), "grad_norm": norm,
-                **{k: v.detach() for k, v in parts.items()}}
+        metrics = {"loss": total.detach(),
+                   **{k: v.detach() for k, v in parts.items()}}
+        if n_ranks > 1:
+            summed = global_sum(torch.stack([v.float()
+                                             for v in metrics.values()]))
+            metrics = dict(zip(metrics, summed.unbind()))
+        return {"loss": metrics.pop("loss"), "grad_norm": norm, **metrics}
 
     return step
 

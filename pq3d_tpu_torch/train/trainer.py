@@ -2,9 +2,8 @@
 counterpart of ``prefetch_batches``, ``Query3DTrainer`` (stage 1) and
 ``MultitaskTrainer`` (stage 2) in ``pq3d_tpu/train/trainer.py``.
 
-One card, no mesh (multi-GPU data parallelism is a later slice).  The host
-pipeline runs in a background thread (``prefetch_batches``) so it overlaps
-the step on the card.  The optimizer and schedule are built once
+The host pipeline runs in a background thread (``prefetch_batches``) so
+it overlaps the step on the card.  The optimizer and schedule are built once
 (``_lazy_init``, at the start of ``run`` or on the first batch), where
 ``resume`` also restores ``latest`` and the epoch to continue from; without
 a resume, ``pretrain_ckpt_path`` warm-starts the model non-strictly (same
@@ -22,6 +21,23 @@ would.  Under ``gradient_accumulation_steps`` k a batch is a micro-step:
 ``step`` counts optimizer steps, one every k batches, and the window in
 progress is checkpointed too.  Loaders with worker pools are closed when
 ``run`` ends.
+
+Data parallel: under a process group (``parallel/dist.py``; the launcher,
+``pq3d_tpu_torch.launch``, makes one) each rank trains on its rows of the
+global batch ``dataloader.batchsize`` (the loaders split it; ``run.py``
+holds the world size to dividing it), as the JAX package's sharded step
+does.
+The model is wrapped in ``DistributedDataParallel`` after ``_lazy_init``
+has restored or warm-started it, so every rank starts from the same
+weights.  Dropout on rank r draws from generators seeded ``rng_seed + r``;
+a checkpoint gathers every rank's generator states (and open accumulation
+window) and a resume restores each rank's own; it holds the unwrapped
+module's state dict, so one process and a group load each other's
+checkpoints.  Only rank 0 writes checkpoints, the metrics log and
+``results.json``; before each save the ranks' weight checksums must agree.
+A preemption signal on any rank stops every rank (an all-reduce of the
+flag after each step), so no rank leaves the others waiting in a
+collective.
 """
 from __future__ import annotations
 
@@ -35,6 +51,7 @@ import numpy as np
 import torch
 
 from pq3d_tpu_torch.device import resolve_device
+from pq3d_tpu_torch.parallel import dist
 from pq3d_tpu_torch.eval.base import truncate_batch_rows
 from pq3d_tpu_torch.serve import to_device
 from pq3d_tpu_torch.train.checkpoints import (CheckpointManager,
@@ -80,6 +97,14 @@ def _to_numpy(out: Dict[str, Any]) -> Dict[str, Any]:
     return {k: conv(v) for k, v in out.items()}
 
 
+def _mean_window(states: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """The mean of several ranks' accumulation windows (same step)."""
+    accs = [st["acc"] for st in states]
+    return {"mini_step": states[0]["mini_step"],
+            "acc": None if accs[0] is None else
+            [sum(parts) / len(parts) for parts in zip(*accs)]}
+
+
 class Query3DTrainer:
     """Stage-1 (instseg) trainer.  ``train_data`` / ``val_data`` are
     callables ``epoch -> iterable of numpy batches``."""
@@ -100,7 +125,8 @@ class Query3DTrainer:
         self.epochs_per_save = int(solver.get("epochs_per_save", 0) or 0)
         self.exp_dir = cfg.get("exp_dir") or os.path.join(
             cfg.get("base_dir", "outputs"), cfg.get("name", "exp"))
-        self.logger = MetricsLogger(self.exp_dir)
+        self.rank, self.world = dist.rank(), dist.world()
+        self.logger = MetricsLogger(self.exp_dir) if self.rank == 0 else None
         self.tracker = ExpTracker()
         self.ckpt = CheckpointManager(os.path.join(self.exp_dir, "ckpt"))
         self.step = 0                       # optimizer steps
@@ -108,6 +134,7 @@ class Query3DTrainer:
         self._optimizer = self._scheduler = self._grad_norm = None
         self._accumulator = self._memory_generator = None
         self._train_step = self._eval_step = None
+        self.ddp: Optional[torch.nn.Module] = None
         self._preempted = False
         self.warm_started: List[str] = []   # names a warm start loaded
 
@@ -115,7 +142,7 @@ class Query3DTrainer:
         from pq3d_tpu_torch.optim.optimizers import (GradientAccumulator,
                                                      accumulation_steps,
                                                      build_from_config)
-        seed = int(self.cfg.get("rng_seed", 42))
+        seed = int(self.cfg.get("rng_seed", 42)) + self.rank
         torch.manual_seed(seed)
         self._memory_generator = torch.Generator(
             device=self.device).manual_seed(seed)
@@ -126,11 +153,6 @@ class Query3DTrainer:
             build_from_config(self.cfg, self.model, total)
         k = accumulation_steps(self.cfg)
         self._accumulator = GradientAccumulator(k) if k > 1 else None
-        self._train_step = make_train_step(self.model, self._optimizer,
-                                           self._scheduler, self.loss_fn,
-                                           self._grad_norm,
-                                           accumulator=self._accumulator)
-        self._eval_step = make_eval_step(self.model, self.loss_fn)
         n_params = sum(p.numel() for p in self.model.parameters())
         print(f"[trainer] initialized: {n_params / 1e6:.2f}M params, "
               f"exp_dir={self.exp_dir}")
@@ -138,15 +160,28 @@ class Query3DTrainer:
             self.step, tr, extra = self.ckpt.restore(
                 "latest", self.model, self._optimizer, self._scheduler)
             self.tracker.load_state_dict(tr)
-            if "rng" in extra:          # absent from older checkpoints
-                self._set_rng_state(extra["rng"])
-            if self._accumulator is not None and "accumulator" in extra:
-                self._accumulator.load_state_dict(extra["accumulator"],
-                                                  self.device)
+            self._restore_rank_state(extra)
             print(f"[trainer] resumed from epoch {self.tracker.epoch}")
         elif self.cfg.get("pretrain_ckpt_path"):
             self.warm_started = self._warm_start(
                 str(self.cfg["pretrain_ckpt_path"]))
+        if dist.is_initialized():
+            from torch.nn.parallel import DistributedDataParallel
+            ids = [self.device.index if self.device.index is not None
+                   else torch.cuda.current_device()] \
+                if self.device.type == "cuda" else None
+            # BatchNorm statistics are global, so every rank's buffers are
+            # already equal; parameters a step does not reach (the U-Net's
+            # final layer, frozen towers) keep no gradient
+            self.ddp = DistributedDataParallel(
+                self.model, device_ids=ids, broadcast_buffers=False,
+                find_unused_parameters=True)
+        self._train_step = make_train_step(self.model, self._optimizer,
+                                           self._scheduler, self.loss_fn,
+                                           self._grad_norm,
+                                           accumulator=self._accumulator,
+                                           ddp=self.ddp)
+        self._eval_step = make_eval_step(self.model, self.loss_fn)
 
     def _warm_start(self, path: str) -> List[str]:
         """Non-strict warm start from another run's checkpoint (stage 2
@@ -181,12 +216,65 @@ class Query3DTrainer:
         if self.device.type == "cuda":
             torch.cuda.set_rng_state(state["cuda"], self.device)
 
-    def _save(self, name: str) -> None:
-        extra = {"rng": self._rng_state()}
+    def _rank_state(self) -> Dict[str, Any]:
+        """What differs between ranks: the generators' states and an open
+        accumulation window."""
+        state: Dict[str, Any] = {"rng": self._rng_state()}
         if self._accumulator is not None:
-            extra["accumulator"] = self._accumulator.state_dict()
-        self.ckpt.save(name, self.model, self._optimizer, self._scheduler,
-                       self.step, self.tracker.state_dict(), extra)
+            state["accumulator"] = self._accumulator.state_dict()
+        return state
+
+    def _restore_rank_state(self, extra: Dict[str, Any]) -> None:
+        """This rank's entry of a checkpoint's ``ranks`` when the world
+        matches the one that saved it.  Across worlds: generators from the
+        top-level entry in one process (rank 0's), else fresh ones (the
+        dropout draws differ anyway); the open accumulation window as the
+        mean of the saver's ranks' windows (what one process holds, up to
+        rounding: the window is linear in the gradients) for every rank."""
+        ranks = extra.get("ranks")
+        if ranks is not None and len(ranks) == self.world:
+            state = ranks[self.rank]
+        else:
+            state = {}
+            if self.world == 1:
+                state["rng"] = extra.get("rng")
+            else:
+                print(f"[trainer] checkpoint saved by "
+                      f"{len(ranks) if ranks else 1} rank(s), resumed by "
+                      f"{self.world}: fresh generators")
+            if ranks is not None and "accumulator" in ranks[0]:
+                state["accumulator"] = _mean_window(
+                    [r["accumulator"] for r in ranks])
+            elif "accumulator" in extra:
+                state["accumulator"] = extra["accumulator"]
+        if state.get("rng") is not None:    # absent from older checkpoints
+            self._set_rng_state(state["rng"])
+        if self._accumulator is not None and "accumulator" in state:
+            self._accumulator.load_state_dict(state["accumulator"],
+                                              self.device)
+
+    def _save(self, name: str) -> None:
+        """Every rank calls it; rank 0 writes.  One process keeps its
+        ``rng`` / ``accumulator`` at the top level; under a process group
+        ``ranks`` holds every rank's (the top-level ``rng`` is rank 0's),
+        and ``rank_checksums`` the weights' checksums, which must
+        agree."""
+        extra = self._rank_state()
+        if dist.is_initialized():
+            sums = dist.all_gather_object(dist.param_checksum(self.model))
+            if len(set(sums)) != 1:
+                raise RuntimeError(f"the ranks' weights differ before "
+                                   f"saving {name!r}: checksums {sums}")
+            extra = {"rng": extra["rng"], "rank_checksums": sums,
+                     "ranks": dist.gather_object(extra)}
+        if self.rank == 0:
+            self.ckpt.save(name, self.model, self._optimizer,
+                           self._scheduler, self.step,
+                           self.tracker.state_dict(), extra)
+
+    def _log(self, metrics: Dict[str, Any], prefix: str) -> None:
+        if self.logger is not None:
+            self.logger.log(metrics, self.step, prefix=prefix)
 
     def train_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One train step (under accumulation, one micro-step) on a numpy
@@ -201,7 +289,7 @@ class Query3DTrainer:
         if self.step % int(self.cfg.get("log_every", 10)) == 0:
             host = {k: float(v) for k, v in metrics.items()}
             host["lr"] = self._scheduler.get_last_lr()[0]
-            self.logger.log(host, self.step)
+            self._log(host, "train")
         return metrics
 
     def install_preemption_handler(self, signals=None) -> None:
@@ -219,6 +307,7 @@ class Query3DTrainer:
                 pass
 
     def _handle_preemption(self) -> bool:
+        self._preempted = dist.any_rank(self._preempted)
         if not self._preempted:
             return False
         if self._train_step is not None:
@@ -233,7 +322,7 @@ class Query3DTrainer:
         for batch in prefetch_batches(self.train_data(epoch)):
             last = self.train_batch(batch)
             n += 1
-            if self._preempted:
+            if dist.any_rank(self._preempted):
                 break
         out = {k: float(v) for k, v in last.items()}
         out["epoch_time_s"] = time.time() - t0
@@ -245,10 +334,14 @@ class Query3DTrainer:
             return {}
         self.evaluator.reset()
         for batch in prefetch_batches(self.val_data(epoch)):
-            n_real = int((batch.get("_meta") or {}).get("n_real", 0))
+            n_real = (batch.get("_meta") or {}).get("n_real")
             if self._eval_step is None:     # eval before any training
                 self._lazy_init()
+            # every rank runs the forward (its loss sums counts over the
+            # ranks); a rank whose rows are all wrap padding scores none
             out_np = _to_numpy(self._eval_step(self._put(batch)))
+            if n_real == 0:
+                continue
             bat_np = {k: v for k, v in batch.items()
                       if not k.startswith("_")}
             if n_real:
@@ -257,10 +350,11 @@ class Query3DTrainer:
                 bat_np = truncate_batch_rows(bat_np, n_real, rows)
             self.evaluator.update(out_np, bat_np)
         results = self.evaluator.record()
-        self.logger.log(results, self.step, prefix="val")
-        print(f"[eval {epoch}] " + " ".join(
-            f"{k}={v:.4f}" for k, v in results.items()
-            if isinstance(v, float)))
+        self._log(results, "val")
+        if self.rank == 0:
+            print(f"[eval {epoch}] " + " ".join(
+                f"{k}={v:.4f}" for k, v in results.items()
+                if isinstance(v, float)))
         return results
 
     def _save_epoch_ckpts(self, epoch: int) -> None:
@@ -339,10 +433,12 @@ class MultitaskTrainer(Query3DTrainer):
             evaluator.reset()
             for batch in prefetch_batches(loader(epoch)):
                 meta = batch.get("_meta") or {}
-                n_real = int(meta.get("n_real", 0))
+                n_real = meta.get("n_real")
                 if self._eval_step is None:     # eval before any training
                     self._lazy_init()
                 out = self._eval_step(self._put(batch))
+                if n_real == 0:         # this rank's rows: all padding
+                    continue
                 host_out = self.postprocess_for_eval(out, batch)
                 eval_batch = {k: np.asarray(v) for k, v in batch.items()
                               if not k.startswith("_")}
@@ -361,8 +457,9 @@ class MultitaskTrainer(Query3DTrainer):
             for k, v in results.items():
                 all_results[f"{name}/{k}"] = v
             target += results.get("target_metric", 0.0)
-            self.logger.log(results, self.step, prefix=f"val-{name}")
+            self._log(results, f"val-{name}")
         all_results["target_metric"] = target
-        print(f"[eval {epoch}] " + " ".join(
-            f"{k}={v:.4f}" for k, v in all_results.items()))
+        if self.rank == 0:
+            print(f"[eval {epoch}] " + " ".join(
+                f"{k}={v:.4f}" for k, v in all_results.items()))
         return all_results

@@ -619,3 +619,40 @@ def test_flat_train_batch_backwards_match_plain(cuda_device):
                                         valid)
         assert close(y, y_ref) and close(x.grad, dx_ref) \
             and close(w.grad, dw_ref), (lvl, cin, cout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,nproc", [("gloo", 2), ("nccl", 1)])
+def test_data_parallel_step_on_the_card(cuda_device, tmp_path, monkeypatch,
+                                        backend, nproc):
+    """One stage-1 train step (the small model of test_torch_trainer.py,
+    every sparse conv plain in f32) through ``python -m
+    pq3d_tpu_torch.launch`` on cuda:0: two gloo ranks (nccl refuses two
+    ranks on one card) end with bit-identical gradients, and one nccl
+    rank (the nccl group initialised, DDP's broadcast and all-reduce on
+    it); each matches one process at the global batch of 4 on the card:
+    loss within 1e-5, gradients within 1e-4 of the largest."""
+    import pickle
+    import _torch_ddp_worker as w
+    from pq3d_tpu_torch.models import query3d as tq3d
+    batch = w.stage1_batch()
+    with open(tmp_path / "batch.pkl", "wb") as f:
+        pickle.dump(batch, f)
+    model = w.stage1_model()
+    tq3d.init_weights(model, torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), tmp_path / "model.pt")
+    ranks = w.spawn("card_step", tmp_path, devices=("cuda:0",) * nproc,
+                    backend=backend)
+    assert all(r[3] == backend for r in ranks)
+    monkeypatch.setattr(w.tsparse, "_round", lambda t, dtype: t.float())
+    m, grads, _ = w.train_step(model.to(cuda_device), batch, w.stage1_loss,
+                               device=cuda_device)
+    for r in ranks[1:]:
+        assert r[0] == ranks[0][0]
+        assert all(torch.equal(r[1][k], ranks[0][1][k]) for k in r[1])
+    got_m, got = ranks[0][0], ranks[0][1]
+    assert abs(got_m["loss"] - m["loss"]) <= 1e-5 * abs(m["loss"])
+    top = max(g.abs().max().item() for g in grads.values())
+    assert grads.keys() == got.keys()
+    assert max((got[k] - g).abs().max().item()
+               for k, g in grads.items()) <= 1e-4 * top
