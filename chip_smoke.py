@@ -193,6 +193,41 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                busy, each scene's final logits within REPLICA_GATE with
                the decoder's self-mask off (with it on, segment pooling's
                atomic sums flip attend bits: printed, not gated);
+14. unified_variants -- the rest of stage 2 at the widths of
+               unified_tasks_sceneverse (random weights from a seed), B1
+               and B2 counted from 0 over (a) and (b) and gated at 0.
+               (a) The model with heads [ground, generation, qa] (8864
+               answers) behind UnifiedServer(batch_size=8), 8 warm and 64
+               timed requests of phase 10's kind, in the JAX package's
+               bench.py setups: f32 (padded, one phase), bf16
+               (cast_model_bf16 + cast=cast_batch_bf16), two_bf16
+               (two_phase + the cast) and flat_bf16 (flat_obj + the cast):
+               scenes/s, p50/p99, stage seconds, peak memory, one batch's
+               forward and decode ms on the device clock, and the flat
+               layout's F against B x O; gates: every request resolves,
+               answer_scores finite and (8, 8864) on one batch of each
+               setup, in f32 on one batch flat against padded within 1e-5
+               (ground, teacher-forced generation and answer logits) with
+               equal tokens, two-phase tokens equal to one-phase tokens in
+               f32 and in bf16, bf16 against f32 within
+               tests/test_bf16_modes.py's gate (0.1 of the scale, top-1
+               equal where the margin exceeds 0.03 of it).  (b) The same
+               model with qa_num_answers 3 (SyntheticQA's vocabulary) and
+               flat_obj trained through build_multitask_trainer on
+               SyntheticQA and SyntheticRefer at batch 32: 1 warm + 3 timed
+               steps (loss parts, F, host and step seconds, peak memory),
+               answer_loss finite, one step at batch 4 of SyntheticQA
+               items against the CPU within phase 11's gates (and its TF32
+               control), ScanQAEval's acc@1 / acc@10 finite.  (c) One
+               batch of 8 on the card against the CPU (f32, TF32 off,
+               1e-4): the gate structure with the attention text
+               projection and IMAGE prompts (768 wide, rows 0, 3, 6), and
+               BERTLanguageEncoder; the CLIP-large text encoder at
+               compute_dtype bfloat16 against float32 within
+               test_bf16_modes' tower tolerance (max 0.05, mean 0.005);
+               PointnetSAModuleVotes (rbf pooling, unique counts) on two
+               1024-point clouds: indices and counts equal, features within
+               1e-4;
 then a summary line (B1 against B2 in this run), one JSON line with every
 hand kernel's numbers, and the result line.
 
@@ -1946,6 +1981,39 @@ def unified_train_check(trainer, cfg, np_batch, total_steps):
             cpu_s)
 
 
+def gate_train_check(label, check, cpu_s):
+    """Print ``unified_train_check``'s readings and fail unless the f32
+    step is within the gates and the TF32 control is not; returns the two
+    readings (f32, TF32)."""
+    f32, tf32 = check[False], check[True]
+    keys = [k for k in f32 if k not in (
+        "worst", "noise", "noise_update_over_lr", "param_diff_over_lr",
+        "updates")]
+    gates = {k: UNIFIED_TRAIN_GATES.get(k, UNIFIED_TRAIN_GATE)
+             for k in keys}
+    print(f"{label}: one step at batch 4, card (f32, TF32 off) vs "
+          "CPU, relative: " + " ".join(
+              f"{k} {f32[k]:.3e} (gate {gates[k]:g})" for k in keys)
+          + " | per-tensor worst, max|diff| / max|ref|: "
+          + " ".join(f"{k} {v:.3e} {n}" for k, (v, n) in
+                     f32["worst"].items())
+          + f" | updates {f32['updates']:.3e} (not gated), updated "
+          f"parameters at most {f32['param_diff_over_lr']:.3f} x lr "
+          f"apart (gate 2.1) | TF32 control: " + " ".join(
+              f"{k} {tf32[k]:.3e}" for k in keys + ["updates"])
+          + f" | f32-noise gradients {f32['noise']}: update "
+          f"{f32['noise_update_over_lr']:.3f} x lr | CPU step "
+          f"{cpu_s:.1f} s", flush=True)
+    if any(f32[k] > gates[k] for k in keys) \
+            or f32["noise_update_over_lr"] > 1.01 \
+            or f32["param_diff_over_lr"] > 2.1:
+        fail(f"{label}: the card's train step disagrees with the CPU's")
+    if all(tf32[k] <= gates[k] for k in keys):
+        fail(f"{label}: the TF32 control passes the train-step gates: they "
+             "would not catch f32 matmuls run in TF32")
+    return f32, tf32
+
+
 def step_readings(got, ref, old, lr):
     """One train step against a reference step from the same weights
     ``old``: (metrics, gradients, updated parameters) each.  Relative
@@ -2108,32 +2176,7 @@ def unified_train_phase(card, dev, profile):
              for it in items], lo0.cfg, lo0.feature_dims, train=True)
         check, cpu_s = unified_train_check(trainer, cfg, np_batch,
                                            trainer._total_steps)
-        f32, tf32 = check[False], check[True]
-        keys = [k for k in f32 if k not in (
-            "worst", "noise", "noise_update_over_lr", "param_diff_over_lr",
-            "updates")]
-        gates = {k: UNIFIED_TRAIN_GATES.get(k, UNIFIED_TRAIN_GATE)
-                 for k in keys}
-        print("unified_train: one step at batch 4, card (f32, TF32 off) vs "
-              "CPU, relative: " + " ".join(
-                  f"{k} {f32[k]:.3e} (gate {gates[k]:g})" for k in keys)
-              + " | per-tensor worst, max|diff| / max|ref|: "
-              + " ".join(f"{k} {v:.3e} {n}" for k, (v, n) in
-                         f32["worst"].items())
-              + f" | updates {f32['updates']:.3e} (not gated), updated "
-              f"parameters at most {f32['param_diff_over_lr']:.3f} x lr "
-              f"apart (gate 2.1) | TF32 control: " + " ".join(
-                  f"{k} {tf32[k]:.3e}" for k in keys + ["updates"])
-              + f" | f32-noise gradients {f32['noise']}: update "
-              f"{f32['noise_update_over_lr']:.3f} x lr | CPU step "
-              f"{cpu_s:.1f} s", flush=True)
-        if any(f32[k] > gates[k] for k in keys) \
-                or f32["noise_update_over_lr"] > 1.01 \
-                or f32["param_diff_over_lr"] > 2.1:
-            fail("the card's unified train step disagrees with the CPU's")
-        if all(tf32[k] <= gates[k] for k in keys):
-            fail("the TF32 control passes the train-step gates: they would "
-                 "not catch f32 matmuls run in TF32")
+        f32, tf32 = gate_train_check("unified_train", check, cpu_s)
 
         # evaluation of the three val sets, the last batch of each
         # wrap-padded (128 + 4 real rows)
@@ -2818,6 +2861,521 @@ def ddp_phase(card, zrun_conv):
     return {"stage1": s1, "stage2": s2, "replicated": rp}
 
 
+# the JAX package's bench.py serving setups: (bf16 cast, two-phase, flat)
+VARIANT_SETUPS = {"f32": (False, False, False), "bf16": (True, False, False),
+                  "two_bf16": (True, True, False),
+                  "flat_bf16": (True, False, True)}
+VARIANT_HEADS = "model.heads=[ground,generation,qa]"
+FLAT_GATE = 1e-5         # flat_obj against padded, f32, one batch
+BF16_GATE = (0.1, 0.03)  # tests/test_bf16_modes.py: error / scale, margin
+TOWER_GATE = (0.05, 0.005)   # the same file: max and mean |bf16 - f32|
+VARIANT_TRAIN_BS = 32
+VOTES_GATE = 1e-4
+
+
+def variant_batch(reqs, pipe, feature_dims, seed, response=False):
+    """``collate_unified`` of ``reqs`` (eval mode), without the padded
+    layout's duplicate ``obj_fts`` and, unless asked, the responses."""
+    import numpy as np
+    from pq3d_tpu_torch.data.unified_pipeline import (collate_unified,
+                                                      process_item)
+    rng = np.random.default_rng(seed)
+    items = [{k: v for k, v in process_item(
+        s, l, pipe, rng, False, feature_dims).items()
+        if not k.startswith("meta_")} for s, l in reqs]
+    b = collate_unified(items, pipe, feature_dims, train=False)
+    drop = {"obj_fts"} | (set() if response else {"response"})
+    return {k: v for k, v in b.items() if k not in drop}
+
+
+def variant_forward(model, b):
+    """One eval forward of ``b``, the two-phase decode included: (outputs,
+    tokens)."""
+    import torch
+    with torch.inference_mode():
+        out = model(b)
+        toks = out["generation_tokens"] if "generation_tokens" in out \
+            else model.decode_states(out["generation_enc"],
+                                     out["generation_enc_mask"])
+    return out, toks
+
+
+def variant_times(model, b, reps=3):
+    """Device ms of one batch (CUDA events, median of ``reps``): the
+    forward and the decode.  One phase: the decode is the generation
+    head's span inside the forward; two phases: the forward, then
+    ``decode_states`` on its states."""
+    import torch
+    head = model.generation_head
+    spans, fwd, dec = [], [], []
+
+    def mark(*_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        spans.append(ev)
+    hooks = [head.register_forward_pre_hook(mark),
+             head.register_forward_hook(mark)]
+    try:
+        for _ in range(reps):
+            spans.clear()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            with torch.inference_mode():
+                ev[0].record()
+                out = model(b)
+                ev[1].record()
+                if "generation_enc" in out:
+                    model.decode_states(out["generation_enc"],
+                                        out["generation_enc_mask"])
+                ev[2].record()
+            ev[2].synchronize()
+            fwd.append(ev[0].elapsed_time(ev[1]))
+            dec.append(ev[1].elapsed_time(ev[2]) if "generation_enc" in out
+                       else spans[0].elapsed_time(spans[1]))
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"forward": sorted(fwd)[reps // 2],
+            "decode": sorted(dec)[reps // 2]}
+
+
+def bf16_gate(ref, got, valid=None):
+    """tests/test_bf16_modes.py's gate reading of f32 logits ``ref``
+    against bf16 ones ``got`` (padded slots, ``~valid``, left out): (max
+    error / the f32 scale, top-1 equal on every row whose f32 top-2 margin
+    exceeds 0.03 of the scale, the number of such rows)."""
+    import torch
+    ref, got = ref.float().cpu(), got.float().cpu()
+    if valid is not None:
+        ref = torch.where(valid, ref, -1e9)
+        got = torch.where(valid, got, -1e9)
+    real = ref if valid is None else ref[valid]
+    diff = (ref - got).abs() if valid is None else (ref - got).abs()[valid]
+    scale = real.abs().max().item() + 1e-6
+    top2 = ref.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) / scale > BF16_GATE[1]
+    same = (ref.argmax(-1) == got.argmax(-1))[decided].all().item()
+    return diff.max().item() / scale, bool(same), int(decided.sum())
+
+
+def flat_rows(reqs, pipe, bs):
+    """(F, real objects) of each batch of ``bs`` the flat layout would
+    collate from ``reqs``."""
+    from pq3d_tpu_torch.data.unified_pipeline import flat_obj_rows
+    out = []
+    for i in range(0, len(reqs), bs):
+        n = [min(len(s["inst_labels"]), pipe.max_obj_len)
+             for s, _ in reqs[i:i + bs]]
+        n += [n[-1]] * (bs - len(n))
+        out.append((flat_obj_rows(sum(n), bs, pipe.max_obj_len,
+                                  pipe.flat_obj_bucket), sum(n)))
+    return out
+
+
+def serve_variant(label, model, pipe, cast, warm, reqs, feature_dims,
+                  card):
+    """``reqs`` through ``UnifiedServer(batch_size=8)`` after ``warm``:
+    the summary, the peak memory and every answer checked."""
+    import numpy as np
+    import torch
+    from pq3d_tpu_torch.data import unified_datasets as uds
+    from pq3d_tpu_torch.serve import UnifiedServer
+    srv = UnifiedServer(model, pipe, batch_size=8,
+                        feature_dims=feature_dims, max_delay_s=0.02,
+                        detokenize=uds.detokenize, device="cuda", cast=cast)
+    try:
+        for f in [srv.submit(r) for r in warm]:
+            f.result(timeout=900)
+        settle(srv, len(warm))
+        srv.stats = type(srv.stats)()
+        torch.cuda.reset_peak_memory_stats()
+        results = [f.result(timeout=900)
+                   for f in [srv.submit(r) for r in reqs]]
+        settle(srv, len(reqs))
+    finally:
+        srv.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = srv.stats.summary()
+    for r, (scene, _) in zip(results, reqs):
+        n = min(len(scene["inst_labels"]), pipe.max_obj_len)
+        g = r.get("ground_obj") if isinstance(r, dict) else None
+        if g is None or not (0 <= g < n
+                             and np.isfinite(r["ground_scores"][g])):
+            fail(f"variants {label}: a request did not resolve to a valid "
+                 f"object with a finite score")
+        if np.asarray(r["generation_tokens"]).shape != (
+                model.generation_head.cfg.max_new_tokens,):
+            fail(f"variants {label}: generation tokens of a wrong shape")
+    stages = " ".join(f"{k}={v:.3f}s" for k, v in sorted(
+        st["stage_s"].items()))
+    print(f"variants {label}: {st['scenes']} requests in {st['steps']} "
+          f"batches of 8 | {st['scenes_per_sec']:.3f} scenes/s p50 "
+          f"{st['p50_latency_s'] * 1e3:.1f} ms p99 "
+          f"{st['p99_latency_s'] * 1e3:.1f} ms | {stages} | "
+          f"max_memory_allocated {peak:.2f} GiB ({card})", flush=True)
+    return {"scenes_per_sec": st["scenes_per_sec"],
+            "p50_s": st["p50_latency_s"], "p99_s": st["p99_latency_s"],
+            "stage_s": st["stage_s"], "peak_gib": peak}
+
+
+def variants_serving(card, dev):
+    """Phase 14 (a): the four serving setups of the ``qa`` model."""
+    import copy
+    import dataclasses
+    import torch
+    from pq3d_tpu_torch.config import load_config
+    from pq3d_tpu_torch.data.unified_pipeline import UnifiedPipelineConfig
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.serve import to_device
+    from pq3d_tpu_torch.utils.inference import (cast_batch_bf16,
+                                                cast_model_bf16)
+    cfg = load_config("unified_tasks_sceneverse", [VARIANT_HEADS])
+    feature_dims = {"mv": 768, "voxel": 128}
+    pads = UnifiedPipelineConfig(**cfg["data"]["unified_options"])
+    flats = dataclasses.replace(pads, flat_obj=True)
+    t0 = time.time()
+    m32 = build_model(cfg, device="cuda", seed=0)
+    m16 = cast_model_bf16(copy.deepcopy(m32))
+    print(f"variants: unified_tasks_sceneverse with heads [ground, "
+          f"generation, qa] ({m32.qa_head.MLPHead_0.Dense_1.out_features} "
+          f"answers) built and cast in {time.time() - t0:.1f} s", flush=True)
+    warm = unified_requests(8, seed=1)
+    reqs = unified_requests(UNIFIED_REQUESTS, seed=2)
+    one = {name: variant_batch(reqs[:8], p, feature_dims, 5)
+           for name, p in (("pad", pads), ("flat", flats))}
+    runs, outs = {}, {}
+    for label, (bf16, two, flat) in VARIANT_SETUPS.items():
+        model = m16 if bf16 else m32
+        head = model.generation_head
+        head.cfg = dataclasses.replace(head.cfg, two_phase=two)
+        cast = cast_batch_bf16 if bf16 else None
+        runs[label] = serve_variant(label, model, flats if flat else pads,
+                                    cast, warm, reqs, feature_dims, card)
+        b = to_device(one["flat" if flat else "pad"], dev)
+        if cast is not None:
+            b = cast(b)
+        runs[label]["device_ms"] = variant_times(model, b)
+        out, toks = variant_forward(model, b)
+        scores = out["answer_scores"]
+        if tuple(scores.shape) != (8, 8864) \
+                or not torch.isfinite(scores.float()).all():
+            fail(f"variants {label}: answer_scores of shape "
+                 f"{tuple(scores.shape)} or not finite")
+        outs[label] = (out["ground_logits"].float().cpu(),
+                       scores.float().cpu(), toks.cpu())
+        print(f"variants {label}: one batch on the device clock (CUDA "
+              f"events, median of 3): forward "
+              f"{runs[label]['device_ms']['forward']:.3f} ms, decode "
+              f"{runs[label]['device_ms']['decode']:.3f} ms"
+              f"{' (inside the forward)' if not two else ''} | "
+              f"answer_scores {tuple(scores.shape)} finite", flush=True)
+        head.cfg = dataclasses.replace(head.cfg, two_phase=False)
+    rows = flat_rows(reqs, flats, 8)
+    share = sum(f for f, _ in rows) / (len(rows) * 8 * flats.max_obj_len)
+    print(f"variants flat_bf16: F per batch {[f for f, _ in rows]} for "
+          f"{[n for _, n in rows]} real objects, against B x O = "
+          f"{8 * flats.max_obj_len}: F / (B x O) {share:.4f}", flush=True)
+
+    # f32, one batch with responses: flat against padded, two phases
+    # against one
+    pad_b = to_device(variant_batch(reqs[:8], pads, feature_dims, 5, True),
+                      dev)
+    flat_b = to_device(variant_batch(reqs[:8], flats, feature_dims, 5,
+                                     True), dev)
+    out_p, toks_p = variant_forward(m32, pad_b)
+    out_f, toks_f = variant_forward(m32, flat_b)
+    valid = pad_b["query_pad_masks"]
+    flat_rel = {"ground_logits": rel_err(out_f["ground_logits"][valid],
+                                         out_p["ground_logits"][valid])}
+    for k in ("generation_logits", "answer_scores"):
+        flat_rel[k] = rel_err(out_f[k], out_p[k])
+    m32.generation_head.cfg = dataclasses.replace(
+        m32.generation_head.cfg, two_phase=True)
+    _, toks_2 = variant_forward(m32, pad_b)
+    m32.generation_head.cfg = dataclasses.replace(
+        m32.generation_head.cfg, two_phase=False)
+    two_f32 = bool(torch.equal(toks_2, toks_p))
+    two_bf16 = bool(torch.equal(outs["two_bf16"][2], outs["bf16"][2]))
+    gates = {k: bf16_gate(outs["f32"][i], outs["bf16"][i],
+                          valid.cpu() if i == 0 else None)
+             for i, k in ((0, "ground_logits"), (1, "answer_scores"))}
+    print(f"variants: flat_obj against padded (f32, one batch): "
+          + " ".join(f"{k} rel {v:.3e}" for k, v in flat_rel.items())
+          + f" (gate {FLAT_GATE:g}), tokens "
+          f"{'equal' if torch.equal(toks_f, toks_p) else 'DIFFER'} | two "
+          f"phases against one: tokens {'equal' if two_f32 else 'DIFFER'} "
+          f"in f32, {'equal' if two_bf16 else 'DIFFER'} in bf16 | bf16 "
+          f"against f32: " + " ".join(
+              f"{k} error {e:.3e} of the scale (gate {BF16_GATE[0]:g}), "
+              f"top-1 {'equal' if same else 'DIFFERS'} on {n} decided rows"
+              for k, (e, same, n) in gates.items())
+          + " | tokens bf16 = f32 on "
+          f"{int((outs['bf16'][2] == outs['f32'][2]).all(-1).sum())} of 8 "
+          f"rows", flush=True)
+    if any(v > FLAT_GATE for v in flat_rel.values()) \
+            or not torch.equal(toks_f, toks_p):
+        fail("flat_obj disagrees with the padded layout")
+    if not (two_f32 and two_bf16):
+        fail("two-phase tokens differ from one-phase tokens")
+    if not all(e < BF16_GATE[0] and same for e, same, _ in gates.values()):
+        fail("the bf16 forward is outside test_bf16_modes' gate")
+    runs["flat_share"] = share
+    runs["flat_rel"] = flat_rel
+    runs["bf16_gates"] = {k: v[0] for k, v in gates.items()}
+    del m32, m16
+    return runs
+
+
+def variants_training(card, dev):
+    """Phase 14 (b): the ``qa`` model trained in the flat object layout."""
+    import math as _math
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from pq3d_tpu_torch import run
+    from pq3d_tpu_torch.config import load_config
+    from pq3d_tpu_torch.data import unified_datasets as uds
+    from pq3d_tpu_torch.data.unified_pipeline import (collate_unified,
+                                                      process_item)
+    torch.manual_seed(0)
+    exp_dir = tempfile.mkdtemp(prefix="pq3d_variants_train_")
+    bs = VARIANT_TRAIN_BS
+    overrides = [
+        VARIANT_HEADS, f"model.qa_num_answers={len(uds.SyntheticQA.COLORS)}",
+        "data.unified_options.flat_obj=true",
+        "data.train=[SyntheticQA,SyntheticRefer]",
+        "data.synthetic.n_points=50000", "data.synthetic.n_instances=32",
+        f"data.synthetic.num_train={2 * bs}",
+        f"data.synthetic.num_val={bs}", f"dataloader.batchsize={bs}",
+        f"dataloader.batchsize_eval={bs}",
+        "solver.sched.args.warmup_steps=0", "log_every=1", "device=cuda",
+        f"exp_dir={exp_dir}"]
+    try:
+        cfg = load_config("unified_tasks_sceneverse", overrides)
+        t0 = time.time()
+        trainer = run.build_multitask_trainer(cfg)
+        trainer._lazy_init()
+        names = [n for n, _ in trainer.loss_fn.entries]
+        print(f"variants train: trainer built in {time.time() - t0:.1f} s "
+              f"(overrides: {' '.join(overrides[:-1])}); losses {names}",
+              flush=True)
+        steps, it = [], iter(trainer.train_data(0))
+        torch.cuda.reset_peak_memory_stats()
+        while True:
+            t = time.time()
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            host = time.time() - t
+            t = time.time()
+            m = trainer.train_batch(batch)
+            torch.cuda.synchronize()
+            steps.append({"host_s": host, "step_s": time.time() - t,
+                          "flat_rows": int(batch["pc_obj_flat"].shape[0]),
+                          **{k: float(v) for k, v in m.items()}})
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for i, s in enumerate(steps):
+            print(f"variants train: step {i + 1}"
+                  f"{' (warm)' if i == 0 else ''} loss {s['loss']:.4f} "
+                  f"answer {s.get('answer_loss', float('nan')):.4f} "
+                  f"ground {s.get('ground_loss', float('nan')):.4f} "
+                  f"generation {s.get('generation_loss', float('nan')):.4f}"
+                  f" | F {s['flat_rows']} of {bs * 80} | host pipeline "
+                  f"{s['host_s']:.3f} s, step {s['step_s']:.3f} s",
+                  flush=True)
+        timed = steps[1:]
+        rate = len(timed) / sum(s["step_s"] for s in timed)
+        print(f"variants train: {len(timed)} timed steps at batch {bs}: "
+              f"{rate:.3f} steps/s of train_batch ({rate * bs:.1f} items/s),"
+              f" host pipeline {np.mean([s['host_s'] for s in timed]):.3f} "
+              f"s a batch | max_memory_allocated {peak:.2f} GiB ({card})",
+              flush=True)
+        qa = [s for s in steps if "answer_loss" in s]
+        if "answer_loss" not in names or len(steps) != 4 or not qa \
+                or not all(_math.isfinite(s[k]) for s in steps for k in s):
+            fail("variants train: answer_loss missing or a loss not finite")
+        # four SyntheticQA items: every loss, answer_loss included
+        lo0 = trainer.train_data.loaders[0]
+        rng = np.random.default_rng(7)
+        items = [process_item(*lo0.dataset.get_item(i), lo0.cfg, rng, True,
+                              lo0.feature_dims) for i in range(4)]
+        np_batch = collate_unified(
+            [{k: v for k, v in it.items() if not k.startswith("meta_")}
+             for it in items], lo0.cfg, lo0.feature_dims, train=True)
+        check, cpu_s = unified_train_check(trainer, cfg, np_batch,
+                                           trainer._total_steps)
+        f32, _ = gate_train_check("variants train", check, cpu_s)
+        results = trainer.eval_epoch(0)
+        acc = {k: v for k, v in results.items()
+               if k.startswith("SyntheticQA/ans")}
+        print(f"variants train: ScanQAEval on {bs} SyntheticQA val items: "
+              + " ".join(f"{k} {v:.4f}" for k, v in acc.items()),
+              flush=True)
+        if set(acc) != {"SyntheticQA/ans1_acc", "SyntheticQA/ans10_acc"} \
+                or not all(_math.isfinite(v) for v in acc.values()):
+            fail("variants train: ScanQAEval's acc@1 / acc@10 missing or "
+                 "not finite")
+        trainer._close_loaders()
+    finally:
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    return {"steps_per_s": rate, "peak_gib": peak, "check": f32,
+            "acc": acc, "steps": steps}
+
+
+def variant_vs_cpu(label, overrides, np_batch, dev, prep=None):
+    """One batch of 8 through the model of ``overrides`` at full width on
+    the card and on the CPU (f32, TF32 off): relative errors of the ground
+    logits and the teacher-forced logits, tokens equal or not."""
+    import copy
+    import torch
+    from pq3d_tpu_torch.config import load_config
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.serve import to_device
+    cfg = load_config("unified_tasks_sceneverse", overrides)
+    cpu_model = build_model(cfg, device="cpu", seed=0)
+    if prep is not None:
+        prep(cpu_model)
+    model = copy.deepcopy(cpu_model).to(dev)
+    with torch.inference_mode():
+        got = model(to_device(np_batch, dev))
+        ref = cpu_model(to_device(np_batch, torch.device("cpu")))
+    valid = torch.from_numpy(np_batch["query_pad_masks"])
+    rel = {"ground_logits": rel_err(got["ground_logits"].cpu()[valid],
+                                    ref["ground_logits"][valid]),
+           "generation_logits": rel_err(got["generation_logits"].cpu(),
+                                        ref["generation_logits"])}
+    same = bool(torch.equal(got["generation_tokens"].cpu(),
+                            ref["generation_tokens"]))
+    print(f"variants {label}: card vs CPU (f32, TF32 off), one batch of 8: "
+          + " ".join(f"{k} rel {v:.3e}" for k, v in rel.items())
+          + f" (gate {UNIFIED_GATE:g}) | greedy tokens "
+          f"{'equal' if same else 'differ'}", flush=True)
+    if any(v > UNIFIED_GATE for v in rel.values()):
+        fail(f"variants {label}: the card disagrees with the CPU")
+    return {**rel, "tokens_equal": same}
+
+
+def variants_one_batch(card, dev):
+    """Phase 14 (c): gate + attention projection + image prompts, BERT,
+    the bf16 tower, and PointnetSAModuleVotes, card against CPU."""
+    import numpy as np
+    import torch
+    from pq3d_tpu_torch.config import load_config
+    from pq3d_tpu_torch.data.unified_pipeline import (PROMPT_IMAGE,
+                                                      UnifiedPipelineConfig)
+    from pq3d_tpu_torch.models.clip_text import CLIPTextEncoder
+    from pq3d_tpu_torch.models.pointnet import PointnetSAModuleVotes
+    from pq3d_tpu_torch.models.query3d import init_weights
+    cfg = load_config("unified_tasks_sceneverse")
+    pipe = UnifiedPipelineConfig(**cfg["data"]["unified_options"])
+    feature_dims = {"mv": 768, "voxel": 128}
+    np_batch = variant_batch(unified_requests(8, seed=3), pipe,
+                             feature_dims, 6, response=True)
+    rng = np.random.default_rng(8)
+    img = dict(np_batch, prompt_img_fts=rng.standard_normal(
+        (8, pipe.prompt_len, 768)).astype(np.float32))
+    img["prompt_type"] = np.where(np.arange(8) % 3 == 0, PROMPT_IMAGE,
+                                  np_batch["prompt_type"])
+    res = {"gate_attention_image": variant_vs_cpu(
+        "gate + attention projection + image prompts (rows 0, 3, 6)",
+        ["model.unified_encoder.args.structure=gate",
+         "model.txt_encoder.args.projection_type=attention"], img, dev,
+        prep=lambda m: m.image_encoder(768)),
+        "bert": variant_vs_cpu(
+            "BERTLanguageEncoder (projection_type: attention, which BERT "
+            "has none of, as in JAX)",
+            ["model.txt_encoder.name=BERTLanguageEncoder",
+             "model.txt_encoder.args.projection_type=attention"],
+            np_batch, dev)}
+
+    # the CLIP tower at compute_dtype bfloat16 against f32, same weights
+    tw = cfg["model"]["txt_tower"]
+    kw = dict(output_dim=768, vocab_size=tw["vocab_size"],
+              width=tw["width"], tower_heads=tw["heads"],
+              tower_layers=tw["layers"])
+    enc32 = CLIPTextEncoder(**kw)
+    init_weights(enc32, torch.Generator().manual_seed(0))
+    enc16 = CLIPTextEncoder(compute_dtype="bfloat16", **kw)
+    enc16.load_state_dict(enc32.state_dict())
+    enc32, enc16 = enc32.to(dev).eval(), enc16.to(dev).eval()
+    txt = torch.from_numpy(np_batch["prompt_type"] == 1).to(dev)
+    # LOC rows hold coordinates, not token ids: they read token 0
+    ids = torch.where(txt[:, None], torch.from_numpy(
+        np_batch["prompt"]).to(dev).long(), 0)
+    mask = torch.from_numpy(np_batch["prompt_pad_masks"]).to(dev)
+    with torch.inference_mode():
+        o32 = enc32(ids, mask)
+        o16 = enc16(ids, mask)
+        ms = {k: cuda_time(lambda e=e: e(ids, mask), 5)
+              for k, e in (("f32", enc32), ("bf16", enc16))}
+    d = (o32 - o16).abs()[txt]
+    tower = {"max": d.max().item(), "mean": d.mean().item(),
+             "dtype": str(o16.dtype), **{f"{k}_ms": v for k, v in ms.items()}}
+    print(f"variants tower_bf16: CLIP-large text encoder, compute_dtype "
+          f"bfloat16 against float32 on the card (TXT rows): max "
+          f"|diff| {tower['max']:.4f} (gate {TOWER_GATE[0]}), mean "
+          f"{tower['mean']:.5f} (gate {TOWER_GATE[1]}), output "
+          f"{tower['dtype']} | {ms['f32']:.3f} ms f32, {ms['bf16']:.3f} ms "
+          f"bf16 a batch of 8 ({card})", flush=True)
+    if not (tower["max"] < TOWER_GATE[0] and tower["mean"] < TOWER_GATE[1]
+            and o16.dtype == torch.float32):
+        fail("the bf16 CLIP tower is outside test_bf16_modes' tolerance")
+    res["tower_bf16"] = tower
+
+    # PointnetSAModuleVotes, rbf pooling, unique counts: 1024-point clouds
+    votes = PointnetSAModuleVotes(3, (64, 64, 128), npoint=256, radius=0.2,
+                                  nsample=16, pooling="rbf",
+                                  ret_unique_cnt=True)
+    init_weights(votes, torch.Generator().manual_seed(0))
+    votes.eval()
+    pts = rng.standard_normal((2, 1024, 3)).astype(np.float32)
+    pts /= np.linalg.norm(pts, axis=-1, keepdims=True).max()
+    rgb = rng.random((2, 1024, 3)).astype(np.float32)
+    cpu_in = (torch.from_numpy(pts), torch.from_numpy(rgb))
+    with torch.inference_mode():
+        ref = votes(*cpu_in)
+        got = [t.cpu() for t in votes.to(dev)(*(t.to(dev)
+                                                 for t in cpu_in))]
+    same = all(torch.equal(got[i], ref[i]) for i in (0, 2, 3))
+    vrel = rel_err(got[1], ref[1])
+    print(f"variants votes: PointnetSAModuleVotes (rbf, ret_unique_cnt) on "
+          f"2 clouds of 1024 points, card vs CPU: centers, indices and "
+          f"unique counts {'equal' if same else 'DIFFER'}, features rel "
+          f"{vrel:.3e} (gate {VOTES_GATE:g}); unique neighbours a center "
+          f"{got[3].float().mean().item():.2f} of 16", flush=True)
+    if not same or vrel > VOTES_GATE:
+        fail("PointnetSAModuleVotes on the card disagrees with the CPU")
+    res["votes_rel"] = vrel
+    return res
+
+
+def variants_phase(card, dev):
+    """Phase 14: stage 2's serving setups, the qa and flat_obj training,
+    and the one-batch checks of the other options; returns the phase's
+    numbers."""
+    import torch
+    from pq3d_tpu_torch.ops import windowed_conv, zrun_conv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    zrun_conv.reset_counts()               # main path starts here
+    windowed_conv.reset_counts()
+    serving = variants_serving(card, dev)
+    torch.cuda.empty_cache()
+    training = variants_training(card, dev)
+    torch.cuda.empty_cache()
+    b1, b2 = zrun_conv.launches, windowed_conv.launches    # path ends
+    one = variants_one_batch(card, dev)
+    total = time.time() - t0
+    print(f"variants: launches of B1 {b1} and B2 {b2} over the serving and "
+          f"training runs (neither is on a stage-2 path) | phase "
+          f"{total:.1f} s ({card})", flush=True)
+    if b1 or b2:
+        fail("a hand kernel ran on a stage-2 path")
+    return {"serving": serving, "training": training, "one_batch": one,
+            "b1": b1, "b2": b2, "phase_s": total}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -3131,6 +3689,10 @@ def main():
 
     # ---- 13. ddp: data-parallel training and replicated serving ---------
     dd = ddp_phase(card, zrun_conv)
+    torch.cuda.empty_cache()
+
+    # ---- 14. unified_variants: the rest of stage 2 ----------------------
+    vr = variants_phase(card, dev)
 
     # ---- kernels line + result -----------------------------------------
     def per_fwd(key):
@@ -3159,7 +3721,8 @@ def main():
                              "recipe_bwd": rc["launches"]["bwd"],
                              "ddp_train_fwd": dd["stage1"]["launches"]["fwd"],
                              "ddp_train_bwd": dd["stage1"]["launches"]["bwd"],
-                             "ddp_serve": dd["replicated"]["launches"]},
+                             "ddp_serve": dd["replicated"]["launches"],
+                             "unified_variants": vr["b1"]},
         "max_abs_err": max(r["max_abs_err_f32"] for r in per_shape),
         "ms": per_fwd("ms"), "host_ms": per_fwd("host_ms"),
         "plain_ms": per_fwd("plain_ms"), "bound_ms": per_fwd("bound_ms"),
@@ -3221,6 +3784,7 @@ def main():
         "replaces": "pq3d_tpu/ops/pallas_conv.py:205",
         "launches": wc["launches"],
         "launches_by_path": {"serve": b2_serve, "train": b2_train,
+                             "unified_variants": vr["b2"],
                              "winconv": wc["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in wc["shapes"]),
         "ms": b2_fwd("ms"), "plain_ms": b2_fwd("plain_ms"),

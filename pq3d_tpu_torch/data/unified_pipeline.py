@@ -1,6 +1,7 @@
 """Unified-task (stage-2) host pipeline: object-centric batches for
 grounding / QA / captioning; copy of ``pq3d_tpu/data/unified_pipeline.py``
-in the padded object layout (its ``flat_obj`` layout is not ported).
+in both object layouts: padded, and flat (``flat_obj``: the batch's real
+object clouds concatenated, with a slot map).
 
 Per-object point sampling and normalization, the object crop that keeps
 targets first, prompt/response assembly, BCE labels, fixed-shape padding.
@@ -19,6 +20,7 @@ from pq3d_tpu_torch.utils.box_utils import aabb_iou
 
 # prompt type ids (the model reads them from here)
 PROMPT_TXT = 1
+PROMPT_IMAGE = 2
 PROMPT_LOC = 3
 
 TASK_REFER, TASK_QA, TASK_CAPTION = 0, 1, 2
@@ -35,6 +37,13 @@ class UnifiedPipelineConfig:
     # drop objects whose category is not mentioned in the sentence
     # (GT mode only)
     filter_lang: bool = False
+    # flat-object layout: the pc memory ships as the concatenated real
+    # object clouds (F, P, 6) with a (B, O) slot map instead of the padded
+    # (B, O, P, 6) block, so PointNet++ runs on real objects only.  F is
+    # rounded up to a rung of max(flat_obj_bucket, B*O/8) and capped at
+    # B*O: at most about 9 distinct shapes at any batch size
+    flat_obj: bool = False
+    flat_obj_bucket: int = 64
 
 
 def build_rotate_mat(rng: np.random.Generator) -> Optional[np.ndarray]:
@@ -284,12 +293,23 @@ def process_item(scene: Dict[str, np.ndarray], lang: Dict,
     return item
 
 
+def flat_obj_rows(total: int, b: int, max_obj: int, bucket_min: int) -> int:
+    """Bucketed flat-object row count F for ``total`` real objects: the
+    rung grows with the batch capacity (B*O/8, so at most 8 rungs) and F
+    never exceeds the padded capacity B*O."""
+    bucket = max(bucket_min, (b * max_obj + 7) // 8)
+    return min(-(-max(total, 1) // bucket) * bucket, b * max_obj)
+
+
 def collate_unified(items: List[Dict], cfg: UnifiedPipelineConfig,
                     feature_dims: Dict[str, int],
                     feature_fn=None, train: bool = True
                     ) -> Dict[str, np.ndarray]:
     """Pad + stack items into the stage-2 batch.  Queries = objects;
-    seg_center = obj_locs."""
+    seg_center = obj_locs.  Padded layout: ``obj_fts`` = ``pc_seg_fts``
+    (B, O, P, 6); flat layout: ``pc_obj_flat`` (F, P, 6), zero past the
+    real objects, and ``pc_flat_slot`` (B, O), each slot's row, F where it
+    is padding."""
     b = len(items)
     O, P = cfg.max_obj_len, cfg.num_points
     batch: Dict[str, np.ndarray] = {
@@ -314,11 +334,27 @@ def collate_unified(items: List[Dict], cfg: UnifiedPipelineConfig,
     tgt_int = np.zeros(b, np.int32)
     # the padded point block is most of the batch's bytes: allocated
     # uninitialized, each item's pad tail zeroed
-    batch["obj_fts"] = np.empty((b, O, P, 6), np.float32)
+    if cfg.flat_obj:
+        # n_obj <= O is guaranteed by process_item's truncation
+        total = sum(it["n_obj"] for it in items)
+        F = flat_obj_rows(total, b, O, cfg.flat_obj_bucket)
+        batch["pc_obj_flat"] = np.empty((F, P, 6), np.float32)
+        batch["pc_obj_flat"][total:] = 0.0
+        # pad slots index the zero row the model appends at F
+        batch["pc_flat_slot"] = np.full((b, O), F, np.int32)
+        flat_row = 0
+    else:
+        batch["obj_fts"] = np.empty((b, O, P, 6), np.float32)
     for i, it in enumerate(items):
         n = it["n_obj"]
-        batch["obj_fts"][i, :n] = it["obj_fts"]
-        batch["obj_fts"][i, n:] = 0.0
+        if cfg.flat_obj:
+            batch["pc_obj_flat"][flat_row:flat_row + n] = it["obj_fts"]
+            batch["pc_flat_slot"][i, :n] = np.arange(
+                flat_row, flat_row + n, dtype=np.int32)
+            flat_row += n
+        else:
+            batch["obj_fts"][i, :n] = it["obj_fts"]
+            batch["obj_fts"][i, n:] = 0.0
         batch["query_locs"][i, :n] = it["obj_locs"]
         batch["seg_center"][i, :n] = it["obj_locs"]
         batch["query_pad_masks"][i, :n] = True
@@ -346,7 +382,8 @@ def collate_unified(items: List[Dict], cfg: UnifiedPipelineConfig,
     # offline per-object features.  Real
     # per-item features (mv_fts/voxel_fts from the scan payloads) win over
     # the feature_fn hook / synthetic fallback.
-    batch["pc_seg_fts"] = batch["obj_fts"]
+    if not cfg.flat_obj:
+        batch["pc_seg_fts"] = batch["obj_fts"]
     batch["pc_seg_pad_masks"] = batch["seg_pad_masks"]
     for name in ("mv", "voxel"):
         dim = feature_dims.get(name, 0)

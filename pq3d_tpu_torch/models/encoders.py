@@ -5,7 +5,7 @@
   (rectangular and flat-pack layouts);
 - ObjectEncoder: per-object (or per-segment) feature projection, with an
   optional PointNet++ backbone over raw object point clouds (the padded
-  (B, O, P, 3+C) layout).
+  (B, O, P, 3+C) layout, or the flat one: the batch's real objects only).
 """
 from __future__ import annotations
 
@@ -130,7 +130,13 @@ class ObjectEncoder(nn.Module):
     clouds and the projection reads the backbone's output width, not
     ``input_feat_size``.  A frozen backbone runs in BatchNorm eval mode
     (running statistics) under ``torch.no_grad``, also inside a model in
-    train mode."""
+    train mode.  With ``flat_slot`` (B, O) the input is the flat layout's
+    (F, P, 3+C) real object clouds: the backbone runs on those F, and row
+    ``flat_slot[b, o]`` of its output, or an appended zero row where the
+    slot holds F (padding), lands at (b, o).  The flat layout needs the
+    backbone, and in training a frozen one (train-mode batch statistics
+    over the flat rows would not be the padded layout's): both raise
+    ``ValueError`` otherwise."""
 
     def __init__(self, input_feat_size: int, hidden_size: int = 768,
                  dropout: float = 0.1, use_projection: bool = True,
@@ -157,13 +163,32 @@ class ObjectEncoder(nn.Module):
             self.backbone.eval()
         return self
 
-    def forward(self, obj_feats):
+    def forward(self, obj_feats, flat_slot=None):
+        if flat_slot is not None and self.backbone is None:
+            raise ValueError(
+                "flat_obj requires backbone='pointnet++' on the pc encoder "
+                "(it ships raw (F, P, 6) point clouds)")
+        if flat_slot is not None and self.training \
+                and not self.freeze_backbone:
+            raise ValueError(
+                "flat_obj with an unfrozen PointNet++ backbone is not "
+                "supported in training: BN batch stats over the flat "
+                "layout differ from the padded layout; set "
+                "freeze_backbone=True or unset flat_obj")
         if self.backbone is not None:
-            b, o = obj_feats.shape[:2]
-            pts = obj_feats.reshape((b * o,) + obj_feats.shape[2:])
+            if flat_slot is None:
+                b, o = obj_feats.shape[:2]
+                pts = obj_feats.reshape((b * o,) + obj_feats.shape[2:])
+            else:
+                pts = obj_feats
             with torch.set_grad_enabled(torch.is_grad_enabled()
                                         and not self.freeze_backbone):
-                obj_feats = self.backbone(pts).reshape(b, o, -1)
+                obj_feats = self.backbone(pts)
+            if flat_slot is None:
+                obj_feats = obj_feats.reshape(b, o, -1)
+        if flat_slot is not None:
+            obj_feats = torch.cat([obj_feats, obj_feats.new_zeros(
+                (1,) + obj_feats.shape[1:])])[flat_slot.long()]
         if self.use_projection:
             obj_feats = self.LayerNorm_0(self.input_feat_proj(obj_feats))
         return self.drop(obj_feats)

@@ -1,6 +1,7 @@
-"""Task heads (PyTorch); counterpart of ``MaskHeadSegLevel`` and
-``GroundHead`` in ``pq3d_tpu/models/heads.py`` (the T5 generation head is
-in ``generation.py``).  Mask logits are (B, S, Q) (segments x queries);
+"""Task heads (PyTorch); counterpart of ``MaskHeadSegLevel``,
+``GroundHead``, ``GroundHeadV1`` and ``ClsHead`` in
+``pq3d_tpu/models/heads.py`` (the T5 generation head is in
+``generation.py``).  Mask logits are (B, S, Q) (segments x queries);
 attend masks are (B, Q, S) with True = attend."""
 from __future__ import annotations
 
@@ -87,3 +88,48 @@ class GroundHead(nn.Module):
         if obj_valid is not None:
             logits = torch.where(obj_valid, logits, NEG_INF)
         return logits
+
+
+class GroundHeadV1(nn.Module):
+    """Legacy grounding head with auxiliary text / object classifiers:
+    returns ``(txt_cls (B, C), obj_cls (B, O, C), obj_cls_pre (B, O, C),
+    og3d (B, O))``, C = ``sem_cls_size``; the text classifier reads the
+    first token.  ``detach_all_aux_loss`` cuts the classifiers' gradient
+    into the embeddings (the grounding logit keeps its own)."""
+
+    def __init__(self, input_size: int = 768, hidden_size: int = 768,
+                 sem_cls_size: int = 607, dropout: float = 0.3,
+                 detach_all_aux_loss: bool = False):
+        super().__init__()
+        self.detach_all_aux_loss = detach_all_aux_loss
+        self.og3d_head = MLPHead(input_size, hidden_size, 1, dropout)
+        self.txt_clf_head = MLPHead(input_size, hidden_size, sem_cls_size,
+                                    dropout)
+        self.obj3d_clf_head = MLPHead(input_size, hidden_size,
+                                      sem_cls_size, dropout)
+        self.obj3d_clf_pre_head = MLPHead(input_size, hidden_size,
+                                          sem_cls_size, dropout)
+
+    def forward(self, txt_embeds, obj_embeds, obj_pre_embeds, obj_valid):
+        og3d = torch.where(obj_valid, self.og3d_head(obj_embeds)[..., 0],
+                           NEG_INF)
+        if self.detach_all_aux_loss:
+            txt_embeds = txt_embeds.detach()
+            obj_embeds = obj_embeds.detach()
+            obj_pre_embeds = obj_pre_embeds.detach()
+        return (self.txt_clf_head(txt_embeds[:, 0]),
+                self.obj3d_clf_head(obj_embeds),
+                self.obj3d_clf_pre_head(obj_pre_embeds), og3d)
+
+
+class ClsHead(nn.Module):
+    """Plain MLP classifier (the ``qa`` head's answer scores)."""
+
+    def __init__(self, hidden_size: int, num_classes: int,
+                 dropout: float = 0.3):
+        super().__init__()
+        self.MLPHead_0 = MLPHead(hidden_size, hidden_size, num_classes,
+                                 dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.MLPHead_0(x)

@@ -6,11 +6,15 @@ Two branches of the JAX model are ported:
   ``mask`` head, ``dim_loc`` 3 (Fourier positional queries), the voxel
   U-Net's segment features, self-masking rounds;
 - stage 2, the unified tasks: memories from (mv, pc, voxel, prompt), the
-  ``ground`` and ``generation`` heads, ``dim_loc`` 6 (coord + box Linear/LN
-  embeddings, the box embedding added to the memory positions twice, as
-  the JAX model does), PointNet++ over the object clouds, offline voxel
-  features, and the prompt encoded by type: TXT through the CLIP text
-  encoder, LOC through the location embedding.
+  ``ground``, ``generation`` and ``qa`` heads, ``dim_loc`` 6 (coord + box
+  Linear/LN embeddings, the box embedding added to the memory positions
+  twice, as the JAX model does), PointNet++ over the object clouds (the
+  padded (B, O, P, 6) layout or the flat one, ``pc_obj_flat`` with
+  ``pc_flat_slot``), offline voxel features, and the prompt encoded by
+  type: TXT through the CLIP (or BERT) text encoder, LOC through the
+  location embedding, IMAGE (when the batch carries ``prompt_img_fts``)
+  through ``img_encoder``, an ``ObjectEncoder`` that the first such batch
+  creates at its feature width, as flax creates it at init.
 
 With ``use_offline_attn_mask`` (the GT-query stage-1 variant) every call
 of the mask head returns the batch's ``offline_attn_mask`` as its attend
@@ -22,11 +26,13 @@ there is one); the unified query decoder; the task heads.  Consumes the
 batch dict of ``data/instseg_pipeline.collate`` or
 ``data/unified_pipeline.collate_unified`` as tensors.  ``model.train()``
 selects BatchNorm batch statistics and dropout (the JAX ``train=True``),
-``model.eval()`` running statistics and no dropout.  Not ported (they
-raise): image prompts, the ``qa`` head, a BERT text encoder.
+``model.eval()`` running statistics and no dropout.  A model cast by
+``utils/inference.cast_model_bf16`` runs its forward under
+``JaxPromotion`` (mixed float operands at the promoted type, as in JAX).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
@@ -35,25 +41,28 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pq3d_tpu_torch.data.unified_pipeline import PROMPT_TXT
+from pq3d_tpu_torch.data.unified_pipeline import PROMPT_IMAGE, PROMPT_TXT
 from pq3d_tpu_torch.device import resolve_device
 from pq3d_tpu_torch.models import heads as heads_lib
-from pq3d_tpu_torch.models.clip_text import CLIPTextEncoder, CLIPTextTower
+from pq3d_tpu_torch.models.clip_text import (BERTTextEncoder,
+                                             CLIPTextEncoder, CLIPTextTower)
 from pq3d_tpu_torch.models.encoders import ObjectEncoder, SegVoxelEncoder
-from pq3d_tpu_torch.models.generation import T5GenerationHead
+from pq3d_tpu_torch.models.generation import T5GenerationHead, decode_states
 from pq3d_tpu_torch.models.layers import (FLAX_LN_EPS, BatchNorm, FFNLayer,
                                           MaskedBatchNorm,
                                           MultiHeadAttention)
 from pq3d_tpu_torch.models.pointnet import PointNetPP
 from pq3d_tpu_torch.models.posembed import (CoordinateEncoder,
                                             FourierPositionEncoding)
-from pq3d_tpu_torch.models.query_encoder import QueryMaskEncoder
+from pq3d_tpu_torch.models.query_encoder import (QueryEncoderLayer,
+                                                 QueryMaskEncoder)
 from pq3d_tpu_torch.models.sparse_unet import (DenseStemConv, Res16UNet,
                                                SparseConv,
                                                SparseConvTranspose)
 from pq3d_tpu_torch.models.t5 import RMSNorm, T5Decoder
 from pq3d_tpu_torch.ops import device_maps
 from pq3d_tpu_torch.ops.pairwise import calc_pairwise_locs
+from pq3d_tpu_torch.utils.inference import JaxPromotion
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,10 +115,16 @@ class GroundHeadCfg:
 
 @dataclasses.dataclass(frozen=True)
 class TxtEncoderCfg:
+    kind: str = "clip"              # 'clip' | 'bert'
     vocab_size: int = 49408
     width: int = 768
     layers: int = 12
     heads: int = 12
+    use_projection: bool = True
+    projection_type: str = "mlp"    # 'mlp' | 'attention'
+    num_projection_layers: int = 1
+    freeze_backbone: bool = True
+    compute_dtype: str = "float32"  # the CLIP tower's dense layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,9 +136,13 @@ class GenerationHeadCfg:
     num_layers: int = 6
     num_heads: int = 8
     max_new_tokens: int = 50
+    use_projection: bool = True
     # stop decoding once every row has emitted EOS (token-exact with the
     # fixed-length loop)
     early_exit: bool = False
+    # eval returns generation_enc(+_mask) instead of tokens; the caller
+    # decodes them with Query3DUnified.decode_states
+    two_phase: bool = False
 
 
 class Query3DUnified(nn.Module):
@@ -132,7 +151,10 @@ class Query3DUnified(nn.Module):
     round plus the final prediction, last = final); ``ground`` ->
     ``ground_logits`` (= ``og3d_logits``); ``generation`` -> teacher-forced
     ``generation_logits`` when the batch carries ``response``, and in eval
-    mode the greedy ``generation_tokens``."""
+    mode the greedy ``generation_tokens`` (under ``two_phase``, the
+    decoder's input ``generation_enc`` and ``generation_enc_mask``
+    instead); ``qa`` -> ``answer_scores`` (= ``qa_logits``), the classifier
+    over the valid queries' mean."""
 
     def __init__(self, memories: Tuple[str, ...] = ("voxel", "mv", "pc"),
                  heads: Tuple[str, ...] = ("mask",), hidden_size: int = 768,
@@ -149,15 +171,16 @@ class Query3DUnified(nn.Module):
                  mask_head_cfg: Optional[MaskHeadCfg] = MaskHeadCfg(),
                  ground_head_cfg: GroundHeadCfg = GroundHeadCfg(),
                  generation_head_cfg: GenerationHeadCfg = GenerationHeadCfg(),
-                 txt_cfg: TxtEncoderCfg = TxtEncoderCfg()):
+                 txt_cfg: TxtEncoderCfg = TxtEncoderCfg(),
+                 qa_num_answers: int = 8864):
         super().__init__()
-        if not set(heads) <= {"mask", "ground", "generation"} \
+        if not set(heads) <= {"mask", "ground", "generation", "qa"} \
                 or dim_loc not in (3, 6) \
                 or pairwise_rel_type != "center" \
                 or not set(memories) <= {"voxel", "mv", "pc", "prompt"}:
             raise NotImplementedError(
                 "the port runs memories from (voxel, mv, pc, prompt), heads "
-                "from (mask, ground, generation), dim_loc 3 or 6 and "
+                "from (mask, ground, generation, qa), dim_loc 3 or 6 and "
                 "'center' pairwise relations")
         if "mask" in heads and mask_head_cfg is None:
             raise ValueError("the mask head needs mask_head_cfg")
@@ -171,6 +194,7 @@ class Query3DUnified(nn.Module):
         self.voxel_enc = voxel_enc
         self.skip_query_encoder_mask_pred = skip_query_encoder_mask_pred
         self.unified = unified
+        self.jax_promotion = False     # set by cast_model_bf16
         if dim_loc > 3:
             self.coord_dense = nn.Linear(3, hidden_size)
             self.coord_ln = nn.LayerNorm(hidden_size, eps=FLAX_LN_EPS)
@@ -199,11 +223,30 @@ class Query3DUnified(nn.Module):
                     pallas_conv=voxel_enc.pallas_conv,
                     dropout=voxel_enc.dropout,
                     bn_momentum=voxel_enc.bn_momentum)
-        if "prompt" in memories:
+        if "prompt" in memories and txt_cfg.kind == "clip" \
+                and txt_cfg.width != hidden_size \
+                and (not txt_cfg.use_projection
+                     or txt_cfg.projection_type == "attention"):
+            # the prompt cross-attention's key and value layers read
+            # hidden-wide memories (flax sizes them from the input)
+            raise ValueError(
+                f"the text encoder's output is the tower's width "
+                f"({txt_cfg.width}) without the mlp projection; the port "
+                f"needs it at hidden_size ({hidden_size})")
+        if "prompt" in memories and txt_cfg.kind == "bert":
+            self.txt_encoder = BERTTextEncoder(
+                hidden_size=hidden_size, vocab_size=txt_cfg.vocab_size,
+                num_heads=txt_cfg.heads, num_layers=txt_cfg.layers)
+        elif "prompt" in memories:
             self.txt_encoder = CLIPTextEncoder(
                 output_dim=hidden_size, vocab_size=txt_cfg.vocab_size,
                 width=txt_cfg.width, tower_heads=txt_cfg.heads,
-                tower_layers=txt_cfg.layers)
+                tower_layers=txt_cfg.layers,
+                freeze_backbone=txt_cfg.freeze_backbone,
+                use_projection=txt_cfg.use_projection,
+                projection_type=txt_cfg.projection_type,
+                num_projection_layers=txt_cfg.num_projection_layers,
+                compute_dtype=txt_cfg.compute_dtype)
         self.match_memories = [m for m in self.memories
                                if m in ("voxel", "mv", "pc")]
         if "mask" in heads:
@@ -227,6 +270,21 @@ class Query3DUnified(nn.Module):
         if "generation" in heads:
             self.generation_head = T5GenerationHead(hidden_size,
                                                     generation_head_cfg)
+        if "qa" in heads:
+            self.qa_head = heads_lib.ClsHead(hidden_size, qa_num_answers)
+
+    def image_encoder(self, d_img: int) -> ObjectEncoder:
+        """``img_encoder`` (projection d_img -> hidden, dropout 0), created
+        at the first call, on the device and in the dtype of the model's
+        parameters, with random weights from ``init_weights`` (seed 0)."""
+        if not hasattr(self, "img_encoder"):
+            ref = self.coord_dense.weight if self.dim_loc > 3 \
+                else next(self.parameters())
+            enc = ObjectEncoder(d_img, self.hidden_size, dropout=0.0)
+            init_weights(enc, torch.Generator().manual_seed(0))
+            self.img_encoder = enc.to(device=ref.device, dtype=ref.dtype)
+            self.img_encoder.train(self.training)
+        return self.img_encoder
 
     def _coord(self, xyz):
         return self.coord_ln(self.coord_dense(xyz))
@@ -243,11 +301,11 @@ class Query3DUnified(nn.Module):
 
     def _encode_prompt(self, batch, rng):
         """Route each prompt by type: TXT rows through the text encoder,
-        the others (LOC; image prompts raise) through the location
-        embedding of the box that the first ``dim_loc`` floats hold (one
-        valid token)."""
-        if "prompt_img_fts" in batch:
-            raise NotImplementedError("image prompts are not ported")
+        the others through the location embedding of the box that the
+        first ``dim_loc`` floats hold (one valid token); then, when the
+        batch carries ``prompt_img_fts`` (B, L, D_img), IMAGE rows through
+        ``img_encoder``, valid where ``prompt_img_masks`` says (every token
+        without it)."""
         prompt = batch["prompt"]                   # (B, L) float
         valid = batch["prompt_pad_masks"]          # (B, L) True = valid
         is_txt = (batch["prompt_type"] == PROMPT_TXT)[:, None]
@@ -260,7 +318,17 @@ class Query3DUnified(nn.Module):
         loc_valid = torch.zeros_like(valid)
         loc_valid[:, 0] = True
         feat = torch.where(is_txt[..., None], txt_feat, loc_feat)
-        return feat, torch.where(is_txt, valid, loc_valid)
+        mask = torch.where(is_txt, valid, loc_valid)
+        if "prompt_img_fts" in batch:
+            fts = batch["prompt_img_fts"]
+            img_feat = self.image_encoder(fts.shape[-1])(fts)
+            is_img = (batch["prompt_type"] == PROMPT_IMAGE)[:, None]
+            img_valid = batch.get("prompt_img_masks")
+            if img_valid is None:
+                img_valid = torch.ones_like(valid)
+            feat = torch.where(is_img[..., None], img_feat, feat)
+            mask = torch.where(is_img, img_valid.bool(), mask)
+        return feat, mask
 
     def _voxel_maps(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """The U-Net's maps: the batch's own, or, with
@@ -278,7 +346,23 @@ class Query3DUnified(nn.Module):
             batch["vox_coords"], batch["n_voxels"], batch["voxel_feats"],
             level_caps=ve.device_maps, ztriple=ve.device_ztriple)
 
+    def _promotion(self):
+        return JaxPromotion() if self.jax_promotion \
+            else contextlib.nullcontext()
+
+    def decode_states(self, enc: torch.Tensor, enc_mask: torch.Tensor
+                      ) -> torch.Tensor:
+        """The second phase of a ``two_phase`` generation head: greedy
+        tokens from the forward's ``generation_enc`` and
+        ``generation_enc_mask``."""
+        with self._promotion():
+            return decode_states(self.generation_head, enc, enc_mask)
+
     def forward(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        with self._promotion():
+            return self._forward(batch)
+
+    def _forward(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         rng = (batch.get("coord_min"), batch.get("coord_max"))
         query_locs = batch["query_locs"][..., :self.dim_loc]
         query_valid = batch["query_pad_masks"]
@@ -298,6 +382,11 @@ class Query3DUnified(nn.Module):
             if mem == "mv":
                 inputs[mem] = (self.mv_encoder(batch["mv_seg_fts"]),
                                batch["mv_seg_pad_masks"], fts_pos)
+            elif mem == "pc" and "pc_obj_flat" in batch:
+                # flat object layout: the backbone sees the real objects
+                inputs[mem] = (self.pc_encoder(
+                    batch["pc_obj_flat"], flat_slot=batch["pc_flat_slot"]),
+                    batch["pc_seg_pad_masks"], fts_pos)
             elif mem == "pc":
                 inputs[mem] = (self.pc_encoder(batch["pc_seg_fts"]),
                                batch["pc_seg_pad_masks"], fts_pos)
@@ -355,9 +444,17 @@ class Query3DUnified(nn.Module):
             if response is not None:
                 out["generation_logits"] = self.generation_head(
                     query, query_valid, labels=response)
-            if not self.training:
+            if not self.training and self.generation_head.cfg.two_phase:
+                out["generation_enc"] = self.generation_head(query,
+                                                             query_valid)
+                out["generation_enc_mask"] = query_valid
+            elif not self.training:
                 out["generation_tokens"] = self.generation_head(
                     query, query_valid)
+        if "qa" in self.heads:
+            pooled = (query * query_valid[..., None]).sum(1) \
+                / query_valid.sum(-1, keepdim=True).clamp_min(1)
+            out["answer_scores"] = out["qa_logits"] = self.qa_head(pooled)
         return out
 
 
@@ -366,10 +463,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     families: normal(0.02) for dense layers, Xavier-uniform inside attention
     and FFN blocks, He-normal (fan-in) for sparse/dense convs, the U-Net's
     1x1 layers and PointNet++'s shared MLPs, LeCun-normal (fan-in) for the
-    CLIP tower's and the T5 decoder's layers, N(0, 1) for the Fourier
+    CLIP tower's and the T5 decoder's layers, the decoder's ``gate_proj``
+    and BERT's FFN layers (flax's default Dense), N(0, 1) for the Fourier
     projection and T5's embedding, N(0, 1/width) for the other embeddings,
     N(0, 0.01^2) for CLIP's positions, N(0, 0.02^2) for its text
-    projection; norms start at identity."""
+    projection and BERT's positions; norms start at identity."""
     def normal_(t, std):
         with torch.no_grad():
             t.copy_(torch.randn(t.shape, generator=generator) * std)
@@ -389,6 +487,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     he_linear = linears((Res16UNet, PointNetPP))
     xavier_linear = linears((MultiHeadAttention, FFNLayer))
     lecun_linear = linears((CLIPTextTower, T5Decoder))
+    for mod in model.modules():
+        if isinstance(mod, QueryEncoderLayer) and mod.structure == "gate":
+            lecun_linear.add(id(mod.gate_proj))
+        elif isinstance(mod, BERTTextEncoder):
+            lecun_linear |= {id(getattr(mod, f"ffn{i}_{j}"))
+                             for i in range(mod.num_layers) for j in (1, 2)}
     t5_embed = {id(m.embed) for m in model.modules()
                 if isinstance(m, T5Decoder)}
     for mod in model.modules():
@@ -416,6 +520,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(mod, CLIPTextTower):
             normal_(mod.positional_embedding, 0.01)
             normal_(mod.text_projection, 0.02)
+        elif isinstance(mod, BERTTextEncoder):
+            normal_(mod.position_embeddings, 0.02)
         elif isinstance(mod, nn.Embedding):
             normal_(mod.weight, 1.0 if id(mod) in t5_embed
                     else mod.embedding_dim ** -0.5)
@@ -441,10 +547,11 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
     weights drawn from ``torch.Generator().manual_seed(seed)``, in eval
     mode on ``device`` (raises without CUDA unless device="cpu").  Stage-1
     training runs the JAX model's ``grad_mode='scatter_free'`` with
-    ``remat_policy='none'``, the defaults there; other values, a BERT text
-    encoder, a bf16, trainable or unprojected text tower, the ``attention``
-    text projection and an unprojected generation head are not ported
-    (they raise)."""
+    ``remat_policy='none'``, the defaults there (other values raise).
+    The text encoder is BERT when its name holds ``BERT``, else CLIP;
+    ``qa_head.args.num_answers`` (else ``qa_num_answers``, else 8864)
+    sizes the ``qa`` head.  ``generation_head.args.two_phase``, which the
+    JAX package sets on the built model instead, is read here too."""
     dev = resolve_device(device)
     m = cfg["model"]
     ue = m["unified_encoder"]["args"]
@@ -504,34 +611,31 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
     gen = GenerationHeadCfg()
     if m.get("generation_head") is not None:
         a = m["generation_head"]["args"]
-        if not a.get("use_projection", True) or a.get("two_phase"):
-            raise NotImplementedError(
-                "the port's generation head projects the queries "
-                "(use_projection: True) and decodes in the forward "
-                "(two_phase: False)")
         gen = GenerationHeadCfg(
             vocab_size=a.get("vocab_size", 32128),
             d_model=a.get("d_model", 512), d_kv=a.get("d_kv", 64),
             d_ff=a.get("d_ff", 2048), num_layers=a.get("num_layers", 6),
             num_heads=a.get("num_heads", 8),
             max_new_tokens=a.get("max_new_tokens", 50),
-            early_exit=a.get("early_exit", False))
+            use_projection=a.get("use_projection", True),
+            early_exit=a.get("early_exit", False),
+            two_phase=bool(a.get("two_phase", False)))
     txt = TxtEncoderCfg()
     if m.get("txt_encoder") is not None:
         ta = m["txt_encoder"].get("args") or {}
         tower = m.get("txt_tower") or {}
-        if "BERT" in m["txt_encoder"].get("name", "") \
-                or ta.get("compute_dtype", "float32") != "float32" \
-                or not ta.get("use_projection", True) \
-                or ta.get("projection_type", "mlp") != "mlp" \
-                or not ta.get("freeze_backbone", True):
-            raise NotImplementedError(
-                "the port's text encoder is the frozen f32 CLIP tower with "
-                "the mlp projection")
         txt = TxtEncoderCfg(
+            kind="bert" if "BERT" in m["txt_encoder"].get("name", "")
+            else "clip",
             vocab_size=tower.get("vocab_size", 49408),
             width=tower.get("width", 768), layers=tower.get("layers", 12),
-            heads=tower.get("heads", 12))
+            heads=tower.get("heads", 12),
+            use_projection=ta.get("use_projection", True),
+            projection_type=ta.get("projection_type", "mlp"),
+            num_projection_layers=ta.get("num_projection_layers", 1),
+            freeze_backbone=ta.get("freeze_backbone", True),
+            compute_dtype=ta.get("compute_dtype", "float32"))
+    qa_args = (m.get("qa_head") or {}).get("args") or {}
 
     model = Query3DUnified(
         memories=tuple(m["memories"]), heads=tuple(m["heads"]),
@@ -555,6 +659,8 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
         pc_enc=enc_cfg(m.get("pc_encoder")),
         voxel_obj_enc=voxel_obj_enc, voxel_enc=voxel_enc,
         mask_head_cfg=mask_head_cfg, ground_head_cfg=gh,
-        generation_head_cfg=gen, txt_cfg=txt)
+        generation_head_cfg=gen, txt_cfg=txt,
+        qa_num_answers=int(qa_args.get("num_answers",
+                                       m.get("qa_num_answers", 8864))))
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.eval().to(dev)

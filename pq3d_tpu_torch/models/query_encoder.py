@@ -9,8 +9,11 @@ memories out in eval mode.  In train mode ``memory_dropout`` drops each
 parallel memory of each sample with that probability, keeps at least one,
 and averages the survivors; its uniform draws come from the generator
 that ``set_memory_generator`` gives (the trainer seeds it from
-``rng_seed``), never from the global RNG.  The ``gate`` structure is not
-ported and raises.
+``rng_seed``), never from the global RNG.  ``gate``: ``gate =
+sigmoid(gate_proj(prompt cross-attention of the query))`` mixes the query
+with the parallel update over the scene memories, ``(1 - gate) * query +
+gate * update``; as in the JAX layer, that update reads every scene
+memory of the layer, ``drop_memories_test`` notwithstanding.
 
 Memories are a dict name -> (feat, attend_mask, pos) with True = attend.
 With ``use_self_mask`` the thresholded mask logits of each round become
@@ -54,9 +57,9 @@ class QueryEncoderLayer(nn.Module):
                  structure: str = "parallel", memory_dropout: float = 0.0,
                  drop_memories_test: Sequence[str] = ()):
         super().__init__()
-        if structure not in ("parallel", "sequential", "mixed"):
+        if structure not in ("parallel", "sequential", "mixed", "gate"):
             raise NotImplementedError(
-                f"query encoder structure {structure!r} is not ported")
+                f"query encoder structure {structure!r}")
         self.memories = list(memories)
         self.structure = structure
         self.memory_dropout = memory_dropout
@@ -72,6 +75,8 @@ class QueryEncoderLayer(nn.Module):
             self.add_module(f"cross_attns_{m}",
                             CrossAttentionLayer(d_model, n_head, dropout))
         self.ffn = FFNLayer(d_model, dim_feedforward, dropout)
+        if structure == "gate":
+            self.gate_proj = nn.Linear(d_model, d_model)
 
     def _cross(self, m, query, inputs, query_pos):
         feat, mask, pos = inputs[m]
@@ -106,12 +111,21 @@ class QueryEncoderLayer(nn.Module):
             query = self._sequential_ca(query, names, inputs, query_pos)
         elif self.structure == "parallel":
             query = self._parallel_ca(query, names, inputs, query_pos)
-        else:   # mixed: scene memories in parallel, then the prompt
+        elif self.structure == "mixed":
+            # scene memories in parallel, then the prompt
             query = self._parallel_ca(
                 query, [m for m in names if m != "prompt"], inputs,
                 query_pos)
             query = self._sequential_ca(query, ["prompt"], inputs,
                                         query_pos)
+        else:   # gate
+            prompt = self._sequential_ca(query, ["prompt"], inputs,
+                                         query_pos)
+            gate = torch.sigmoid(self.gate_proj(prompt))
+            update = self._parallel_ca(
+                query, [m for m in self.memories if m != "prompt"], inputs,
+                query_pos)
+            query = (1.0 - gate) * query + gate * update
         if self.spatial_selfattn:
             query = self.self_attn(query, pairwise_locs,
                                    key_attend_mask=query_valid,

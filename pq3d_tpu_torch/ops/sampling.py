@@ -67,10 +67,12 @@ def fps_numpy(points: np.ndarray, npoint: int, start: int = 0,
 def _sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum((a - b)^2) over the last (xyz) axis, added x, y, z in order:
     the JAX reduction's order, which FPS's argmax ties depend on (the
-    expanded |a|^2 - 2ab + |b|^2 form changes the picks)."""
-    d = a - b
-    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
-        + d[..., 2] * d[..., 2]
+    expanded |a|^2 - 2ab + |b|^2 form changes the picks).  Bf16 inputs
+    are differenced, squared and summed in f32 and the sum rounded back
+    once, as XLA computes the fused bf16 expression."""
+    d = a.float() - b.float()
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+            + d[..., 2] * d[..., 2]).to(a.dtype)
 
 
 def _first_k_hits(ok: torch.Tensor, nsample: int) -> torch.Tensor:

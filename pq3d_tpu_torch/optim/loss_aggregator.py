@@ -4,9 +4,7 @@
 The config's ``loss_list`` names losses of ``LOSSES``; ``loss_weights``
 scales each (default 1).  A loss whose inputs are absent from the outputs
 or the batch contributes nothing, since the mixed-task loader gives
-batches with different keys.  ``answer_loss`` and ``query3d_mask_loss``
-serve heads the port does not build (``qa``, the unified mask head) and
-raise when a config lists them.
+batches with different keys.
 """
 from __future__ import annotations
 
@@ -35,10 +33,24 @@ def _generation_loss(out, batch):
     return L.generation_loss(out, batch)
 
 
+def _answer_loss(out, batch):
+    if "answer_scores" not in out or "answer_label" not in batch:
+        return None
+    return L.answer_loss(out, batch)
+
+
+def _query3d_mask_loss(out, batch):
+    if "predictions_mask" not in out or "gt_attn_mask" not in batch:
+        return None
+    return L.query3d_mask_loss(out["predictions_mask"],
+                               out["predictions_class"], batch)
+
+
 LOSSES: Dict[str, Callable] = {"ground_loss": _ground_loss,
                                "og3d_loss": _og3d_loss,
-                               "generation_loss": _generation_loss}
-UNPORTED = ("answer_loss", "query3d_mask_loss")
+                               "generation_loss": _generation_loss,
+                               "answer_loss": _answer_loss,
+                               "query3d_mask_loss": _query3d_mask_loss}
 
 
 class Loss:
@@ -48,10 +60,6 @@ class Loss:
     def __init__(self, loss_list: Sequence[str],
                  loss_weights: Optional[Mapping[str, float]] = None):
         for name in loss_list:
-            if name in UNPORTED:
-                raise NotImplementedError(
-                    f"{name} serves a head the port does not build; the "
-                    f"port's losses are {sorted(LOSSES)}")
             if name not in LOSSES:
                 raise KeyError(f"unknown loss {name!r}")
         self.entries = [(name, LOSSES[name]) for name in loss_list]

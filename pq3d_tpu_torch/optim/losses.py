@@ -2,9 +2,9 @@
 stage-1 set criterion (``batch_class_cost``, ``batch_mask_cost``,
 ``instseg_layer_loss``, ``instseg_set_loss``), the direct criterion of the
 GT-query variant (``batch_mask_loss``, ``batch_dice_loss``,
-``instseg_direct_loss``) and the stage-2 head losses (``cross_entropy``,
-``ground_loss``, ``generation_loss``).  ``query3d_mask_loss`` is not
-ported.
+``instseg_direct_loss``), the unified stage's mask loss
+(``query3d_mask_loss``) and the stage-2 head losses (``cross_entropy``,
+``ground_loss``, ``generation_loss``, ``answer_loss``).
 
 All target tensors are padded; validity masks make the math exact.  The
 matching costs of every prediction round are built at once, read back to
@@ -262,6 +262,30 @@ def instseg_direct_loss(predictions_class: List[torch.Tensor],
     return total, losses
 
 
+def query3d_mask_loss(predictions_mask: List[torch.Tensor],
+                      predictions_class: List[torch.Tensor],
+                      batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The unified stage's mask loss, summed over rounds: mask BCE
+    x5 and dice x2 against ``gt_attn_mask`` (B, Q, S) under
+    ``padding_mask``, and cross entropy x2 of ``instance_labels`` over
+    the queries ``obj_masks`` marks."""
+    gt = batch["gt_attn_mask"].float()
+    labels = batch["instance_labels"]
+    obj_masks = batch["obj_masks"].float()
+    pad = batch["padding_mask"].float()
+    total = 0.0
+    for mask_pred, mask_cls in zip(predictions_mask, predictions_class):
+        pred = mask_pred.transpose(1, 2)
+        total = total + batch_mask_loss(pred, gt, pad) * 5 \
+            + batch_dice_loss(pred, gt, pad) * 2
+        logp = torch.log_softmax(mask_cls.float(), -1)
+        nll = -torch.gather(logp, -1,
+                            labels.clamp_min(0).long()[..., None])[..., 0]
+        total = total + (nll * obj_masks).sum() \
+            / (global_sum(obj_masks.sum()) + 1e-6) * 2
+    return total
+
+
 # ---------------------------------------------------------------------------
 # stage-2 head losses
 # ---------------------------------------------------------------------------
@@ -305,3 +329,13 @@ def generation_loss(out: Dict, batch: Dict, pad_id: int = 0
     logp = torch.log_softmax(logits, -1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
     return (nll * valid).sum() / global_sum(valid.sum()).clamp_min(1)
+
+
+def answer_loss(out: Dict, batch: Dict) -> torch.Tensor:
+    """The ``qa`` head's loss: sigmoid BCE of ``answer_scores`` against the
+    multi-hot ``answer_label``, summed over classes and rows, divided by
+    the (global) batch size."""
+    scores = out["answer_scores"].float()
+    bce = _bce_logits(scores, batch["answer_label"].float())
+    rows = torch.tensor(float(scores.shape[0]), device=scores.device)
+    return bce.sum() / global_sum(rows)

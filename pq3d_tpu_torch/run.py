@@ -25,7 +25,8 @@ Under a process group (``python -m pq3d_tpu_torch.launch``) every rank
 runs ``main``: the ``parallel:`` node may name only the ``data`` axis
 (``parallel/dist.MeshConfig``), rank 0 picks the experiment dir and
 writes ``config.json``, and each rank trains on its rows of the global
-batch.  The flat pack has no batch dim to split: with more than one rank
+batch.  The flat pack and the flat object layout have no batch dim to
+split: with more than one rank
 it raises unless ``dataloader.allow_single_device`` is set, and then rank
 0 trains alone while the other ranks return; a ``batchsize`` (or
 ``batchsize_eval``) that the world size does not divide takes the same
@@ -136,7 +137,10 @@ def build_multitask_trainer(cfg: Dict[str, Any]):
     """The stage-2 trainer of a resolved config: for each dataset of
     ``data.train`` a train loader (``dataloader.num_workers``) and a val
     loader with the evaluator the dataset names; the train loaders mixed;
-    the model (``build_model``); the weighted ``Loss`` of ``loss_list``."""
+    the model (``build_model``); the weighted ``Loss`` of ``loss_list``,
+    with ``answer_loss`` added when the heads hold ``qa``.  The pipeline
+    reads ``data.unified_options``, ``flat_obj`` and ``flat_obj_bucket``
+    included."""
     from pq3d_tpu_torch.data import sceneverse, unified_datasets
     from pq3d_tpu_torch.data.tokenizers import build_tokenizers
     from pq3d_tpu_torch.data.unified_loader import (MixedTaskLoader,
@@ -163,14 +167,14 @@ def build_multitask_trainer(cfg: Dict[str, Any]):
                    "SQA3DGenEval")),
         (caption_eval, ("Scan2CapEval",))) for n in names}
     uo = cfg["data"].get("unified_options") or {}
-    if uo.get("flat_obj"):
-        raise NotImplementedError("the flat object layout is not ported")
     pipe_cfg = UnifiedPipelineConfig(
         max_obj_len=int(uo.get("max_obj_len", 80)),
         num_points=int(uo.get("num_points", 1024)),
         prompt_len=int(uo.get("prompt_len", 32)),
         response_len=int(uo.get("response_len", 32)),
-        dim_loc=int(cfg["model"]["obj_loc"]["dim_loc"]))
+        dim_loc=int(cfg["model"]["obj_loc"]["dim_loc"]),
+        flat_obj=bool(uo.get("flat_obj", False)),
+        flat_obj_bucket=int(uo.get("flat_obj_bucket", 64)))
     seed = int(cfg.get("rng_seed", 42))
     dl = cfg["dataloader"]
     bs = int(dl["batchsize"])
@@ -209,9 +213,12 @@ def build_multitask_trainer(cfg: Dict[str, Any]):
 
     device = cfg.get("device", "cuda")
     model = build_model(cfg, device=device, seed=seed)
-    loss_fn = Loss(list(cfg["model"].get("loss_list",
-                                         ["ground_loss", "generation_loss"])),
-                   cfg["model"].get("loss_weights") or {})
+    loss_list = list(cfg["model"].get("loss_list",
+                                      ["ground_loss", "generation_loss"]))
+    if "qa" in cfg["model"].get("heads", ()) \
+            and "answer_loss" not in loss_list:
+        loss_list.append("answer_loss")
+    loss_fn = Loss(loss_list, cfg["model"].get("loss_weights") or {})
     return MultitaskTrainer(
         cfg, model, loss_fn, MixedTaskLoader(train_loaders, seed=seed),
         val_sets=val_sets, detokenize=toks.detokenize,
@@ -236,11 +243,17 @@ def experiment_name(cfg: Dict[str, Any]) -> str:
 
 def single_device_reason(cfg: Dict[str, Any]) -> Optional[str]:
     """Why a run of more than one rank must train on one device (the flat
-    pack, whose arrays have no batch dim to split; a batch size the world
-    size does not divide), or None."""
-    iopt = (cfg.get("data") or {}).get("instseg_options") or {}
-    if cfg.get("task", "InstSeg") == "InstSeg" and iopt.get("flat_pack"):
+    pack or the flat object layout, whose arrays have no batch dim to
+    split; a batch size the world size does not divide), or None."""
+    data = cfg.get("data") or {}
+    iopt = data.get("instseg_options") or {}
+    uopt = data.get("unified_options") or {}
+    task = cfg.get("task", "InstSeg")
+    if task == "InstSeg" and iopt.get("flat_pack"):
         return ("data.instseg_options.flat_pack is a single-device layout "
+                "(its flat arrays have no batch dim to split)")
+    if task == "Query3D" and uopt.get("flat_obj"):
+        return ("data.unified_options.flat_obj is a single-device layout "
                 "(its flat arrays have no batch dim to split)")
     dl = cfg["dataloader"]
     for key in ("batchsize", "batchsize_eval"):

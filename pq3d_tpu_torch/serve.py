@@ -16,7 +16,11 @@ per device; the sharded-batch mesh server is not ported):
   process or on a spawn pool (``num_workers``); per-scene ranking
   (eval/instseg_eval.rank_instances) at full point resolution;
 - stage 2 (``UnifiedServer``): per-request grounding scores and object,
-  and greedy-decoded generation tokens and text.
+  and greedy-decoded generation tokens and text, in the padded or the flat
+  object layout (``pipe_cfg.flat_obj``), with an optional batch transform
+  (``cast``: ``utils/inference.cast_batch_bf16`` beside a model cast by
+  ``cast_model_bf16``) and the two-phase decode of a ``two_phase``
+  generation head.
 
 The forward runs under ``torch.inference_mode()`` on the server's device;
 device results are read back in ``_finish``.
@@ -109,11 +113,14 @@ class _MicroBatchServer:
     request, and a worker loop that reports per-batch failures into the
     affected futures instead of dying.  Subclasses implement ``_dispatch``
     (host work + asynchronous device enqueue) and ``_finish`` (readback +
-    host postprocess) over the real requests."""
+    host postprocess) over the real requests.  ``cast``, when given, maps
+    each batch of tensors on the device before the forward."""
 
-    def __init__(self, batch_size: int, max_delay_s: float = 0.05):
+    def __init__(self, batch_size: int, max_delay_s: float = 0.05,
+                 cast=None):
         self.batch_size = batch_size
         self.max_delay_s = max_delay_s
+        self.cast = cast
         self.stats = ServerStats()
         self._q: "queue.Queue" = queue.Queue()
         self._closed = False
@@ -263,7 +270,10 @@ class InstSegServer(_MicroBatchServer):
                  batch_size: int, num_classes: int, topk: int = 100,
                  score_threshold: float = 0.0, max_delay_s: float = 0.05,
                  extra_features: Optional[Dict[str, int]] = None,
-                 device="cuda", num_workers: int = 0):
+                 device="cuda", num_workers: int = 0, cast=None):
+        if cast is not None:
+            raise NotImplementedError(
+                "the stage-1 bf16 serving cast is not ported (ROADMAP A.6)")
         self.device = resolve_device(device)
         if not pipe_cfg.level_caps and not pipe_cfg.flat_pack:
             raise ValueError(
@@ -380,24 +390,32 @@ class UnifiedServer(_MicroBatchServer):
     already live on ``device``.
 
     Stage seconds (``stats.stage_s``): preprocess (``process_item``),
-    collate, forward_decode (host-to-device copy and the enqueue of the
-    forward and the greedy decode) and finish (waiting for the device,
-    readback, the per-request answers)."""
+    collate, forward_decode (host-to-device copy, ``cast`` and the enqueue
+    of the forward and the greedy decode) and finish (waiting for the
+    device, readback, the per-request answers).  With a ``two_phase``
+    generation head the forward returns the decoder's input states and
+    ``model.decode_states`` is enqueued on them right after, with nothing
+    read back between the two."""
 
     def __init__(self, model, pipe_cfg: UnifiedPipelineConfig,
                  batch_size: int, feature_dims: Dict[str, int],
                  detokenize=None, max_delay_s: float = 0.05,
-                 device="cuda"):
+                 device="cuda", cast=None):
         self.device = resolve_device(device)
         self.model = model
         self.pipe_cfg = pipe_cfg
         self.feature_dims = feature_dims
         self.detokenize = detokenize
-        super().__init__(batch_size, max_delay_s)
+        super().__init__(batch_size, max_delay_s, cast=cast)
 
     def _forward(self, batch):
+        if self.cast is not None:
+            batch = self.cast(batch)
         with torch.inference_mode():
             out = self.model(batch)
+            if "generation_enc" in out:
+                out["generation_tokens"] = self.model.decode_states(
+                    out["generation_enc"], out["generation_enc_mask"])
         return {k: out[k] for k in ("ground_logits", "generation_tokens")
                 if k in out}
 
@@ -428,7 +446,8 @@ class UnifiedServer(_MicroBatchServer):
     def _finish(self, state):
         n_real, out, obj_valid = state
         t0 = time.time()
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+        out = {k: v.float().cpu().numpy() if v.is_floating_point()
+               else v.cpu().numpy() for k, v in out.items()}
         # object slots are query slots in the unified batch (one query per
         # candidate object)
         results = []

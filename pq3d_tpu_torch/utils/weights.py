@@ -18,7 +18,17 @@ Conversions by module type:
 - sparse convs keep their (K, Cin, Cout) layout and tap order;
 - ``DenseStemConv``'s kernel keeps the (k^3, Cin, Cout) layout too
   (``ops/sparse.conv0_dense_block`` reshapes it for ``F.conv3d``);
-- ``FourierPositionEncoding``: the ``buffers`` collection's ``gauss_B``.
+- ``FourierPositionEncoding``: the ``buffers`` collection's ``gauss_B``;
+- the unified model's ``img_encoder``, which flax creates only when the
+  init batch carries image prompts, is built first from the tree's
+  ``input_feat_proj`` kernel shape (``Query3DUnified.image_encoder``).
+
+The stage-2 heads and encoders need no rule of their own: ``qa_head``
+(``MLPHead_0``), ``GroundHeadV1``'s four ``MLPHead``s, the decoder's
+``gate_proj``, the text projection's ``projection{i}``, BERT's
+``word_embeddings``, raw ``position_embeddings``, ``layer{i}`` and
+``ffn{i}_1`` / ``_2`` / ``_ln``, and the VoteNet modules' ``mlp`` /
+``mlp{i}`` keep the flax names.
 
 Every leaf is consumed exactly once and every parameter and buffer of the
 model is filled; anything left over or missing raises.
@@ -81,6 +91,10 @@ def load_flax_variables(model: nn.Module,
     """Fill ``model``'s parameters and buffers from a flax variable tree
     (``{"params", "batch_stats", "buffers"}`` of numpy-convertible arrays).
     Raises ``ValueError`` listing leftover or missing entries."""
+    img = dict(variables.get("params") or {}).get("img_encoder")
+    if img is not None and hasattr(model, "image_encoder"):
+        model.image_encoder(
+            np.shape(dict(dict(img)["input_feat_proj"])["kernel"])[0])
     state = dict(model.named_parameters())
     state.update(dict(model.named_buffers()))
     filled = set()

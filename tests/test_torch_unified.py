@@ -12,7 +12,9 @@
 - ``UnifiedServer`` on 5 requests against the JAX ``UnifiedServer``: the
   same ``ground_obj`` and the same tokens;
 - the two unified configs equal to their YAML files, and ``build_model``
-  refusing the text and generation options the port does not run."""
+  building the text and generation options of the YAML schema as JAX's
+  ``build_model`` does (each held against it)."""
+import copy
 import os
 
 import jax
@@ -192,10 +194,27 @@ def test_unified_model_matches_jax(pair):
                 got["generation_logits"].numpy()) <= TOL
     np.testing.assert_array_equal(got["generation_tokens"].numpy(),
                                   np.asarray(ref["generation_tokens"]))
-    # the prompt image path is not ported
-    with pytest.raises(NotImplementedError, match="image"):
-        tm(dict(to_device(batch, torch.device("cpu")),
-                prompt_img_fts=torch.zeros(6, 12, 8)))
+    # IMAGE prompts on two rows: the lazily built img_encoder, moved from
+    # a JAX tree that holds it (tests/test_torch_unified_variants.py
+    # holds the rest of the image path)
+    img = dict(batch, prompt_img_fts=np.random.default_rng(4)
+               .standard_normal((6, 12, 8)).astype(np.float32),
+               prompt_type=np.where(np.arange(6) % 3 == 1, tup.PROMPT_IMAGE,
+                                    batch["prompt_type"]))
+    jimg = jax.tree.map(jnp.asarray, img)
+    shapes = jax.eval_shape(lambda: jm.init(
+        {"params": jax.random.key(0), "dropout": jax.random.key(1)}, jimg,
+        train=False))
+    vimg = random_variables(shapes, 3)
+    timg = copy.deepcopy(tm)     # the fixture's model keeps its weights
+    load_flax_variables(timg, vimg)
+    ref = jax.jit(lambda v, b: jm.apply(v, b, train=False))(vimg, jimg)
+    with torch.no_grad():
+        got = timg(to_device(img, torch.device("cpu")))
+    assert _rel(np.asarray(ref["ground_logits"])[valid],
+                got["ground_logits"].numpy()[valid]) <= TOL
+    np.testing.assert_array_equal(got["generation_tokens"].numpy(),
+                                  np.asarray(ref["generation_tokens"]))
 
 
 def test_unified_server_matches_jax(pair):
@@ -253,9 +272,54 @@ def test_unified_entry_points_refuse_cuda_without_a_card():
     ("txt_encoder", "freeze_backbone", False),
     ("generation_head", "use_projection", False)])
 def test_build_model_refuses_unported_heads(head, key, value):
-    """The text encoder is the frozen CLIP tower with the mlp projection and
-    the generation head projects the queries: other values raise."""
-    cfg = tconfig.load_config("unified_tasks_synthetic")
-    cfg["model"][head]["args"][key] = value
-    with pytest.raises(NotImplementedError):
-        tq3d.build_model(cfg, device="cpu")
+    """Each text and generation option that ``build_model`` once refused
+    now builds, from the same config, the model JAX's ``build_model``
+    builds: the same parameter tree, one-to-one, and the same ground
+    logits, teacher-forced logits and tokens (rel 1e-4) on one batch.  The
+    widths that the option needs equal: the tower's and the decoder's at
+    the model's 48 (the attention projection has 12 heads)."""
+    from pq3d_tpu.config import Config
+    from pq3d_tpu.config import default_config_dir
+    from pq3d_tpu.config import load_config as jload
+    overrides = ["model.hidden_size=48", "model.txt_tower.width=48",
+                 "model.txt_tower.layers=1",
+                 "model.unified_encoder.args.num_layers=1",
+                 "model.unified_encoder.args.num_attention_heads=4",
+                 "model.generation_head.args.d_model=48",
+                 "model.generation_head.args.d_kv=12",
+                 "model.generation_head.args.d_ff=64",
+                 "model.generation_head.args.num_heads=4",
+                 "model.generation_head.args.num_layers=1",
+                 "model.generation_head.args.max_new_tokens=4",
+                 f"model.{head}.args.{key}={value}"]
+    cfg = tconfig.load_config("unified_tasks_synthetic", overrides)
+    jcfg = jload(os.path.join(default_config_dir(),
+                              "unified_tasks_synthetic.yaml"),
+                 overrides=overrides)
+    assert isinstance(jcfg, Config)
+    tm = tq3d.build_model(cfg, device="cpu")
+    jm = jq3d.build_model(jcfg)
+    pipe = tup.UnifiedPipelineConfig(**PIPE)
+    dims = {"mv": 768, "voxel": 128}          # the config's feature widths
+    rng = np.random.default_rng(0)
+    sets = [getattr(tds, name)(CFG, "train") for name in DATASETS]
+    items = [tup.process_item(*sets[i].get_item(0), pipe, rng, False, dims)
+             for i in range(3)]
+    batch = tup.collate_unified(items, pipe, dims, train=False)
+    batch.pop("obj_fts")
+    jb = jax.tree.map(jnp.asarray, batch)
+    shapes = jax.eval_shape(lambda: jm.init(
+        {"params": jax.random.key(0), "dropout": jax.random.key(1)}, jb,
+        train=False))
+    variables = random_variables(shapes, 5)
+    load_flax_variables(tm, variables)
+    ref = jax.jit(lambda v, b: jm.apply(v, b, train=False))(variables, jb)
+    with torch.no_grad():
+        got = tm.eval()(to_device(batch, torch.device("cpu")))
+    valid = batch["query_pad_masks"]
+    assert _rel(np.asarray(ref["ground_logits"])[valid],
+                got["ground_logits"].numpy()[valid]) <= TOL
+    assert _rel(ref["generation_logits"],
+                got["generation_logits"].numpy()) <= TOL
+    np.testing.assert_array_equal(got["generation_tokens"].numpy(),
+                                  np.asarray(ref["generation_tokens"]))

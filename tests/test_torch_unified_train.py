@@ -297,28 +297,36 @@ def test_stage2_losses_match_jax(which):
 
 @pytest.mark.parametrize("absent", [None, "response", "ground_logits"])
 def test_loss_aggregator_matches_jax(absent):
-    """The weighted sum and its parts; an entry whose inputs are absent
-    contributes nothing; unported losses raise."""
+    """The weighted sum and its parts, ``answer_loss`` and
+    ``query3d_mask_loss`` among them; an entry
+    whose inputs are absent contributes nothing; an unknown name
+    raises."""
+    from test_torch_qa_losses import _qa_mask_inputs
     out, batch = _loss_inputs(seed=1)
+    qa_out, qa_batch = _qa_mask_inputs(seed=1)
+    out.update(qa_out)
+    batch.update(qa_batch)
     if absent in out:
         out.pop(absent)
     if absent in batch:
         batch.pop(absent)
-    names = ["ground_loss", "og3d_loss", "generation_loss"]
-    weights = {"ground_loss": 10, "og3d_loss": 0.5}
+    names = ["ground_loss", "og3d_loss", "generation_loss", "answer_loss",
+             "query3d_mask_loss"]
+    weights = {"ground_loss": 10, "og3d_loss": 0.5, "answer_loss": 2}
     jt, jp = JLoss(names, weights)(
         jax.tree_util.tree_map(jnp.asarray, out),
         jax.tree_util.tree_map(jnp.asarray, batch))
     tt, tp = TLoss(names, weights)(
-        {k: torch.from_numpy(v) for k, v in out.items()},
+        jax.tree_util.tree_map(lambda v: torch.from_numpy(np.asarray(v)),
+                               out),
         {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()})
     assert set(tp) == set(jp)
+    assert {"answer_loss", "query3d_mask_loss"} <= set(tp)
     assert abs(float(tt) - float(jt)) <= 1e-6 * abs(float(jt))
     for k in jp:
         assert abs(float(tp[k]) - float(jp[k])) <= 1e-6 * abs(float(jp[k]))
-    for name in ("answer_loss", "query3d_mask_loss"):
-        with pytest.raises(NotImplementedError, match=name):
-            TLoss([name])
+    with pytest.raises(KeyError, match="no_such_loss"):
+        TLoss(["no_such_loss"])
 
 
 def test_per_module_rate_matches_optax():
