@@ -41,9 +41,11 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                routed convs per forward and launches; then one forward of
                one batch per layout on the device clock.  Gates: every
                request resolves; B1's launches equal routed convs x
-               forwards per setup; on one batch the maps and z-run plans
+               forwards per setup, B2's are 0; on one batch the maps and z-run plans
                built on the card equal the host's key by key, exactly; dev_maps'
-               served logits equal rect's within 1e-5 relative; the flat
+               served logits equal rect's within 1e-5 relative, in every
+               decoder round up to a flipped attend bit (as phase 15's
+               below); the flat
                forward all-plain equals the rectangular all-plain one on
                each scene within 1e-4 (segment features, final class and
                mask logits); the flat forward with B1 against its own
@@ -228,6 +230,54 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                PointnetSAModuleVotes (rbf pooling, unique counts) on two
                1024-point clouds: indices and counts equal, features within
                1e-4;
+15. swin_layouts -- the Swin3D backbone, the flat device maps and the
+               stage-1 bf16 serving cast: the full-width swin model
+               (instseg_sceneverse's widths with PCDMask3DSwin3DEncoder:
+               channels 48/96/192/384, depths 2/2/6/2, window 4; random
+               weights from a seed) behind InstSegServer(batch_size=4) in
+               flat_swin (host flat maps and window packs), dev_flat_swin
+               (the flat maps and packs built on the card at a lock that
+               device_flat_lock derives from the largest scene x 4, margin
+               1.3) and flat_swin_bf16 (cast_model_bf16 + cast_batch_bf16),
+               and phase 5b's Res16UNet in dev_flat_zt (flat maps and z-run
+               plans built on the card, B1 routed) and flat_zt_bf16; each
+               serves phase 5b's 4 warm scenes, then 64 timed ones (16
+               batches, all queued at once, so p50/p99 include the queue)
+               and prints scenes/s, p50/p99, the stage seconds,
+               host-to-device bytes a batch, the flat map build's device
+               ms, peak memory and B1's launches, then one forward of one
+               batch per setup on the device clock, split into backbone,
+               window attention (summed over blocks) and the rest.  Gates:
+               on one batch the flat maps built on the card equal
+               collate_flat's key by key, exactly, for swin (hierarchy and
+               the 8 window packs) and for the dense-block stem with the
+               z-run plans; dev_flat_swin's served logits equal flat_swin's
+               within 1e-5 and dev_flat_zt's forward flat_zt's; four served
+               scenes' full-width swin forward on the card equals the
+               CPU's (segment features, class and mask logits; TF32 off)
+               within 1e-3 with the sparse convs in f32 compute, and within
+               4 x 2^-8 as served, with bf16 conv operands; these logits
+               are compared in every decoder round, each scene up to the
+               first attend bit (sigmoid of a mask logit >= 0.5, the next
+               round's self-mask) that differs between the two sides, where the
+               forwards part by more than rounding (the flips and the final
+               round's reading printed); flat_swin_bf16 against flat_swin
+               and flat_zt_bf16 against flat_zt on one batch, four
+               forwards, in the same rounds, since the cast's rounding
+               flips attend bits too: class logits within
+               tests/test_bf16_modes.py's gate (0.1 of the scale, top-1
+               equal where the margin exceeds 0.03 of it), mask logits
+               within 0.2 (their level-0 segment mean is summed in bf16, in
+               another order each run; see SWIN_GATES), the final round,
+               every served batch's final round and weight seeds 1 and 2
+               printed; B1 launches routed convs x forwards in dev_flat_zt and flat_zt_bf16 and 0 times in the
+               swin setups, B2 0 times;
+               ``python -m pq3d_tpu_torch.run --config-name
+               instseg_swin3d_synthetic`` trains 3 steps and evaluates on
+               the card with finite losses and metrics, and one step of its
+               trainer matches the CPU through gate_train_check (every conv
+               plain in f32, self-mask off; the TF32 control exceeds a
+               gate);
 then a summary line (B1 against B2 in this run), one JSON line with every
 hand kernel's numbers, and the result line.
 
@@ -258,7 +308,10 @@ PEAKS = {"H200": (989e12, 4.8e12), "H100": (989e12, 3.35e12)}
 
 
 def fail(msg):
+    """Print ``msg`` on both streams (a caller that keeps only the end of
+    one still reads why) and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -483,14 +536,15 @@ def all_plain(model):
     backbone = getattr(getattr(model, "voxel_encoder", None), "backbone",
                        None)
     encoder = model.unified_encoder
+    routed = hasattr(backbone, "pallas_conv")    # the swin U-Net has none
     saved = (sparse._round, torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32, encoder.use_self_mask,
-             backbone.pallas_conv if backbone is not None else None)
+             backbone.pallas_conv if routed else None)
     sparse._round = lambda t, dtype: t.float()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     encoder.use_self_mask = False
-    if backbone is not None:
+    if routed:
         backbone.pallas_conv = False
     try:
         with dropout_off(model):
@@ -498,7 +552,7 @@ def all_plain(model):
     finally:
         (sparse._round, torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32, encoder.use_self_mask) = saved[:4]
-        if backbone is not None:
+        if routed:
             backbone.pallas_conv = saved[4]
 
 
@@ -557,6 +611,178 @@ def per_scene_rel(got, ref, valid=None):
     return worst
 
 
+SERVE_EXTRA = {"mv": 768, "pc": 768}   # phase 4's offline segment features
+# serve_instseg's straggler wait: every request is queued at once, so a
+# batch fills at once; a long wait keeps a stalled submitting thread from
+# splitting the first batch (runs that are compared batch by batch must
+# batch alike)
+SERVE_HOLD_S = 5.0
+
+
+def serve_instseg(phase, label, model, pipe, warm, scenes, card, build,
+                  ve=None, cast=None, num_workers=0, rounds=False):
+    """``warm``, then ``scenes`` timed, through InstSegServer(batch_size=4)
+    with phase 4's extra features, the voxel encoder settings ``ve`` (the
+    model's own by default) and ``cast``.  Every answer is checked; B1
+    must launch the routed convs of each forward (warm and timed) and B2
+    never.  Prints and returns scenes/s, p50/p99, the stage seconds,
+    host-to-device bytes a batch, peak memory and the median device ms
+    (CUDA events) of the map builder ``build`` = (module, name) a batch,
+    with each batch's final (class, mask) logits and segment mask, with
+    ``rounds`` every decoder round's (class, mask) logits, and, on a pool,
+    each preprocessing call's scenes, first seed and batch."""
+    import numpy as np
+    import torch
+    from pq3d_tpu_torch import serve as serve_mod
+    from pq3d_tpu_torch.ops import windowed_conv, zrun_conv
+    from pq3d_tpu_torch.serve import InstSegServer
+
+    class Recording(InstSegServer):
+        def __init__(self, *a, **k):
+            self.logits, self.pre = [], []
+            super().__init__(*a, **k)
+
+        def _forward(self, batch):
+            cls_l, mask_l = super()._forward(batch)
+            self.logits.append((cls_l, mask_l, batch["seg_pad_masks"]))
+            return cls_l, mask_l
+
+        def _preprocess(self, scenes):
+            self.pre.append((list(scenes), self._pool_seed))
+            return super()._preprocess(scenes)
+
+    backbone = model.voxel_encoder.backbone
+    own_ve = model.voxel_enc
+    ve = ve or own_ve
+    expected, h2d, builds, np_batches, kept = [], [], [], [], []
+
+    def count(mod, args):
+        b = args[0]
+        if ve.device_flat_caps:
+            rows = [dict(ve.device_flat_caps)[f"tot_{l}"] for l in range(5)]
+        elif ve.device_maps:
+            rows = [b["vox_coords"].shape[0] * c for c in ve.device_maps]
+        else:
+            rows = level_rows(b)
+        expected.append(len(backbone.routed_convs(rows))
+                        if hasattr(backbone, "routed_convs") else 0)
+
+    def wrap_put(orig):
+        def put(np_batch, device):
+            h2d.append(tree_nbytes(np_batch))
+            if num_workers:
+                np_batches.append(np_batch)
+            return orig(np_batch, device)
+        return put
+
+    def wrap_build(orig):
+        def timed(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = orig(*a, **k)
+            e1.record()
+            builds.append((e0, e1))
+            return out
+        return timed
+
+    model.voxel_enc = ve
+    hooks = [model.register_forward_pre_hook(count)]
+    if rounds:
+        hooks.append(model.register_forward_hook(
+            lambda mod, args, out: kept.append(
+                (out["predictions_class"], out["predictions_mask"]))))
+    srv = Recording(model, pipe, batch_size=4, num_classes=200, topk=100,
+                    max_delay_s=SERVE_HOLD_S, extra_features=SERVE_EXTRA,
+                    device="cuda", num_workers=num_workers, cast=cast)
+    try:
+        with patched(serve_mod, "to_device", wrap_put), \
+                patched(build[0], build[1], wrap_build):
+            zrun_conv.reset_counts()
+            windowed_conv.reset_counts()
+            for f in [srv.submit(s) for s in warm]:
+                f.result(timeout=900)
+            settle(srv, len(warm))
+            if zrun_conv.launches != sum(expected) or windowed_conv.launches:
+                fail(f"{phase}: {label}: warm-up ran zrun_conv "
+                     f"{zrun_conv.launches} times (routing expects "
+                     f"{expected}), windowed_conv {windowed_conv.launches}")
+            srv.stats = type(srv.stats)()
+            for log in (expected, h2d, builds, np_batches, kept,
+                        srv.logits, srv.pre):
+                log.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zrun_conv.reset_counts()          # this path starts here
+            windowed_conv.reset_counts()
+            t0 = time.time()
+            results = [f.result(timeout=900)
+                       for f in [srv.submit(s) for s in scenes]]
+            wall = time.time() - t0
+            settle(srv, len(scenes))
+            b1, b2 = zrun_conv.launches, windowed_conv.launches  # ends here
+            torch.cuda.synchronize()
+    finally:
+        srv.close()
+        for h in hooks:
+            h.remove()
+        model.voxel_enc = own_ve
+    st = srv.stats.summary()
+    for s, preds in zip(scenes, results):
+        if not isinstance(preds, list):
+            fail(f"{phase}: {label}: a request did not resolve")
+        for p in preds:
+            if p["mask"].shape != (len(s["points"]),) \
+                    or not np.isfinite(p["score"]) \
+                    or not 0 <= p["class"] < 200:
+                fail(f"{phase}: {label}: an instance has a wrong mask "
+                     "shape, score or class")
+    sizes = [len(p[0]) for p in srv.pre]
+    if sizes != [4] * (len(scenes) // 4):
+        fail(f"{phase}: {label}: the timed scenes were served in batches of "
+             f"{sizes}, not of 4")
+    if st["scenes"] != len(scenes) or len(expected) != st["steps"] \
+            or b1 != sum(expected) or b2:
+        fail(f"{phase}: {label}: zrun_conv launches {b1} != routed convs "
+             f"per forward {expected}, or windowed_conv launched {b2} "
+             f"times (scenes {st['scenes']})")
+    build_ms = [a.elapsed_time(z) for a, z in builds]
+    rec = {"layout": label, "workers": num_workers, "scenes": len(scenes),
+           "scenes_per_sec": st["scenes_per_sec"], "wall_s": wall,
+           "p50_ms": st["p50_latency_s"] * 1e3,
+           "p99_ms": st["p99_latency_s"] * 1e3, "stage_s": st["stage_s"],
+           "h2d_bytes_per_batch": float(np.mean(h2d)),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "map_build_ms": float(np.median(build_ms)) if build_ms else None,
+           "routed_per_forward": list(expected), "launches": b1,
+           "b2_launches": b2,
+           "logits": [(c.float().cpu(), m.float().cpu(), v.cpu())
+                      for c, m, v in srv.logits],
+           "rounds": [rounds_of(cr, mr) for cr, mr in kept],
+           "pre": list(srv.pre), "np_batches": list(np_batches)}
+    stages = " ".join(f"{k}={v:.3f}s" for k, v in sorted(
+        st["stage_s"].items()))
+    maps_txt = (f" | map build {rec['map_build_ms']:.3f} ms a batch (CUDA "
+                f"events, median of {len(build_ms)})" if build_ms else "")
+    pool = f" ({num_workers} workers)" if num_workers else ""
+    print(f"{phase}: {label}{pool} | {len(scenes)} scenes, "
+          f"{st['scenes_per_sec']:.3f} scenes/s (wall {wall:.2f} s) p50 "
+          f"{rec['p50_ms']:.1f} ms p99 {rec['p99_ms']:.1f} ms | {stages} | "
+          f"host-to-device {rec['h2d_bytes_per_batch'] / 2**20:.2f} MiB a "
+          f"batch | max_memory_allocated {rec['peak_gib']:.2f} GiB"
+          f"{maps_txt} | zrun_conv launches {b1} = routed convs per forward "
+          f"{expected}, windowed_conv {b2} ({card})", flush=True)
+    return rec
+
+
+def served_logits(rec):
+    """A serve_instseg record's final (class, mask) logits, scene by scene
+    in submission order."""
+    import torch
+    return (torch.cat([c for c, _, _ in rec["logits"]]),
+            torch.cat([m for _, m, _ in rec["logits"]]))
+
+
 def serve_layouts_phase(card, dev, zrun_conv, profile=None):
     """Phase ``serve_layouts``: the full-width stage-1 model, one set of
     random weights, behind InstSegServer(batch_size=4) in the rectangular
@@ -568,7 +794,6 @@ def serve_layouts_phase(card, dev, zrun_conv, profile=None):
     import dataclasses
     import numpy as np
     import torch
-    from pq3d_tpu_torch import serve as serve_mod
     from pq3d_tpu_torch.config import serving_config
     from pq3d_tpu_torch.data.instseg_pipeline import (collate_processed,
                                                       make_batch,
@@ -576,24 +801,7 @@ def serve_layouts_phase(card, dev, zrun_conv, profile=None):
                                                       process_scene)
     from pq3d_tpu_torch.models.query3d import build_model
     from pq3d_tpu_torch.ops import device_maps, kernel_maps
-    from pq3d_tpu_torch.serve import InstSegServer, to_device
-
-    class Recording(InstSegServer):
-        """Keeps each batch's served logits and, on a pool, the scenes and
-        first seed of each preprocessing call."""
-
-        def __init__(self, *a, **k):
-            self.logits, self.pre = [], []
-            super().__init__(*a, **k)
-
-        def _forward(self, batch):
-            cls_l, mask_l = super()._forward(batch)
-            self.logits.append((cls_l, mask_l))
-            return cls_l, mask_l
-
-        def _preprocess(self, scenes):
-            self.pre.append((list(scenes), self._pool_seed))
-            return super()._preprocess(scenes)
+    from pq3d_tpu_torch.serve import to_device
 
     over = [f"data.instseg_options.level_caps={LAYOUT_CAPS}"]
     cfgs = {lay: serving_config(lay, over)
@@ -618,131 +826,34 @@ def serve_layouts_phase(card, dev, zrun_conv, profile=None):
           f"most voxels in one scene per level {most}", flush=True)
     if any(m > c for m, c in zip(most, LAYOUT_CAPS)):
         fail("a scene outgrows the layouts' level caps")
-    extra = {"mv": 768, "pc": 768}
+    extra = SERVE_EXTRA
     workers = max(1, min(4, (os.cpu_count() or 2) - 1))
 
-    def run(label, pipe, ve, num_workers=0):
-        model.voxel_enc = ve
-        expected, h2d, builds, np_batches = [], [], [], []
+    maps = (device_maps, "build_batch_maps")
 
-        def count(mod, args):
-            b = args[0]
-            rows = ([b["vox_coords"].shape[0] * c for c in ve.device_maps]
-                    if ve.device_maps else level_rows(b))
-            expected.append(len(backbone.routed_convs(rows)))
-
-        def wrap_put(orig):
-            def put(np_batch, device):
-                h2d.append(tree_nbytes(np_batch))
-                np_batches.append(np_batch)
-                return orig(np_batch, device)
-            return put
-
-        def wrap_build(orig):
-            def build(*a, **k):
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                out = orig(*a, **k)
-                e1.record()
-                builds.append((e0, e1))
-                return out
-            return build
-
-        hook = model.register_forward_pre_hook(count)
-        srv = Recording(model, pipe, batch_size=4, num_classes=200,
-                        topk=100, max_delay_s=0.02, extra_features=extra,
-                        device="cuda", num_workers=num_workers)
-        try:
-            with patched(serve_mod, "to_device", wrap_put), \
-                    patched(device_maps, "build_batch_maps", wrap_build):
-                zrun_conv.reset_counts()
-                for f in [srv.submit(s) for s in warm]:
-                    f.result(timeout=900)
-                settle(srv, len(warm))
-                if zrun_conv.launches != sum(expected):
-                    fail(f"{label}: warm-up ran zrun_conv "
-                         f"{zrun_conv.launches} times; routing expects "
-                         f"{expected}")
-                srv.stats = type(srv.stats)()
-                for log in (expected, h2d, builds, np_batches, srv.logits,
-                            srv.pre):
-                    log.clear()
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                zrun_conv.reset_counts()          # this path starts here
-                t0 = time.time()
-                results = [f.result(timeout=900)
-                           for f in [srv.submit(s) for s in scenes]]
-                wall = time.time() - t0
-                settle(srv, len(scenes))
-                launches = zrun_conv.launches     # and ends here
-                torch.cuda.synchronize()
-        finally:
-            srv.close()
-            hook.remove()
-            model.voxel_enc = host_ve
-        st = srv.stats.summary()
-        for s, preds in zip(scenes, results):
-            if not isinstance(preds, list):
-                fail(f"{label}: a request did not resolve")
-            for p in preds:
-                if p["mask"].shape != (len(s["points"]),) \
-                        or not np.isfinite(p["score"]) \
-                        or not 0 <= p["class"] < 200:
-                    fail(f"{label}: an instance has a wrong mask shape, "
-                         f"score or class")
-        if st["scenes"] != len(scenes) or launches != sum(expected) \
-                or len(expected) != st["steps"]:
-            fail(f"{label}: zrun_conv launches {launches} != routed convs "
-                 f"per forward {expected} (scenes {st['scenes']})")
-        build_ms = [a.elapsed_time(b) for a, b in builds]
-        rec = {"layout": label, "workers": num_workers,
-               "scenes_per_sec": st["scenes_per_sec"], "wall_s": wall,
-               "p50_ms": st["p50_latency_s"] * 1e3,
-               "p99_ms": st["p99_latency_s"] * 1e3,
-               "stage_s": st["stage_s"],
-               "h2d_bytes_per_batch": float(np.mean(h2d)),
-               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-               "map_build_ms": build_ms,
-               "routed_per_forward": list(expected),
-               "launches": launches,
-               "logits": [(c.float().cpu(), m.float().cpu())
-                          for c, m in srv.logits],
-               "pre": list(srv.pre), "np_batches": list(np_batches)}
-        stages = " ".join(f"{k}={v:.3f}s" for k, v in sorted(
-            st["stage_s"].items()))
-        maps_txt = (f" | map build {np.median(build_ms):.3f} ms a batch "
-                    f"(CUDA events, {len(build_ms)} batches)"
-                    if build_ms else "")
-        print(f"serve_layouts: {label}{f' ({num_workers} workers)' if num_workers else ''} | "
-              f"{st['scenes_per_sec']:.3f} scenes/s (wall {wall:.2f} s) "
-              f"p50 {rec['p50_ms']:.1f} ms p99 {rec['p99_ms']:.1f} ms | "
-              f"{stages} | host-to-device {rec['h2d_bytes_per_batch'] / 2**20:.2f} "
-              f"MiB a batch | max_memory_allocated {rec['peak_gib']:.2f} GiB"
-              f"{maps_txt} | zrun_conv launches {launches} = routed convs "
-              f"per forward {expected} ({card})", flush=True)
-        return rec
-
-    runs = {"rect": run("rect", pipes["rect"], host_ve),
-            "dev_maps": run("dev_maps", pipes["dev_maps"], dev_ve),
-            "flat_zt": run("flat_zt", pipes["flat_zt"], host_ve),
-            "rect_pool": run("rect_pool", pipes["rect"], host_ve, workers)}
+    def run(label, lay, ve, num_workers=0, rounds=False):
+        return serve_instseg("serve_layouts", label, model, pipes[lay], warm,
+                             scenes, card, maps, ve=ve,
+                             num_workers=num_workers, rounds=rounds)
+    runs = {"rect": run("rect", "rect", host_ve, rounds=True),
+            "dev_maps": run("dev_maps", "dev_maps", dev_ve, rounds=True),
+            "flat_zt": run("flat_zt", "flat_zt", host_ve),
+            "rect_pool": run("rect_pool", "rect", host_ve, workers)}
 
     # gate: the served logits with maps built on the card against the host
-    # maps' (same maps, same kernels), scene by scene in submission order
-    def per_scene(rec):
-        cls = torch.cat([c for c, _ in rec["logits"]])
-        mask = torch.cat([m for _, m in rec["logits"]])
-        return cls, mask
-    cls_r, mask_r = per_scene(runs["rect"])
-    cls_d, mask_d = per_scene(runs["dev_maps"])
-    keep = torch.ones(cls_r.shape[-1], dtype=torch.bool)
-    keep[[0, 2]] = False
-    dm_rel = max(rel_err(cls_d[..., keep], cls_r[..., keep]),
-                 rel_err(mask_d, mask_r))
-    print(f"serve_layouts: dev_maps served logits vs rect: rel {dm_rel:.2e} "
-          f"(gate {LAYOUT_GATE['dev_maps']:.0e})", flush=True)
+    # maps' (same maps, same kernels), batch by batch, every round up to an
+    # attend bit that flips (rounds_rel)
+    dm_rel, flips = 0.0, []
+    for (hr, (_, _, v)), dr in zip(
+            zip(runs["rect"]["rounds"], runs["rect"]["logits"]),
+            runs["dev_maps"]["rounds"]):
+        rel, first = rounds_rel(hr, dr, v)
+        dm_rel = max(dm_rel, rel)
+        flips += [r for r in first if r < len(hr[2])]
+    print(f"serve_layouts: dev_maps served logits vs rect, every round up "
+          f"to a flipped attend bit: rel {dm_rel:.2e} (gate "
+          f"{LAYOUT_GATE['dev_maps']:.0e}); scenes with a flipped bit "
+          f"{len(flips)}", flush=True)
     if not dm_rel <= LAYOUT_GATE["dev_maps"]:
         fail("dev_maps' served logits differ from rect's")
 
@@ -868,6 +979,8 @@ def serve_layouts_phase(card, dev, zrun_conv, profile=None):
     flat_rows = level_rows(fb)
     if flat_launches != len(backbone.routed_convs(flat_rows)):
         fail(f"the flat forward launched zrun_conv {flat_launches} times")
+    keep = torch.ones(rect_plain["cls"][-1].shape[-1], dtype=torch.bool)
+    keep[[0, 2]] = False
     seg_valid = torch.from_numpy(rb["seg_pad_masks"]).to(dev)
     scale_rel = max(per_scene_rel(f, r, seg_valid) for f, r in
                     zip(flat_plain["scales"], rect_plain["scales"]))
@@ -899,7 +1012,7 @@ def serve_layouts_phase(card, dev, zrun_conv, profile=None):
     del model, backbone, rect_plain, flat_plain, flat_b1, enc, rb_d, db_d, \
         fb_d
     for rec in runs.values():
-        for key in ("logits", "pre", "np_batches"):
+        for key in ("logits", "rounds", "pre", "np_batches"):
             rec.pop(key)
     return {"runs": runs, "map_build_ms": build_ms, "forward_ms": fwd_ms}
 
@@ -3376,6 +3489,618 @@ def variants_phase(card, dev):
             "b1": b1, "b2": b2, "phase_s": total}
 
 
+# ---- phase swin_layouts: the Swin3D backbone and the flat device maps ---
+
+# dev_flat: card-built flat maps against host ones; card_cpu: the card
+# against the CPU with the sparse convs in f32; card_cpu_served: the same as
+# served, where a last-bit f32 difference flips a bf16 conv operand's
+# rounding by one bf16 step (2^-8 of the element): a few such steps
+# bf16_mask: the cast's mask logits against f32, read up to the first
+# flipped attend bit; they carry the level-0 segment mean summed in bf16
+# (as JAX sums it), which the card's atomic adds round in another order
+# each run: one batch's reading moves between 0.048 and 0.102 over
+# repeated forwards (tools/torch_bf16_spread.py), so twice the largest
+SWIN_GATES = {"dev_flat": 1e-5, "card_cpu": 1e-3,
+              "card_cpu_served": 4 * 2**-8, "bf16_mask": 0.2}
+SWIN_BF16_REPS = 4  # forwards of the checked batch a bf16 gate reads
+SWIN_TIMED = 64     # timed requests a setup: 16 batches of 4
+SWIN_SEEDS = (1, 2)  # more weight seeds for the bf16 readings
+# the swin config's run.py call: a few steps, then the evaluator
+SWIN_TRAIN = ["data.synthetic.num_train=6", "data.synthetic.num_val=4",
+              "solver.epochs=1", "solver.epochs_per_eval=1",
+              "solver.epochs_per_save=0", "log_every=1", "device=cuda"]
+
+
+def final_logits(cls, mask):
+    """Final-round class logits without the filtered classes (0 and 2,
+    -1e9 on every row) and mask logits, in f32."""
+    import torch
+    keep = torch.ones(cls.shape[-1], dtype=torch.bool, device=cls.device)
+    keep[[0, 2]] = False
+    return cls.float()[..., keep], mask.float()
+
+
+def rounds_of(classes, masks):
+    """Every decoder round's class and mask logits, in f32 on the host,
+    and its attend bits, formed from the logits as they came out (their
+    device and dtype) as MaskHeadSegLevel forms the next round's
+    self-mask: sigmoid >= 0.5, which also holds for logits a little
+    below 0."""
+    from pq3d_tpu_torch.models.heads import _sigmoid
+    return ([c.float().cpu() for c in classes],
+            [m.float().cpu() for m in masks],
+            [(_sigmoid(m) >= 0.5).cpu() for m in masks])
+
+
+def out_rounds(out):
+    """rounds_of a model output."""
+    return rounds_of(out["predictions_class"], out["predictions_mask"])
+
+
+def first_flips(ref, got, seg_valid):
+    """Scene by scene, the first decoder round in which two forwards'
+    (out_rounds) attend bits on a valid segment differ; the number of
+    rounds where none does."""
+    out = []
+    for s, valid in enumerate(seg_valid.cpu()):
+        v = valid[:, None]
+        out.append(next((r for r, (a, b) in enumerate(zip(ref[2], got[2]))
+                         if ((a[s] != b[s]) & v).any()), len(ref[2])))
+    return out
+
+
+def per_round(ref, got, seg_valid):
+    """Round by round, the final_logits pairs (class, mask) of ``ref`` and
+    ``got`` and the valid segments of the scenes that have not flipped an
+    attend bit before this round (first_flips).  Past a flipped bit the
+    forwards attend differently and part by more than rounding, so two
+    forwards that sum in another order are compared up to it: a flip under
+    rounding noise is a tie at the threshold."""
+    valid = seg_valid.cpu()
+    flips = first_flips(ref, got, valid)
+    for r in range(len(ref[0])):
+        idx = [s for s, f in enumerate(flips) if f >= r]
+        if not idx:
+            return
+        yield (final_logits(ref[0][r][idx], ref[1][r][idx]),
+               final_logits(got[0][r][idx], got[1][r][idx]), valid[idx])
+
+
+def rounds_rel(ref, got, seg_valid):
+    """The largest rel_err of the class logits and of the mask logits of
+    the valid segments in each round of per_round: (error, first flipped
+    round by scene)."""
+    worst = 0.0
+    for (c, m), (cg, mg), v in per_round(ref, got, seg_valid):
+        vm = v[:, :, None].expand_as(m)
+        worst = max(worst, rel_err(cg, c), rel_err(mg[vm], m[vm]))
+    return worst, first_flips(ref, got, seg_valid)
+
+
+def instseg_bf16_gate(ref, got, seg_valid):
+    """bf16_gate on stage-1 logits, ``ref`` f32 and ``got`` bf16 (class,
+    mask) pairs as final_logits gives them: the class logits, and the mask
+    logits of the valid segments.  Returns (class error, mask error, top-1
+    equal on the decided rows, decided rows)."""
+    cls_rel, same, decided = bf16_gate(ref[0], got[0])
+    mask_rel, _, _ = bf16_gate(ref[1], got[1], seg_valid.cpu()[
+        :, :, None].expand_as(ref[1]))
+    return cls_rel, mask_rel, same, decided
+
+
+def bf16_reading(ref, got, seg_valid):
+    """An f32 and a bf16 forward (out_rounds) of one batch: instseg_bf16_gate
+    in every round of per_round, the gated reading
+    ({class, mask} error, top-1 equal, decided rows, first flipped round
+    by scene), and on the final round of the batch (final_*)."""
+    rec = {"cls_rel": 0.0, "mask_rel": 0.0, "top1_equal": True,
+           "decided": 0, "flips": first_flips(ref, got, seg_valid),
+           "rounds": len(ref[0])}
+    for pair, pair_got, v in per_round(ref, got, seg_valid):
+        e, em, same, n = instseg_bf16_gate(pair, pair_got, v)
+        rec["cls_rel"], rec["mask_rel"] = (max(rec["cls_rel"], e),
+                                           max(rec["mask_rel"], em))
+        rec["top1_equal"] &= same
+        rec["decided"] += n
+    final = instseg_bf16_gate(final_logits(ref[0][-1], ref[1][-1]),
+                              final_logits(got[0][-1], got[1][-1]),
+                              seg_valid)
+    rec.update(final_cls_rel=final[0], final_mask_rel=final[1],
+               final_top1_equal=final[2])
+    return rec
+
+
+def bf16_text(r):
+    return (f"every round up to a flipped attend bit: class rel "
+            f"{r['cls_rel']:.3e}, mask rel {r['mask_rel']:.3e}, top-1 equal "
+            f"on all {r['decided']} decided rows {r['top1_equal']}, first "
+            f"flipped round by scene {r['flips']} of {r['rounds']} | final "
+            f"round: class rel "
+            f"{r['final_cls_rel']:.3e}, mask rel {r['final_mask_rel']:.3e}, "
+            f"top-1 equal {r['final_top1_equal']}")
+
+
+def check_bf16_gate(label, forward, seg_valid):
+    """tests/test_bf16_modes.py's gate on one batch, read SWIN_BF16_REPS
+    times (``forward()`` gives out_rounds of the f32 and the bf16
+    forward): bf16_reading's class error below 0.1 of the scale with
+    top-1 equal, its mask error below SWIN_GATES['bf16_mask'], in every
+    repeat; fails the phase otherwise.  Returns the worst reading with the
+    mask errors of all repeats."""
+    reads = [bf16_reading(*forward(), seg_valid)
+             for _ in range(SWIN_BF16_REPS)]
+    r = dict(max(reads, key=lambda x: x["mask_rel"]),
+             cls_rel=max(x["cls_rel"] for x in reads),
+             top1_equal=all(x["top1_equal"] for x in reads),
+             mask_rels=[x["mask_rel"] for x in reads])
+    print(f"swin_layouts: {label}, the worst of {len(reads)} forwards: "
+          f"{bf16_text(r)} (gate: class {BF16_GATE[0]}, mask "
+          f"{SWIN_GATES['bf16_mask']}) | mask rel by forward "
+          f"{[round(x, 4) for x in r['mask_rels']]}", flush=True)
+    if not (r["cls_rel"] < BF16_GATE[0] and r["top1_equal"]
+            and r["mask_rel"] < SWIN_GATES["bf16_mask"]):
+        fail(f"swin_layouts: {label} fails the bf16 gate")
+    return r
+
+
+def bf16_served_readings(label, f32_rec, bf16_rec):
+    """instseg_bf16_gate on every served batch of two serve_instseg runs of
+    the same scenes, f32 and cast (readings; the gate is on one batch)."""
+    out = []
+    for (c, m, v), (cb, mb, _) in zip(f32_rec["logits"],
+                                      bf16_rec["logits"]):
+        if c.shape != cb.shape or m.shape != mb.shape:
+            fail(f"swin_layouts: {label}: the two runs batched differently")
+        out.append(instseg_bf16_gate(final_logits(c, m),
+                                     final_logits(cb, mb), v)[:3])
+    print(f"swin_layouts: {label} over the {len(out)} served batches "
+          f"(readings): class rel max {max(r[0] for r in out):.3e}, mask "
+          f"rel max {max(r[1] for r in out):.3e}, by batch "
+          f"{[round(r[1], 4) for r in out]}, top-1 equal on every batch: "
+          f"{all(r[2] for r in out)}", flush=True)
+    return {"cls_rel": [r[0] for r in out], "mask_rel": [r[1] for r in out],
+            "top1_equal": all(r[2] for r in out)}
+
+
+def bf16_seed_readings(label, cfg, b, seeds):
+    """instseg_bf16_gate on the device batch ``b`` for the model of
+    ``cfg`` with each weight seed in ``seeds`` against its own cast
+    (readings)."""
+    import torch
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.utils.inference import (cast_batch_bf16,
+                                                cast_model_bf16)
+    out = {}
+    for seed in seeds:
+        model = build_model(cfg, device="cuda", seed=seed)
+        with torch.inference_mode():
+            ref = out_rounds(model(b))
+        cast_model_bf16(model)
+        with torch.inference_mode():
+            got = out_rounds(model(cast_batch_bf16(b)))
+        out[seed] = bf16_reading(ref, got, b["seg_pad_masks"])
+        print(f"swin_layouts: {label} with weight seed {seed} (reading): "
+              f"{bf16_text(out[seed])}", flush=True)
+        del model
+    return out
+
+
+def split_forward(model, b, reps=3):
+    """One eval forward of the device batch ``b``, median of ``reps`` on
+    the device clock (CUDA events), split into the backbone, its window
+    attention (summed over blocks), the flat map build (when the model
+    builds its maps) and the rest (outside the backbone)."""
+    import torch
+    from pq3d_tpu_torch.models.swin3d import WindowAttention
+    from pq3d_tpu_torch.ops import device_flat_maps
+    spans = {"backbone": [], "attention": [], "map_build": []}
+
+    def timed(key):
+        def pre(mod, args):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            spans[key].append([ev])
+
+        def post(mod, args, out):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            spans[key][-1].append(ev)
+        return pre, post
+    hooks = []
+    targets = [(model.voxel_encoder.backbone, "backbone")] + [
+        (m, "attention") for m in model.modules()
+        if isinstance(m, WindowAttention)]
+    for mod, key in targets:
+        pre, post = timed(key)
+        hooks += [mod.register_forward_pre_hook(pre),
+                  mod.register_forward_hook(post)]
+
+    def build(orig):
+        def wrapped(*a, **k):
+            pre, post = timed("map_build")
+            pre(None, None)
+            out = orig(*a, **k)
+            post(None, None, None)
+            return out
+        return wrapped
+    runs = []
+    try:
+        with patched(device_flat_maps, "build_flat_maps", build):
+            for _ in range(reps):
+                for v in spans.values():
+                    v.clear()
+                a = torch.cuda.Event(enable_timing=True)
+                z = torch.cuda.Event(enable_timing=True)
+                a.record()
+                with torch.inference_mode():
+                    model(b)
+                z.record()
+                z.synchronize()
+                rec = {k: sum(x.elapsed_time(y) for x, y in v)
+                       for k, v in spans.items()}
+                rec["forward"] = a.elapsed_time(z)
+                rec["rest"] = rec["forward"] - rec["backbone"]
+                runs.append(rec)
+    finally:
+        for h in hooks:
+            h.remove()
+    runs.sort(key=lambda r: r["forward"])
+    return runs[len(runs) // 2]
+
+
+def swin_train(card):
+    """``python -m pq3d_tpu_torch.run --config-name
+    instseg_swin3d_synthetic`` on the card for a few steps and its
+    evaluation (finite losses and metrics), then one step of its trainer
+    on the card against a deep copy on the CPU through gate_train_check,
+    every conv plain in f32 and the self-mask off (all_plain), with the
+    TF32 control."""
+    import math as _math
+    import shutil
+    import tempfile
+    import torch
+    from pq3d_tpu_torch import run
+    exp_dir = tempfile.mkdtemp(prefix="pq3d_swin_train_")
+    try:
+        torch.manual_seed(0)
+        t0 = time.time()
+        trainer = run.main(["--config-name", "instseg_swin3d_synthetic",
+                            *SWIN_TRAIN, f"exp_dir={exp_dir}"])
+        run_s = time.time() - t0
+        with open(os.path.join(exp_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        train = [r for r in recs if r.get("prefix") == "train"]
+        val = last_metrics(exp_dir, "val")
+        losses = [r["loss"] for r in train]
+        print(f"swin_layouts: run.py instseg_swin3d_synthetic "
+              f"({' '.join(SWIN_TRAIN)}): {len(train)} steps in "
+              f"{run_s:.1f} s, losses {[round(x, 4) for x in losses]}, "
+              f"eval {len(val)} metrics, "
+              f"backbone {type(trainer.model.voxel_encoder.backbone).__name__}"
+              f" ({card})", flush=True)
+        if not train or not val or not all(
+                _math.isfinite(x) for x in losses) or not all_finite(val):
+            fail("swin_layouts: the swin config's run has a missing or "
+                 "non-finite loss or metric")
+        np_batch = {k: v for k, v in next(iter(trainer.train_data(1))).items()
+                    if not k.startswith("_")}
+        with all_plain(trainer.model):
+            check, cpu_s = unified_train_check(
+                trainer, trainer.cfg, np_batch, trainer._total_steps)
+            f32, _ = gate_train_check("swin_layouts train", check, cpu_s)
+        trainer._close_loaders()
+    finally:
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    return {"steps": len(train), "losses": losses, "run_s": run_s,
+            "eval": val, "check": {k: v for k, v in f32.items()
+                                   if k not in ("worst", "noise")}}
+
+
+def swin_layouts_phase(card, dev):
+    """Phase 15: the full-width swin model behind InstSegServer in
+    flat_swin, dev_flat_swin and flat_swin_bf16, phase 5b's Res16UNet in
+    dev_flat_zt and flat_zt_bf16, the card-built flat maps against the
+    host's, the card against the CPU, the bf16 gates and the swin config's
+    training; returns the phase's numbers (see the module docstring)."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    from pq3d_tpu_torch.config import LOCK_PROBE, serving_config
+    from pq3d_tpu_torch.data.instseg_pipeline import (collate_flat,
+                                                      device_flat_lock,
+                                                      make_batch,
+                                                      pipeline_config,
+                                                      process_scene)
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.ops import device_flat_maps, sparse
+    from pq3d_tpu_torch.serve import to_device
+    from pq3d_tpu_torch.utils.inference import (cast_batch_bf16,
+                                                cast_model_bf16)
+    t_phase = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    over = [f"data.instseg_options.level_caps={LAYOUT_CAPS}"]
+    warm = make_scenes(4, seed=2)
+    scenes = make_scenes(SWIN_TIMED, seed=3)
+    pipes = {lay: pipeline_config(serving_config(lay, over)[
+        "data"]["instseg_options"]) for lay in ("flat_swin", "flat_zt")}
+    locks = {lay: device_flat_lock(warm + scenes, pipes[probe], 4)
+             for lay, probe in LOCK_PROBE.items()}
+    cfgs = {lay: serving_config(lay, over, flat_caps=locks.get(lay))
+            for lay in ("flat_swin", "dev_flat_swin", "flat_zt",
+                        "dev_flat_zt")}
+    pipes = {lay: pipeline_config(c["data"]["instseg_options"])
+             for lay, c in cfgs.items()}
+    for lay, lock in locks.items():
+        print(f"swin_layouts: {lay} lock (device_flat_lock on the largest "
+              f"scene x 4, margin 1.3): {lock}", flush=True)
+
+    def on_card(np_batch):
+        b = to_device({k: v for k, v in np_batch.items() if k != "_meta"},
+                      dev)
+        n = b["seg_pad_masks"].shape[0]
+        for name, dim in SERVE_EXTRA.items():
+            b[f"{name}_seg_fts"] = torch.zeros(
+                n, pipes["flat_swin"].max_segments, dim, device=dev)
+            b[f"{name}_seg_pad_masks"] = b["seg_pad_masks"]
+        return b
+
+    def batch_of(lay, group):
+        return on_card(make_batch([dict(s) for s in group], pipes[lay],
+                                  np.random.default_rng(0)))
+
+    def dev_cfg(lay):
+        args = cfgs[lay]["model"]["voxel_encoder"]["args"]
+        return {"device_flat_caps": tuple(sorted(
+            args["device_flat_caps"].items())),
+            "device_ztriple": args.get("device_ztriple", False)}
+
+    def pair(m, bf_m, b):
+        """out_rounds of ``m`` on ``b`` and of its cast ``bf_m``."""
+        with torch.inference_mode():
+            return out_rounds(m(b)), out_rounds(bf_m(cast_batch_bf16(b)))
+
+    # gate: on one batch, the flat maps built on the card equal the host's
+    # collate_flat maps key by key, for swin and for the dense-block stem
+    # with the z-run plans (ztriple_conv: the host's build_ztriple_plan)
+    b4 = scenes[:4]
+    rng = np.random.default_rng(0)
+    for lay, host_lay in (("dev_flat_swin", "flat_swin"),
+                          ("dev_flat_zt", "flat_zt")):
+        host_pipe = dataclasses.replace(pipes[host_lay],
+                                        flat_shape_caps=locks[lay])
+        procs = [process_scene(dict(s), host_pipe, rng) for s in b4]
+        host = collate_flat(procs, host_pipe)["maps"]
+        db = make_batch([dict(s) for s in b4], pipes[lay],
+                        np.random.default_rng(0))
+        dt = to_device({k: v for k, v in db.items() if k != "_meta"}, dev)
+        swin = lay == "dev_flat_swin"
+
+        def build():
+            return device_flat_maps.build_flat_maps(
+                dt["vox_coords"], dt["n_voxels"], locks[lay],
+                swin_window=4 if swin else 0,
+                stem_mode="none" if swin else "dense_block",
+                voxel_feats=dt["voxel_feats"], ztriple=not swin)
+        built = build()
+        for key in sorted(set(host) | set(built)):
+            if key not in host or key not in built:
+                fail(f"swin_layouts: {lay}: map {key} on one side only")
+            got = built[key].cpu().numpy()
+            want = host[key]
+            if got.dtype != want.dtype or got.shape != want.shape \
+                    or not np.array_equal(got, want):
+                fail(f"swin_layouts: {lay}: the map {key} built on the "
+                     "card differs from the host's")
+        ms = cuda_time(build, 5)
+        h2d = tree_nbytes({k: v for k, v in db.items() if k != "_meta"})
+        print(f"swin_layouts: {lay}: the {len(host)} flat maps built on the "
+              f"card equal collate_flat's key by key | build {ms:.3f} ms "
+              f"(median of 5, CUDA events) | host-to-device "
+              f"{h2d / 2**20:.2f} MiB a batch", flush=True)
+        del built, dt
+
+    fmaps = (device_flat_maps, "build_flat_maps")
+
+    def serve(label, m, lay, **kw):
+        return serve_instseg("swin_layouts", label, m, pipes[lay], warm,
+                             scenes, card, fmaps, **kw)
+    runs, fwd, gates = {}, {}, {}
+    # the swin model: flat_swin, dev_flat_swin, flat_swin_bf16
+    t0 = time.time()
+    model = build_model(cfgs["flat_swin"], device="cuda", seed=0)
+    print(f"swin_layouts: swin model built in {time.time() - t0:.1f} s, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+          f"params", flush=True)
+    dev_ve = dataclasses.replace(model.voxel_enc, **dev_cfg("dev_flat_swin"))
+    runs["flat_swin"] = serve("flat_swin", model, "flat_swin", rounds=True)
+    runs["dev_flat_swin"] = serve("dev_flat_swin", model, "dev_flat_swin",
+                                  ve=dev_ve, rounds=True)
+    bf_model = cast_model_bf16(copy.deepcopy(model))
+    runs["flat_swin_bf16"] = serve("flat_swin_bf16", bf_model, "flat_swin",
+                                   cast=cast_batch_bf16)
+
+    # gate: dev_flat_swin's served logits against flat_swin's, every round
+    # of every scene up to an attend bit that flips (rounds_rel)
+    dev_rel, flips = 0.0, []
+    for (hr, (_, _, v)), dr in zip(
+            zip(runs["flat_swin"]["rounds"], runs["flat_swin"]["logits"]),
+            runs["dev_flat_swin"]["rounds"]):
+        rel, first = rounds_rel(hr, dr, v)
+        dev_rel = max(dev_rel, rel)
+        flips += [r for r in first if r < len(hr[2])]
+    (ch, mh), (cd, md) = (served_logits(runs["flat_swin"]),
+                          served_logits(runs["dev_flat_swin"]))
+    final_rel = max(rel_err(*p) for p in zip(final_logits(cd, md),
+                                             final_logits(ch, mh)))
+    print(f"swin_layouts: dev_flat_swin served logits vs flat_swin over "
+          f"{len(scenes)} scenes, every round up to a flipped attend bit: "
+          f"rel {dev_rel:.2e} (gate {SWIN_GATES['dev_flat']:.0e}); scenes "
+          f"with a flipped bit {len(flips)} (first flipped rounds "
+          f"{flips}), final round over all scenes "
+          f"{final_rel:.2e}", flush=True)
+    if not dev_rel <= SWIN_GATES["dev_flat"]:
+        fail("swin_layouts: dev_flat_swin's served logits differ from "
+             "flat_swin's")
+
+    # one forward of one batch per setup on the device clock; the bf16
+    # gate on that batch, readings on every served batch and on more
+    # weight seeds
+    flat_b, dev_b = batch_of("flat_swin", b4), batch_of("dev_flat_swin", b4)
+    fwd["flat_swin"] = split_forward(model, flat_b)
+    model.voxel_enc, host_ve = dev_ve, model.voxel_enc
+    try:
+        fwd["dev_flat_swin"] = split_forward(model, dev_b)
+    finally:
+        model.voxel_enc = host_ve
+    fwd["flat_swin_bf16"] = split_forward(bf_model, cast_batch_bf16(flat_b))
+    gates["flat_swin_bf16"] = check_bf16_gate(
+        "flat_swin_bf16 vs flat_swin",
+        lambda: pair(model, bf_model, flat_b), flat_b["seg_pad_masks"])
+    gates["flat_swin_bf16"]["served"] = bf16_served_readings(
+        "flat_swin_bf16 vs flat_swin", runs["flat_swin"],
+        runs["flat_swin_bf16"])
+    gates["flat_swin_bf16"]["seeds"] = bf16_seed_readings(
+        "flat_swin_bf16 vs flat_swin", cfgs["flat_swin"], flat_b,
+        SWIN_SEEDS)
+    del bf_model, dev_b
+
+    # gates: served scenes' full-width swin forward (a batch of one) on the
+    # card against the same forward on the CPU, TF32 off: with the sparse
+    # convs in f32 compute on both sides, and as served (bf16 conv
+    # operands), whose bound is bf16 rounding's
+    cpu_model = copy.deepcopy(model).cpu()
+    scales = {}
+    hooks = [m.voxel_encoder.register_forward_hook(
+        lambda mod, args, out: scales.__setitem__("x", out))
+        for m in (model, cpu_model)]
+    cpu_rel = {"f32": [], "bf16": []}
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        for scene in scenes[:4]:
+            one = batch_of("flat_swin", [scene])
+            one_cpu = {k: (v.cpu() if hasattr(v, "cpu") else
+                           {kk: vv.cpu() for kk, vv in v.items()})
+                       for k, v in one.items()}
+            for conv in ("bf16", "f32"):
+                rounding = ((lambda orig: orig) if conv == "bf16" else
+                            (lambda orig: lambda t, dtype: t.float()))
+                with patched(sparse, "_round", rounding), \
+                        torch.inference_mode():
+                    got = out_rounds(model(one))
+                    card_scales = [t.float().cpu() for t in scales["x"]]
+                    t0 = time.time()
+                    cpu = out_rounds(cpu_model(one_cpu))
+                    cpu_s = time.time() - t0
+                    cpu_scales = [t.float() for t in scales["x"]]
+                rel, first = rounds_rel(cpu, got, one_cpu["seg_pad_masks"])
+                cpu_rel[conv].append({
+                    "scales": max(rel_err(a, b) for a, b in
+                                  zip(card_scales, cpu_scales)),
+                    "logits": rel, "flip_round": first[0],
+                    "rounds": len(got[0]),
+                    "final": max(rel_err(*p) for p in zip(
+                        final_logits(got[0][-1], got[1][-1]),
+                        final_logits(cpu[0][-1], cpu[1][-1])))})
+    finally:
+        for h in hooks:
+            h.remove()
+        torch.backends.cudnn.allow_tf32 = True
+    worst = {conv: {k: max(r[k] for r in rs)
+                    for k in ("scales", "logits", "final")}
+             for conv, rs in cpu_rel.items()}
+    flip_rounds = {conv: [r["flip_round"] for r in rs]
+                   for conv, rs in cpu_rel.items()}
+    print(f"swin_layouts: {len(cpu_rel['f32'])} served scenes' full-width "
+          f"swin forward, card vs CPU, the worst scene (TF32 off: "
+          f"torch.backends.cuda.matmul.allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cudnn off; logits: "
+          f"every round up to a flipped attend bit) | sparse convs in f32: "
+          f"segment features rel {worst['f32']['scales']:.2e}, logits rel "
+          f"{worst['f32']['logits']:.2e} (gate {SWIN_GATES['card_cpu']:.0e}), "
+          f"first flipped round by scene {flip_rounds['f32']} of "
+          f"{cpu_rel['f32'][0]['rounds']}, final round "
+          f"{worst['f32']['final']:.2e} | as served, bf16 conv operands: "
+          f"{worst['bf16']['scales']:.2e}, {worst['bf16']['logits']:.2e} "
+          f"(gate {SWIN_GATES['card_cpu_served']:.4g}), by scene "
+          f"{[round(max(r['scales'], r['logits']), 5) for r in cpu_rel['bf16']]}"
+          f", first flipped round by scene {flip_rounds['bf16']}, final round "
+          f"{worst['bf16']['final']:.2e} | CPU forward {cpu_s:.1f} s",
+          flush=True)
+    if not max(worst["f32"]["scales"], worst["f32"]["logits"]) <= \
+            SWIN_GATES["card_cpu"] or not max(
+                worst["bf16"]["scales"], worst["bf16"]["logits"]) <= \
+            SWIN_GATES["card_cpu_served"]:
+        fail("swin_layouts: the card's swin forward disagrees with the CPU's")
+    del model, cpu_model, one, one_cpu, flat_b
+    torch.cuda.empty_cache()
+
+    # phase 5b's Res16UNet: dev_flat_zt, flat_zt_bf16
+    model = build_model(cfgs["flat_zt"], device="cuda", seed=0)
+    zdev_ve = dataclasses.replace(model.voxel_enc, **dev_cfg("dev_flat_zt"))
+    runs["dev_flat_zt"] = serve("dev_flat_zt", model, "dev_flat_zt",
+                                ve=zdev_ve)
+    bf_model = cast_model_bf16(copy.deepcopy(model))
+    runs["flat_zt_bf16"] = serve("flat_zt_bf16", bf_model, "flat_zt",
+                                 cast=cast_batch_bf16)
+    if not (runs["dev_flat_zt"]["launches"] and
+            runs["flat_zt_bf16"]["launches"]):
+        fail("swin_layouts: B1 did not launch in dev_flat_zt or "
+             "flat_zt_bf16")
+    flat_b, dev_b = batch_of("flat_zt", b4), batch_of("dev_flat_zt", b4)
+    host_ve = model.voxel_enc
+    with torch.inference_mode():
+        ref = out_rounds(model(flat_b))
+        model.voxel_enc = zdev_ve
+        try:
+            dev_out = out_rounds(model(dev_b))
+        finally:
+            model.voxel_enc = host_ve
+    zt_rel, zt_flips = rounds_rel(ref, dev_out, flat_b["seg_pad_masks"])
+    n_rounds = len(ref[0])
+    print(f"swin_layouts: dev_flat_zt forward vs flat_zt (host maps and "
+          f"plans) on one batch, every round up to a flipped attend bit: "
+          f"rel {zt_rel:.2e} (gate {SWIN_GATES['dev_flat']:.0e}), first "
+          f"flipped round by scene {zt_flips} of {n_rounds}", flush=True)
+    if not zt_rel <= SWIN_GATES["dev_flat"]:
+        fail("swin_layouts: dev_flat_zt's forward differs from flat_zt's")
+    gates["flat_zt_bf16"] = check_bf16_gate(
+        "flat_zt_bf16 vs flat_zt", lambda: pair(model, bf_model, flat_b),
+        flat_b["seg_pad_masks"])
+    # dev_flat_zt's served logits stand for flat_zt's (within 1e-5 above)
+    gates["flat_zt_bf16"]["served"] = bf16_served_readings(
+        "flat_zt_bf16 vs dev_flat_zt", runs["dev_flat_zt"],
+        runs["flat_zt_bf16"])
+    gates["flat_zt_bf16"]["seeds"] = bf16_seed_readings(
+        "flat_zt_bf16 vs flat_zt", cfgs["flat_zt"], flat_b, SWIN_SEEDS)
+    model.voxel_enc = zdev_ve
+    try:
+        fwd["dev_flat_zt"] = split_forward(model, dev_b)
+    finally:
+        model.voxel_enc = host_ve
+    fwd["flat_zt_bf16"] = split_forward(bf_model, cast_batch_bf16(flat_b))
+    for lay, r in fwd.items():
+        print(f"swin_layouts: {lay}: one forward of the checked batch "
+              f"(CUDA events, median of 3): {r['forward']:.1f} ms = "
+              f"backbone {r['backbone']:.1f} (window attention "
+              f"{r['attention']:.1f}) + rest {r['rest']:.1f} (flat map "
+              f"build {r['map_build']:.1f})", flush=True)
+    del model, bf_model, ref, dev_out, flat_b, dev_b
+    torch.cuda.empty_cache()
+
+    train = swin_train(card)
+    total = time.time() - t_phase
+    print(f"swin_layouts: phase {total:.1f} s ({card})", flush=True)
+    for rec in runs.values():
+        for key in ("logits", "rounds", "pre", "np_batches"):
+            rec.pop(key)
+    return {"runs": runs, "forward_ms": fwd, "bf16": gates,
+            "dev_flat_rel": dev_rel, "dev_flat_flips": flips,
+            "dev_flat_final_rel": final_rel, "dev_flat_zt_rel": zt_rel,
+            "card_cpu": cpu_rel, "locks": locks, "train": train,
+            "phase_s": total}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -3693,6 +4418,10 @@ def main():
 
     # ---- 14. unified_variants: the rest of stage 2 ----------------------
     vr = variants_phase(card, dev)
+    torch.cuda.empty_cache()
+
+    # ---- 15. swin_layouts: Swin3D, the flat device maps, the stage-1 cast
+    sw = swin_layouts_phase(card, dev)
 
     # ---- kernels line + result -----------------------------------------
     def per_fwd(key):
@@ -3709,7 +4438,8 @@ def main():
         + rc["launches"]["fwd"] + rc["launches"]["bwd"]
         + sum(r["launches"] for r in lay["runs"].values())
         + dd["stage1"]["launches"]["fwd"] + dd["stage1"]["launches"]["bwd"]
-        + dd["replicated"]["launches"],
+        + dd["replicated"]["launches"]
+        + sum(r["launches"] for r in sw["runs"].values()),
         "launches_by_path": {"serve": main_launches,
                              **{f"serve_{k}": r["launches"]
                                 for k, r in lay["runs"].items()},
@@ -3722,15 +4452,15 @@ def main():
                              "ddp_train_fwd": dd["stage1"]["launches"]["fwd"],
                              "ddp_train_bwd": dd["stage1"]["launches"]["bwd"],
                              "ddp_serve": dd["replicated"]["launches"],
-                             "unified_variants": vr["b1"]},
+                             "unified_variants": vr["b1"],
+                             **{f"swin_layouts_{k}": r["launches"]
+                                for k, r in sw["runs"].items()}},
         "max_abs_err": max(r["max_abs_err_f32"] for r in per_shape),
         "ms": per_fwd("ms"), "host_ms": per_fwd("host_ms"),
         "plain_ms": per_fwd("plain_ms"), "bound_ms": per_fwd("bound_ms"),
         "bound_by": max(per_shape, key=lambda r: r["bound_ms"])["bound_by"],
         "library_ms": None,
-        "serve_layouts": {k: {kk: v for kk, v in r.items()
-                              if kk not in ("map_build_ms",)}
-                          for k, r in lay["runs"].items()},
+        "serve_layouts": lay["runs"],
         "dev_map_build_ms": lay["map_build_ms"],
         "layout_forward_ms": lay["forward_ms"],
         "scope": f"ms/host_ms/plain_ms/bound_ms: sum over the "
@@ -3744,13 +4474,16 @@ def main():
                  f"z-run), the recipe's stage-1 "
                  f"runs (train and eval forwards, dx), phase ddp's timed "
                  f"stage-1 steps on both ranks (forward, dx) and its "
-                 f"replicated serving; recipe_ms: the same sum "
+                 f"replicated serving, phase swin_layouts' dev_flat_zt and "
+                 f"flat_zt_bf16 runs (0 in its swin runs); recipe_ms: the "
+                 f"same sum "
                  f"as ms over one forward of 4 SceneVerse-replica scans",
         "recipe_ms": rc["b1_ms"], "recipe_shapes": rc["b1"],
         "recipe_train_check": rc["train_check"],
         "ddp_rank0_shapes": dd["stage1"]["b1"],
         "ddp": {k: {kk: v for kk, v in r.items() if kk != "b1"}
                 for k, r in dd.items()},
+        "swin_layouts": {k: v for k, v in sw.items() if k != "locks"},
         "shapes": per_shape,
         "bwd_launches": tr["counts"]["bwd"],
         "bwd_ms": per_step("ms"), "bwd_host_ms": per_step("host_ms"),
@@ -3783,8 +4516,13 @@ def main():
         "source": "pq3d_tpu_torch/csrc/windowed_conv.cu",
         "replaces": "pq3d_tpu/ops/pallas_conv.py:205",
         "launches": wc["launches"],
-        "launches_by_path": {"serve": b2_serve, "train": b2_train,
+        "launches_by_path": {"serve": b2_serve,
+                             "serve_layouts": sum(r["b2_launches"] for r in
+                                                  lay["runs"].values()),
+                             "train": b2_train,
                              "unified_variants": vr["b2"],
+                             "swin_layouts": sum(r["b2_launches"] for r in
+                                                 sw["runs"].values()),
                              "winconv": wc["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in wc["shapes"]),
         "ms": b2_fwd("ms"), "plain_ms": b2_fwd("plain_ms"),

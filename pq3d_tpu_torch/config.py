@@ -5,9 +5,10 @@ as ``yaml.safe_load`` reads it (``${...}`` interpolations left as
 strings); ``INSTSEG_SCENEVERSE_MODEL`` and ``INSTSEG_SCENEVERSE_OPTIONS``
 are its ``model`` and ``data.instseg_options`` sections, and
 ``INSTSEG_SCENEVERSE_GT`` is ``instseg_sceneverse_gt.yaml``, the GT-query
-variant, and ``INSTSEG_SYNTHETIC`` ``instseg_synthetic.yaml``, the same
-model narrowed on synthetic scenes.  The stage-1
-slices add one override, ``model.voxel_encoder.args.pallas_conv: true``,
+variant, ``INSTSEG_SYNTHETIC`` ``instseg_synthetic.yaml``, the same
+model narrowed on synthetic scenes, and ``INSTSEG_SWIN3D_SYNTHETIC``
+``instseg_swin3d_synthetic.yaml``, that one with the Swin3D backbone.
+The stage-1 slices add one override, ``model.voxel_encoder.args.pallas_conv: true``,
 which routes the decoder's 96/128-channel stride-1 3^3 convs to the z-run
 CUDA kernel.  ``UNIFIED_TASKS_SCENEVERSE`` and ``UNIFIED_TASKS_SYNTHETIC``
 are ``unified_tasks_{sceneverse,synthetic}.yaml``, the stage-2 unified
@@ -20,7 +21,7 @@ from __future__ import annotations
 import ast
 import copy
 import re
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 INSTSEG_SCENEVERSE_OPTIONS: Dict[str, Any] = {
     "num_labels": 200,
@@ -200,6 +201,22 @@ def _synthetic_variant(cfg: Dict[str, Any]) -> Dict[str, Any]:
 INSTSEG_SYNTHETIC: Dict[str, Any] = _synthetic_variant(INSTSEG_SCENEVERSE)
 
 
+def _swin_variant(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """``instseg_swin3d_synthetic.yaml`` from ``instseg_synthetic.yaml``:
+    the PCDMask3DSwin3DEncoder (the Swin3D window-attention U-Net at its
+    defaults), window packs of window 4 and no stem arrays."""
+    swin = copy.deepcopy(cfg)
+    swin["name"] = "instseg-swin3d-synthetic"
+    swin["data"]["instseg_options"].update(swin_window=4, stem_mode="none")
+    ve = swin["model"]["voxel_encoder"]
+    ve["name"] = "PCDMask3DSwin3DEncoder"
+    del ve["args"]["backbone_kwargs"]["config"]["conv1_kernel_size"]
+    return swin
+
+
+INSTSEG_SWIN3D_SYNTHETIC: Dict[str, Any] = _swin_variant(INSTSEG_SYNTHETIC)
+
+
 def _unified_model(hidden, txt_tower, freeze_pc, n_heads, n_layers,
                    ground_hidden, gen_args):
     """The ``model`` section the two unified YAML files share the form of."""
@@ -334,6 +351,7 @@ UNIFIED_TASKS_SYNTHETIC: Dict[str, Any] = {
 
 CONFIGS = {"instseg_sceneverse": INSTSEG_SCENEVERSE,
            "instseg_synthetic": INSTSEG_SYNTHETIC,
+           "instseg_swin3d_synthetic": INSTSEG_SWIN3D_SYNTHETIC,
            "instseg_sceneverse_gt": INSTSEG_SCENEVERSE_GT,
            "unified_tasks_sceneverse": UNIFIED_TASKS_SCENEVERSE,
            "unified_tasks_synthetic": UNIFIED_TASKS_SYNTHETIC}
@@ -409,32 +427,62 @@ def slice_config() -> Dict[str, Any]:
 
 
 # the stage-1 serving layouts (the JAX package's tools/bench_serve.py
-# variants) as overrides of the slices' config: device-built maps need the
-# model's caps to equal the pipeline's level_caps, which the interpolation
-# keeps true under a level_caps override, and carry the z-run plans of
-# levels 1-3 built on the device, as the bench's dev_maps variant does
+# variants) as overrides of instseg_sceneverse: the Res16UNet layouts route
+# to the z-run kernel (pallas_conv), the swin ones swap the voxel encoder
+# for PCDMask3DSwin3DEncoder at the same widths.  Device-built maps need
+# the model's caps to equal the pipeline's: dev_maps' level_caps through
+# the interpolation, the flat device layouts' lock (serving_config's
+# flat_caps) set on both sides; the Res16UNet ones build the z-run plans
+# of levels 1-3 on the device, as the bench's dev_maps variant does
+_PALLAS = "model.voxel_encoder.args.pallas_conv=true"
+_FLAT = "data.instseg_options.flat_pack=true"
+_SWIN = ("model.voxel_encoder.name=PCDMask3DSwin3DEncoder",
+         "data.instseg_options.stem_mode='none'",
+         "data.instseg_options.swin_window=4", _FLAT)
+_DEV_FLAT = ("data.instseg_options.device_maps=true",)
 SERVING_LAYOUTS: Dict[str, Sequence[str]] = {
-    "rect": (),
-    "dev_maps": ("data.instseg_options.device_maps=true",
+    "rect": (_PALLAS,),
+    "dev_maps": (_PALLAS, "data.instseg_options.device_maps=true",
                  "model.voxel_encoder.args.device_maps="
                  "${data.instseg_options.level_caps}",
                  "model.voxel_encoder.args.device_ztriple=true"),
-    "flat_zt": ("data.instseg_options.flat_pack=true",
-                "data.instseg_options.ztriple_conv=true"),
+    "flat_zt": (_PALLAS, _FLAT, "data.instseg_options.ztriple_conv=true"),
+    "flat_swin": _SWIN,
+    "dev_flat_swin": _SWIN + _DEV_FLAT,
+    "dev_flat_zt": (_PALLAS, _FLAT, *_DEV_FLAT,
+                    "model.voxel_encoder.args.device_ztriple=true"),
 }
+# the host layout whose collate_flat derives each device layout's lock
+LOCK_PROBE = {"dev_flat_swin": "flat_swin", "dev_flat_zt": "flat_zt"}
 
 
-def serving_config(layout: str = "rect",
-                   overrides: Sequence[str] = ()) -> Dict[str, Any]:
-    """The slices' config set up to serve ``layout``: ``rect``
+def serving_config(layout: str = "rect", overrides: Sequence[str] = (),
+                   flat_caps: Optional[Dict[str, int]] = None
+                   ) -> Dict[str, Any]:
+    """instseg_sceneverse set up to serve ``layout``: ``rect``
     (rectangular, host-built maps), ``dev_maps`` (rectangular, maps and
     z-run plans built on the device: ``voxel_enc.device_maps ==
-    level_caps``; the caps must hold every served scene) or ``flat_zt``
-    (the flat pack with the z-run gather conv on levels 1-3); further
-    ``key=value`` overrides after the layout's."""
+    level_caps``; the caps must hold every served scene), ``flat_zt`` (the
+    flat pack with the z-run gather conv on levels 1-3), ``flat_swin``
+    (the flat pack with the Swin3D backbone), or the flat pack with maps
+    built on the device, ``dev_flat_swin`` (swin) and ``dev_flat_zt``
+    (Res16UNet with the z-run plans built on the device), which need the
+    lock ``flat_caps`` (``instseg_pipeline.device_flat_lock`` on the
+    ``LOCK_PROBE`` layout's config) as the pipeline's ``flat_shape_caps``
+    and the model's ``device_flat_caps``; further ``key=value``
+    overrides after the layout's."""
     if layout not in SERVING_LAYOUTS:
         raise KeyError(f"unknown serving layout {layout!r}; known: "
                        f"{sorted(SERVING_LAYOUTS)}")
-    return load_config("instseg_sceneverse",
-                       ["model.voxel_encoder.args.pallas_conv=true",
-                        *SERVING_LAYOUTS[layout], *overrides])
+    if (layout in LOCK_PROBE) != (flat_caps is not None):
+        raise ValueError(f"layout {layout!r} "
+                         + ("needs" if layout in LOCK_PROBE else "takes no")
+                         + " flat_caps lock")
+    cfg = load_config("instseg_sceneverse",
+                      [*SERVING_LAYOUTS[layout], *overrides])
+    if flat_caps is not None:
+        caps = {k: int(v) for k, v in flat_caps.items()}
+        cfg["data"]["instseg_options"]["flat_shape_caps"] = caps
+        cfg["model"]["voxel_encoder"]["args"]["device_flat_caps"] = \
+            dict(caps)
+    return cfg

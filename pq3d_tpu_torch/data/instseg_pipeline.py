@@ -1,10 +1,12 @@
 """Instance-segmentation host pipeline: scene dict -> fixed-shape batch.
 
-Counterpart of ``pq3d_tpu/data/instseg_pipeline.py``, trimmed to the
-stage-1 slices: train-time augmentation, color normalization,
-voxelization, query sampling (FPS, or the GT object centres), sparse
-kernel maps and the dense-block stem pack, and in GT-query mode the GT
-segment masks as the decoder's offline attention masks.  Three layouts:
+Counterpart of ``pq3d_tpu/data/instseg_pipeline.py``: train-time
+augmentation, color normalization, voxelization, query sampling (FPS, or
+the GT object centres), sparse kernel maps, the dense-block stem pack or
+none (``stem_mode='none'``: the Swin3D backbone's stem reads ``nbr3_0``
+alone), the Swin3D window packs of levels 1-4 (``swin_window``), and in
+GT-query mode the GT segment masks as the decoder's offline attention
+masks.  Four layouts:
 
 - rectangular (B, ...) with host-built maps (``collate``), optionally
   with the z-run plans of levels 1-3 (``ztriple_conv``);
@@ -15,12 +17,17 @@ segment masks as the decoder's offline attention masks.  Three layouts:
   scene that outgrows a cap;
 - the flat pack (``flat_pack``, ``collate_flat``): voxel-level arrays
   concatenate the scenes' true rows into one bucketed total per level,
-  with the maps pre-offset, for single-device serving and training.
+  with the maps pre-offset, for single-device serving and training;
+- the flat pack with maps built on the device (``device_maps`` +
+  ``flat_pack``, ``collate_flat_device``): the batch ships the
+  concatenated biased coords and the counts, the model builds the flat
+  maps (``ops/device_flat_maps``) at a complete ``flat_shape_caps`` lock,
+  and a batch that overflows the lock is refused here.
 
-The compact-conv, level-cap-ladder, Swin3D and flat device-maps layouts of
-the JAX package are not ported.  Everything here is numpy; the batch it
-returns is bit-identical to the JAX package's on the same scenes and rng,
-with or without augmentation.
+``compact_conv`` and ``level_cap_ladder`` are not ported:
+``pipeline_config`` refuses them by name.  Everything here is numpy; the
+batch it returns is bit-identical to the JAX package's on the same scenes
+and rng, with or without augmentation.
 """
 from __future__ import annotations
 
@@ -30,8 +37,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from pq3d_tpu_torch.ops import kernel_maps, sampling, voxelize, window_maps
-from pq3d_tpu_torch.ops.device_maps import ZTRIPLE_LEVELS, bias_coords_16
+from pq3d_tpu_torch.ops import (device_flat_maps, kernel_maps, sampling,
+                                voxelize, window_maps)
+from pq3d_tpu_torch.ops.device_maps import (ZTRIPLE_LEVELS, bias_coords_16,
+                                            swin_bias_align)
+
+# hierarchy levels with Swin3D window packs
+SWIN_LEVELS = (1, 2, 3, 4)
 
 COLOR_MEAN = np.array([0.47793125906962, 0.4303257521323044,
                        0.3749598901421883], np.float32)
@@ -59,8 +71,9 @@ class InstSegPipelineConfig:
     # (B, Q, S), True = attend: query i attends instance i's segments
     offline_mask_source: Optional[str] = None
     # 'dense_block' packs level-0 voxels + features into dense 8^3 blocks so
-    # conv0 runs as a dense conv (ops/sparse.conv0_dense_block); the only
-    # stem the port ships
+    # conv0 runs as a dense conv (ops/sparse.conv0_dense_block); 'none'
+    # ships no stem arrays (the swin3d backbone's stem reads nbr3_0 alone).
+    # The JAX package's 125-tap 'gather' stem is not ported
     stem_mode: str = "dense_block"
     stem_block: int = 8
     # fixed pad (in blocks) for the host-built dense-block stem pack; with
@@ -83,10 +96,20 @@ class InstSegPipelineConfig:
     # a scene that outgrows them
     device_maps: bool = False
     # flat-pack shape lock: the least size of each batch-varying flat dim
-    # ('tot_{l}', 'rect_{l}', 'stem_nb'), so batches collate to one shape
-    # set; a batch that overflows a cap takes its bucketed size (with a
-    # warning).  Derive with flat_shape_caps_from
+    # ('tot_{l}', 'rect_{l}', 'win{l}s{j}_nw', 'stem_nb'), so batches
+    # collate to one shape set; a batch that overflows a cap takes its
+    # bucketed size (with a warning).  Under device_maps + flat_pack it is
+    # the device maps' static shapes: it must name every dim, and a batch
+    # that overflows it is refused.  Derive with flat_shape_caps_from
     flat_shape_caps: Optional[Dict[str, int]] = None
+    # > 0 builds the Swin3D window packs (regular and shifted) of levels
+    # 1-4 at this window (ops/window_maps), which the swin3d backbone needs
+    swin_window: int = 0
+    # under device_maps + flat_pack: count each batch's true flat dims on
+    # the host (a ravel-key np.unique per scene and level) and refuse a
+    # batch that overflows the lock, which the device build would drop
+    # silently; turn off only for traffic known to fit
+    device_flat_check: bool = True
 
     def __post_init__(self):
         if self.query_sample_strategy not in ("fps", "gt"):
@@ -97,22 +120,36 @@ class InstSegPipelineConfig:
             raise ValueError(
                 f"offline_mask_source {self.offline_mask_source!r} is not "
                 "None or 'gt'")
-        if self.stem_mode != "dense_block":
+        if self.stem_mode not in ("dense_block", "none"):
             raise ValueError(
                 f"stem_mode {self.stem_mode!r} is not ported; the PyTorch "
-                "pipeline ships the 'dense_block' stem only")
-        if self.device_maps and self.flat_pack:
-            raise NotImplementedError(
-                "device_maps + flat_pack (the flat device maps) is not "
-                "ported; use one of them")
-        if self.device_maps and not self.level_caps:
-            raise ValueError(
-                "device_maps needs static level_caps (the device builds "
-                "every level at its cap)")
+                "pipeline ships the 'dense_block' stem or none (swin3d)")
         if self.device_maps and self.stem_block_cap is not None:
             raise ValueError(
-                "device_maps builds the stem pack at bucket(level_caps[0] "
-                "// 16) blocks; stem_block_cap is for host maps only")
+                "device_maps builds the stem pack at static caps; "
+                "stem_block_cap is for host maps only")
+        if self.device_maps and self.flat_pack:
+            # the flat device maps' shapes are the lock: nothing to bucket
+            # or grow against, so every flat dim must be named up front
+            missing = device_flat_maps.flat_caps_complete(
+                self.flat_shape_caps or {}, self.swin_window, SWIN_LEVELS,
+                self.stem_mode)
+            if missing:
+                raise ValueError(
+                    "device_maps + flat_pack needs a COMPLETE "
+                    f"flat_shape_caps lock; missing {missing}: derive one "
+                    "from a representative host-collated batch with "
+                    "flat_shape_caps_from(batch['_meta']['flat_dims'], cfg)")
+        elif self.device_maps:
+            if not self.level_caps:
+                raise ValueError(
+                    "device_maps needs static level_caps (the device builds "
+                    "every level at its cap)")
+            if self.swin_window:
+                raise ValueError(
+                    "rectangular device_maps has no device swin-pack "
+                    "builder; swin3d serves device maps in the flat layout "
+                    "(flat_pack=True + flat_shape_caps)")
 
     def flat_dim(self, name: str, computed: int) -> int:
         """Apply the flat shape lock to one batch-varying dimension."""
@@ -143,9 +180,39 @@ class InstSegPipelineConfig:
         return window_maps.bucket(n_win_max)
 
 
-def pipeline_config(options: Dict) -> InstSegPipelineConfig:
-    """Pipeline config from a YAML ``data.instseg_options`` dict; keys the
-    pipeline does not read (e.g. ``num_labels``) are ignored."""
+# options the JAX package reads that the port does not have yet, with the
+# JAX package's default: any other value raises
+UNPORTED_OPTIONS = {"compact_conv": False, "level_cap_ladder": None}
+
+
+def refuse_unported(options: Dict, unported: Dict, node: str) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP A.6 for the first key
+    of ``unported`` that ``options`` sets to a value other than its
+    default (a falsy value counts as the default)."""
+    for key, default in unported.items():
+        val = options.get(key, default)
+        if val != default and (val or default):
+            raise NotImplementedError(
+                f"{node}.{key}={val!r} is not ported yet (ROADMAP A.6); "
+                f"the port runs only the JAX default {default!r}")
+
+
+def pipeline_config(options: Dict, conv1_kernel_size: int = 5
+                    ) -> InstSegPipelineConfig:
+    """Pipeline config from a YAML ``data.instseg_options`` dict.  Keys the
+    JAX package reads but the port lacks (``compact_conv``,
+    ``level_cap_ladder``) raise unless at JAX's default; ``conv0_kernel``,
+    which shapes only JAX's 125-tap gather stem, must be 5 (JAX's default)
+    or the model's ``conv1_kernel_size``; keys neither package reads (e.g.
+    ``num_labels``) are ignored."""
+    node = "data.instseg_options"
+    refuse_unported(options, UNPORTED_OPTIONS, node)
+    k0 = int(options.get("conv0_kernel", 5))
+    if k0 not in (5, int(conv1_kernel_size)):
+        raise NotImplementedError(
+            f"{node}.conv0_kernel={k0} shapes the 125-tap gather stem map, "
+            "which the port does not ship; its dense-block stem runs the "
+            f"model's conv1_kernel_size ({conv1_kernel_size})")
     names = {f.name for f in dataclasses.fields(InstSegPipelineConfig)}
     return InstSegPipelineConfig(
         **{k: v for k, v in options.items() if k in names})
@@ -245,6 +312,11 @@ def process_scene(scene: Dict[str, np.ndarray], cfg: InstSegPipelineConfig,
             pad_sizes=list(cfg.level_caps) if cfg.level_caps else None,
             bucket=cfg.voxel_bucket)
 
+    swin_packs = None
+    if cfg.swin_window and not cfg.device_maps:
+        swin_packs = window_maps.build_swin_packs(
+            hierarchy.coords, cfg.swin_window, SWIN_LEVELS)
+
     full_instance_masks = None
     if not train:
         full_instance_masks = np.stack(
@@ -270,6 +342,7 @@ def process_scene(scene: Dict[str, np.ndarray], cfg: InstSegPipelineConfig,
         "coord_max": points.max(0),
         "instance_labels": inst_labels.astype(np.int32),
         "segment_masks": segment_masks,
+        "swin_packs": swin_packs,
     }
 
 
@@ -383,8 +456,10 @@ def _host_maps(scenes: List[Dict[str, np.ndarray]],
                cfg: InstSegPipelineConfig, pad: List[int]
                ) -> Dict[str, np.ndarray]:
     """The scenes' host-built hierarchies at the per-level ``pad``, the
-    dense-block stem pack and, with ``ztriple_conv``, the z-run plans of
-    ZTRIPLE_LEVELS, as (B, ...) maps."""
+    dense-block stem pack (``stem_mode='dense_block'``), the swin packs
+    (``swin_window``; each padded to the batch's bucketed window count)
+    and, with ``ztriple_conv``, the z-run plans of ZTRIPLE_LEVELS, as (B,
+    ...) maps."""
     b = len(scenes)
     n_levels = kernel_maps.NUM_LEVELS
     maps: Dict[str, np.ndarray] = {}
@@ -413,6 +488,23 @@ def _host_maps(scenes: List[Dict[str, np.ndarray]],
                 maps[f"nbr3_{l}"].reshape(-1, 27), n_pad=pad[l])
             maps[f"zt{l}_base"] = base.reshape(b, pad[l], 9)
             maps[f"zt{l}_code"] = codes.reshape(b, pad[l], 9, 3)
+    if cfg.swin_window:
+        for l in SWIN_LEVELS:
+            for j in (0, 1):
+                key = f"win{l}s{j}"
+                n_win_pad = window_maps.bucket(
+                    max(s["swin_packs"][f"{key}_nwin"] for s in scenes))
+                padded = [window_maps.pad_pack(
+                    {"cell_to_vox": s["swin_packs"][f"{key}_c2v"],
+                     "vox_slot": s["swin_packs"][f"{key}_slot"],
+                     "n_win": s["swin_packs"][f"{key}_nwin"]},
+                    cfg.swin_window, n_win_pad, pad[l]) for s in scenes]
+                maps[f"{key}_c2v"] = np.stack(
+                    [p["cell_to_vox"] for p in padded])
+                maps[f"{key}_slot"] = np.stack(
+                    [p["vox_slot"] for p in padded])
+    if cfg.stem_mode != "dense_block":
+        return maps
 
     blk = cfg.stem_block
     b3 = blk ** 3
@@ -440,8 +532,7 @@ def collate(scenes: List[Dict[str, np.ndarray]],
             cfg: InstSegPipelineConfig) -> Dict[str, np.ndarray]:
     """Stack processed scenes into one fixed-shape rectangular batch with
     host-built maps (per-level pads: ``level_caps`` or the bucketed batch
-    maximum), the dense-block stem pack and, with ``ztriple_conv``, the
-    z-run plans of ZTRIPLE_LEVELS.  Under ``device_maps`` the voxel
+    maximum; ``_host_maps``).  Under ``device_maps`` the voxel
     arrays are padded to ``level_caps[0]`` and the batch ships each
     scene's biased coords (``vox_coords``, B x cap0 x 3) and count
     (``n_voxels``) with an empty ``maps``; a scene that outgrows the caps
@@ -481,8 +572,11 @@ def collate_flat(scenes: List[Dict[str, np.ndarray]],
     offset into the flat rows; segment, query and instance arrays stay
     rectangular (B, ...).  Side arrays: ``voxel_scene`` (the scene of each
     level-0 row), ``anc_local`` (scene-local ancestors, 5 x N0) and
-    ``rect_{l}`` (B, Pmax_l: each scene's flat rows of level l, -1 pad);
-    ``_meta['flat_dims']`` holds each flat dim before the lock."""
+    ``rect_{l}`` (B, Pmax_l: each scene's flat rows of level l, -1 pad).
+    The swin packs (``swin_window``) and the dense-block stem pack
+    concatenate the scenes' packs, cells offset by the running window
+    count and voxel ids by the level's starts.  ``_meta['flat_dims']``
+    holds each flat dim before the lock."""
     b = len(scenes)
     n_levels = kernel_maps.NUM_LEVELS
     hs = [s["hierarchy"] for s in scenes]
@@ -550,32 +644,56 @@ def collate_flat(scenes: List[Dict[str, np.ndarray]],
                 starts[l][i], starts[l][i] + counts[l][i], dtype=np.int32)
         maps[f"rect_{l}"] = rect
 
-    blk = cfg.stem_block
-    b3 = blk ** 3
-    packs = [window_maps.build_window_pack(
-        s["vox_coords"], blk, 0, with_neighbors=True) for s in scenes]
-    nwin = [p["n_win"] for p in packs]
-    wstart = np.concatenate([[0], np.cumsum(nwin)]).astype(np.int64)
-    nb_tot = _dim("stem_nb", window_maps.bucket(int(wstart[-1])))
+    if cfg.swin_window:
+        w3 = cfg.swin_window ** 3
+        for l in SWIN_LEVELS:
+            for j in (0, 1):
+                key = f"win{l}s{j}"
+                nwin = [int(s["swin_packs"][f"{key}_nwin"]) for s in scenes]
+                wstart = np.concatenate([[0], np.cumsum(nwin)]).astype(
+                    np.int64)
+                nw_tot = _dim(f"{key}_nw",
+                              window_maps.bucket(int(wstart[-1])))
+                c2v = np.full(nw_tot * w3, -1, np.int32)
+                slot = np.full(tot[l], -1, np.int32)
+                for i, s in enumerate(scenes):
+                    sc = s["swin_packs"][f"{key}_c2v"]
+                    cell0 = wstart[i] * w3
+                    c2v[cell0:cell0 + len(sc)] = np.where(
+                        sc >= 0, sc + starts[l][i], -1)
+                    slot[starts[l][i]:starts[l][i] + counts[l][i]] = \
+                        s["swin_packs"][f"{key}_slot"] + cell0
+                maps[f"{key}_c2v"] = c2v
+                maps[f"{key}_slot"] = slot
+
     cin = scenes[0]["voxel_feats"].shape[1]
-    dense = np.zeros((nb_tot * b3, cin), np.float32)
-    c2v = np.full(nb_tot * b3, -1, np.int32)
-    slot = np.full(tot[0], -1, np.int32)
-    nbrblk = np.full((nb_tot, 27), -1, np.int32)
-    for i, (sc, pk) in enumerate(zip(scenes, packs)):
-        cell0 = wstart[i] * b3
-        dense[cell0 + pk["vox_slot"]] = sc["voxel_feats"]
-        cv = pk["cell_to_vox"]
-        c2v[cell0:cell0 + len(cv)] = np.where(cv >= 0, cv + starts[0][i], -1)
-        slot[starts[0][i]:starts[0][i] + counts[0][i]] = \
-            pk["vox_slot"] + cell0
-        nb = pk["nbr_win"]
-        nbrblk[wstart[i]:wstart[i] + nwin[i]] = np.where(
-            nb >= 0, nb + wstart[i], -1)
-    maps["stem_dense"] = dense.reshape(nb_tot, b3 * cin)
-    maps["stem_c2v"] = c2v
-    maps["stem_slot"] = slot
-    maps["stem_nbrblk"] = nbrblk
+    if cfg.stem_mode == "dense_block":
+        blk = cfg.stem_block
+        b3 = blk ** 3
+        packs = [window_maps.build_window_pack(
+            s["vox_coords"], blk, 0, with_neighbors=True) for s in scenes]
+        nwin = [p["n_win"] for p in packs]
+        wstart = np.concatenate([[0], np.cumsum(nwin)]).astype(np.int64)
+        nb_tot = _dim("stem_nb", window_maps.bucket(int(wstart[-1])))
+        dense = np.zeros((nb_tot * b3, cin), np.float32)
+        c2v = np.full(nb_tot * b3, -1, np.int32)
+        slot = np.full(tot[0], -1, np.int32)
+        nbrblk = np.full((nb_tot, 27), -1, np.int32)
+        for i, (sc, pk) in enumerate(zip(scenes, packs)):
+            cell0 = wstart[i] * b3
+            dense[cell0 + pk["vox_slot"]] = sc["voxel_feats"]
+            cv = pk["cell_to_vox"]
+            c2v[cell0:cell0 + len(cv)] = np.where(cv >= 0,
+                                                  cv + starts[0][i], -1)
+            slot[starts[0][i]:starts[0][i] + counts[0][i]] = \
+                pk["vox_slot"] + cell0
+            nb = pk["nbr_win"]
+            nbrblk[wstart[i]:wstart[i] + nwin[i]] = np.where(
+                nb >= 0, nb + wstart[i], -1)
+        maps["stem_dense"] = dense.reshape(nb_tot, b3 * cin)
+        maps["stem_c2v"] = c2v
+        maps["stem_slot"] = slot
+        maps["stem_nbrblk"] = nbrblk
 
     S = cfg.max_segments
     vf = np.zeros((tot[0], cin), np.float32)
@@ -610,12 +728,127 @@ def flat_shape_caps_from(dims: Dict[str, int], cfg: InstSegPipelineConfig,
             for name, n in dims.items()}
 
 
+def collate_flat_device(scenes: List[Dict[str, np.ndarray]],
+                        cfg: InstSegPipelineConfig
+                        ) -> Dict[str, np.ndarray]:
+    """The flat layout with maps built on the device
+    (``ops/device_flat_maps``): the batch ships the concatenated biased
+    voxel coords ``vox_coords`` (tot_0, 3), the per-scene counts
+    ``n_voxels`` (B,) and the flat features, with an empty ``maps``; the
+    model's forward builds the flat maps at ``cfg.flat_shape_caps`` (a
+    complete lock, which ``__post_init__`` demands).
+
+    Raises ``ValueError`` for a batch past the lock's ``tot_0``, for one
+    whose scene-augmented key space would pass 2^32 (the JAX package's
+    uint32 contract, kept although the port's keys are int64) and, with
+    ``device_flat_check``, for one whose true flat dims overflow any cap:
+    the device build would drop those rows into trash slots silently.
+    ``_meta['flat_dims']`` holds the true dims."""
+    caps = cfg.flat_shape_caps
+    b = len(scenes)
+    tot0 = int(caps["tot_0"])
+    counts = np.array([len(s["vox_coords"]) for s in scenes], np.int32)
+    total0 = int(counts.sum())
+    if total0 > tot0:
+        raise ValueError(
+            f"batch has {total0} voxels > flat_shape_caps['tot_0'] {tot0}; "
+            "the device flat shapes cannot grow: raise the lock (and "
+            "rebuild the model with the same voxel_enc.device_flat_caps)")
+    align = swin_bias_align(cfg.swin_window)
+    cin = scenes[0]["voxel_feats"].shape[1]
+    vox_coords = np.zeros((tot0, 3), np.int32)
+    voxel_feats = np.zeros((tot0, cin), scenes[0]["voxel_feats"].dtype)
+    v2s = np.full(tot0, cfg.max_segments, np.int32)
+    r = 0
+    for s in scenes:
+        n = len(s["vox_coords"])
+        vox_coords[r:r + n] = bias_coords_16(s["vox_coords"], align=align)[0]
+        voxel_feats[r:r + n] = s["voxel_feats"]
+        v2s[r:r + n] = np.minimum(s["voxel2segment"], cfg.max_segments)
+        r += n
+    dims = (vox_coords[:total0].max(0).astype(np.int64) + 3 if total0
+            else np.array([3, 3, 3], np.int64))
+    vol = int(dims[0] * dims[1] * dims[2])
+    if (b + 1) * vol >= 2 ** 32:
+        raise ValueError(
+            f"scene-augmented key space overflow: {b} scenes x field "
+            f"volume {vol} >= 2^32; split the batch or coarsen voxel_size")
+
+    true_dims = {"tot_0": total0, "rect_0": int(counts.max())}
+    if cfg.device_flat_check:
+        bounds = np.concatenate([[0], np.cumsum(counts)])
+        true_dims = _flat_device_true_dims(
+            [vox_coords[a:z] for a, z in zip(bounds[:-1], bounds[1:])], cfg)
+        over = {k: (v, caps[k]) for k, v in true_dims.items()
+                if v > caps.get(k, 1 << 30)}
+        if over:
+            raise ValueError(
+                "batch overflows the device flat shape lock: {name: (true, "
+                f"cap)}} = {over}; the device build would drop rows "
+                "silently: raise flat_shape_caps (and rebuild the model with "
+                "the same device_flat_caps) or split the batch")
+
+    out = _scene_arrays(scenes, cfg)
+    out["maps"] = {}
+    out["vox_coords"] = vox_coords
+    out["n_voxels"] = counts
+    out["voxel_feats"] = voxel_feats
+    out["voxel2segment"] = v2s
+    out["_meta"]["flat_dims"] = true_dims
+    return out
+
+
+def _flat_device_true_dims(scene_coords: List[np.ndarray],
+                           cfg: InstSegPipelineConfig) -> Dict[str, int]:
+    """True flat dims of a batch from its biased per-scene coords alone,
+    as the device build finds them: one int64 ravel-key ``np.unique`` per
+    (scene, level[, window shift]), no maps."""
+    def _keys(c: np.ndarray) -> np.ndarray:
+        if not len(c):
+            return np.zeros(0, np.int64)
+        d = c.max(0).astype(np.int64) + 1
+        return (c[:, 0].astype(np.int64) * d[1] + c[:, 1]) * d[2] + c[:, 2]
+
+    dims: Dict[str, int] = {}
+    lvl = [np.asarray(c, np.int64) for c in scene_coords]
+    for l in range(kernel_maps.NUM_LEVELS):
+        dims[f"tot_{l}"] = sum(len(c) for c in lvl)
+        dims[f"rect_{l}"] = max((len(c) for c in lvl), default=1)
+        if cfg.swin_window and l in SWIN_LEVELS:
+            w = cfg.swin_window
+            for j, sh in enumerate((0, w // 2)):
+                dims[f"win{l}s{j}_nw"] = sum(
+                    len(np.unique(_keys((c + sh) // w))) for c in lvl)
+        if l == 0 and cfg.stem_mode == "dense_block":
+            dims["stem_nb"] = sum(
+                len(np.unique(_keys(c // cfg.stem_block))) for c in lvl)
+        if l < kernel_maps.NUM_LEVELS - 1:
+            lvl = [_unique_rows(c >> 1) if len(c) else c for c in lvl]
+    return dims
+
+
+def device_flat_lock(scenes: List[Dict[str, np.ndarray]],
+                     cfg: InstSegPipelineConfig, batch_size: int,
+                     margin: float = 1.3) -> Dict[str, int]:
+    """A device flat layout's lock, as the JAX package's serving bench
+    derives it: ``collate_flat`` (``cfg``: the layout's host-maps twin) of
+    the largest raw scene of ``scenes`` repeated ``batch_size`` times, then
+    ``flat_shape_caps_from`` with ``margin``."""
+    big = max(scenes, key=lambda s: len(s["points"]))
+    probe = make_batch([dict(big) for _ in range(batch_size)], cfg,
+                       np.random.default_rng(0))
+    return flat_shape_caps_from(probe["_meta"]["flat_dims"], cfg, margin)
+
+
 def collate_processed(processed: List[Dict[str, np.ndarray]],
                       cfg: InstSegPipelineConfig) -> Dict[str, np.ndarray]:
     """Single dispatch point for batching pre-processed scenes: the flat
-    pack (``collate_flat``) or the rectangular layout (``collate``, host
-    or device maps)."""
+    pack with host maps (``collate_flat``) or device maps
+    (``collate_flat_device``), or the rectangular layout (``collate``,
+    host or device maps)."""
     if cfg.flat_pack:
+        if cfg.device_maps:
+            return collate_flat_device(processed, cfg)
         return collate_flat(processed, cfg)
     return collate(processed, cfg)
 

@@ -1,14 +1,17 @@
 """Vision / memory encoders (PyTorch); counterpart of
 ``pq3d_tpu/models/encoders.py``:
 
-- SegVoxelEncoder: Res16UNet -> per-scale segment-pooled features
-  (rectangular and flat-pack layouts);
+- SegVoxelEncoder: a voxel U-Net (Res16UNet, or the Swin3D window-
+  attention U-Net of ``models/swin3d``) -> per-scale segment-pooled
+  features (rectangular and flat-pack layouts); ``check_swin_window``
+  holds a swin model and a pipeline to one window;
 - ObjectEncoder: per-object (or per-segment) feature projection, with an
   optional PointNet++ backbone over raw object point clouds (the padded
   (B, O, P, 3+C) layout, or the flat one: the batch's real objects only).
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List, Sequence
 
 import torch
@@ -35,6 +38,12 @@ class ProjectLN(nn.Module):
 class SegVoxelEncoder(nn.Module):
     """Voxel U-Net -> per-scale segment-pooled features.
 
+    ``backbone`` is ``"res16unet"`` or ``"swin3d"`` (``Swin3DUNet`` at the
+    JAX package's defaults and ``swin_window``; the batch must carry the
+    window packs).  The swin backbone has no routed conv: ``pallas_conv``
+    is accepted there and does nothing, with a warning, as the JAX package
+    prints one.
+
     For each hlevel (plus the final level-0 map) the decoder feature map is
     mean-pooled onto segments and projected.  Coarse levels pool through a
     count matrix: ``mean[s] = (counts @ feat)[s] / n_s`` with
@@ -52,20 +61,33 @@ class SegVoxelEncoder(nn.Module):
                  backbone_out_channels: int = 200,
                  conv1_kernel_size: int = 5, pallas_conv: bool = False,
                  in_channels: int = 3, dropout: float = 0.1,
-                 bn_momentum: float = 0.02):
+                 bn_momentum: float = 0.02, backbone: str = "res16unet",
+                 swin_window: int = 4):
         super().__init__()
         self.hlevels = list(hlevels)
         # the backbone's `final` output (backbone_out_channels) is not used
         # here: its parameters get a zero gradient and are still decayed
-        self.backbone = Res16UNet(in_channels=in_channels,
-                                  out_channels=backbone_out_channels,
-                                  conv1_kernel_size=conv1_kernel_size,
-                                  pallas_conv=pallas_conv,
-                                  bn_momentum=bn_momentum)
-        # channels of feature_maps [L4, L3, L2, L1, L0]: the encoder's last
-        # stage, then the four decoder stages
-        P = self.backbone.planes
-        p = [P[3]] + P[4:8]
+        if backbone == "swin3d":
+            from pq3d_tpu_torch.models.swin3d import Swin3DUNet
+            if pallas_conv:
+                warnings.warn("[SegVoxelEncoder] swin3d backbone has no "
+                              "pallas_conv — option(s) ignored",
+                              stacklevel=2)
+            self.backbone = Swin3DUNet(in_channels=in_channels,
+                                       out_channels=backbone_out_channels,
+                                       window=swin_window,
+                                       bn_momentum=bn_momentum)
+        elif backbone == "res16unet":
+            self.backbone = Res16UNet(in_channels=in_channels,
+                                      out_channels=backbone_out_channels,
+                                      conv1_kernel_size=conv1_kernel_size,
+                                      pallas_conv=pallas_conv,
+                                      bn_momentum=bn_momentum)
+        else:
+            raise ValueError(f"voxel backbone {backbone!r} is not "
+                             "'res16unet' or 'swin3d'")
+        # channels of feature_maps [L4, L3, L2, L1, L0]
+        p = self.backbone.feature_channels
         for i, hlevel in enumerate(self.hlevels + [4]):
             self.add_module(f"feat_proj_{i}", ProjectLN(p[hlevel],
                                                         hidden_size, dropout))
@@ -192,3 +214,20 @@ class ObjectEncoder(nn.Module):
         if self.use_projection:
             obj_feats = self.LayerNorm_0(self.input_feat_proj(obj_feats))
         return self.drop(obj_feats)
+
+
+def check_swin_window(model, pipe_cfg) -> None:
+    """Raise ``ValueError`` unless a swin3d model's window
+    (``voxel_enc.swin_window``) equals the pipeline's ``swin_window``: a
+    mismatch would attend over arbitrary cell groups with the wrong bias
+    table, silently wherever the pack length happens to divide the
+    model's window volume.  Models without the swin backbone pass."""
+    venc = getattr(model, "voxel_enc", None)
+    if venc is None or getattr(venc, "backbone", None) != "swin3d":
+        return
+    win = int(getattr(pipe_cfg, "swin_window", 0) or 0)
+    if win != venc.swin_window:
+        raise ValueError(
+            f"swin window mismatch: pipeline swin_window={win} but the "
+            f"swin3d backbone expects {venc.swin_window} (model "
+            f"voxel_encoder backbone.config.window): set them equal")

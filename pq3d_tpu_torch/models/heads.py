@@ -70,8 +70,18 @@ class MaskHeadSegLevel(nn.Module):
         if offline_attn_masks is not None:
             attend = offline_attn_masks
         else:
-            attend = torch.sigmoid(mask_logits).transpose(1, 2) >= 0.5
+            attend = _sigmoid(mask_logits).transpose(1, 2) >= 0.5
         return cls_logits, mask_logits, attend
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sigmoid``, except below f32 (the bf16 serving cast), where
+    it is ``1 / (1 + exp(-x))`` rounded op by op, as XLA expands the JAX
+    package's ``jax.nn.sigmoid`` there: the self-mask's attend bits (>=
+    0.5) then fall where JAX's do."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
 
 
 class GroundHead(nn.Module):

@@ -4,7 +4,11 @@ Two branches of the JAX model are ported:
 
 - stage 1, instance segmentation: memories from (voxel, mv, pc), the
   ``mask`` head, ``dim_loc`` 3 (Fourier positional queries), the voxel
-  U-Net's segment features, self-masking rounds;
+  U-Net's segment features (Res16UNet, or the Swin3D window-attention
+  U-Net), self-masking rounds; the U-Net's maps come with the batch, or
+  are built in the forward from its voxel coordinates
+  (``voxel_enc.device_maps``: rectangular, ``ops/device_maps``;
+  ``voxel_enc.device_flat_caps``: flat, ``ops/device_flat_maps``);
 - stage 2, the unified tasks: memories from (mv, pc, voxel, prompt), the
   ``ground``, ``generation`` and ``qa`` heads, ``dim_loc`` 6 (coord + box
   Linear/LN embeddings, the box embedding added to the memory positions
@@ -41,6 +45,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from pq3d_tpu_torch.data.instseg_pipeline import refuse_unported
 from pq3d_tpu_torch.data.unified_pipeline import PROMPT_IMAGE, PROMPT_TXT
 from pq3d_tpu_torch.device import resolve_device
 from pq3d_tpu_torch.models import heads as heads_lib
@@ -59,8 +64,9 @@ from pq3d_tpu_torch.models.query_encoder import (QueryEncoderLayer,
 from pq3d_tpu_torch.models.sparse_unet import (DenseStemConv, Res16UNet,
                                                SparseConv,
                                                SparseConvTranspose)
+from pq3d_tpu_torch.models.swin3d import Swin3DUNet, WindowAttention
 from pq3d_tpu_torch.models.t5 import RMSNorm, T5Decoder
-from pq3d_tpu_torch.ops import device_maps
+from pq3d_tpu_torch.ops import device_flat_maps, device_maps
 from pq3d_tpu_torch.ops.pairwise import calc_pairwise_locs
 from pq3d_tpu_torch.utils.inference import JaxPromotion
 
@@ -99,6 +105,15 @@ class VoxelEncoderCfg:
     # equal to the pipeline's level_caps under its device_maps
     device_maps: Optional[Tuple[int, ...]] = None
     device_ztriple: bool = False  # also build the z-run plans of levels 1-3
+    # 'res16unet' or 'swin3d' (models/swin3d, window attention); the swin
+    # window must equal the pipeline's data.instseg_options.swin_window
+    backbone: str = "res16unet"
+    swin_window: int = 4
+    # flat maps built in the forward (ops/device_flat_maps.build_flat_maps)
+    # from the batch's flat 'vox_coords' / 'n_voxels': the flat shape lock
+    # as sorted (name, size) pairs, equal to the pipeline's flat_shape_caps
+    # under its device_maps + flat_pack
+    device_flat_caps: Optional[Tuple[Tuple[str, int], ...]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,7 +237,9 @@ class Query3DUnified(nn.Module):
                     conv1_kernel_size=voxel_enc.conv1_kernel_size,
                     pallas_conv=voxel_enc.pallas_conv,
                     dropout=voxel_enc.dropout,
-                    bn_momentum=voxel_enc.bn_momentum)
+                    bn_momentum=voxel_enc.bn_momentum,
+                    backbone=voxel_enc.backbone,
+                    swin_window=voxel_enc.swin_window)
         if "prompt" in memories and txt_cfg.kind == "clip" \
                 and txt_cfg.width != hidden_size \
                 and (not txt_cfg.use_projection
@@ -332,9 +349,24 @@ class Query3DUnified(nn.Module):
 
     def _voxel_maps(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """The U-Net's maps: the batch's own, or, with
-        ``voxel_enc.device_maps``, built here on the batch's device from
-        its biased voxel coords (no host maps, no fallback)."""
+        ``voxel_enc.device_flat_caps`` (flat) or ``voxel_enc.device_maps``
+        (rectangular), built here on the batch's device from its biased
+        voxel coords (no host maps, no fallback)."""
         ve = self.voxel_enc
+        if ve.device_flat_caps is not None:
+            if "vox_coords" not in batch or batch["vox_coords"].dim() != 2:
+                raise ValueError(
+                    "voxel_enc.device_flat_caps is set but the batch ships "
+                    "no flat 'vox_coords': set data.instseg_options."
+                    "flat_pack=True with device_maps=True")
+            swin = ve.backbone == "swin3d"
+            # the swin backbone's stem reads nbr3_0 alone
+            return device_flat_maps.build_flat_maps(
+                batch["vox_coords"], batch["n_voxels"],
+                dict(ve.device_flat_caps),
+                swin_window=ve.swin_window if swin else 0,
+                stem_mode="none" if swin else "dense_block",
+                voxel_feats=batch["voxel_feats"], ztriple=ve.device_ztriple)
         if ve.device_maps is None:
             return batch["maps"]
         if "vox_coords" not in batch or batch["vox_coords"].dim() != 3:
@@ -484,7 +516,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 if isinstance(scope, scope_types)
                 for lin in scope.modules() if isinstance(lin, nn.Linear)}
 
-    he_linear = linears((Res16UNet, PointNetPP))
+    he_linear = linears((Res16UNet, Swin3DUNet, PointNetPP))
     xavier_linear = linears((MultiHeadAttention, FFNLayer))
     lecun_linear = linears((CLIPTextTower, T5Decoder))
     for mod in model.modules():
@@ -501,6 +533,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             normal_(mod.kernel, math.sqrt(2.0 / (k * cin)))
         elif isinstance(mod, FourierPositionEncoding):
             normal_(mod.gauss_B, mod.gauss_scale)
+        elif isinstance(mod, WindowAttention):
+            normal_(mod.rel_bias, 0.02)
         elif isinstance(mod, MaskedBatchNorm):
             with torch.no_grad():
                 mod.scale.fill_(1.0)
@@ -551,7 +585,16 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
     The text encoder is BERT when its name holds ``BERT``, else CLIP;
     ``qa_head.args.num_answers`` (else ``qa_num_answers``, else 8864)
     sizes the ``qa`` head.  ``generation_head.args.two_phase``, which the
-    JAX package sets on the built model instead, is read here too."""
+    JAX package sets on the built model instead, is read here too.
+
+    The voxel encoder's name picks its backbone as the JAX package does:
+    ``PCDMask3DSwin3DEncoder`` the Swin3D U-Net (window
+    ``backbone_kwargs.config.window``, else ``args.swin_window``, else 4),
+    ``PCDMask3DSegLevelEncoder`` its ``args.backbone`` (default
+    ``res16unet``); any other name raises.  ``args.device_flat_caps`` (a
+    dict) builds the flat maps in the forward.  ``sorted_gather`` and
+    ``int8_gather``, which the JAX package reads and the port lacks, raise
+    ``NotImplementedError`` unless off."""
     dev = resolve_device(device)
     m = cfg["model"]
     ue = m["unified_encoder"]["args"]
@@ -576,6 +619,17 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
         va = voxel_node["args"]
         bk = va.get("backbone_kwargs") or {}
         bk_cfg = bk.get("config") or {}
+        name = voxel_node.get("name", "PCDMask3DSegLevelEncoder")
+        if name == "PCDMask3DSwin3DEncoder":
+            backbone = "swin3d"
+        elif name == "PCDMask3DSegLevelEncoder":
+            backbone = va.get("backbone", "res16unet")
+        else:
+            raise NotImplementedError(
+                f"voxel encoder {name!r} is not ported (the port builds "
+                "PCDMask3DSegLevelEncoder and PCDMask3DSwin3DEncoder)")
+        refuse_unported(va, {"sorted_gather": False, "int8_gather": False},
+                        "model.voxel_encoder.args")
         if va.get("grad_mode", "scatter_free") != "scatter_free" \
                 or va.get("remat_policy", "none") != "none":
             raise NotImplementedError(
@@ -596,7 +650,14 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
             pallas_conv=va.get("pallas_conv", False),
             device_maps=(tuple(int(c) for c in va["device_maps"])
                          if va.get("device_maps") else None),
-            device_ztriple=bool(va.get("device_ztriple", False)))
+            device_ztriple=bool(va.get("device_ztriple", False)),
+            backbone=backbone,
+            swin_window=int(bk_cfg.get("window",
+                                       va.get("swin_window", 4)) or 4),
+            device_flat_caps=(tuple(sorted(
+                (str(k), int(v)) for k, v in
+                dict(va["device_flat_caps"]).items()))
+                if va.get("device_flat_caps") else None))
 
     mask_head_cfg = None
     if m.get("mask_head") is not None:

@@ -50,12 +50,15 @@ def flatten_maps(maps: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """(B, P_l, ...) index maps -> flat maps over B*P_l rows; the ancestor
     table becomes absolute flat indices per level, and z-run plans get the
     scene offset on every base (a base is never -1: the codes mask it).
-    Flat-pack maps (``valid_0`` without a batch dim) pass through."""
+    Flat-pack maps (``valid_0`` without a batch dim) pass through.  The
+    dense-block stem pack is flattened where the batch ships one (a swin
+    batch has none)."""
     if maps["valid_0"].dim() == 1:
         out = dict(maps)
-        out["stem_block"] = round((maps["stem_c2v"].shape[0]
-                                   // maps["stem_nbrblk"].shape[0])
-                                  ** (1 / 3))
+        if "stem_c2v" in maps:
+            out["stem_block"] = round((maps["stem_c2v"].shape[0]
+                                       // maps["stem_nbrblk"].shape[0])
+                                      ** (1 / 3))
         return out
     out: Dict[str, torch.Tensor] = {}
     off = offset_scene_indices
@@ -79,6 +82,8 @@ def flatten_maps(maps: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     for l in range(NUM_LEVELS):
         p_l = maps[f"valid_{l}"].shape[1]
         out[f"ancestor_{l}"] = off(maps["ancestor"][:, l, :], p_l)
+    if "stem_c2v" not in maps:
+        return out
     nb = maps["stem_nbrblk"].shape[1]
     cells = maps["stem_c2v"].shape[1]
     out["stem_dense"] = maps["stem_dense"].reshape(b * nb, -1)
@@ -241,6 +246,9 @@ class Res16UNet(nn.Module):
                                      self.layers[4 + i], bm))
             ch = P[4 + i]
         self.final = nn.Linear(ch, out_channels)
+        # channels of the feature maps [L4, L3, L2, L1, L0]: the encoder's
+        # last stage, then the four decoder stages
+        self.feature_channels = [P[3]] + P[4:8]
 
     def stage_levels(self) -> List[Tuple[str, int]]:
         """(stage name, hierarchy level it runs at), encoder then decoder."""

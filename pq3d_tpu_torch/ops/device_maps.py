@@ -183,10 +183,19 @@ def bias_coords_16(coords: np.ndarray, align: int = 16
     origin.  ``floor(c / 2^l) - base / 2^l == floor((c - base) / 2^l)``
     when ``base`` is a multiple of ``2^l``, so 16-alignment keeps every
     stride-2 grouping (4 levels) and the 8^3 stem blocking of the host
-    build on the original coords: every index array is unchanged.
-    Returns ``(biased int32, base int64)``."""
+    build on the original coords: every index array is unchanged.  Swin
+    window packs at level ``l`` also need ``base`` divisible by ``window *
+    2^l`` (see ``swin_bias_align``).  Returns ``(biased int32, base
+    int64)``."""
     base = np.floor_divide(coords.min(0).astype(np.int64), align) * align
     return (coords.astype(np.int64) - base).astype(np.int32), base
+
+
+def swin_bias_align(swin_window: int, max_level: int = 4) -> int:
+    """The bias alignment that keeps the hierarchy and the swin window
+    grouping of every level up to ``max_level`` intact: ``window <<
+    max_level`` (64 at window 4), at least 16."""
+    return max(16, int(swin_window) << max_level) if swin_window else 16
 
 
 def build_device_stem_pack(coords0: torch.Tensor, n0: torch.Tensor,

@@ -226,6 +226,8 @@ class SparseHierarchy:
     parent_off: List[np.ndarray]          # l -> (P_l,) offset id in [0,8)
     # ancestor of each level-0 voxel at every level (FPN pooling)
     ancestor: np.ndarray = field(default=None)  # (NUM_LEVELS, P_0) int32
+    # unpadded (num_voxels[l], 3) int32 coords of each level
+    coords: List[np.ndarray] = field(default=None)
 
 
 def bucket_pad_sizes(counts: List[int], bucket: int = 4096,
@@ -292,6 +294,7 @@ def build_hierarchy(coords0: np.ndarray,
         parent_off=[pad_rows(offs[l], pad_sizes[l], 0)
                     for l in range(NUM_LEVELS - 1)],
         ancestor=anc,
+        coords=levels,
     )
 
 

@@ -1,13 +1,22 @@
-"""Dense-block packing of sparse voxels (numpy); copy of the stem-pack part
-of ``pq3d_tpu/ops/window_maps.py``.
+"""Dense window packing of sparse voxels (numpy); copy of
+``pq3d_tpu/ops/window_maps.py``.
 
-The dense-block stem conv (ops/sparse.conv0_dense_block) packs level-0
-voxels into dense ``block^3`` cells per occupied block and exchanges halos
-between the 27 neighbouring blocks, so the 5^3 stem runs as a dense conv.
+Voxels are packed into dense ``window^3`` cell grids, one per occupied
+window (empty cells -1), with static padded shapes:
+
+  cell_to_vox  (n_win_pad * w3,) int32   voxel id in each cell, -1 empty
+  vox_slot     (n_vox,)          int32   flat cell of each voxel
+
+Two users: the dense-block stem conv (ops/sparse.conv0_dense_block) packs
+level-0 voxels into ``block^3`` blocks with the 27 neighbouring blocks'
+ids (its halo exchange), and the Swin3D backbone (models/swin3d) attends
+within the windows of hierarchy levels 1-4 in two partitions, the second
+with the grid origin shifted by ``window // 2`` (a sparse partition needs
+no cyclic shift).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -66,3 +75,44 @@ def build_window_pack(coords: np.ndarray, window: int, shift: int = 0,
 
 def bucket(n: int, step: int = 256) -> int:
     return max(step, int(np.ceil(n / step)) * step)
+
+
+def pad_pack(pack: Dict[str, np.ndarray], window: int, n_win_pad: int,
+             n_vox_pad: int) -> Dict[str, np.ndarray]:
+    """Pad a window pack to static (n_win_pad, n_vox_pad) shapes: extra
+    windows are empty (-1 cells), extra voxel rows get slot -1."""
+    w3 = window ** 3
+    if pack["n_win"] > n_win_pad:
+        raise ValueError(f"{pack['n_win']} windows > pad {n_win_pad}")
+    c2v = np.full(n_win_pad * w3, -1, np.int32)
+    c2v[:len(pack["cell_to_vox"])] = pack["cell_to_vox"]
+    slot = np.full(n_vox_pad, -1, np.int32)
+    slot[:len(pack["vox_slot"])] = pack["vox_slot"]
+    return {"cell_to_vox": c2v, "vox_slot": slot}
+
+
+def relative_position_index(window: int) -> np.ndarray:
+    """(w3, w3) int32 index of each (query cell, key cell) pair's offset
+    into a (2*window-1)^3 relative-bias table."""
+    r = np.arange(window)
+    grid = np.stack(np.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
+    rel = grid[None, :, :] - grid[:, None, :] + window - 1  # [0, 2w-2]
+    d = 2 * window - 1
+    return ((rel[..., 0] * d + rel[..., 1]) * d + rel[..., 2]).astype(
+        np.int32)
+
+
+def build_swin_packs(level_coords: List[np.ndarray], window: int,
+                     levels: Sequence[int]) -> Dict[str, np.ndarray]:
+    """The regular (shift 0) and shifted (shift ``window // 2``) packs of
+    each attention level, from the UNPADDED coords of every hierarchy
+    level: ``win{l}s{j}_c2v``, ``win{l}s{j}_slot`` (unpadded; the collate
+    pads them) and ``win{l}s{j}_nwin``."""
+    out: Dict[str, np.ndarray] = {}
+    for l in levels:
+        for j, shift in enumerate((0, window // 2)):
+            p = build_window_pack(level_coords[l], window, shift)
+            out[f"win{l}s{j}_c2v"] = p["cell_to_vox"]
+            out[f"win{l}s{j}_slot"] = p["vox_slot"]
+            out[f"win{l}s{j}_nwin"] = p["n_win"]
+    return out

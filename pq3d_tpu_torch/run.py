@@ -57,10 +57,13 @@ def build_instseg_trainer(cfg: Dict[str, Any]):
     model (``build_model``), the set loss (or, with ``criterion_type:
     'direct'``, the direct one), the evaluator.  Trains in the rectangular
     layout, the flat pack (``flat_pack``) and with the z-run gather conv
-    (``ztriple_conv``), alone or together; ``device_maps`` raises."""
+    (``ztriple_conv``), alone or together, with the Res16UNet or the
+    Swin3D backbone (whose window must equal the pipeline's
+    ``swin_window``); ``device_maps`` raises."""
     from pq3d_tpu_torch.data.datasets import InstSegLoader, build_dataset
     from pq3d_tpu_torch.data.instseg_pipeline import pipeline_config
     from pq3d_tpu_torch.eval.instseg_eval import InstSegEval
+    from pq3d_tpu_torch.models.encoders import check_swin_window
     from pq3d_tpu_torch.models.query3d import build_model
     from pq3d_tpu_torch.optim.losses import (InstSegLossConfig,
                                              instseg_direct_loss,
@@ -70,9 +73,12 @@ def build_instseg_trainer(cfg: Dict[str, Any]):
     if cfg.get("trainer", "Query3DTrainer") != "Query3DTrainer":
         raise NotImplementedError(f"trainer {cfg['trainer']!r} is not ported")
     iopt = cfg["data"]["instseg_options"]
-    pipe_cfg = pipeline_config(iopt)
-    if pipe_cfg.device_maps or (cfg["model"].get("voxel_encoder") or {}).get(
-            "args", {}).get("device_maps"):
+    va = (cfg["model"].get("voxel_encoder") or {}).get("args", {})
+    bk_cfg = (va.get("backbone_kwargs") or {}).get("config") or {}
+    pipe_cfg = pipeline_config(
+        iopt, conv1_kernel_size=bk_cfg.get("conv1_kernel_size", 5))
+    if pipe_cfg.device_maps or va.get("device_maps") \
+            or va.get("device_flat_caps"):
         raise NotImplementedError(
             "training in the device_maps layout is not ported (the port "
             "serves it; the JAX package trains it in no test either, so it "
@@ -94,6 +100,7 @@ def build_instseg_trainer(cfg: Dict[str, Any]):
 
     device = cfg.get("device", "cuda")
     model = build_model(cfg, device=device, seed=seed)
+    check_swin_window(model, pipe_cfg)
     m_loss = cfg["model"].get("InstSegLoss") or {}
     criterion = str(m_loss.get("criterion_type", "set"))
     if criterion not in ("set", "direct"):

@@ -12,8 +12,10 @@ per device; the sharded-batch mesh server is not ported):
 - a depth-1 pipeline: while batch N's forward runs on the card (kernels
   are queued asynchronously), batch N+1's host work runs;
 - stage 1 (``InstSegServer``): the rectangular layout with host-built or
-  device-built maps, or the flat pack; per-scene host preprocessing in
-  process or on a spawn pool (``num_workers``); per-scene ranking
+  device-built maps, or the flat pack with host-built or device-built
+  maps, for the Res16UNet or the Swin3D backbone; per-scene host
+  preprocessing in process or on a spawn pool (``num_workers``); an
+  optional batch transform (``cast``, as below); per-scene ranking
   (eval/instseg_eval.rank_instances) at full point resolution;
 - stage 2 (``UnifiedServer``): per-request grounding scores and object,
   and greedy-decoded generation tokens and text, in the padded or the flat
@@ -50,6 +52,7 @@ from pq3d_tpu_torch.data.unified_pipeline import (UnifiedPipelineConfig,
                                                   process_item)
 from pq3d_tpu_torch.device import resolve_device
 from pq3d_tpu_torch.eval.instseg_eval import rank_instances
+from pq3d_tpu_torch.models.encoders import check_swin_window
 
 # spawn-pool worker protocol for the stage-1 host preprocessing: module
 # level, so spawned workers find the functions by name; a worker runs numpy
@@ -259,39 +262,57 @@ class InstSegServer(_MicroBatchServer):
     Layouts (from ``pipe_cfg``): rectangular with host maps (needs
     ``level_caps``), rectangular with device-built maps (``device_maps``:
     the model must be built with ``voxel_enc.device_maps == level_caps``;
-    the server refuses a mismatch either way), or the
-    flat pack (``flat_pack``: no ``level_caps`` needed; the first batch,
-    and any that overflows it, sets ``pipe_cfg.flat_shape_caps``).  With
-    ``num_workers > 0`` each real scene's ``process_scene`` runs on a
-    spawn pool (``data/pool.BatchPool``) with its own seed, the scenes'
-    running count; otherwise in process from the server's rng."""
+    the server refuses a mismatch either way), the flat pack with host
+    maps (``flat_pack``: no ``level_caps`` needed; the first batch, and
+    any that overflows it, sets ``pipe_cfg.flat_shape_caps``), or the flat
+    pack with device-built maps (``device_maps`` + ``flat_pack``: the
+    model's ``voxel_enc.device_flat_caps`` must equal the pipeline's
+    complete ``flat_shape_caps``, which never grows; a batch that
+    overflows it is refused).  A swin3d model's window must equal the
+    pipeline's ``swin_window``.  ``cast`` (``utils/inference.
+    cast_batch_bf16`` beside a model cast by ``cast_model_bf16``) maps
+    each batch on the device before the forward.  With ``num_workers >
+    0`` each real scene's ``process_scene`` runs on a spawn pool
+    (``data/pool.BatchPool``) with its own seed, the scenes' running
+    count; otherwise in process from the server's rng."""
 
     def __init__(self, model, pipe_cfg: InstSegPipelineConfig,
                  batch_size: int, num_classes: int, topk: int = 100,
                  score_threshold: float = 0.0, max_delay_s: float = 0.05,
                  extra_features: Optional[Dict[str, int]] = None,
                  device="cuda", num_workers: int = 0, cast=None):
-        if cast is not None:
-            raise NotImplementedError(
-                "the stage-1 bf16 serving cast is not ported (ROADMAP A.6)")
         self.device = resolve_device(device)
         if not pipe_cfg.level_caps and not pipe_cfg.flat_pack:
             raise ValueError(
                 "serving requires pipe_cfg.level_caps: fixed level pads "
                 "keep every batch at one shape (the flat pack buckets its "
                 "totals instead)")
+        check_swin_window(model, pipe_cfg)
         ve = getattr(model, "voxel_enc", None)
         caps = tuple(getattr(ve, "device_maps", None) or ())
-        if pipe_cfg.device_maps and caps != tuple(pipe_cfg.level_caps):
+        flat_caps = dict(getattr(ve, "device_flat_caps", None) or ())
+        if pipe_cfg.device_maps and pipe_cfg.flat_pack:
+            pcaps = dict(pipe_cfg.flat_shape_caps or {})
+            if flat_caps != pcaps:
+                diff = {k: (flat_caps.get(k), pcaps.get(k))
+                        for k in sorted(set(flat_caps) | set(pcaps))
+                        if flat_caps.get(k) != pcaps.get(k)}
+                raise ValueError(
+                    "pipe_cfg.device_maps + flat_pack needs the model built "
+                    "with voxel_enc.device_flat_caps == flat_shape_caps; "
+                    f"differing keys (model, pipe): {diff}")
+        elif pipe_cfg.device_maps:
+            if caps != tuple(pipe_cfg.level_caps):
+                raise ValueError(
+                    "pipe_cfg.device_maps=True needs the model built with "
+                    f"voxel_enc.device_maps == level_caps (model: "
+                    f"{caps or None}, pipe: {tuple(pipe_cfg.level_caps)})")
+        elif caps or flat_caps:
             raise ValueError(
-                "pipe_cfg.device_maps=True needs the model built with "
-                f"voxel_enc.device_maps == level_caps (model: "
-                f"{caps or None}, pipe: {tuple(pipe_cfg.level_caps)})")
-        if caps and not pipe_cfg.device_maps:
-            raise ValueError(
-                "the model's voxel_enc.device_maps is set but the pipeline "
-                "ships host maps: set pipe_cfg.device_maps=True (the model "
-                "would look for 'vox_coords' the batch does not carry)")
+                "the model's voxel_enc.device_maps or device_flat_caps is "
+                "set but the pipeline ships host maps: set "
+                "pipe_cfg.device_maps=True (the model would look for "
+                "'vox_coords' the batch does not carry)")
         self.model = model
         self.pipe_cfg = pipe_cfg
         self.num_classes = num_classes
@@ -303,7 +324,7 @@ class InstSegServer(_MicroBatchServer):
         if num_workers > 0:
             self._pool = BatchPool(num_workers, _init_serve_worker,
                                    (pipe_cfg,))
-        super().__init__(batch_size, max_delay_s)
+        super().__init__(batch_size, max_delay_s, cast=cast)
 
     def close(self) -> None:
         super().close()
@@ -329,6 +350,8 @@ class InstSegServer(_MicroBatchServer):
                                             flat_shape_caps=new)
 
     def _forward(self, batch):
+        if self.cast is not None:
+            batch = self.cast(batch)
         with torch.inference_mode():
             out = self.model(batch)
         return out["predictions_class"][-1], out["predictions_mask"][-1]
@@ -352,7 +375,9 @@ class InstSegServer(_MicroBatchServer):
         np_batch = collate_processed(processed, self.pipe_cfg)
         self.stats.add_stage("collate", time.time() - t1)
         meta = np_batch.pop("_meta")
-        if self.pipe_cfg.flat_pack:
+        if self.pipe_cfg.flat_pack and not self.pipe_cfg.device_maps:
+            # the device flat maps' lock is the model's: it cannot grow,
+            # and collate_flat_device refuses a batch that overflows it
             self._update_flat_lock(meta.get("flat_dims"))
         S = self.pipe_cfg.max_segments
         for name, dim in self.extra_features.items():

@@ -16,7 +16,17 @@ where torch's ``linear``, ``layer_norm``, ``einsum`` and ``matmul`` raise.
 keeps JAX's f32 islands: the text encoder's projection after the tower's
 cast to f32, the prompt cross-attention and everything downstream of it,
 the Fourier encoding, the f32 softmax and batch-norm statistics that the
-layers compute on purpose."""
+layers compute on purpose.
+
+The stage-1 model (Res16UNet or Swin3D, any layout) takes the same two
+calls.  Its other mixed-float meetings need no mode: the sparse convs
+and B1 round their operands themselves and return the input's dtype, as
+the JAX convs do; the batch norms, the segment pooling's f32 count
+contraction and the swin attention's f32 logits promote as torch's
+elementwise ops do; the gathers, ``index_add_`` and ``scatter_`` see one
+dtype.  Where XLA expands an op into bf16 steps that round one by one
+(the mask head's sigmoid, whose attend bits follow), the port does the
+same (``models/heads._sigmoid``)."""
 from __future__ import annotations
 
 from typing import Any, Dict

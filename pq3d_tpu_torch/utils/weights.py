@@ -23,6 +23,14 @@ Conversions by module type:
   init batch carries image prompts, is built first from the tree's
   ``input_feat_proj`` kernel shape (``Query3DUnified.image_encoder``).
 
+The Swin3D backbone (``models/swin3d``) needs no rule of its own either:
+its submodules carry the flax names (``stem``, ``down{l}``, ``stage{l}``
+/ ``dec{l}`` with ``block{i}``'s ``norm1``, ``attn``, ``norm2``,
+``mlp1``, ``mlp2``, ``up{l}``, ``skip{l}``, ``dec0``, ``final`` and each
+conv's ``{name}_bn``), ``WindowAttention``'s relative-position table is a
+raw parameter that keeps its flax name ``rel_bias`` ((2w-1)^3, heads),
+and its ``qkv`` / ``proj`` are ``nn.Linear``.
+
 The stage-2 heads and encoders need no rule of their own: ``qa_head``
 (``MLPHead_0``), ``GroundHeadV1``'s four ``MLPHead``s, the decoder's
 ``gate_proj``, the text projection's ``projection{i}``, BERT's

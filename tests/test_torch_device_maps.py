@@ -296,7 +296,8 @@ def test_layout_config_refusals():
                       num_classes=20, device="cpu")
     with pytest.raises(ValueError, match="level_caps"):
         _pipe(level_caps=None, device_maps=True)
-    with pytest.raises(NotImplementedError, match="flat"):
+    # the flat device maps need a complete lock (the JAX package's refusal)
+    with pytest.raises(ValueError, match="flat_shape_caps"):
         _pipe(device_maps=True, flat_pack=True)
     with pytest.raises(ValueError, match="stem_block_cap"):
         _pipe(device_maps=True, stem_block_cap=256)

@@ -12,7 +12,8 @@
   the cast's dtype rules (``JaxPromotion``, ``cast_batch_bf16``);
 - ``UnifiedServer`` with ``cast``, ``flat_obj`` and ``two_phase``: every
   answer equal to the port's own forward of the same batches (f32 setups
-  also to JAX's ``UnifiedServer``); ``InstSegServer`` refuses ``cast``."""
+  also to JAX's ``UnifiedServer``); ``InstSegServer`` with ``cast`` serves
+  the logits of the cast stage-1 model's forward on the cast batch."""
 import dataclasses
 
 import jax
@@ -219,10 +220,54 @@ def test_unified_server_variants(setup):
                                       r["generation_tokens"])
 
 
-def test_inst_seg_server_refuses_the_cast():
-    with pytest.raises(NotImplementedError, match="A.6"):
-        InstSegServer(None, None, batch_size=2, num_classes=3,
-                      device="cpu", cast=cast_batch_bf16)
+def test_inst_seg_server_serves_the_cast():
+    """InstSegServer(cast=cast_batch_bf16) in front of a stage-1 model cast
+    by cast_model_bf16 serves the logits of that model's forward on the
+    cast batch, to the bit."""
+    from pq3d_tpu_torch.data import instseg_pipeline as tpipe
+    from pq3d_tpu_torch.data import synthetic as tsyn
+    from pq3d_tpu_torch.models.query3d import init_weights
+    from test_torch_model import _models
+    _, tm = _models(num_layers=1, num_blocks=1)
+    init_weights(tm, torch.Generator().manual_seed(0))
+    model = cast_model_bf16(tm.eval())
+    pipe = tpipe.InstSegPipelineConfig(
+        voxel_size=0.15, num_queries=8, max_segments=32, max_instances=8,
+        voxel_bucket=128, use_aug=False, level_caps=[512, 256, 128, 128, 128])
+    rng = np.random.default_rng(0)
+    scenes = [tsyn.make_scene(rng, n_points=n, n_instances=3, n_segments=16)
+              for n in (600, 900)]
+    for sc in scenes:
+        sc["inst_labels"] = np.minimum(sc["inst_labels"], 19)
+    served = []
+
+    class Recording(InstSegServer):
+        def _forward(self, batch):
+            out = super()._forward(batch)
+            served.append(out)
+            return out
+    srv = Recording(model, pipe, batch_size=2, num_classes=20,
+                    max_delay_s=1.0, extra_features={"mv": 16, "pc": 16},
+                    device="cpu", cast=cast_batch_bf16)
+    try:
+        results = [f.result(timeout=300) for f in
+                   [srv.submit(sc) for sc in scenes]]
+    finally:
+        srv.close()
+    assert len(served) == 1 and all(isinstance(r, list) for r in results)
+    r2 = np.random.default_rng(0)
+    b = tpipe.collate_processed([tpipe.process_scene(sc, pipe, r2)
+                                 for sc in scenes], pipe)
+    b.pop("_meta")
+    for name in ("mv", "pc"):
+        b[f"{name}_seg_fts"] = np.zeros((2, 32, 16), np.float32)
+        b[f"{name}_seg_pad_masks"] = b["seg_pad_masks"]
+    with torch.inference_mode():
+        out = model(cast_batch_bf16(to_device(b, torch.device("cpu"))))
+    for got, key in zip(served[0], ("predictions_class",
+                                    "predictions_mask")):
+        assert got.dtype == out[key][-1].dtype
+        assert torch.equal(got, out[key][-1]), key
 
 
 def test_bf16_sampling_picks_equal_jax():
