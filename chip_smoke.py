@@ -278,6 +278,35 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                trainer matches the CPU through gate_train_check (every conv
                plain in f32, self-mask off; the TF32 control exceeds a
                gate);
+16. conv_options -- the voxel encoder's remaining conv options at the
+               slice's widths (instseg_sceneverse + pallas_conv: true,
+               random weights from a seed), phase 5b's scenes and caps:
+               InstSegServer(batch_size=4) serves 4 warm and 16 timed
+               scenes in rect, rect_int8 (grad_mode native + int8_gather),
+               rect_sorted (sorted_gather), flat_compact (the flat pack with
+               compact_conv) and flat_compact_int8, printing scenes/s,
+               p50/p99, the stage seconds, peak memory and one forward of
+               one batch on the device clock; B1 launches the routed convs
+               of every forward in the rect setups and never in the compact
+               ones (JAX switches its kernel off for compact plans).  Gates
+               on one batch, every decoder round up to a flipped attend bit:
+               rect_sorted's U-Net features bit-equal to rect's (and rect's
+               to a repeat of itself) and its logits within 1e-5;
+               flat_compact within 5e-3 of the scale of rect's; each int8
+               setup within 5e-2 of its f32 twin; the card's rect_int8
+               forward of one scene within 2e-2 of the CPU's (TF32 off).
+               InstSegEval(use_dbscan=True) splits one served batch's
+               masks at full resolution (host seconds).  Training through
+               the trainer run.py builds (70k-point scenes, batch 4):
+               level_cap_ladder [3/4 of the caps, the caps] with 3 steps on
+               a batch of smaller scenes (the lower rung) and 3 on phase
+               5b's (the upper; both without augmentation, which would move
+               a batch across rungs), B1 forward and dx at each; the flat
+               pack with compact_conv under scatter_free, 3 steps through
+               sparse_conv_compact_sym and no B1; grad_mode native with
+               remat_policy full (profile: true, profile_wait 1,
+               profile_active 1: its trace must hold CUDA kernels) and with
+               none on the same 3 batches, full's peak memory below none's;
 then a summary line (B1 against B2 in this run), one JSON line with every
 hand kernel's numbers, and the result line.
 
@@ -664,7 +693,8 @@ def serve_instseg(phase, label, model, pipe, warm, scenes, card, build,
             rows = [b["vox_coords"].shape[0] * c for c in ve.device_maps]
         else:
             rows = level_rows(b)
-        expected.append(len(backbone.routed_convs(rows))
+        compact = "cmp0_in" in (b.get("maps") or {})
+        expected.append(len(backbone.routed_convs(rows, compact=compact))
                         if hasattr(backbone, "routed_convs") else 0)
 
     def wrap_put(orig):
@@ -4101,6 +4131,401 @@ def swin_layouts_phase(card, dev):
             "phase_s": total}
 
 
+# the voxel encoder's remaining conv options (phase 16): the serving
+# setups beside the plain rect one, their gates (PERF.md states each
+# bound's prediction), the ladder's rungs and the training runs
+CONV_SETUPS = ("rect", "rect_int8", "rect_sorted", "flat_compact",
+               "flat_compact_int8")
+# timed requests a setup: 4 batches of 4 (32 held the script past 700 s)
+CONV_TIMED = 16
+# flat_compact against rect (JAX's tests/test_flat_pack.py:177 bound, here
+# over the scale); an int8 setup against its f32 twin; the card's int8
+# forward against the CPU's on one scene
+CONV_GATES = {"compact": 5e-3, "int8": 5e-2, "int8_cpu": 2e-2}
+# the ladder's lower rung: about 3/4 of LAYOUT_CAPS at every level, a
+# multiple of 128 so that B1's rows still route
+LADDER_LOWER = [int(round(0.75 * c / 128)) * 128 for c in LAYOUT_CAPS]
+CONV_TRAIN_STEPS = 3
+
+
+def small_scenes(n, seed):
+    """Scenes of 28-36k points (24 instances, 400 segments), which the
+    ladder's lower rung holds."""
+    import numpy as np
+    from pq3d_tpu_torch.data import synthetic
+    rng = np.random.default_rng(seed)
+    scenes = [synthetic.make_scene(rng, n_points=28_000 + 2000 * (i % 5),
+                                   n_instances=24, n_segments=400)
+              for i in range(n)]
+    for s in scenes:
+        s["inst_labels"] = np.minimum(s["inst_labels"], 199)
+    return scenes
+
+
+class _SceneList:
+    """A dataset of fixed scenes for InstSegLoader's batch assembly."""
+
+    def __init__(self, scenes):
+        self.scenes = scenes
+
+    def __len__(self):
+        return len(self.scenes)
+
+    def get_scene(self, i):
+        return dict(self.scenes[i])
+
+
+@contextlib.contextmanager
+def conv_options(backbone, cfg):
+    """The Res16UNet's conv options set from a config's voxel encoder args
+    (the JAX YAML defaults where unset) inside the block."""
+    args = cfg["model"]["voxel_encoder"]["args"]
+    want = {"grad_mode": args.get("grad_mode", "scatter_free"),
+            "int8_gather": bool(args.get("int8_gather", False)),
+            "sorted_gather": bool(args.get("sorted_gather", False))}
+    saved = {k: getattr(backbone, k) for k in want}
+    for k, v in want.items():
+        setattr(backbone, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(backbone, k, v)
+
+
+def conv_train_steps(trainer, batches, zrun_conv, label, card):
+    """``trainer.train_batch`` on each numpy batch: per step the loss, the
+    device ms (CUDA events) and the host seconds, the level-0 pad (the
+    rung) and B1's forward and dx launches; peak memory over the steps."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zrun_conv.reset_counts()
+    steps = []
+    for b in batches:
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        t0 = time.time()
+        a.record()
+        m = trainer.train_batch(b)
+        z.record()
+        z.synchronize()
+        steps.append({"loss": float(m["loss"]),
+                      "device_ms": a.elapsed_time(z),
+                      "host_s": time.time() - t0,
+                      "pad0": int(b["maps"]["valid_0"].shape[-1])})
+    rec = {"steps": steps, "b1": dict(zrun_conv.phase_launches),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"conv_options: {label}: {len(steps)} steps, losses "
+          f"{[round(s['loss'], 4) for s in steps]}, device ms "
+          f"{[round(s['device_ms'], 1) for s in steps]}, host s "
+          f"{[round(s['host_s'], 2) for s in steps]}, level-0 pad "
+          f"{[s['pad0'] for s in steps]} | B1 fwd {rec['b1']['fwd']} dx "
+          f"{rec['b1']['bwd']} | max_memory_allocated "
+          f"{rec['peak_gib']:.2f} GiB ({card})", flush=True)
+    if not all(math.isfinite(s["loss"]) for s in steps):
+        fail(f"conv_options: {label}: a loss is not finite")
+    return rec
+
+
+def conv_options_serving(card, dev, zrun_conv):
+    """The serving half of phase 16: rect and its four option setups behind
+    InstSegServer, one forward per setup on the device clock, the gates,
+    the int8 forward on the card against the CPU and the DBSCAN split.
+    Returns the runs and readings."""
+    import copy
+    import numpy as np
+    import torch
+    from pq3d_tpu_torch.config import serving_config
+    from pq3d_tpu_torch.data.instseg_pipeline import (make_batch,
+                                                      pipeline_config)
+    from pq3d_tpu_torch.eval.instseg_eval import InstSegEval
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.ops import device_maps
+    from pq3d_tpu_torch.serve import to_device
+    over = [f"data.instseg_options.level_caps={LAYOUT_CAPS}"]
+    warm = make_scenes(4, seed=2)
+    scenes = make_scenes(CONV_TIMED, seed=3)
+    cfgs = {s: serving_config(s, over) for s in CONV_SETUPS}
+    pipes = {s: pipeline_config(c["data"]["instseg_options"])
+             for s, c in cfgs.items()}
+    t0 = time.time()
+    model = build_model(cfgs["rect"], device="cuda", seed=0)
+    backbone = model.voxel_encoder.backbone
+    print(f"conv_options: model built in {time.time() - t0:.1f} s",
+          flush=True)
+    runs = {}
+    for s in CONV_SETUPS:
+        with conv_options(backbone, cfgs[s]):
+            runs[s] = serve_instseg("conv_options", s, model, pipes[s], warm,
+                                    scenes, card,
+                                    (device_maps, "build_batch_maps"),
+                                    rounds=True)
+        compact = pipes[s].compact_conv
+        if compact != (runs[s]["launches"] == 0):
+            fail(f"conv_options: {s}: B1 launched {runs[s]['launches']} "
+                 "times (JAX's rule: none with compact plans, the routed "
+                 "convs otherwise)")
+
+    b4 = scenes[:4]
+
+    def batch_of(s, group=b4):
+        np_b = make_batch([dict(x) for x in group], pipes[s],
+                          np.random.default_rng(0))
+        b = to_device({k: v for k, v in np_b.items() if k != "_meta"}, dev)
+        n = b["seg_pad_masks"].shape[0]
+        for name, dim in SERVE_EXTRA.items():
+            b[f"{name}_seg_fts"] = torch.zeros(
+                n, pipes[s].max_segments, dim, device=dev)
+            b[f"{name}_seg_pad_masks"] = b["seg_pad_masks"]
+        return b, np_b
+
+    feats = {}
+    hook = backbone.register_forward_hook(
+        lambda mod, args, out: feats.__setitem__("x", [out[0]] + out[1]))
+    fwd, outs = {}, {}
+    try:
+        for s in CONV_SETUPS:
+            b, _ = batch_of(s)
+            with conv_options(backbone, cfgs[s]), torch.inference_mode():
+                outs[s] = out_rounds(model(b))
+                if s == "rect":
+                    ref_feats = [t.clone() for t in feats["x"]]
+                    outs["rect_again"] = out_rounds(model(b))
+                    again = [t.clone() for t in feats["x"]]
+                elif s == "rect_sorted":
+                    sorted_feats = [t.clone() for t in feats["x"]]
+                fwd[s] = cuda_time(lambda: model(b), 3)
+            print(f"conv_options: {s}: one forward of the checked batch "
+                  f"{fwd[s]:.1f} ms (CUDA events, median of 3), peak while "
+                  f"served {runs[s]['peak_gib']:.2f} GiB ({card})",
+                  flush=True)
+    finally:
+        hook.remove()
+    valid = b["seg_pad_masks"]
+    same_again = all(torch.equal(a, c) for a, c in zip(ref_feats, again))
+    same_sorted = all(torch.equal(a, c)
+                      for a, c in zip(ref_feats, sorted_feats))
+    gates = {"rect_again_bits": same_again, "rect_sorted_bits": same_sorted}
+    for s, ref in (("rect_again", "rect"), ("rect_sorted", "rect"),
+                   ("flat_compact", "rect"), ("rect_int8", "rect"),
+                   ("flat_compact_int8", "flat_compact")):
+        rel, flips = rounds_rel(outs[ref], outs[s], valid)
+        gates[s] = {"rel": rel, "flips": flips}
+    print(f"conv_options: on one batch, every round up to a flipped attend "
+          f"bit (rel = max|diff| / max|ref|): U-Net features bit-equal, "
+          f"rect again {same_again}, rect_sorted {same_sorted}; logits "
+          + "; ".join(f"{s} {g['rel']:.3e} (first flips {g['flips']})"
+                      for s, g in gates.items() if isinstance(g, dict))
+          + f" | gates: sorted bit-equal features and logits "
+          f"{LAYOUT_GATE['dev_maps']}, compact "
+          f"{CONV_GATES['compact']}, int8 {CONV_GATES['int8']}", flush=True)
+    # the U-Net runs no atomic sum, so its features repeat bit for bit;
+    # the logits after the segment pooling's atomic sums within 1e-5 up to
+    # a flipped bit, as phase 5b's dev_maps against rect
+    if not same_again or not same_sorted or not gates["rect_sorted"][
+            "rel"] <= LAYOUT_GATE["dev_maps"]:
+        fail("conv_options: rect_sorted differs from rect")
+    if not gates["flat_compact"]["rel"] <= CONV_GATES["compact"]:
+        fail("conv_options: flat_compact differs from rect past the gate")
+    if not (gates["rect_int8"]["rel"] <= CONV_GATES["int8"] and
+            gates["flat_compact_int8"]["rel"] <= CONV_GATES["int8"]):
+        fail("conv_options: an int8 setup differs from its f32 twin past "
+             "the gate")
+
+    # the card's int8 forward of one scene against the CPU's (TF32 off)
+    one, _ = batch_of("rect_int8", b4[:1])
+    one_cpu = {k: (v.cpu() if hasattr(v, "cpu") else
+                   {kk: vv.cpu() for kk, vv in v.items()})
+               for k, v in one.items()}
+    cpu_model = copy.deepcopy(model).cpu()
+    saved_tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with conv_options(backbone, cfgs["rect_int8"]), \
+                conv_options(cpu_model.voxel_encoder.backbone,
+                             cfgs["rect_int8"]), torch.inference_mode():
+            got = out_rounds(model(one))
+            t0 = time.time()
+            cpu = out_rounds(cpu_model(one_cpu))
+            cpu_s = time.time() - t0
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved_tf32
+    rel, flips = rounds_rel(cpu, got, one_cpu["seg_pad_masks"])
+    gates["int8_card_cpu"] = {"rel": rel, "flips": flips, "cpu_s": cpu_s}
+    print(f"conv_options: rect_int8, one scene, card vs CPU (TF32 off), "
+          f"every round up to a flipped attend bit: rel {rel:.3e} (gate "
+          f"{CONV_GATES['int8_cpu']}), first flipped round {flips} | CPU "
+          f"forward {cpu_s:.1f} s", flush=True)
+    if not rel <= CONV_GATES["int8_cpu"]:
+        fail("conv_options: the card's int8 forward disagrees with the CPU's")
+    del cpu_model, one_cpu, one
+
+    # the DBSCAN split over one served batch at full resolution, on the
+    # round-1 logits (random weights leave every final mask logit below 0,
+    # so the final round ranks no instance; see phase 5's rank)
+    b, np_b = batch_of("rect")
+    with torch.inference_mode():
+        out = model(b)
+    out_np = {k: [t.float().cpu().numpy() for t in out[k][1:2]]
+              for k in ("predictions_class", "predictions_mask")}
+    bat_np = {k: v for k, v in np_b.items() if not k.startswith("mv_")}
+    split = {}
+    for use in (False, True):
+        ev = InstSegEval(num_classes=200, full_resolution=True,
+                         use_dbscan=use)
+        t0 = time.time()
+        ev.update(out_np, bat_np)
+        split[use] = (time.time() - t0, sum(len(p) for p in ev._preds))
+        res = ev.record()
+    gates["dbscan"] = {"host_s": split[True][0], "plain_s": split[False][0],
+                       "preds": split[False][1],
+                       "split_preds": split[True][1]}
+    print(f"conv_options: InstSegEval(use_dbscan=True) over one served "
+          f"batch at full resolution: update {split[True][0]:.2f} s on the "
+          f"host ({split[False][0]:.2f} s without the split), "
+          f"{split[False][1]} -> {split[True][1]} predictions, all_ap "
+          f"{res['all_ap']:.4f}", flush=True)
+    if not split[True][1] >= split[False][1] > 0 or not math.isfinite(
+            res["all_ap"]):
+        fail("conv_options: the DBSCAN split had no prediction to split, "
+             "or lost some")
+    del model, b, out
+    torch.cuda.empty_cache()
+    for rec in runs.values():
+        for key in ("logits", "rounds", "pre", "np_batches"):
+            rec.pop(key)
+    return {"runs": runs, "forward_ms": fwd, "gates": gates}
+
+
+def conv_options_training(card, zrun_conv):
+    """The training half of phase 16: the ladder's two rungs on the
+    rectangular layout, flat + compact_conv under scatter_free, and
+    grad_mode native with remat_policy full (traced) against none."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from pq3d_tpu_torch.data.datasets import _assemble_instseg_batch
+    from pq3d_tpu_torch.ops import sparse
+    out = {}
+    exp = tempfile.mkdtemp(prefix="pq3d_conv_options_")
+    try:
+        ladder = [LADDER_LOWER, list(LAYOUT_CAPS)]
+        small, big = small_scenes(4, seed=5), make_scenes(4, seed=3)
+        for group, rung in ((small, LADDER_LOWER), (big, None)):
+            counts = [level_counts(s, 0.02) for s in group]
+            most = [max(c[l] for c in counts) for l in range(5)]
+            fits = all(m <= r for m, r in zip(most, LADDER_LOWER))
+            print(f"conv_options: ladder {ladder}: most voxels per level of "
+                  f"{'the small' if rung else 'phase 5b’s'} batch {most}, "
+                  f"fits the lower rung: {fits}", flush=True)
+            if fits != (rung is not None):
+                fail("conv_options: the ladder's batches do not split over "
+                     "its rungs")
+        trainer = smoke_trainer(
+            os.path.join(exp, "ladder"),
+            f"data.instseg_options.level_cap_ladder={ladder}")
+        pipe = dataclasses.replace(trainer.train_data.pipe_cfg,
+                                   use_aug=False)
+        extra = trainer.train_data.extra_features
+        for name, group in (("lower", small), ("upper", big)):
+            batches = [_assemble_instseg_batch(
+                _SceneList(group), pipe, extra, list(range(4)),
+                np.random.default_rng(i), True)
+                for i in range(CONV_TRAIN_STEPS)]
+            rec = conv_train_steps(trainer, batches, zrun_conv,
+                                   f"ladder rung {name}", card)
+            want = ladder[0 if name == "lower" else 1][0]
+            if {s["pad0"] for s in rec["steps"]} != {want} or not (
+                    rec["b1"]["fwd"] and rec["b1"]["bwd"]):
+                fail(f"conv_options: ladder rung {name}: a batch took "
+                     f"another rung, or B1 did not launch")
+            out[f"ladder_{name}"] = rec
+        trainer._close_loaders()
+        del trainer
+        torch.cuda.empty_cache()
+
+        trainer = smoke_trainer(os.path.join(exp, "compact"), *FLAT_ZT[:1],
+                                "data.instseg_options.compact_conv=true")
+        batches = list(zip(range(CONV_TRAIN_STEPS), trainer.train_data(0)))
+        calls = []
+        with patched(sparse, "sparse_conv_compact_sym",
+                     lambda orig: lambda *a, **k: calls.append(1)
+                     or orig(*a, **k)):
+            rec = conv_train_steps(trainer, [b for _, b in batches],
+                                   zrun_conv, "flat_compact scatter_free",
+                                   card)
+        rec["compact_sym_calls"] = len(calls)
+        if not calls or rec["b1"]["fwd"] or rec["b1"]["bwd"]:
+            fail("conv_options: the compact training did not run "
+                 "compact_sym, or ran B1")
+        out["flat_compact_train"] = rec
+        trainer._close_loaders()
+        del trainer, batches
+        torch.cuda.empty_cache()
+
+        native = ["model.voxel_encoder.args.grad_mode=native"]
+        batches = None
+        for policy in ("full", "none"):
+            prof = (["profile=true", "profile_wait=1", "profile_active=1"]
+                    if policy == "full" else [])
+            tdir = os.path.join(exp, f"native_{policy}")
+            trainer = smoke_trainer(
+                tdir, *native,
+                f"model.voxel_encoder.args.remat_policy={policy}", *prof)
+            if batches is None:
+                batches = [b for _, b in zip(range(CONV_TRAIN_STEPS),
+                                             trainer.train_data(0))]
+            rec = conv_train_steps(trainer, batches, zrun_conv,
+                                   f"native, remat_policy {policy}", card)
+            out[f"native_{policy}"] = rec
+            trainer._close_loaders()
+            del trainer
+            torch.cuda.empty_cache()
+            if policy == "full":
+                path = os.path.join(tdir, "trace", "trace_rank0.json")
+                if not os.path.exists(path):
+                    fail("conv_options: profile: true wrote no trace")
+                with open(path) as f:
+                    events = json.load(f).get("traceEvents", [])
+                kernels = sum(1 for e in events if e.get("cat") == "kernel")
+                out["trace"] = {"bytes": os.path.getsize(path),
+                                "kernels": kernels}
+                print(f"conv_options: the traced step (profile_wait 1, "
+                      f"profile_active 1): {path} {out['trace']['bytes']} "
+                      f"bytes, {kernels} CUDA kernel events", flush=True)
+                if not kernels:
+                    fail("conv_options: the trace holds no CUDA kernel")
+        full, none = out["native_full"], out["native_none"]
+        print(f"conv_options: native training peak memory remat full "
+              f"{full['peak_gib']:.2f} GiB against none "
+              f"{none['peak_gib']:.2f} GiB; median step "
+              f"{np.median([s['device_ms'] for s in full['steps']]):.1f} "
+              f"against "
+              f"{np.median([s['device_ms'] for s in none['steps']]):.1f} ms "
+              f"({card})", flush=True)
+        if not full["peak_gib"] < none["peak_gib"]:
+            fail("conv_options: remat_policy full did not lower the peak")
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
+    return out
+
+
+def conv_options_phase(card, dev, zrun_conv):
+    """Phase 16 (see the module docstring): returns the phase's numbers."""
+    t0 = time.time()
+    serving = conv_options_serving(card, dev, zrun_conv)
+    training = conv_options_training(card, zrun_conv)
+    total = time.time() - t0
+    print(f"conv_options: phase {total:.1f} s ({card})", flush=True)
+    return {**serving, "train": training, "phase_s": total}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -4422,6 +4847,13 @@ def main():
 
     # ---- 15. swin_layouts: Swin3D, the flat device maps, the stage-1 cast
     sw = swin_layouts_phase(card, dev)
+    torch.cuda.empty_cache()
+
+    # ---- 16. conv_options: the voxel encoder's remaining conv options ----
+    co = conv_options_phase(card, dev, zrun_conv)
+    co_train = {f"conv_options_{k}_{p}": r["b1"][pk]
+                for k, r in co["train"].items() if "b1" in r
+                for p, pk in (("fwd", "fwd"), ("bwd", "bwd"))}
 
     # ---- kernels line + result -----------------------------------------
     def per_fwd(key):
@@ -4439,7 +4871,9 @@ def main():
         + sum(r["launches"] for r in lay["runs"].values())
         + dd["stage1"]["launches"]["fwd"] + dd["stage1"]["launches"]["bwd"]
         + dd["replicated"]["launches"]
-        + sum(r["launches"] for r in sw["runs"].values()),
+        + sum(r["launches"] for r in sw["runs"].values())
+        + sum(r["launches"] for r in co["runs"].values())
+        + sum(co_train.values()),
         "launches_by_path": {"serve": main_launches,
                              **{f"serve_{k}": r["launches"]
                                 for k, r in lay["runs"].items()},
@@ -4454,7 +4888,10 @@ def main():
                              "ddp_serve": dd["replicated"]["launches"],
                              "unified_variants": vr["b1"],
                              **{f"swin_layouts_{k}": r["launches"]
-                                for k, r in sw["runs"].items()}},
+                                for k, r in sw["runs"].items()},
+                             **{f"conv_options_{k}": r["launches"]
+                                for k, r in co["runs"].items()},
+                             **co_train},
         "max_abs_err": max(r["max_abs_err_f32"] for r in per_shape),
         "ms": per_fwd("ms"), "host_ms": per_fwd("host_ms"),
         "plain_ms": per_fwd("plain_ms"), "bound_ms": per_fwd("bound_ms"),
@@ -4475,7 +4912,9 @@ def main():
                  f"runs (train and eval forwards, dx), phase ddp's timed "
                  f"stage-1 steps on both ranks (forward, dx) and its "
                  f"replicated serving, phase swin_layouts' dev_flat_zt and "
-                 f"flat_zt_bf16 runs (0 in its swin runs); recipe_ms: the "
+                 f"flat_zt_bf16 runs (0 in its swin runs), phase "
+                 f"conv_options' served setups (0 in its compact ones) and "
+                 f"its training runs (forward, dx); recipe_ms: the "
                  f"same sum "
                  f"as ms over one forward of 4 SceneVerse-replica scans",
         "recipe_ms": rc["b1_ms"], "recipe_shapes": rc["b1"],
@@ -4484,6 +4923,7 @@ def main():
         "ddp": {k: {kk: v for kk, v in r.items() if kk != "b1"}
                 for k, r in dd.items()},
         "swin_layouts": {k: v for k, v in sw.items() if k != "locks"},
+        "conv_options": co,
         "shapes": per_shape,
         "bwd_launches": tr["counts"]["bwd"],
         "bwd_ms": per_step("ms"), "bwd_host_ms": per_step("host_ms"),
@@ -4523,6 +4963,8 @@ def main():
                              "unified_variants": vr["b2"],
                              "swin_layouts": sum(r["b2_launches"] for r in
                                                  sw["runs"].values()),
+                             "conv_options": sum(r["b2_launches"] for r in
+                                                 co["runs"].values()),
                              "winconv": wc["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in wc["shapes"]),
         "ms": b2_fwd("ms"), "plain_ms": b2_fwd("plain_ms"),

@@ -376,7 +376,8 @@ def _resolve(node, root):
 
 def parse_value(text: str) -> Any:
     """A ``key=value`` override's value as YAML reads a scalar or a flow
-    list: true/false/null, numbers, Python literals, ``[a, b]`` lists of
+    list: true/false/null, numbers, Python literals (nested lists of
+    numbers among them, e.g. a ``level_cap_ladder``), ``[a, b]`` lists of
     those (bare words become strings), anything else a string."""
     t = text.strip()
     low = t.lower()
@@ -385,6 +386,10 @@ def parse_value(text: str) -> Any:
     if low in ("null", "none", "~"):
         return None
     if t.startswith("[") and t.endswith("]"):
+        try:
+            return ast.literal_eval(t)
+        except (ValueError, SyntaxError):
+            pass
         inner = t[1:-1].strip()
         return [parse_value(v) for v in inner.split(",")] if inner else []
     try:
@@ -440,6 +445,9 @@ _SWIN = ("model.voxel_encoder.name=PCDMask3DSwin3DEncoder",
          "data.instseg_options.stem_mode='none'",
          "data.instseg_options.swin_window=4", _FLAT)
 _DEV_FLAT = ("data.instseg_options.device_maps=true",)
+_COMPACT = "data.instseg_options.compact_conv=true"
+_NATIVE_INT8 = ("model.voxel_encoder.args.grad_mode=native",
+                "model.voxel_encoder.args.int8_gather=true")
 SERVING_LAYOUTS: Dict[str, Sequence[str]] = {
     "rect": (_PALLAS,),
     "dev_maps": (_PALLAS, "data.instseg_options.device_maps=true",
@@ -451,6 +459,12 @@ SERVING_LAYOUTS: Dict[str, Sequence[str]] = {
     "dev_flat_swin": _SWIN + _DEV_FLAT,
     "dev_flat_zt": (_PALLAS, _FLAT, *_DEV_FLAT,
                     "model.voxel_encoder.args.device_ztriple=true"),
+    # the voxel encoder's remaining conv options (the compact layout runs
+    # no kernel B1: JAX switches it off for a batch with compact plans)
+    "rect_int8": (_PALLAS, *_NATIVE_INT8),
+    "rect_sorted": (_PALLAS, "model.voxel_encoder.args.sorted_gather=true"),
+    "flat_compact": (_PALLAS, _FLAT, _COMPACT),
+    "flat_compact_int8": (_PALLAS, _FLAT, _COMPACT, *_NATIVE_INT8),
 }
 # the host layout whose collate_flat derives each device layout's lock
 LOCK_PROBE = {"dev_flat_swin": "flat_swin", "dev_flat_zt": "flat_zt"}
@@ -469,8 +483,11 @@ def serving_config(layout: str = "rect", overrides: Sequence[str] = (),
     (Res16UNet with the z-run plans built on the device), which need the
     lock ``flat_caps`` (``instseg_pipeline.device_flat_lock`` on the
     ``LOCK_PROBE`` layout's config) as the pipeline's ``flat_shape_caps``
-    and the model's ``device_flat_caps``; further ``key=value``
-    overrides after the layout's."""
+    and the model's ``device_flat_caps``; ``rect_int8`` (``rect`` with
+    ``grad_mode: native`` and ``int8_gather``), ``rect_sorted``
+    (``sorted_gather``), ``flat_compact`` (the flat pack with
+    ``compact_conv``) and ``flat_compact_int8`` (that with ``native`` and
+    int8); further ``key=value`` overrides after the layout's."""
     if layout not in SERVING_LAYOUTS:
         raise KeyError(f"unknown serving layout {layout!r}; known: "
                        f"{sorted(SERVING_LAYOUTS)}")

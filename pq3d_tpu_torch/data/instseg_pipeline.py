@@ -24,10 +24,13 @@ masks.  Four layouts:
   maps (``ops/device_flat_maps``) at a complete ``flat_shape_caps`` lock,
   and a batch that overflows the lock is refused here.
 
-``compact_conv`` and ``level_cap_ladder`` are not ported:
-``pipeline_config`` refuses them by name.  Everything here is numpy; the
-batch it returns is bit-identical to the JAX package's on the same scenes
-and rng, with or without augmentation.
+Two options shape the maps: ``level_cap_ladder`` (rectangular host maps
+only) pads each batch to the first rung that holds its true per-level
+maxima, one shape per rung; ``compact_conv`` (the flat pack only) adds
+the tap-compacted conv plans ``cmp{l}_{in,out,sa,sb,src}`` of every
+level (``ops/kernel_maps.build_compact_conv``).  Everything here is
+numpy; the batch it returns is bit-identical to the JAX package's on the
+same scenes and rng, with or without augmentation.
 """
 from __future__ import annotations
 
@@ -65,6 +68,11 @@ class InstSegPipelineConfig:
     voxel_bucket: int = 4096
     # hard per-level pads (static shapes across every batch)
     level_caps: Optional[Sequence[int]] = None
+    # rectangular host maps: ascending rungs of per-level pads; a batch
+    # takes the first rung that holds its true per-level maxima (one shape
+    # per rung), and a batch that fits none raises.  Overrides level_caps'
+    # pads (the stem's block cap still derives from level_caps)
+    level_cap_ladder: Optional[Sequence[Sequence[int]]] = None
     filter_out_classes: Sequence[int] = (0, 2)
     ignore_label: int = -100
     # 'gt' collates each scene's GT segment masks as ``offline_attn_mask``
@@ -89,6 +97,10 @@ class InstSegPipelineConfig:
     # so the 3^3 convs that ops/sparse.ztriple_applicable claims run as 9
     # wide gathers instead of 27 (ops/sparse.sparse_conv_ztriple)
     ztriple_conv: bool = False
+    # with flat_pack: also ship tap-compacted conv plans of every level's
+    # 3^3 map (ops/kernel_maps.build_compact_conv), which the U-Net's
+    # stride-1 convs then run (ops/sparse.sparse_conv_compact[_sym])
+    compact_conv: bool = False
     # kernel maps built on the device (ops/device_maps): the batch ships
     # only biased voxel coords and counts beside the features, and
     # process_scene skips the hierarchy; needs static level_caps, and the
@@ -131,6 +143,10 @@ class InstSegPipelineConfig:
         if self.device_maps and self.flat_pack:
             # the flat device maps' shapes are the lock: nothing to bucket
             # or grow against, so every flat dim must be named up front
+            if self.compact_conv or self.level_cap_ladder:
+                raise ValueError(
+                    "device_maps + flat_pack supports neither compact_conv "
+                    "nor level_cap_ladder (device shapes are compile-time)")
             missing = device_flat_maps.flat_caps_complete(
                 self.flat_shape_caps or {}, self.swin_window, SWIN_LEVELS,
                 self.stem_mode)
@@ -145,11 +161,37 @@ class InstSegPipelineConfig:
                 raise ValueError(
                     "device_maps needs static level_caps (the device builds "
                     "every level at its cap)")
+            if self.compact_conv or self.level_cap_ladder:
+                raise ValueError(
+                    "device_maps is a static-shape layout; unset "
+                    "compact_conv / level_cap_ladder")
             if self.swin_window:
                 raise ValueError(
                     "rectangular device_maps has no device swin-pack "
                     "builder; swin3d serves device maps in the flat layout "
                     "(flat_pack=True + flat_shape_caps)")
+
+        if self.level_cap_ladder:
+            if self.flat_pack:
+                raise ValueError(
+                    "level_cap_ladder is a rectangular-layout option; "
+                    "collate_flat never pads to caps: unset one of "
+                    "flat_pack / level_cap_ladder")
+            # a short rung would pass the fit check on the levels it has
+            for rung in self.level_cap_ladder:
+                if len(rung) != kernel_maps.NUM_LEVELS:
+                    raise ValueError(
+                        f"level_cap_ladder rung {list(rung)} has "
+                        f"{len(rung)} entries; expected "
+                        f"{kernel_maps.NUM_LEVELS} (one per level)")
+            # collate takes the first rung that fits, so a descending
+            # ladder would pad every batch to rung 0
+            for lo, hi in zip(self.level_cap_ladder,
+                              self.level_cap_ladder[1:]):
+                if any(a > b for a, b in zip(lo, hi)):
+                    raise ValueError(
+                        "level_cap_ladder rungs must be elementwise "
+                        f"non-decreasing; got {list(lo)} before {list(hi)}")
 
     def flat_dim(self, name: str, computed: int) -> int:
         """Apply the flat shape lock to one batch-varying dimension."""
@@ -180,33 +222,14 @@ class InstSegPipelineConfig:
         return window_maps.bucket(n_win_max)
 
 
-# options the JAX package reads that the port does not have yet, with the
-# JAX package's default: any other value raises
-UNPORTED_OPTIONS = {"compact_conv": False, "level_cap_ladder": None}
-
-
-def refuse_unported(options: Dict, unported: Dict, node: str) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP A.6 for the first key
-    of ``unported`` that ``options`` sets to a value other than its
-    default (a falsy value counts as the default)."""
-    for key, default in unported.items():
-        val = options.get(key, default)
-        if val != default and (val or default):
-            raise NotImplementedError(
-                f"{node}.{key}={val!r} is not ported yet (ROADMAP A.6); "
-                f"the port runs only the JAX default {default!r}")
-
-
 def pipeline_config(options: Dict, conv1_kernel_size: int = 5
                     ) -> InstSegPipelineConfig:
-    """Pipeline config from a YAML ``data.instseg_options`` dict.  Keys the
-    JAX package reads but the port lacks (``compact_conv``,
-    ``level_cap_ladder``) raise unless at JAX's default; ``conv0_kernel``,
-    which shapes only JAX's 125-tap gather stem, must be 5 (JAX's default)
-    or the model's ``conv1_kernel_size``; keys neither package reads (e.g.
-    ``num_labels``) are ignored."""
+    """Pipeline config from a YAML ``data.instseg_options`` dict, read as
+    the JAX runner reads it (``level_cap_ladder`` as lists of ints);
+    ``conv0_kernel``, which shapes only JAX's 125-tap gather stem, must be
+    5 (JAX's default) or the model's ``conv1_kernel_size``; keys neither
+    package reads (e.g. ``num_labels``) are ignored."""
     node = "data.instseg_options"
-    refuse_unported(options, UNPORTED_OPTIONS, node)
     k0 = int(options.get("conv0_kernel", 5))
     if k0 not in (5, int(conv1_kernel_size)):
         raise NotImplementedError(
@@ -214,8 +237,11 @@ def pipeline_config(options: Dict, conv1_kernel_size: int = 5
             "which the port does not ship; its dense-block stem runs the "
             f"model's conv1_kernel_size ({conv1_kernel_size})")
     names = {f.name for f in dataclasses.fields(InstSegPipelineConfig)}
-    return InstSegPipelineConfig(
-        **{k: v for k, v in options.items() if k in names})
+    kw = {k: v for k, v in options.items() if k in names}
+    if kw.get("level_cap_ladder"):
+        kw["level_cap_ladder"] = [[int(x) for x in rung]
+                                  for rung in kw["level_cap_ladder"]]
+    return InstSegPipelineConfig(**kw)
 
 
 def _augment(points, colors, rng: np.random.Generator):
@@ -305,11 +331,13 @@ def process_scene(scene: Dict[str, np.ndarray], cfg: InstSegPipelineConfig,
         query_locs = obj_center
         query_valid = np.ones(len(obj_center), bool)
 
+    # under a ladder the scene pads to buckets; collate picks the rung
     hierarchy = None
     if not cfg.device_maps:
+        use_caps = cfg.level_caps and not cfg.level_cap_ladder
         hierarchy = kernel_maps.build_hierarchy(
             vox_coords,
-            pad_sizes=list(cfg.level_caps) if cfg.level_caps else None,
+            pad_sizes=list(cfg.level_caps) if use_caps else None,
             bucket=cfg.voxel_bucket)
 
     swin_packs = None
@@ -531,8 +559,10 @@ def _host_maps(scenes: List[Dict[str, np.ndarray]],
 def collate(scenes: List[Dict[str, np.ndarray]],
             cfg: InstSegPipelineConfig) -> Dict[str, np.ndarray]:
     """Stack processed scenes into one fixed-shape rectangular batch with
-    host-built maps (per-level pads: ``level_caps`` or the bucketed batch
-    maximum; ``_host_maps``).  Under ``device_maps`` the voxel
+    host-built maps (per-level pads: the first ``level_cap_ladder`` rung
+    that holds the batch's true per-level maxima, else ``level_caps``,
+    else the bucketed batch maximum; ``_host_maps``).  A batch that fits
+    no rung raises ``ValueError``.  Under ``device_maps`` the voxel
     arrays are padded to ``level_caps[0]`` and the batch ships each
     scene's biased coords (``vox_coords``, B x cap0 x 3) and count
     (``n_voxels``) with an empty ``maps``; a scene that outgrows the caps
@@ -543,7 +573,19 @@ def collate(scenes: List[Dict[str, np.ndarray]],
         out["maps"] = {}
         pad0 = int(cfg.level_caps[0])
     else:
-        if cfg.level_caps:
+        if cfg.level_cap_ladder:
+            true_max = [max(s["hierarchy"].num_voxels[l] for s in scenes)
+                        for l in range(kernel_maps.NUM_LEVELS)]
+            pad = next(([int(r) for r in rung]
+                        for rung in cfg.level_cap_ladder
+                        if all(t <= r for t, r in zip(true_max, rung))),
+                       None)
+            if pad is None:
+                raise ValueError(
+                    f"no level_cap_ladder rung fits batch voxel counts "
+                    f"{true_max}; largest rung "
+                    f"{list(cfg.level_cap_ladder[-1])}")
+        elif cfg.level_caps:
             # a scene that overflowed a cap was bucket-padded by
             # build_hierarchy; follow its pad so the batch buffers fit
             pad = [max(int(c), max(s["hierarchy"].pad_sizes[l]
@@ -575,8 +617,9 @@ def collate_flat(scenes: List[Dict[str, np.ndarray]],
     ``rect_{l}`` (B, Pmax_l: each scene's flat rows of level l, -1 pad).
     The swin packs (``swin_window``) and the dense-block stem pack
     concatenate the scenes' packs, cells offset by the running window
-    count and voxel ids by the level's starts.  ``_meta['flat_dims']``
-    holds each flat dim before the lock."""
+    count and voxel ids by the level's starts.  With ``compact_conv`` the
+    maps add each level's compact conv plan (``cmp{l}_*``).
+    ``_meta['flat_dims']`` holds each flat dim before the lock."""
     b = len(scenes)
     n_levels = kernel_maps.NUM_LEVELS
     hs = [s["hierarchy"] for s in scenes]
@@ -708,6 +751,11 @@ def collate_flat(scenes: List[Dict[str, np.ndarray]],
             maps[f"zt{l}_base"], maps[f"zt{l}_code"] = \
                 kernel_maps.build_ztriple_plan(maps[f"nbr3_{l}"],
                                                n_pad=tot[l])
+    if cfg.compact_conv:
+        for l in range(n_levels):
+            plan = kernel_maps.build_compact_conv(maps[f"nbr3_{l}"])
+            for short, key in kernel_maps.COMPACT_MAP_KEYS:
+                maps[f"cmp{l}_{short}"] = plan[key]
 
     out = _scene_arrays(scenes, cfg)
     out["maps"] = maps

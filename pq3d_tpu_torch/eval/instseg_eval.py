@@ -89,10 +89,132 @@ def rank_instances(cls_logits: np.ndarray, mask_logits: np.ndarray,
     return preds
 
 
+def dbscan_labels(points: np.ndarray, eps: float) -> np.ndarray:
+    """Cluster labels of scikit-learn's ``DBSCAN(eps, min_samples=1)`` on
+    ``points`` (N, 3), computed with numpy and scipy.
+
+    With ``min_samples=1`` every point is a core point, so the clusters
+    are the connected components of the graph that links two points at a
+    distance <= ``eps`` (squared distances in f64 against ``eps**2``, as
+    scikit-learn's tree search compares them), numbered by their smallest
+    point index as scikit-learn numbers them.  The points fall into
+    cubic cells of side just under ``eps / sqrt(3)``, whose points are all
+    linked.  Where the cells are sparse, the pairs within ``eps``
+    (``cKDTree.query_pairs``, inclusive) give the components directly.
+    Where they are dense (a 2 cm scan has thousands of points within 0.95
+    m of each), the graph is not built pair by pair: two cells up to two
+    apart on each axis join when their representative points (each the
+    point nearest its cell's mean) or, failing that, a KD-tree query
+    finds a pair within ``eps``, nearest cells first and skipping cells
+    already joined."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+    from scipy.spatial import cKDTree
+    p = np.asarray(points, np.float64)
+    n = len(p)
+    if n == 0:
+        return np.zeros(0, np.int64)
+    eps2 = float(eps) * float(eps)
+    side = float(eps) / np.sqrt(3.0) * (1.0 - 1e-9)
+    cell = np.floor((p - p.min(0)) / side).astype(np.int64)
+    dims = cell.max(0) + 3
+    key = (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
+    ukey, cid = np.unique(key, return_inverse=True)
+    cid = cid.reshape(-1)
+    nc = len(ukey)
+
+    def components(edges):
+        e = np.concatenate(edges)
+        graph = coo_matrix((np.ones(len(e), np.int8), (e[:, 0], e[:, 1])),
+                           shape=(nc, nc))
+        return connected_components(graph, directed=False)[1]
+
+    # about 22 cells' volume lies within eps of a point
+    if n * (n / nc) * 11 < 1e6:
+        nc = n
+        pairs = cKDTree(p).query_pairs(float(eps), output_type="ndarray")
+        return _by_first_index(components([pairs.reshape(-1, 2)]), n)
+    order = np.argsort(cid, kind="stable")
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(cid))])
+    members = [order[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    # each cell's point nearest its mean: two cells whose representatives
+    # lie within eps join without a tree query (in a dense mask, nearly
+    # every pair of neighbouring cells)
+    mean = np.stack([np.bincount(cid, p[:, k], nc) for k in range(3)], 1) \
+        / np.diff(bounds)[:, None]
+    rep = p[np.lexsort((((p - mean[cid]) ** 2).sum(1), cid))[bounds[:-1]]]
+    trees: Dict[int, Any] = {}
+    edges = [np.zeros((0, 2), np.int64)]
+    labels = np.arange(nc)
+
+    def d2_of(x, y):
+        diff = x - y
+        return diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1] \
+            + diff[:, 2] * diff[:, 2]
+
+    def linked(a, b):
+        if b not in trees:
+            trees[b] = cKDTree(p[members[b]])
+        pa = p[members[a]]
+        d, k = trees[b].query(pa, k=1, distance_upper_bound=eps * 1.001)
+        hit = np.nonzero(np.isfinite(d))[0]
+        return (d2_of(pa[hit], p[members[b][k[hit]]]) <= eps2).any()
+
+    offs = [np.array(o) for o in np.ndindex(5, 5, 5)]
+    offs = sorted((o - 2 for o in offs if tuple(o - 2) > (0, 0, 0)),
+                  key=lambda o: (np.maximum(np.abs(o) - 1, 0) ** 2).sum())
+    ucell = np.stack([ukey // (dims[1] * dims[2]), ukey // dims[2] % dims[1],
+                      ukey % dims[2]], 1)
+    for o in offs:
+        nb = ucell + o
+        ok = (nb >= 0).all(1) & (nb < dims).all(1)
+        nkey = (nb[:, 0] * dims[1] + nb[:, 1]) * dims[2] + nb[:, 2]
+        j = np.searchsorted(ukey, nkey).clip(max=nc - 1)
+        a = np.nonzero(ok & (ukey[j] == nkey))[0]
+        b = j[a]
+        keep = labels[a] != labels[b]
+        a, b = a[keep], b[keep]
+        if not len(a):
+            continue
+        near = d2_of(rep[a], rep[b]) <= eps2
+        if near.any():
+            edges.append(np.stack([a[near], b[near]], 1))
+            labels = components(edges)
+        # the other pairs by tree queries, skipping labels joined meanwhile
+        root: Dict[int, int] = {}
+
+        def find(c):
+            while root.get(c, c) != c:
+                c = root[c]
+            return c
+        found = []
+        for x, y in zip(a[~near].tolist(), b[~near].tolist()):
+            rx, ry = find(int(labels[x])), find(int(labels[y]))
+            if rx != ry and linked(x, y):
+                root[rx] = ry
+                found.append((x, y))
+        if found:
+            edges.append(np.array(found, np.int64))
+            labels = components(edges)
+    return _by_first_index(labels[cid], n)
+
+
+def _by_first_index(comp: np.ndarray, n: int) -> np.ndarray:
+    """Component ids renumbered 0, 1, ... in the order of each component's
+    smallest point index (scikit-learn's cluster numbering)."""
+    first = np.full(int(comp.max()) + 1, n, np.int64)
+    np.minimum.at(first, comp, np.arange(n))
+    order = np.argsort(first)
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    return rank[comp]
+
+
 class InstSegEval:
     """Accumulates per-scene predictions; record() computes AP/AP50/AP25
-    (a numpy copy of the JAX package's evaluator without its DBSCAN
-    split, which needs scikit-learn).  Under a process group ``record``
+    (a numpy copy of the JAX package's evaluator; its DBSCAN split,
+    ``use_dbscan``, runs on numpy and scipy: ``dbscan_labels``).  Under a
+    process group ``record``
     gathers every rank's scenes to rank 0 in the order one process meets
     them (``parallel/dist.gather_in_order``), scores them there and gives
     every rank the result; the JAX package's evaluator keeps each
@@ -101,11 +223,11 @@ class InstSegEval:
     def __init__(self, topk_per_scene: int = 100, num_classes: int = 200,
                  score_threshold: float = 0.0, save_dir: Optional[str] = None,
                  full_resolution: bool = False, use_dbscan: bool = False,
-                 official_protocol: bool = True,
+                 dbscan_eps: float = 0.95, official_protocol: bool = True,
                  min_region_size: float = 100.0):
-        if use_dbscan:
-            raise NotImplementedError("the DBSCAN split is not ported")
         self.save_dir = save_dir
+        self.use_dbscan = use_dbscan
+        self.dbscan_eps = dbscan_eps
         self.topk = topk_per_scene
         self.num_classes = num_classes
         self.score_threshold = score_threshold
@@ -165,6 +287,8 @@ class InstSegEval:
                                num_classes=self.num_classes, topk=self.topk,
                                score_threshold=self.score_threshold,
                                seg_to_full=seg_to_full)
+        if self.use_dbscan and points is not None:
+            preds = self._dbscan_split(preds, points)
         if points is not None and seg_to_full is not None:
             # axis-aligned boxes from predicted point masks (for box AP,
             # ref evaluator/instseg_eval.py box path -> common/eval_det.py)
@@ -190,6 +314,29 @@ class InstSegEval:
                 "labels": gt_labels[gt_valid],
                 "weights": seg_sizes,
             })
+
+    def _dbscan_split(self, preds, points):
+        """Each predicted full-resolution mask split into its spatial
+        clusters (``dbscan_labels`` at ``dbscan_eps``), one prediction per
+        cluster in the order of their smallest point index, with the
+        mask's class and score; a mask of fewer than 2 points stays
+        whole.  A query ranked under several classes brings the same mask
+        more than once, and its clusters are found once."""
+        out, seen = [], {}
+        for p in preds:
+            idx = np.nonzero(p["mask"])[0]
+            if len(idx) < 2:
+                out.append(p)
+                continue
+            key = p["mask"].tobytes()
+            if key not in seen:
+                seen[key] = dbscan_labels(points[idx], self.dbscan_eps)
+            labels = seen[key]
+            for c in np.unique(labels):
+                m = np.zeros_like(p["mask"])
+                m[idx[labels == c]] = True
+                out.append({**p, "mask": m})
+        return out
 
     def _ap_table(self, classes_present, overlaps, iou_fn):
         """Greedy per-class AP at each overlap (ref common/eval_instseg.py

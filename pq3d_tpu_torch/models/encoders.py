@@ -40,9 +40,11 @@ class SegVoxelEncoder(nn.Module):
 
     ``backbone`` is ``"res16unet"`` or ``"swin3d"`` (``Swin3DUNet`` at the
     JAX package's defaults and ``swin_window``; the batch must carry the
-    window packs).  The swin backbone has no routed conv: ``pallas_conv``
-    is accepted there and does nothing, with a warning, as the JAX package
-    prints one.
+    window packs).  Both take ``grad_mode``; ``remat_policy`` is the
+    Res16UNet's, and any policy but ``'none'`` checkpoints the swin
+    blocks.  The swin backbone has no conv-gather levers:
+    ``sorted_gather``, ``int8_gather`` and ``pallas_conv`` are accepted
+    there and do nothing, with a warning, as the JAX package prints one.
 
     For each hlevel (plus the final level-0 map) the decoder feature map is
     mean-pooled onto segments and projected.  Coarse levels pool through a
@@ -62,27 +64,38 @@ class SegVoxelEncoder(nn.Module):
                  conv1_kernel_size: int = 5, pallas_conv: bool = False,
                  in_channels: int = 3, dropout: float = 0.1,
                  bn_momentum: float = 0.02, backbone: str = "res16unet",
-                 swin_window: int = 4):
+                 swin_window: int = 4, grad_mode: str = "scatter_free",
+                 remat_policy: str = "none", sorted_gather: bool = False,
+                 int8_gather: bool = False):
         super().__init__()
         self.hlevels = list(hlevels)
         # the backbone's `final` output (backbone_out_channels) is not used
         # here: its parameters get a zero gradient and are still decayed
         if backbone == "swin3d":
             from pq3d_tpu_torch.models.swin3d import Swin3DUNet
-            if pallas_conv:
-                warnings.warn("[SegVoxelEncoder] swin3d backbone has no "
-                              "pallas_conv — option(s) ignored",
+            dropped = [n for n, on in (("sorted_gather", sorted_gather),
+                                       ("int8_gather", int8_gather),
+                                       ("pallas_conv", pallas_conv)) if on]
+            if dropped:
+                warnings.warn(f"[SegVoxelEncoder] swin3d backbone has no "
+                              f"{'/'.join(dropped)} — option(s) ignored",
                               stacklevel=2)
             self.backbone = Swin3DUNet(in_channels=in_channels,
                                        out_channels=backbone_out_channels,
                                        window=swin_window,
-                                       bn_momentum=bn_momentum)
+                                       bn_momentum=bn_momentum,
+                                       grad_mode=grad_mode,
+                                       remat=remat_policy != "none")
         elif backbone == "res16unet":
             self.backbone = Res16UNet(in_channels=in_channels,
                                       out_channels=backbone_out_channels,
                                       conv1_kernel_size=conv1_kernel_size,
                                       pallas_conv=pallas_conv,
-                                      bn_momentum=bn_momentum)
+                                      bn_momentum=bn_momentum,
+                                      grad_mode=grad_mode,
+                                      remat_policy=remat_policy,
+                                      sorted_gather=sorted_gather,
+                                      int8_gather=int8_gather)
         else:
             raise ValueError(f"voxel backbone {backbone!r} is not "
                              "'res16unet' or 'swin3d'")

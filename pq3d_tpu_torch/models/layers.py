@@ -13,6 +13,7 @@ switch it (the JAX ``deterministic`` flag).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -217,6 +218,23 @@ def global_moments(x: torch.Tensor, w: torch.Tensor):
     return mean, var
 
 
+_FROZEN_STATS = [0]
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Inside the block a train-mode ``MaskedBatchNorm`` normalises with
+    the batch statistics as usual but leaves its running statistics
+    alone: a checkpointed block's recomputation in the backward
+    (``models/sparse_unet.remat_call``) would otherwise update them a
+    second time, which the JAX package's functional remat never does."""
+    _FROZEN_STATS[0] += 1
+    try:
+        yield
+    finally:
+        _FROZEN_STATS[0] -= 1
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over valid rows of flat (N, C) voxel features, then a
     float-multiply by the validity mask (the JAX package's form: identical
@@ -251,9 +269,15 @@ class MaskedBatchNorm(nn.Module):
                 mean = (xf * w).sum(0) / cnt
                 var = ((xf - mean).square() * w).sum(0) / cnt
             with torch.no_grad():
+                # the same ops in a recomputation, whose selective
+                # checkpoint replays saved outputs in call order; only
+                # the write is skipped there
                 m = self.momentum
-                self.mean.mul_(1 - m).add_(m * mean)
-                self.var.mul_(1 - m).add_(m * var)
+                new_mean = self.mean * (1 - m) + m * mean
+                new_var = self.var * (1 - m) + m * var
+                if not _FROZEN_STATS[0]:
+                    self.mean.copy_(new_mean)
+                    self.var.copy_(new_var)
         else:
             mean, var = self.mean, self.var
         y = (xf - mean) * torch.rsqrt(var + self.eps)

@@ -45,7 +45,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pq3d_tpu_torch.data.instseg_pipeline import refuse_unported
 from pq3d_tpu_torch.data.unified_pipeline import PROMPT_IMAGE, PROMPT_TXT
 from pq3d_tpu_torch.device import resolve_device
 from pq3d_tpu_torch.models import heads as heads_lib
@@ -100,6 +99,14 @@ class VoxelEncoderCfg:
     bn_momentum: float = 0.02
     conv1_kernel_size: int = 5
     pallas_conv: bool = False    # route 3^3 convs to the z-run CUDA kernel
+    # the conv options of models/sparse_unet: 'scatter_free' (custom
+    # backwards) or 'native' (autograd); checkpointing in training ('none',
+    # 'full', 'dots', 'gather_only'); sorted-index gathers; int8 gathers
+    # outside training
+    grad_mode: str = "scatter_free"
+    remat_policy: str = "none"
+    sorted_gather: bool = False
+    int8_gather: bool = False
     # kernel maps built in the forward (ops/device_maps.build_batch_maps)
     # from the batch's 'vox_coords' / 'n_voxels': the static per-level caps,
     # equal to the pipeline's level_caps under its device_maps
@@ -239,7 +246,11 @@ class Query3DUnified(nn.Module):
                     dropout=voxel_enc.dropout,
                     bn_momentum=voxel_enc.bn_momentum,
                     backbone=voxel_enc.backbone,
-                    swin_window=voxel_enc.swin_window)
+                    swin_window=voxel_enc.swin_window,
+                    grad_mode=voxel_enc.grad_mode,
+                    remat_policy=voxel_enc.remat_policy,
+                    sorted_gather=voxel_enc.sorted_gather,
+                    int8_gather=voxel_enc.int8_gather)
         if "prompt" in memories and txt_cfg.kind == "clip" \
                 and txt_cfg.width != hidden_size \
                 and (not txt_cfg.use_projection
@@ -579,9 +590,10 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
     ``cfg["model"]`` as in configs/instseg_sceneverse.yaml or
     unified_tasks_sceneverse.yaml, dropout rates included), with random
     weights drawn from ``torch.Generator().manual_seed(seed)``, in eval
-    mode on ``device`` (raises without CUDA unless device="cpu").  Stage-1
-    training runs the JAX model's ``grad_mode='scatter_free'`` with
-    ``remat_policy='none'``, the defaults there (other values raise).
+    mode on ``device`` (raises without CUDA unless device="cpu").  The
+    voxel encoder's ``grad_mode``, ``remat_policy``, ``sorted_gather`` and
+    ``int8_gather`` take the JAX package's YAML defaults
+    (``scatter_free``, ``none``, off, off).
     The text encoder is BERT when its name holds ``BERT``, else CLIP;
     ``qa_head.args.num_answers`` (else ``qa_num_answers``, else 8864)
     sizes the ``qa`` head.  ``generation_head.args.two_phase``, which the
@@ -592,9 +604,7 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
     ``backbone_kwargs.config.window``, else ``args.swin_window``, else 4),
     ``PCDMask3DSegLevelEncoder`` its ``args.backbone`` (default
     ``res16unet``); any other name raises.  ``args.device_flat_caps`` (a
-    dict) builds the flat maps in the forward.  ``sorted_gather`` and
-    ``int8_gather``, which the JAX package reads and the port lacks, raise
-    ``NotImplementedError`` unless off."""
+    dict) builds the flat maps in the forward."""
     dev = resolve_device(device)
     m = cfg["model"]
     ue = m["unified_encoder"]["args"]
@@ -628,13 +638,6 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
             raise NotImplementedError(
                 f"voxel encoder {name!r} is not ported (the port builds "
                 "PCDMask3DSegLevelEncoder and PCDMask3DSwin3DEncoder)")
-        refuse_unported(va, {"sorted_gather": False, "int8_gather": False},
-                        "model.voxel_encoder.args")
-        if va.get("grad_mode", "scatter_free") != "scatter_free" \
-                or va.get("remat_policy", "none") != "none":
-            raise NotImplementedError(
-                "the port trains with grad_mode='scatter_free' and "
-                "remat_policy='none' only")
         if va.get("device_stem", "dense_block") != "dense_block" \
                 or va.get("device_stem_blocks") is not None:
             raise NotImplementedError(
@@ -648,6 +651,11 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
             bn_momentum=bk_cfg.get("bn_momentum", 0.02),
             conv1_kernel_size=bk_cfg.get("conv1_kernel_size", 5),
             pallas_conv=va.get("pallas_conv", False),
+            # an override's bare `none` parses as None
+            grad_mode=str(va.get("grad_mode") or "scatter_free"),
+            remat_policy=str(va.get("remat_policy") or "none"),
+            sorted_gather=bool(va.get("sorted_gather", False)),
+            int8_gather=bool(va.get("int8_gather", False)),
             device_maps=(tuple(int(c) for c in va["device_maps"])
                          if va.get("device_maps") else None),
             device_ztriple=bool(va.get("device_ztriple", False)),

@@ -9,31 +9,136 @@ the rectangular layout's per-scene indices; the flat-pack layout
 (``data/instseg_pipeline.collate_flat``) arrives concatenated and offset
 by the host and passes through.
 
-Routing of a stride-1 3^3 conv, in the JAX package's order: with
-``pallas_conv`` the convs whose shape passes ``ops/zrun_conv.applicable``
-run the hand-written CUDA kernel over a z-run plan (the batch's shipped
-``zt{l}_*`` plan where there is one, else one built on the device from the
-(N, 27) map); next, where the batch ships a z-run plan
-(``ztriple_conv``) and the shape passes ``ops/sparse.ztriple_applicable``,
-the z-run gather conv (``sparse_conv_ztriple_sym``); every other conv is
-the gather conv.  Each has the scatter-free backward.  The two
-predicates claim disjoint shapes, so the shipped plans never change which
-convs the kernel takes.  The JAX package guards
-its windowed kernel with an exception-overflow fallback; the Hopper kernel
-has no window, so every routed conv runs the kernel.
+Routing of a conv, in the JAX package's order (its ``SparseConv``):
+
+1. a tap-compacted plan (the flat pack with ``compact_conv``: the batch's
+   ``cmp{l}_*``): ``sparse_conv_compact_sym`` under ``grad_mode
+   'scatter_free'``, else ``sparse_conv_compact`` (with ``int8_gather``);
+   kernel B1 is off for such a batch, as in JAX;
+2. with ``pallas_conv``, a stride-1 3^3 conv whose shape passes
+   ``ops/zrun_conv.applicable`` runs the hand-written CUDA kernel over a
+   z-run plan (the batch's shipped ``zt{l}_*`` plan where there is one,
+   else one built on the device), always with its custom backward and
+   never with int8 (the JAX package's Pallas kernel takes neither);
+3. where the batch ships a z-run plan (``ztriple_conv``) and the shape
+   passes ``ops/sparse.ztriple_applicable``, the z-run gather conv
+   (``sparse_conv_ztriple_sym``, or under ``'native'`` autograd through
+   ``sparse_conv_ztriple``);
+4. under ``'scatter_free'`` the down conv or the symmetric gather conv
+   with their custom backward (``sorted_gather`` reads each map through
+   ``sorted_conv_maps``);
+5. else (``'native'``) autograd through ``sparse_conv``, with
+   ``sorted_gather`` and ``int8_gather``.
+
+The transpose convs take the gather-only backward under
+``'scatter_free'``, else autograd through ``sparse_conv_transpose`` (with
+int8).  ``int8_gather`` holds only outside training (the JAX package's
+``int8_gather and not train``), so under ``'scatter_free'`` it changes
+nothing.  The predicates of 2 and 3 claim disjoint shapes, so the shipped
+plans never change which convs the kernel takes.  The JAX package guards
+its windowed kernel with an exception-overflow fallback; the Hopper
+kernel has no window, so every routed conv runs the kernel.
+
+``remat_policy`` (training only) checkpoints each BasicBlock and each
+stride-2 conv as the JAX package's ``remat_block_cls`` does, through
+``torch.utils.checkpoint``: ``'full'`` recomputes everything, ``'dots'``
+saves the matrix products' outputs, ``'gather_only'`` everything but the
+gathered rows (``index_select``), ``'none'`` checkpoints nothing.  The
+recomputation leaves the batch-norm running statistics alone, so every
+policy gives the gradients and statistics of ``'none'``.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from pq3d_tpu_torch.models import layers
 from pq3d_tpu_torch.models.layers import MaskedBatchNorm
-from pq3d_tpu_torch.ops import sparse, zrun_conv
+from pq3d_tpu_torch.ops import kernel_maps, sparse, zrun_conv
 
 NUM_LEVELS = 5
+GRAD_MODES = ("scatter_free", "native")
+REMAT_POLICIES = ("none", "full", "dots", "gather_only")
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvOptions:
+    """How a forward's convs run: ``grad_mode`` ('scatter_free' or
+    'native'), ``sorted_gather`` and ``int8_gather`` (already off in
+    training, as the JAX package's ``int8_gather and not train``)."""
+    grad_mode: str = "scatter_free"
+    sorted_gather: bool = False
+    int8_gather: bool = False
+    # the forward's monotone maps (ops/sparse.sorted_conv_maps) by the id
+    # of their map, computed once for all the convs that read a map
+    sorted_idx: Optional[Dict[int, tuple]] = None
+
+    def __post_init__(self):
+        if self.grad_mode not in GRAD_MODES:
+            raise ValueError(f"grad_mode {self.grad_mode!r} is not one of "
+                             f"{GRAD_MODES}")
+
+    def sorted_for(self, nbr: torch.Tensor):
+        """A conv's ``sorted_maps`` argument for the map ``nbr``."""
+        if not self.sorted_gather:
+            return False
+        return (self.sorted_idx or {}).get(id(nbr), True)
+
+
+SCATTER_FREE = ConvOptions()
+
+_SAVED_BY_DOTS = frozenset(
+    getattr(torch.ops.aten, name).default
+    for name in ("mm", "addmm", "bmm", "baddbmm"))
+
+
+def _remat_policy(name: str):
+    """torch's selective-checkpoint policy for a ``remat_policy`` that
+    saves some outputs: 'dots' keeps the matrix products, 'gather_only'
+    everything but ``index_select``'s gathered rows.  Ops that write in
+    place are recomputed: the tensors they return change under them."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    def policy(ctx, op, *args, **kwargs):
+        if op._schema.is_mutable:
+            return CheckpointPolicy.PREFER_RECOMPUTE
+        if name == "dots":
+            save = op in _SAVED_BY_DOTS
+        else:
+            save = op != torch.ops.aten.index_select.default
+        return (CheckpointPolicy.MUST_SAVE if save
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+def remat_call(policy: str, fn, *args):
+    """``fn(*args)`` under ``remat_policy`` ``policy`` (not 'none'): the
+    first run is the forward; a later run is the backward's recomputation,
+    during which ``layers.frozen_running_stats`` keeps the batch norms'
+    running statistics from a second update."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    runs = []
+
+    def run(*a):
+        runs.append(1)
+        if len(runs) == 1:
+            return fn(*a)
+        with layers.frozen_running_stats():
+            return fn(*a)
+    kw = {}
+    if policy in ("dots", "gather_only"):
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _remat_policy(policy))
+    elif policy != "full":
+        raise ValueError(f"remat_policy {policy!r} is not one of "
+                         f"{REMAT_POLICIES}")
+    return checkpoint(run, *args, use_reentrant=False, **kw)
 
 
 def offset_scene_indices(idx: torch.Tensor, target_p: int) -> torch.Tensor:
@@ -113,25 +218,40 @@ class SparseConv(nn.Module):
                                          self.out_channels))
 
     def forward(self, x, nbr, valid, zplan=None, parent=None,
-                parent_off=None, in_valid=None, ztplan=None):
-        """``parent``/``parent_off``/``in_valid`` (the dual maps) make it a
-        stride-2 down conv over the child map ``nbr``; ``zplan`` is the
-        kernel's z-run plan (None: the kernel is off), ``ztplan`` the
-        batch's shipped plan for the z-run gather conv."""
-        if parent is not None:
-            return sparse.sparse_conv_down(x, nbr, self.kernel, parent,
-                                           parent_off, valid, in_valid)
-        if self.routes(nbr.shape[0], zplan):
+                parent_off=None, in_valid=None, ztplan=None,
+                opts: ConvOptions = SCATTER_FREE):
+        """``nbr`` is the (N, K) map, or a compact plan (a dict); the dual
+        maps ``parent``/``parent_off``/``in_valid`` make it a stride-2
+        down conv over the child map ``nbr``; ``zplan`` is the kernel's
+        z-run plan (None: the kernel is off), ``ztplan`` the batch's
+        shipped plan for the z-run gather conv; ``opts`` the forward's
+        ConvOptions.  Routing: the module docstring."""
+        w = self.kernel
+        sf = opts.grad_mode == "scatter_free"
+        i8 = opts.int8_gather
+        if isinstance(nbr, dict):
+            if sf:
+                return sparse.sparse_conv_compact_sym(x, nbr, w, valid)
+            return sparse.sparse_conv_compact(x, nbr, w, valid,
+                                              int8_gather=i8)
+        if parent is None and self.routes(nbr.shape[0], zplan):
             zb, zc = zplan
-            return zrun_conv.zrun_conv_sym(x, self.kernel, zb, zc, valid)
-        if (ztplan is not None and self.kernel.shape[0] == 27
-                and sparse.ztriple_applicable(nbr.shape[0],
-                                              self.kernel.shape[1],
+            return zrun_conv.zrun_conv_sym(x, w, zb, zc, valid)
+        if (parent is None and ztplan is not None and w.shape[0] == 27
+                and sparse.ztriple_applicable(nbr.shape[0], w.shape[1],
                                               self.out_channels)):
             zb, zc = ztplan
-            return sparse.sparse_conv_ztriple_sym(x, zb, zc, self.kernel,
-                                                  valid)
-        return sparse.sparse_conv_sym(x, nbr, self.kernel, valid)
+            if sf:
+                return sparse.sparse_conv_ztriple_sym(x, zb, zc, w, valid)
+            return sparse.sparse_conv_ztriple(x, zb, zc, w, valid)
+        sg = opts.sorted_for(nbr)
+        if sf and parent is not None:
+            return sparse.sparse_conv_down(x, nbr, w, parent, parent_off,
+                                           valid, in_valid, sorted_maps=sg)
+        if sf:
+            return sparse.sparse_conv_sym(x, nbr, w, valid, sorted_maps=sg)
+        return sparse.sparse_conv(x, nbr, w, None, valid, sorted_maps=sg,
+                                  int8_gather=i8)
 
 
 class DenseStemConv(nn.Module):
@@ -154,10 +274,15 @@ class SparseConvTranspose(nn.Module):
         super().__init__()
         self.kernel = _conv_weight(8, in_channels, out_channels)
 
-    def forward(self, x, parent, parent_off, valid, child, in_valid):
-        return sparse.sparse_conv_transpose_gf(x, parent, parent_off,
-                                               self.kernel, child, valid,
-                                               in_valid)
+    def forward(self, x, parent, parent_off, valid, child, in_valid,
+                opts: ConvOptions = SCATTER_FREE):
+        if opts.grad_mode == "scatter_free":
+            return sparse.sparse_conv_transpose_gf(
+                x, parent, parent_off, self.kernel, child, valid, in_valid,
+                sorted_maps=opts.sorted_for(child))
+        return sparse.sparse_conv_transpose(x, parent, parent_off,
+                                            self.kernel, valid,
+                                            int8_gather=opts.int8_gather)
 
 
 class BasicBlock(nn.Module):
@@ -176,11 +301,12 @@ class BasicBlock(nn.Module):
         else:
             self.downsample_conv = None
 
-    def forward(self, x, nbr, valid, zplan=None, ztplan=None):
+    def forward(self, x, nbr, valid, zplan=None, ztplan=None,
+                opts: ConvOptions = SCATTER_FREE):
         out = F.relu(self.norm1(self.conv1(x, nbr, valid, zplan,
-                                           ztplan=ztplan), valid))
-        out = self.norm2(self.conv2(out, nbr, valid, zplan, ztplan=ztplan),
-                         valid)
+                                           ztplan=ztplan, opts=opts), valid))
+        out = self.norm2(self.conv2(out, nbr, valid, zplan, ztplan=ztplan,
+                                    opts=opts), valid)
         residual = x
         if self.downsample_conv is not None:
             residual = self.downsample_norm(self.downsample_conv(x), valid)
@@ -198,9 +324,17 @@ class ResStage(nn.Module):
                                        planes, bn_momentum))
         self.layers = layers
 
-    def forward(self, x, nbr, valid, zplan=None, ztplan=None):
+    def forward(self, x, nbr, valid, zplan=None, ztplan=None,
+                opts: ConvOptions = SCATTER_FREE, remat: str = "none"):
+        """``remat`` (a remat_policy) checkpoints each block."""
         for i in range(self.layers):
-            x = getattr(self, f"block{i}")(x, nbr, valid, zplan, ztplan)
+            block = getattr(self, f"block{i}")
+            if remat == "none":
+                x = block(x, nbr, valid, zplan, ztplan, opts)
+            else:
+                x = remat_call(remat, functools.partial(
+                    block, nbr=nbr, valid=valid, zplan=zplan, ztplan=ztplan,
+                    opts=opts), x)
         return x
 
 
@@ -211,19 +345,33 @@ class Res16UNet(nn.Module):
     ``data/instseg_pipeline.collate`` returns (out (B, P0, Cout),
     feature_maps) with feature_maps = flat [L4, L3, L2, L1, L0] arrays;
     with the flat-pack maps of ``collate_flat``, ``x`` is (N, Cin) (padded
-    to the level-0 total here) and ``out`` (1, P0, Cout)."""
+    to the level-0 total here) and ``out`` (1, P0, Cout).  ``grad_mode``,
+    ``remat_policy``, ``sorted_gather``, ``int8_gather`` and
+    ``pallas_conv`` are attributes a caller may change between forwards
+    (routing: the module docstring)."""
 
     def __init__(self, in_channels: int = 3, out_channels: int = 200,
                  init_dim: int = 32,
                  planes: Sequence[int] = (32, 64, 128, 256, 256, 128, 96, 96),
                  layers: Sequence[int] = (2, 3, 4, 6, 2, 2, 2, 2),
                  conv1_kernel_size: int = 5, pallas_conv: bool = False,
-                 bn_momentum: float = 0.02):
+                 bn_momentum: float = 0.02,
+                 grad_mode: str = "scatter_free",
+                 remat_policy: str = "none", sorted_gather: bool = False,
+                 int8_gather: bool = False):
         super().__init__()
         P = list(planes)
         self.planes = P
         self.layers = list(layers)
         self.pallas_conv = pallas_conv
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r} is not one of "
+                             f"{REMAT_POLICIES}")
+        ConvOptions(grad_mode)             # checks the mode
+        self.grad_mode = grad_mode
+        self.remat_policy = remat_policy
+        self.sorted_gather = sorted_gather
+        self.int8_gather = int8_gather
         bm = bn_momentum
         self.conv0 = DenseStemConv(in_channels, init_dim, conv1_kernel_size)
         self.bn0 = MaskedBatchNorm(init_dim, bm)
@@ -255,11 +403,12 @@ class Res16UNet(nn.Module):
         return ([(f"stage{l + 1}", l + 1) for l in range(4)]
                 + [(f"stage{i + 5}", 3 - i) for i in range(4)])
 
-    def routed_convs(self, level_rows: Sequence[int]
+    def routed_convs(self, level_rows: Sequence[int], compact: bool = False
                      ) -> List[Tuple[str, int, int, int]]:
         """(name, level, Cin, Cout) of every conv that runs the z-run kernel
-        in a forward whose flat levels have ``level_rows`` rows."""
-        if not self.pallas_conv:
+        in a forward whose flat levels have ``level_rows`` rows (none for
+        a batch with compact plans, ``compact``)."""
+        if not self.pallas_conv or compact:
             return []
         out = []
         for stage, lvl in self.stage_levels():
@@ -278,9 +427,10 @@ class Res16UNet(nn.Module):
         conv can route to it (probed with the (96, 128) channel pair, the
         widest-reach pair of the topology; each conv re-checks its own):
         the batch's shipped ``zt{l}_*`` plan where there is one (the same
-        plan, bit for bit), else one built on the device."""
+        plan, bit for bit), else one built on the device.  None at every
+        level for a batch with compact plans, as in JAX."""
         plans = [None] * NUM_LEVELS
-        if self.pallas_conv:
+        if self.pallas_conv and "cmp0_in" not in fm:
             for l in range(NUM_LEVELS):
                 n_l = fm[f"valid_{l}"].shape[0]
                 if zrun_conv.applicable(n_l, 96, 128):
@@ -293,8 +443,22 @@ class Res16UNet(nn.Module):
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         fm = flatten_maps(maps)
         v = [fm[f"valid_{l}"] for l in range(NUM_LEVELS)]
-        n = [fm[f"nbr3_{l}"] for l in range(NUM_LEVELS)]
+        if "cmp0_in" in fm:
+            n = [{key: fm[f"cmp{l}_{short}"]
+                  for short, key in kernel_maps.COMPACT_MAP_KEYS}
+                 for l in range(NUM_LEVELS)]
+        else:
+            n = [fm[f"nbr3_{l}"] for l in range(NUM_LEVELS)]
         zp = self.zrun_plans(fm)
+        sorted_idx = None
+        if self.sorted_gather:
+            sorted_idx = {id(t): sparse.sorted_conv_maps(t) for t in
+                          [m for m in n if not isinstance(m, dict)]
+                          + [fm[f"child_{l}"] for l in range(4)]}
+        opts = ConvOptions(self.grad_mode, self.sorted_gather,
+                           self.int8_gather and not self.training,
+                           sorted_idx)
+        remat = self.remat_policy if self.training else "none"
         zt = [(fm[f"zt{l}_base"], fm[f"zt{l}_code"])
               if f"zt{l}_base" in fm else None for l in range(NUM_LEVELS)]
         if x.dim() == 2:               # flat pack: (N, Cin), N <= P0
@@ -308,23 +472,28 @@ class Res16UNet(nn.Module):
         out = F.relu(self.bn0(out, v[0]))
         skips = [out]
         for l in range(4):
-            out = getattr(self, f"conv{l + 1}s2")(
-                out, fm[f"child_{l}"], v[l + 1], parent=fm[f"parent_{l}"],
-                parent_off=fm[f"parent_off_{l}"], in_valid=v[l])
+            down = functools.partial(
+                getattr(self, f"conv{l + 1}s2"), nbr=fm[f"child_{l}"],
+                valid=v[l + 1], parent=fm[f"parent_{l}"],
+                parent_off=fm[f"parent_off_{l}"], in_valid=v[l], opts=opts)
+            out = down(out) if remat == "none" else \
+                remat_call(remat, down, out)
             out = F.relu(getattr(self, f"bn{l + 1}")(out, v[l + 1]))
             out = getattr(self, f"stage{l + 1}")(out, n[l + 1], v[l + 1],
-                                                 zp[l + 1], zt[l + 1])
+                                                 zp[l + 1], zt[l + 1], opts,
+                                                 remat)
             skips.append(out)
         feature_maps = [out]  # L4 (flat)
         for i in range(4):
             lvl = 3 - i
             out = getattr(self, f"convtr{i + 4}")(
                 out, fm[f"parent_{lvl}"], fm[f"parent_off_{lvl}"], v[lvl],
-                fm[f"child_{lvl}"], v[lvl + 1])
+                fm[f"child_{lvl}"], v[lvl + 1], opts)
             out = F.relu(getattr(self, f"bntr{i + 4}")(out, v[lvl]))
             out = torch.cat([out, skips[lvl]], -1)
             out = getattr(self, f"stage{i + 5}")(out, n[lvl], v[lvl],
-                                                 zp[lvl], zt[lvl])
+                                                 zp[lvl], zt[lvl], opts,
+                                                 remat)
             feature_maps.append(out)
         final = torch.where(v[0][:, None], self.final(out), 0)
         return final.reshape(b, p0, -1), feature_maps

@@ -37,10 +37,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pq3d_tpu_torch.models.layers import FLAX_LN_EPS, MaskedBatchNorm
-from pq3d_tpu_torch.models.sparse_unet import (NUM_LEVELS, SparseConv,
+from pq3d_tpu_torch.models.sparse_unet import (NUM_LEVELS, ConvOptions,
+                                               SparseConv,
                                                SparseConvTranspose,
                                                flatten_maps,
-                                               offset_scene_indices)
+                                               offset_scene_indices,
+                                               remat_call)
 from pq3d_tpu_torch.ops import window_maps
 from pq3d_tpu_torch.ops.sparse import fast_row_gather
 
@@ -142,7 +144,9 @@ class SwinBlock(nn.Module):
 
 
 class SwinStage(nn.Module):
-    """``depth`` Swin blocks, alternating the regular and shifted packs."""
+    """``depth`` Swin blocks, alternating the regular and shifted packs;
+    ``remat`` checkpoints each block (the JAX package's ``nn.remat`` of
+    its blocks: the attention logits are recomputed in the backward)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window: int):
         super().__init__()
@@ -150,10 +154,15 @@ class SwinStage(nn.Module):
         for i in range(depth):
             self.add_module(f"block{i}", SwinBlock(dim, num_heads, window))
 
-    def forward(self, x, packs, valid):
+    def forward(self, x, packs, valid, remat: bool = False):
         for i in range(self.depth):
             c2v, slot = packs[i % 2]
-            x = getattr(self, f"block{i}")(x, c2v, slot, valid)
+            block = getattr(self, f"block{i}")
+            if remat:
+                x = remat_call("full", functools.partial(
+                    block, c2v=c2v, slot=slot, valid=valid), x)
+            else:
+                x = block(x, c2v, slot, valid)
         return x
 
 
@@ -165,18 +174,22 @@ class Swin3DUNet(nn.Module):
     ``ops/device_flat_maps``), which must hold ``win{l}s{j}_c2v`` /
     ``win{l}s{j}_slot`` for l in 1..4, and returns ``(final (B, P0,
     out_channels), [L4, L3, L2, L1, L0])`` flat feature maps of widths
-    ``feature_channels``."""
+    ``feature_channels``.  ``grad_mode`` routes its sparse convs as the
+    Res16UNet's; ``remat`` checkpoints every Swin block in training."""
 
     def __init__(self, in_channels: int = 3, out_channels: int = 200,
                  channels: Sequence[int] = (48, 96, 192, 384),
                  depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24),
                  stem_dim: int = 48, window: int = 4,
-                 bn_momentum: float = 0.02):
+                 bn_momentum: float = 0.02,
+                 grad_mode: str = "scatter_free", remat: bool = False):
         super().__init__()
         ch = list(channels)
         bm = bn_momentum
         self.window = window
+        self.opts = ConvOptions(grad_mode)
+        self.remat = remat
         self.stem = SparseConv(in_channels, stem_dim)
         self.stem_bn = MaskedBatchNorm(stem_dim, bm)
         prev = stem_dim
@@ -222,29 +235,33 @@ class Swin3DUNet(nn.Module):
             return [(wm[f"win{l}s{j}_c2v"], wm[f"win{l}s{j}_slot"])
                     for j in (0, 1)]
 
-        out = F.relu(self.stem_bn(self.stem(x, fm["nbr3_0"], v[0]), v[0]))
+        opts = self.opts
+        remat = self.remat and self.training
+        out = F.relu(self.stem_bn(self.stem(x, fm["nbr3_0"], v[0],
+                                            opts=opts), v[0]))
         skips = [out]
         for i in range(4):
             l = i + 1
             out = getattr(self, f"down{l}")(
                 out, fm[f"child_{i}"], v[l], parent=fm[f"parent_{i}"],
-                parent_off=fm[f"parent_off_{i}"], in_valid=v[i])
+                parent_off=fm[f"parent_off_{i}"], in_valid=v[i], opts=opts)
             out = F.relu(getattr(self, f"down{l}_bn")(out, v[l]))
-            out = getattr(self, f"stage{l}")(out, packs(l), v[l])
+            out = getattr(self, f"stage{l}")(out, packs(l), v[l], remat)
             skips.append(out)
         feature_maps = [out]  # L4
         for i in range(4):
             lvl = 3 - i
             out = getattr(self, f"up{lvl}")(
                 out, fm[f"parent_{lvl}"], fm[f"parent_off_{lvl}"], v[lvl],
-                fm[f"child_{lvl}"], v[lvl + 1])
+                fm[f"child_{lvl}"], v[lvl + 1], opts)
             out = F.relu(getattr(self, f"up{lvl}_bn")(out, v[lvl]))
             out = out + getattr(self, f"skip{lvl}")(skips[lvl])
             if lvl >= 1:
-                out = getattr(self, f"dec{lvl}")(out, packs(lvl), v[lvl])
+                out = getattr(self, f"dec{lvl}")(out, packs(lvl), v[lvl],
+                                                 remat)
             else:
-                out = F.relu(self.dec0_bn(self.dec0(out, fm["nbr3_0"], v[0]),
-                                          v[0]))
+                out = F.relu(self.dec0_bn(self.dec0(
+                    out, fm["nbr3_0"], v[0], opts=opts), v[0]))
             feature_maps.append(out)
         final = torch.where(v[0][:, None], self.final(out), 0)
         return final.reshape(b, p0, -1), feature_maps

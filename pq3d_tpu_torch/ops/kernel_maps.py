@@ -326,3 +326,82 @@ def build_ztriple_plan(nbr: np.ndarray, n_pad: Optional[int] = None
             m = has & (nbrr[:, :, d] == base + p)
             codes[:, :, p] = np.where(m, d - 1, codes[:, :, p])
     return base.astype(np.int32), codes
+
+
+# a compact plan's arrays as a batch ships them: map ``cmp{l}_{short}``
+# holds the plan's ``key`` (data/instseg_pipeline.collate_flat)
+COMPACT_MAP_KEYS = (("in", "in_idx"), ("out", "out_idx"), ("sa", "slots_a"),
+                    ("sb", "slots_b"), ("src", "src"))
+
+
+def build_compact_conv(nbr: np.ndarray, m_bucket: int = 1024,
+                       light_slots: int = 8, row_bucket: int = 512
+                       ) -> Dict[str, np.ndarray]:
+    """Tap-compacted (CSR) conv plan of a (N, K) neighbor map (the JAX
+    package's ``build_compact_conv``, array for array).
+
+    Only the valid (output, tap) pairs are gathered, and each output row
+    collects its partial products by static addresses, with no scatter:
+
+      in_idx  (K, M)      input row of each valid pair of tap k (pad -1),
+                          rows ascending within a tap; the pair's partial
+                          product lives at flat address k*M + j;
+      out_idx (K, M)      the pair's output row (for dW), pad -1;
+      slots_a (Na, light) the addresses of the outputs with 1..light valid
+                          taps, in tap order, pad -1;
+      slots_b (Nb, K)     the same for the heavier outputs;
+      src     (N,)        output row -> its compact row (A first, then B;
+                          rows with no valid tap -> the zero row Na+Nb);
+      n_out               N.
+
+    M is bucketed up by ``m_bucket``, Na and Nb by ``row_bucket``.
+    """
+    n, k = nbr.shape
+    valid = nbr >= 0
+    cnt = valid.sum(1)
+    cnt_t = valid.sum(0)
+    m = int(cnt_t.max()) if n else 0
+    m = max(m_bucket, int(np.ceil(m / m_bucket)) * m_bucket)
+    in_idx = np.full((k, m), -1, np.int32)
+    out_idx = np.full((k, m), -1, np.int32)
+    # one tap-major nonzero pass: rows ascending within each tap
+    addr = np.full((n, k), -1, np.int64)
+    t_idx, rows = np.nonzero(valid.T)
+    starts = np.zeros(k, np.int64)
+    np.cumsum(cnt_t[:-1], out=starts[1:])
+    pos = np.arange(len(rows), dtype=np.int64) - starts[t_idx]
+    in_idx[t_idx, pos] = nbr[rows, t_idx]
+    out_idx[t_idx, pos] = rows
+    addr[rows, t_idx] = t_idx * m + pos
+
+    la = np.nonzero((cnt <= light_slots) & (cnt > 0))[0]
+    hb = np.nonzero(cnt > light_slots)[0]
+
+    def bucket_rows(x):
+        return max(row_bucket, int(np.ceil(max(len(x), 1) / row_bucket))
+                   * row_bucket)
+
+    na, nb = bucket_rows(la), bucket_rows(hb)
+
+    def compacted(sel, width):
+        # a row-major nonzero pass keeps each row's addresses in tap order
+        out = np.full((len(sel), width), -1, np.int32)
+        if len(sel):
+            a = addr[sel]
+            r_idx, t2 = np.nonzero(a >= 0)
+            rs = np.zeros(len(sel), np.int64)
+            np.cumsum((a >= 0).sum(1)[:-1], out=rs[1:])
+            p = np.arange(len(r_idx), dtype=np.int64) - rs[r_idx]
+            keep = p < width
+            out[r_idx[keep], p[keep]] = a[r_idx[keep], t2[keep]]
+        return out
+
+    slots_a = np.full((na, light_slots), -1, np.int32)
+    slots_a[:len(la)] = compacted(la, light_slots)
+    slots_b = np.full((nb, k), -1, np.int32)
+    slots_b[:len(hb)] = compacted(hb, k)
+    src = np.full(n, na + nb, np.int32)
+    src[la] = np.arange(len(la), dtype=np.int32)
+    src[hb] = na + np.arange(len(hb), dtype=np.int32)
+    return {"in_idx": in_idx, "out_idx": out_idx, "slots_a": slots_a,
+            "slots_b": slots_b, "src": src, "n_out": n}

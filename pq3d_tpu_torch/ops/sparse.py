@@ -14,6 +14,17 @@ value is exact in f32), so they agree with the JAX functions up to
 summation order on any device.  Functions take flat (N, C) inputs; the
 batch is flattened by ``models/sparse_unet.flatten_maps``.
 
+The conv options of the JAX package, computed there in XLA and here in
+plain PyTorch: ``sorted_maps`` (each tap's indices made monotone by a
+running max, :func:`sorted_conv_maps`; the same values), ``int8_gather``
+(:func:`quantize_rows`: the gathered rows are int8, the scale folded into
+W, or for the transpose conv into the gathered products) and the
+tap-compacted conv (:func:`sparse_conv_compact` over a
+``ops/kernel_maps.build_compact_conv`` plan).  Under ``grad_mode
+'native'`` the model differentiates these functions by autograd: the
+gathers' backward is ``index_select``'s scatter-add (atomic adds on the
+card, so not bit-reproducible there).
+
 Training uses the scatter-free convs of the JAX package (its custom VJPs):
 every map has an exact transpose map, so ``dx`` is another gather-GEMM
 conv and ``dW`` re-gathers the input.  Each is an ``autograd.Function``
@@ -24,7 +35,7 @@ accumulate ``dW`` in f32.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +65,61 @@ def _masked_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows at ``idx``; rows where ``idx < 0`` are zero."""
     rows = x.index_select(0, idx.clamp_min(0))
     return torch.where((idx >= 0)[:, None], rows, 0)
+
+
+def sorted_conv_maps(nbr: torch.Tensor):
+    """(N, K) neighbor map -> (idx, valid) with each tap's indices
+    monotone down the rows: a missing row (-1) takes the previous valid
+    index (a running max, the JAX package's ``sorted_conv_maps``), so a
+    gather at ``idx`` masked by ``valid`` reads the same rows as the
+    default map."""
+    valid = nbr >= 0
+    idx = torch.where(valid, nbr, -1).cummax(0).values
+    return idx.clamp_min(0), valid
+
+
+def quantize_rows(x: torch.Tensor, eps: float = 1e-6):
+    """Per-channel symmetric int8 quantization of an (N, C) activation (the
+    JAX package's ``quantize_rows``): ``s = max(max|x|, eps) / 127`` per
+    channel and ``q = clip(round(x / s), -127, 127)`` as int8, rounding
+    half to even as ``jnp.round`` does.  Returns ``(q, s)``, ``x ~= q * s``.
+    """
+    xf = x.float()
+    s = xf.abs().amax(0).clamp_min(eps) / 127.0
+    q = torch.round(xf / s).clamp(-127, 127).to(torch.int8)
+    return q, s
+
+
+def _sorted_idx(nbr: torch.Tensor, sorted_maps):
+    """The monotone map of ``nbr`` for a conv's ``sorted_maps`` argument:
+    None (off), computed here (True), or given: a forward computes each
+    map's :func:`sorted_conv_maps` once for all its convs, as XLA's common
+    subexpression elimination does the JAX package's per-conv calls."""
+    if isinstance(sorted_maps, tuple):
+        return sorted_maps
+    return sorted_conv_maps(nbr) if sorted_maps else None
+
+
+def _tap_gather(xb: torch.Tensor, nbr: torch.Tensor, k: int, sorted_idx
+                ) -> torch.Tensor:
+    """Tap ``k``'s rows of ``xb`` (zero where the map has no neighbour),
+    through the monotone map ``sorted_idx`` = (idx, valid) when given."""
+    if sorted_idx is None:
+        return _masked_gather(xb, nbr[:, k])
+    idx, valid = sorted_idx
+    return torch.where(valid[:, k, None], xb.index_select(0, idx[:, k]), 0)
+
+
+def _operands(x: torch.Tensor, w: torch.Tensor, compute_dtype: torch.dtype,
+              int8_gather: bool):
+    """The gather source and the weights of a conv: ``x`` and ``w`` rounded
+    to ``compute_dtype``, or with ``int8_gather`` the int8 rows of
+    :func:`quantize_rows` (cast after the gather) and ``w`` with the
+    scale folded in f32, then rounded."""
+    if int8_gather:
+        q, scale = quantize_rows(x)
+        return q, _round(w.float() * scale[None, :, None], compute_dtype)
+    return _round(x, compute_dtype), _round(w, compute_dtype)
 
 
 def ztriple_applicable(n_rows: int, cin: int, cout: int) -> bool:
@@ -140,7 +206,9 @@ def ztriple_weight_grad(x: torch.Tensor, zbase: torch.Tensor,
 def sparse_conv(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
                 out_valid: Optional[torch.Tensor] = None,
-                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.bfloat16,
+                sorted_maps=False,
+                int8_gather: bool = False) -> torch.Tensor:
     """Sparse convolution via gather -> GEMM (plain PyTorch).
 
     Args:
@@ -149,15 +217,20 @@ def sparse_conv(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
       w:    (K, Cin, Cout) kernel weights.
       bias: optional (Cout,).
       out_valid: optional (N_out,) bool mask; invalid rows are zeroed.
+      sorted_maps: gather through :func:`sorted_conv_maps` (same values):
+        True, or the map's monotone (idx, valid) computed beforehand.
+      int8_gather: gather int8 rows of :func:`quantize_rows` and fold the
+        per-channel scale into ``w`` (in f32, then rounded).
     Returns: (N_out, Cout) in x.dtype.  The forward of the JAX package's
     ``sparse_conv_sym`` and ``sparse_conv_down`` is this function.
     """
-    xb = _round(x, compute_dtype)
-    wb = _round(w, compute_dtype)
+    xb, wb = _operands(x, w, compute_dtype, int8_gather)
+    sidx = _sorted_idx(nbr, sorted_maps)
     acc = torch.zeros(nbr.shape[0], w.shape[-1], dtype=torch.float32,
                       device=x.device)
     for k in range(nbr.shape[1]):
-        acc.addmm_(_masked_gather(xb, nbr[:, k]), wb[k])
+        # int8 rows become f32 exactly (f32 rows: no copy)
+        acc.addmm_(_tap_gather(xb, nbr, k, sidx).float(), wb[k])
     if bias is not None:
         acc = acc + bias
     if out_valid is not None:
@@ -168,8 +241,8 @@ def sparse_conv(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
 def sparse_conv_transpose(x: torch.Tensor, parent: torch.Tensor,
                           parent_off: torch.Tensor, w: torch.Tensor,
                           out_valid: Optional[torch.Tensor] = None,
-                          compute_dtype: torch.dtype = torch.bfloat16
-                          ) -> torch.Tensor:
+                          compute_dtype: torch.dtype = torch.bfloat16,
+                          int8_gather: bool = False) -> torch.Tensor:
     """Stride-2 transposed (upsampling) convolution, kernel 2^3.
 
     Each fine voxel has one coarse parent and a kernel offset id, so the
@@ -180,6 +253,9 @@ def sparse_conv_transpose(x: torch.Tensor, parent: torch.Tensor,
       parent:     (N_fine,) int parent index, -1 for pads.
       parent_off: (N_fine,) int kernel offset id in [0, 8).
       w:          (8, Cin, Cout).
+      int8_gather: quantize the 8 * N_coarse partial products per channel
+        (:func:`quantize_rows`), gather the int8 rows and dequantize them
+        as ``compute_dtype(q) * scale``.
     Returns: (N_fine, Cout) in x.dtype.
     """
     n_coarse = x.shape[0]
@@ -187,7 +263,11 @@ def sparse_conv_transpose(x: torch.Tensor, parent: torch.Tensor,
                      _round(w, compute_dtype))        # (8, Nc, Cout) f32
     y = y.reshape(8 * n_coarse, -1)
     flat = parent_off.long() * n_coarse + parent.clamp_min(0).long()
-    out = fast_row_gather(y, flat)
+    if int8_gather:
+        q, scale = quantize_rows(y)
+        out = _round(fast_row_gather(q, flat), compute_dtype) * scale
+    else:
+        out = fast_row_gather(y, flat)
     out = torch.where((parent >= 0)[:, None], out, 0)
     if out_valid is not None:
         out = torch.where(out_valid[:, None], out, 0)
@@ -319,14 +399,15 @@ def _mask_rows(dy: torch.Tensor, valid: Optional[torch.Tensor]
 
 
 def conv_weight_grad(x: torch.Tensor, nbr: torch.Tensor, dy: torch.Tensor,
-                     compute_dtype: torch.dtype = torch.bfloat16
-                     ) -> torch.Tensor:
+                     compute_dtype: torch.dtype = torch.bfloat16,
+                     sorted_maps=False) -> torch.Tensor:
     """dW[k] = gather(x, nbr[:, k])^T @ dy, one GEMM per tap on operands
     rounded to ``compute_dtype``, f32 accumulation (re-gathers instead of
     using stored activations)."""
     xb = _round(x, compute_dtype)
     dyb = _round(dy, compute_dtype)
-    return torch.stack([_masked_gather(xb, nbr[:, k]).t() @ dyb
+    sidx = _sorted_idx(nbr, sorted_maps)
+    return torch.stack([_tap_gather(xb, nbr, k, sidx).t() @ dyb
                         for k in range(nbr.shape[1])])
 
 
@@ -344,17 +425,21 @@ class _SparseConvSym(torch.autograd.Function):
     flip_k(W)^T)."""
 
     @staticmethod
-    def forward(ctx, x, w, nbr, out_valid):
+    def forward(ctx, x, w, nbr, out_valid, sorted_maps):
         ctx.save_for_backward(x, w, nbr, out_valid)
-        return sparse_conv(x, nbr, w, None, out_valid)
+        ctx.sorted_maps = sorted_maps
+        return sparse_conv(x, nbr, w, None, out_valid,
+                           sorted_maps=sorted_maps)
 
     @staticmethod
     def backward(ctx, dy):
         x, w, nbr, out_valid = ctx.saved_tensors
+        sm = ctx.sorted_maps
         dy = _mask_rows(dy, out_valid)
-        dx = sparse_conv(dy, nbr, w.flip(0).transpose(1, 2)).to(x.dtype)
-        dw = conv_weight_grad(x, nbr, dy).to(w.dtype)
-        return dx, dw, None, None
+        dx = sparse_conv(dy, nbr, w.flip(0).transpose(1, 2),
+                         sorted_maps=sm).to(x.dtype)
+        dw = conv_weight_grad(x, nbr, dy, sorted_maps=sm).to(w.dtype)
+        return dx, dw, None, None, None
 
 
 class _SparseConvDown(torch.autograd.Function):
@@ -362,9 +447,11 @@ class _SparseConvDown(torch.autograd.Function):
     the dual parent/parent_off maps."""
 
     @staticmethod
-    def forward(ctx, x, w, child, parent, parent_off, out_valid, in_valid):
+    def forward(ctx, x, w, child, parent, parent_off, out_valid, in_valid,
+                sorted_maps):
         ctx.save_for_backward(x, w, parent, parent_off, out_valid, in_valid)
-        return sparse_conv(x, child, w, None, out_valid)
+        return sparse_conv(x, child, w, None, out_valid,
+                           sorted_maps=sorted_maps)
 
     @staticmethod
     def backward(ctx, dy):
@@ -377,7 +464,7 @@ class _SparseConvDown(torch.autograd.Function):
         dyg = _masked_gather(_round(dy, torch.bfloat16), parent)
         dw = _offset_weight_grad(_round(x, torch.bfloat16), dyg, parent_off,
                                  w.shape[0])
-        return dx, dw.to(w.dtype), None, None, None, None, None
+        return dx, dw.to(w.dtype), None, None, None, None, None, None
 
 
 class _SparseConvTransposeGF(torch.autograd.Function):
@@ -385,9 +472,11 @@ class _SparseConvTransposeGF(torch.autograd.Function):
     the dual child map: dx[c] = sum_k dy[child[c, k]] @ W[k]^T."""
 
     @staticmethod
-    def forward(ctx, x, w, parent, parent_off, child, out_valid, in_valid):
+    def forward(ctx, x, w, parent, parent_off, child, out_valid, in_valid,
+                sorted_maps):
         ctx.save_for_backward(x, w, parent, parent_off, child, out_valid,
                               in_valid)
+        ctx.sorted_maps = sorted_maps
         return sparse_conv_transpose(x, parent, parent_off, w, out_valid)
 
     @staticmethod
@@ -395,12 +484,12 @@ class _SparseConvTransposeGF(torch.autograd.Function):
         x, w, parent, parent_off, child, out_valid, in_valid = \
             ctx.saved_tensors
         dy = _mask_rows(dy, out_valid)
-        dx = sparse_conv(dy, child, w.transpose(1, 2), None,
-                         in_valid).to(x.dtype)
+        dx = sparse_conv(dy, child, w.transpose(1, 2), None, in_valid,
+                         sorted_maps=ctx.sorted_maps).to(x.dtype)
         xg = _masked_gather(_round(x, torch.bfloat16), parent)
         dw = _offset_weight_grad(xg, _round(dy, torch.bfloat16), parent_off,
                                  w.shape[0])
-        return dx, dw.to(w.dtype), None, None, None, None, None
+        return dx, dw.to(w.dtype), None, None, None, None, None, None
 
 
 class _SparseConvZtripleSym(torch.autograd.Function):
@@ -437,29 +526,130 @@ def sparse_conv_ztriple_sym(x: torch.Tensor, zbase: torch.Tensor,
 
 
 def sparse_conv_sym(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
-                    out_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out_valid: Optional[torch.Tensor] = None,
+                    sorted_maps=False) -> torch.Tensor:
     """:func:`sparse_conv` on a symmetric stride-1 map, with the
     scatter-free backward."""
-    return _SparseConvSym.apply(x, w, nbr, out_valid)
+    return _SparseConvSym.apply(x, w, nbr, out_valid, sorted_maps)
 
 
 def sparse_conv_down(x: torch.Tensor, child: torch.Tensor, w: torch.Tensor,
                      parent: torch.Tensor, parent_off: torch.Tensor,
                      out_valid: Optional[torch.Tensor] = None,
-                     in_valid: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     in_valid: Optional[torch.Tensor] = None,
+                     sorted_maps=False) -> torch.Tensor:
     """Stride-2 down conv (:func:`sparse_conv` on the (N_coarse, 8) child
     map) with the scatter-free backward."""
     return _SparseConvDown.apply(x, w, child, parent, parent_off, out_valid,
-                                 in_valid)
+                                 in_valid, sorted_maps)
 
 
 def sparse_conv_transpose_gf(x: torch.Tensor, parent: torch.Tensor,
                              parent_off: torch.Tensor, w: torch.Tensor,
                              child: torch.Tensor,
                              out_valid: Optional[torch.Tensor] = None,
-                             in_valid: Optional[torch.Tensor] = None
-                             ) -> torch.Tensor:
-    """:func:`sparse_conv_transpose` with the gather-only backward."""
+                             in_valid: Optional[torch.Tensor] = None,
+                             sorted_maps=False) -> torch.Tensor:
+    """:func:`sparse_conv_transpose` with the gather-only backward (its dx
+    runs :func:`sparse_conv` on the child map, through
+    :func:`sorted_conv_maps` with ``sorted_maps``)."""
     return _SparseConvTransposeGF.apply(x, w, parent, parent_off, child,
-                                        out_valid, in_valid)
+                                        out_valid, in_valid, sorted_maps)
+
+
+# a compact plan's arrays, in the order _SparseConvCompactSym takes them
+PLAN_KEYS = ("in_idx", "out_idx", "slots_a", "slots_b", "src")
+
+
+def sparse_conv_compact(x: torch.Tensor, plan: Dict[str, torch.Tensor],
+                        w: torch.Tensor,
+                        out_valid: Optional[torch.Tensor] = None,
+                        compute_dtype: torch.dtype = torch.bfloat16,
+                        int8_gather: bool = False) -> torch.Tensor:
+    """Tap-compacted conv over a ``ops/kernel_maps.build_compact_conv``
+    plan (the JAX package's ``sparse_conv_compact``): one GEMM per tap on
+    the valid pairs' gathered rows only, each product stored in
+    ``compute_dtype`` as JAX stores it (``preferred_element_type=
+    compute_dtype``), then each output row sums its partial products in
+    f32 by static addresses, slot by slot (light rows and heavy rows in
+    two fixed-width groups), and one gather through ``src`` puts the rows
+    in output order.  No scatter.  ``int8_gather`` gathers int8 rows and
+    folds the scale into ``w`` as :func:`sparse_conv` does."""
+    k, m = plan["in_idx"].shape
+    cout = w.shape[-1]
+    xb, wb = _operands(x, w, compute_dtype, int8_gather)
+    z = torch.zeros(k * m + 1, cout, dtype=torch.float32, device=x.device)
+    for t in range(k):
+        z[t * m:(t + 1) * m] = _round(
+            _masked_gather(xb, plan["in_idx"][t]).float() @ wb[t],
+            compute_dtype)
+
+    def collect(slots):
+        acc = torch.zeros(slots.shape[0], cout, dtype=torch.float32,
+                          device=x.device)
+        for s in range(slots.shape[1]):
+            a = slots[:, s]
+            acc += z.index_select(0, torch.where(a >= 0, a, k * m))
+        return acc
+
+    allacc = torch.cat([collect(plan["slots_a"]), collect(plan["slots_b"]),
+                        z.new_zeros(1, cout)])
+    out = allacc.index_select(0, plan["src"])
+    if out_valid is not None:
+        out = torch.where(out_valid[:, None], out, 0)
+    return out.to(x.dtype)
+
+
+def compact_weight_grad(x: torch.Tensor, in_idx: torch.Tensor,
+                        out_idx: torch.Tensor, dy: torch.Tensor,
+                        compute_dtype: torch.dtype = torch.bfloat16
+                        ) -> torch.Tensor:
+    """dW[k] = gather(x, in_idx[k])^T @ gather(dy, out_idx[k]) over the
+    valid pairs only, on operands rounded to ``compute_dtype``, f32
+    accumulation."""
+    xb = _round(x, compute_dtype)
+    dyb = _round(dy, compute_dtype)
+    dws = []
+    for t in range(in_idx.shape[0]):
+        ok = (in_idx[t] >= 0)[:, None]
+        xi = torch.where(ok, xb.index_select(0, in_idx[t].clamp_min(0)), 0)
+        gi = torch.where(ok, dyb.index_select(0, out_idx[t].clamp_min(0)),
+                         0)
+        dws.append(xi.t() @ gi)
+    return torch.stack(dws)
+
+
+class _SparseConvCompactSym(torch.autograd.Function):
+    """The compact conv with the scatter-free symmetric-stencil backward:
+    the pair relation of a symmetric map is self-dual, so dx runs through
+    the same plan with ``flip_k(W)^T`` and dW re-gathers the valid pairs
+    (:func:`compact_weight_grad`).  Saves x, W and the plan only."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_valid, *plan):
+        ctx.save_for_backward(x, w, out_valid, *plan)
+        return sparse_conv_compact(x, dict(zip(PLAN_KEYS, plan)), w,
+                                   out_valid)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, out_valid, *plan = ctx.saved_tensors
+        dy = _mask_rows(dy, out_valid)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = sparse_conv_compact(dy, dict(zip(PLAN_KEYS, plan)),
+                                     w.flip(0).transpose(1, 2)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = compact_weight_grad(x, plan[0], plan[1], dy).to(w.dtype)
+        return (dx, dw, None) + (None,) * len(plan)
+
+
+def sparse_conv_compact_sym(x: torch.Tensor, plan: Dict[str, torch.Tensor],
+                            w: torch.Tensor,
+                            out_valid: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """:func:`sparse_conv_compact` on a symmetric stride-1 map with the
+    scatter-free backward (the JAX package's ``sparse_conv_compact_sym``).
+    """
+    return _SparseConvCompactSym.apply(x, w, out_valid,
+                                       *(plan[k] for k in PLAN_KEYS))

@@ -237,15 +237,48 @@ BUILDERS = {"InstSeg": build_instseg_trainer,
             "Query3D": build_multitask_trainer}
 
 
+def _rget(cfg: Dict[str, Any], dotted: str, default=None):
+    """``cfg``'s value at the dotted path, or ``default`` where a part is
+    missing or None."""
+    node = cfg
+    for part in str(dotted).split("."):
+        if not hasattr(node, "get"):
+            return default
+        node = node.get(part)
+        if node is None:
+            return default
+    return node
+
+
 def experiment_name(cfg: Dict[str, Any]) -> str:
-    """The config's name (``Debug_test`` under ``debug.flag``); the JAX
-    runner's ``naming_keywords`` suffixes are not ported (no port config
-    sets them)."""
-    if (cfg.get("debug") or {}).get("flag"):
+    """The experiment's name from ``naming_keywords``, as the JAX runner
+    forms it: the base name, then per keyword ``task`` (the task and
+    ``data.note``, else the train sets joined by ``+``), the global batch
+    ``b<dataloader.batchsize x world size>`` (JAX multiplies by its device
+    count, the port by its ranks), or any other dotted config value;
+    ``time`` is skipped; ``Debug_test`` under ``debug.flag``."""
+    if _rget(cfg, "debug.flag", False):
         return "Debug_test"
-    if cfg.get("naming_keywords"):
-        raise NotImplementedError("naming_keywords are not ported")
-    return str(cfg.get("name", "exp"))
+    keys = [str(cfg.get("name", "exp"))]
+    for kw in cfg.get("naming_keywords", []) or []:
+        kw = str(kw)
+        if kw == "time":
+            continue
+        if kw == "task":
+            keys.append(str(cfg.get("task", "")))
+            note = _rget(cfg, "data.note")
+            if note is not None:
+                keys.append(str(note))
+            else:
+                keys.append("+".join(str(x) for x in
+                                     _rget(cfg, "data.train") or []))
+        elif kw == "dataloader.batchsize":
+            keys.append(f"b{int(_rget(cfg, kw, 0)) * dist.world()}")
+        else:
+            v = _rget(cfg, kw, "")
+            if str(v) != "":
+                keys.append(str(v))
+    return "_".join(k for k in keys if k)
 
 
 def single_device_reason(cfg: Dict[str, Any]) -> Optional[str]:

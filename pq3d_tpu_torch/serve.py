@@ -268,7 +268,9 @@ class InstSegServer(_MicroBatchServer):
     pack with device-built maps (``device_maps`` + ``flat_pack``: the
     model's ``voxel_enc.device_flat_caps`` must equal the pipeline's
     complete ``flat_shape_caps``, which never grows; a batch that
-    overflows it is refused).  A swin3d model's window must equal the
+    overflows it is refused); ``compact_conv`` adds the compact conv plans
+    to the flat pack, and ``level_cap_ladder`` is refused (one shape per
+    rung).  A swin3d model's window must equal the
     pipeline's ``swin_window``.  ``cast`` (``utils/inference.
     cast_batch_bf16`` beside a model cast by ``cast_model_bf16``) maps
     each batch on the device before the forward.  With ``num_workers >
@@ -287,6 +289,10 @@ class InstSegServer(_MicroBatchServer):
                 "serving requires pipe_cfg.level_caps: fixed level pads "
                 "keep every batch at one shape (the flat pack buckets its "
                 "totals instead)")
+        if pipe_cfg.level_cap_ladder and not pipe_cfg.flat_pack:
+            raise ValueError(
+                "unset pipe_cfg.level_cap_ladder for serving: it overrides "
+                "level_caps with one batch shape per rung")
         check_swin_window(model, pipe_cfg)
         ve = getattr(model, "voxel_enc", None)
         caps = tuple(getattr(ve, "device_maps", None) or ())

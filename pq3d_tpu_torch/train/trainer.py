@@ -58,6 +58,7 @@ from pq3d_tpu_torch.train.checkpoints import (CheckpointManager,
                                               find_pretrain, load_pretrain)
 from pq3d_tpu_torch.train.metrics import ExpTracker, MetricsLogger
 from pq3d_tpu_torch.train.state import make_eval_step, make_train_step
+from pq3d_tpu_torch.utils.profiling import StepProfiler
 
 
 def prefetch_batches(batch_iter: Iterable, n_prefetch: int = 2):
@@ -129,6 +130,12 @@ class Query3DTrainer:
         self.logger = MetricsLogger(self.exp_dir) if self.rank == 0 else None
         self.tracker = ExpTracker()
         self.ckpt = CheckpointManager(os.path.join(self.exp_dir, "ckpt"))
+        # opt-in trace of train steps profile_wait .. + profile_active
+        self.profiler = StepProfiler(
+            os.path.join(self.exp_dir, "trace"),
+            wait=int(cfg.get("profile_wait", 10)),
+            active=int(cfg.get("profile_active", 10)),
+            enabled=bool(cfg.get("profile", False)), rank=self.rank)
         self.step = 0                       # optimizer steps
         self._total_steps = total_steps
         self._optimizer = self._scheduler = self._grad_norm = None
@@ -283,6 +290,7 @@ class Query3DTrainer:
         if self._train_step is None:
             self._lazy_init()
         metrics = self._train_step(dev_batch)
+        self.profiler.step()
         if self._accumulator is not None and self._accumulator.mini_step:
             return metrics              # inside an accumulation window
         self.step += 1
@@ -392,6 +400,7 @@ class Query3DTrainer:
                         self._save("best")
                 self._save_epoch_ckpts(epoch)
         finally:
+            self.profiler.close()
             self._close_loaders()
 
 

@@ -1,5 +1,6 @@
-"""pq3d_tpu_torch stands alone: it imports neither JAX nor the JAX package
-(checked in a subprocess, since this suite's conftest imports jax), its
+"""pq3d_tpu_torch stands alone: it imports neither JAX nor the JAX package,
+nor scikit-learn, which the card's machine lacks (checked in a
+subprocess, since this suite's conftest imports jax), its
 entry points (model, server, trainer CLI) refuse to run on a machine
 without CUDA unless asked for the CPU, and its config dict is the slices'
 YAML."""
@@ -24,15 +25,16 @@ NEEDED = ["pq3d_tpu_torch." + m for m in (
     "optim.loss_aggregator", "eval.base", "eval.grounding_eval",
     "eval.qa_eval", "eval.caption_eval", "eval.caption_metrics",
     "eval.text_utils", "data.sceneverse", "data.replica",
-    "data.label_utils", "data.scannet200_constants", "ops.device_maps")]
+    "data.label_utils", "data.scannet200_constants", "ops.device_maps",
+    "utils.profiling")]
 import pq3d_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(pq3d_tpu_torch.__path__,
                                               "pq3d_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "flax", "pq3d_tpu", "yaml")
-             or m.startswith(("jax.", "flax.", "pq3d_tpu.")))
+             if m in ("jax", "flax", "pq3d_tpu", "yaml", "sklearn")
+             or m.startswith(("jax.", "flax.", "pq3d_tpu.", "sklearn.")))
 missing = sorted(set(NEEDED) - set(mods))
 print(len(mods), bad, missing)
 sys.exit(1 if bad or missing or len(mods) < 40 else 0)
@@ -56,7 +58,7 @@ def test_chip_smoke_imports_no_jax():
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.add(node.module)
     top = {n.split(".")[0] for n in names}
-    assert not top & {"jax", "flax", "pq3d_tpu", "yaml"}, top
+    assert not top & {"jax", "flax", "pq3d_tpu", "yaml", "sklearn"}, top
     assert "pq3d_tpu_torch" in top
 
 

@@ -1,11 +1,11 @@
 """The Swin3D stage-1 path from its config, on the CPU.
 
-- No option that the JAX package reads is dropped in silence: the
-  options it reads and the port lacks (``compact_conv``,
-  ``level_cap_ladder``, ``sorted_gather``, ``int8_gather``) raise
-  ``NotImplementedError`` naming ROADMAP A.6 when set, as does a
+- No option that the JAX package reads is dropped in silence: a
   ``conv0_kernel`` other than 5 or the model's stem kernel and a voxel
-  encoder the port does not build; ``swin_window`` is read.
+  encoder the port does not build raise ``NotImplementedError``; the
+  options that raised until the port had them (``compact_conv``,
+  ``level_cap_ladder``, ``sorted_gather``, ``int8_gather``) now reach the
+  pipeline and the model; ``swin_window`` is read.
 - ``PCDMask3DSwin3DEncoder`` builds the Swin3D backbone (window from
   ``backbone_kwargs.config.window``, else ``args.swin_window``, else 4),
   ``INSTSEG_SWIN3D_SYNTHETIC`` is ``instseg_swin3d_synthetic.yaml``, and a
@@ -73,13 +73,26 @@ def small_swin(monkeypatch):
     ("model.voxel_encoder.args.int8_gather", "true"),
     ("model.voxel_encoder.name", "PCDMask3DEncoder")])
 def test_unported_option_is_refused_by_name(key, value):
+    """The stem kernel and the encoder name are refused by name; the four
+    conv options the port now has are read (the pipeline's, or the
+    backbone's attribute), no longer refused."""
     cfg = tconfig.load_config("instseg_synthetic", [f"{key}={value}",
                                                     "device=cpu"])
-    match = key.split(".")[-1] if "name" not in key else "PCDMask3DEncoder"
-    with pytest.raises(NotImplementedError, match=match) as err:
-        trun.build_instseg_trainer(cfg)
-    if "name" not in key and "conv0" not in key:
-        assert "ROADMAP A.6" in str(err.value)
+    leaf = key.split(".")[-1]
+    if "name" in key or "conv0" in key:
+        match = leaf if "name" not in key else "PCDMask3DEncoder"
+        with pytest.raises(NotImplementedError, match=match):
+            trun.build_instseg_trainer(cfg)
+        return
+    trainer = trun.build_instseg_trainer(cfg)
+    try:
+        if key.startswith("data."):
+            got = getattr(trainer.train_data.pipe_cfg, leaf)
+            assert got == tconfig.parse_value(value), (leaf, got)
+        else:
+            assert getattr(trainer.model.voxel_encoder.backbone, leaf) is True
+    finally:
+        trainer._close_loaders()
 
 
 def test_swin_options_are_read():
