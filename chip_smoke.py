@@ -46,9 +46,10 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                served logits equal rect's within 1e-5 relative, in every
                decoder round up to a flipped attend bit (as phase 15's
                below); the flat
-               forward all-plain equals the rectangular all-plain one on
-               each scene within 1e-4 (segment features, final class and
-               mask logits); the flat forward with B1 against its own
+               forward all-plain equals the rectangular all-plain one
+               within 1e-4 (segment features on each scene; class and mask
+               logits in every round up to a flipped attend bit); the flat
+               forward with B1 against its own
                all-plain forward within phase 5's 2e-2; the pool's
                batches equal in-process process_scene with the same
                seeds;
@@ -307,6 +308,40 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                remat_policy full (profile: true, profile_wait 1,
                profile_active 1: its trace must hold CUDA kernels) and with
                none on the same 3 batches, full's peak memory below none's;
+17. gather_stem -- the 125-tap gather stem (the JAX pipeline's default)
+               at the slice's widths, phase 5b's scenes and caps:
+               InstSegServer(batch_size=4) serves 4 warm and 16 timed
+               scenes in rect_gather (nbr5_0 built by the host) and
+               dev_gather (nbr5_0 and every other map built on the card),
+               printing scenes/s, p50/p99, the stage seconds,
+               host-to-device bytes a batch, peak memory and B1's
+               launches (the routed convs of every forward); one forward
+               of one batch per setup (5 runs) and conv0 alone (gathered,
+               and the dense-block stem on the same scenes; 9 runs) on the
+               device clock, median, least and most, and one traced call
+               of each forward and of conv0, its device busy ms against
+               the host clock.  Gates: on one batch the maps built on the
+               card equal the host's bit for bit (nbr5_0 included);
+               dev_gather's served logits within 1e-5 of rect_gather's
+               and rect_gather's within 2e-5 of the dense-block rect's on
+               the same weights
+               and scenes with every conv plain in f32, each in every
+               decoder round up to a flipped attend bit.  Training through
+               the trainer run.py builds with stem_mode gather: 3 steps
+               (device ms, peak memory, B1 forward and dx), then one step
+               all-plain f32 against the dense-block stem's on the same
+               batch within 1e-4 (loss and gradients);
+18. reference_warm_start -- a reference-named state_dict of a full-width
+               stage-1 model (ME U-Net kernels and BN statistics,
+               feat_proj_list, the unified encoder with in_proj fused, the
+               mask head, every other key under DDP's module. prefix;
+               tools/torch_reference_names.py) saved as pytorch_model.bin,
+               then python -m pq3d_tpu_torch.run --config-name
+               instseg_sceneverse pretrain_ckpt_path=<dir> (in this
+               process) takes 2 steps on the card.  Gates: the import's
+               report loads every leaf, with nothing mismatched or unused;
+               every warm-started tensor on the card equals its source bit
+               for bit; the first loss is finite; B1 runs forward and dx;
 then a summary line (B1 against B2 in this run), one JSON line with every
 hand kernel's numbers, and the result line.
 
@@ -353,6 +388,13 @@ def peaks_for(name):
 
 def cuda_time(fn, reps):
     """Median milliseconds of ``fn`` over ``reps`` runs (CUDA events)."""
+    times = cuda_times(fn, reps)
+    return times[len(times) // 2]
+
+
+def cuda_times(fn, reps):
+    """Milliseconds of each of ``reps`` runs of ``fn`` (CUDA events),
+    sorted."""
     import torch
     times = []
     for _ in range(reps):
@@ -363,8 +405,7 @@ def cuda_time(fn, reps):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    return sorted(times)
 
 
 def host_time(fn, reps):
@@ -408,10 +449,11 @@ def make_scenes(n, seed):
     return scenes
 
 
-def profile_run(fn, label, path):
+def profile_run(fn, label, path=None, top=12):
     """Trace one call of ``fn`` (after a warm one): device busy ms (the
     union of kernel intervals) against the host clock, and device ms by
-    kernel (the whole table written to ``path``)."""
+    kernel (the ``top`` rows printed, the whole table written to ``path``
+    when given).  Returns (host ms, device busy ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -435,18 +477,20 @@ def profile_run(fn, label, path):
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])
+    by_name = sorted(by_kernel.items(), key=lambda kv: -kv[1])
     print(f"profile: {label} {wall_ms:.1f} ms (host clock), device busy "
           f"{busy_us / 1e3:.1f} ms ({len(spans)} kernels), idle share "
           f"{1 - busy_us / 1e3 / wall_ms:.3f}", flush=True)
-    for name, us in top[:12]:
+    for name, us in by_name[:top]:
         print(f"profile:   {us / 1e3:8.3f} ms  {name[:100]}", flush=True)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        for name, us in top:
-            f.write(f"{us / 1e3:.4f}\t{name}\n")
-        f.write(prof.key_averages().table(sort_by="device_time_total",
-                                          row_limit=60))
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            for name, us in by_name:
+                f.write(f"{us / 1e3:.4f}\t{name}\n")
+            f.write(prof.key_averages().table(sort_by="device_time_total",
+                                              row_limit=60))
+    return wall_ms, busy_us / 1e3
 
 
 def rel_err(got, ref):
@@ -1009,24 +1053,20 @@ def serve_layouts_phase(card, dev, zrun_conv, profile=None):
     flat_rows = level_rows(fb)
     if flat_launches != len(backbone.routed_convs(flat_rows)):
         fail(f"the flat forward launched zrun_conv {flat_launches} times")
-    keep = torch.ones(rect_plain["cls"][-1].shape[-1], dtype=torch.bool)
-    keep[[0, 2]] = False
     seg_valid = torch.from_numpy(rb["seg_pad_masks"]).to(dev)
     scale_rel = max(per_scene_rel(f, r, seg_valid) for f, r in
                     zip(flat_plain["scales"], rect_plain["scales"]))
-    mvalid = seg_valid[:, :, None].expand_as(rect_plain["mask"][-1])
-    cls_rel = per_scene_rel(flat_plain["cls"][-1][..., keep.to(dev)],
-                            rect_plain["cls"][-1][..., keep.to(dev)])
-    mask_rel = per_scene_rel(flat_plain["mask"][-1], rect_plain["mask"][-1],
-                             mvalid)
-    flips = [int((((g >= 0) != (r >= 0)) & seg_valid[:, :, None]).sum())
-             for g, r in zip(flat_plain["mask"], rect_plain["mask"])]
-    print(f"serve_layouts: flat all-plain vs rect all-plain per scene: "
-          f"segment features rel {scale_rel:.2e}, final class rel "
-          f"{cls_rel:.2e}, mask rel {mask_rel:.2e} (gate "
-          f"{LAYOUT_GATE['flat_plain']:.0e}), attend bits differing per "
-          f"round {flips}", flush=True)
-    if not max(scale_rel, cls_rel, mask_rel) <= LAYOUT_GATE["flat_plain"]:
+    # the logits of every decoder round up to a flipped attend bit, as
+    # every other gate between two forwards reads them
+    logit_rel, first = rounds_rel(
+        rounds_of(rect_plain["cls"], rect_plain["mask"]),
+        rounds_of(flat_plain["cls"], flat_plain["mask"]), seg_valid)
+    print(f"serve_layouts: flat all-plain vs rect all-plain: segment "
+          f"features rel {scale_rel:.2e} per scene, class and mask logits "
+          f"of every round up to a flipped attend bit rel {logit_rel:.2e} "
+          f"(gate {LAYOUT_GATE['flat_plain']:.0e}), first flipped round by "
+          f"scene {first}", flush=True)
+    if not max(scale_rel, logit_rel) <= LAYOUT_GATE["flat_plain"]:
         fail("the flat forward disagrees with the rectangular one")
     feat_rel = max(rel_err(a, r) for a, r in zip(
         flat_b1["maps"] + flat_b1["scales"],
@@ -1505,27 +1545,34 @@ FLAT_RECT_GATE = 1e-4   # the flat step's loss against the rectangular one,
 
 
 def flat_vs_rect_step(trainer):
-    """One batch of the flat trainer's scenes collated in both layouts
-    (same augmentation, same features), one step each from the same
-    weights: every conv plain in f32 (TF32 off), dropout and the
-    decoder's self-mask off, the direct criterion.  Returns the loss's
-    relative difference, the largest gradient difference over the largest
-    rectangular gradient entry (the gradients normalised by their maximum)
-    and, printed only, the worst max|diff| / max|rect| of a tensor whose
-    own largest entry is at least 1e-3 of that maximum."""
+    """two_pipe_step of the flat trainer's batch collated rectangular
+    (the reference) and flat."""
     import dataclasses
+    pipe = trainer.train_data.pipe_cfg
+    return two_pipe_step(trainer, dataclasses.replace(
+        pipe, flat_pack=False, ztriple_conv=False), pipe)
+
+
+def two_pipe_step(trainer, ref_pipe, pipe):
+    """One batch of the trainer's scenes collated by two pipelines (same
+    augmentation, same features), one step each from the same weights:
+    every conv plain in f32 (TF32 off), dropout and the decoder's
+    self-mask off, the direct criterion.  Returns the loss's relative
+    difference, the largest gradient difference over the largest
+    ``ref_pipe`` gradient entry (the gradients normalised by their
+    maximum) and, printed only, the worst max|diff| / max|ref| of a
+    tensor whose own largest entry is at least 1e-3 of that maximum; then
+    the two losses."""
     import numpy as np
     from pq3d_tpu_torch.data.datasets import _assemble_instseg_batch
     from pq3d_tpu_torch.optim.losses import instseg_direct_loss
     model = trainer.model
     loader = trainer.train_data
-    rect_pipe = dataclasses.replace(loader.pipe_cfg, flat_pack=False,
-                                    ztriple_conv=False)
     idxs = np.arange(loader.batch_size)
     runs = []
     try:
         with all_plain(model):
-            for pipe in (rect_pipe, loader.pipe_cfg):
+            for pipe in (ref_pipe, pipe):
                 batch = trainer._put(_assemble_instseg_batch(
                     loader.dataset, pipe, loader.extra_features, idxs,
                     np.random.default_rng(7), True))
@@ -1543,7 +1590,7 @@ def flat_vs_rect_step(trainer):
         model.zero_grad(set_to_none=True)
     (loss_r, grads_r), (loss_f, grads_f) = runs
     if set(grads_r) != set(grads_f):
-        fail("the flat and rectangular steps reach other parameters")
+        fail("the two layouts' steps reach other parameters")
     largest = max(g.abs().max().item() for g in grads_r.values())
     worst = per_tensor = 0.0
     for n, g in grads_r.items():
@@ -4193,7 +4240,8 @@ def conv_options(backbone, cfg):
             setattr(backbone, k, v)
 
 
-def conv_train_steps(trainer, batches, zrun_conv, label, card):
+def conv_train_steps(trainer, batches, zrun_conv, label, card,
+                     phase="conv_options"):
     """``trainer.train_batch`` on each numpy batch: per step the loss, the
     device ms (CUDA events) and the host seconds, the level-0 pad (the
     rung) and B1's forward and dx launches; peak memory over the steps."""
@@ -4216,7 +4264,7 @@ def conv_train_steps(trainer, batches, zrun_conv, label, card):
                       "pad0": int(b["maps"]["valid_0"].shape[-1])})
     rec = {"steps": steps, "b1": dict(zrun_conv.phase_launches),
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    print(f"conv_options: {label}: {len(steps)} steps, losses "
+    print(f"{phase}: {label}: {len(steps)} steps, losses "
           f"{[round(s['loss'], 4) for s in steps]}, device ms "
           f"{[round(s['device_ms'], 1) for s in steps]}, host s "
           f"{[round(s['host_s'], 2) for s in steps]}, level-0 pad "
@@ -4224,7 +4272,7 @@ def conv_train_steps(trainer, batches, zrun_conv, label, card):
           f"{rec['b1']['bwd']} | max_memory_allocated "
           f"{rec['peak_gib']:.2f} GiB ({card})", flush=True)
     if not all(math.isfinite(s["loss"]) for s in steps):
-        fail(f"conv_options: {label}: a loss is not finite")
+        fail(f"{phase}: {label}: a loss is not finite")
     return rec
 
 
@@ -4524,6 +4572,349 @@ def conv_options_phase(card, dev, zrun_conv):
     total = time.time() - t0
     print(f"conv_options: phase {total:.1f} s ({card})", flush=True)
     return {**serving, "train": training, "phase_s": total}
+
+
+GATHER_SETUPS = ("rect_gather", "dev_gather")
+GATHER_TIMED = 16    # timed requests a setup: 4 batches of 4
+# dev_gather's served logits against rect_gather's (the same maps, built
+# on the card); rect_gather against the dense-block rect on the same
+# weights and batch, every conv plain in f32 (the stems sum the same
+# products in another order: 4.2e-6 to 4.6e-6 on an H100, so about 4x the
+# largest reading); one train step with either stem (the same)
+GATHER_GATES = {"dev_gather": LAYOUT_GATE["dev_maps"], "dense_f32": 2e-5,
+                "train_step": FLAT_RECT_GATE}
+GATHER_TRAIN_STEPS = 3
+
+
+def gather_stem_phase(card, dev, zrun_conv):
+    """Phase ``gather_stem`` (see the module docstring): the 125-tap
+    gather stem served (rect_gather, dev_gather) and trained at the
+    slice's widths.  Returns the phase's numbers."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from pq3d_tpu_torch.config import serving_config
+    from pq3d_tpu_torch.data.instseg_pipeline import (make_batch,
+                                                      pipeline_config)
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.models.sparse_unet import flatten_maps
+    from pq3d_tpu_torch.ops import device_maps, sparse
+    from pq3d_tpu_torch.serve import to_device
+    t_phase = time.time()
+    over = [f"data.instseg_options.level_caps={LAYOUT_CAPS}"]
+    cfgs = {s: serving_config(s, over) for s in ("rect",) + GATHER_SETUPS}
+    pipes = {s: pipeline_config(c["data"]["instseg_options"])
+             for s, c in cfgs.items()}
+    t0 = time.time()
+    model = build_model(cfgs["rect_gather"], device="cuda", seed=0)
+    backbone = model.voxel_encoder.backbone
+    host_ve = model.voxel_enc
+    dev_args = cfgs["dev_gather"]["model"]["voxel_encoder"]["args"]
+    dev_ve = dataclasses.replace(
+        host_ve, device_maps=tuple(dev_args["device_maps"]),
+        device_ztriple=dev_args["device_ztriple"],
+        device_stem=dev_args["device_stem"])
+    print(f"gather_stem: model built in {time.time() - t0:.1f} s, conv0 "
+          f"kernel {tuple(backbone.conv0.kernel.shape)}", flush=True)
+    warm = make_scenes(4, seed=2)
+    scenes = make_scenes(GATHER_TIMED, seed=3)
+    maps = (device_maps, "build_batch_maps")
+    runs = {s: serve_instseg("gather_stem", s, model, pipes[s], warm,
+                             scenes, card, maps,
+                             ve=dev_ve if s == "dev_gather" else host_ve,
+                             rounds=True)
+            for s in GATHER_SETUPS}
+    for s, r in runs.items():
+        if not r["launches"]:
+            fail(f"gather_stem: {s}: B1 did not launch")
+
+    # gate: dev_gather's served logits against rect_gather's, batch by
+    # batch, every round up to a flipped attend bit
+    dg_rel, flips = 0.0, []
+    for (hr, (_, _, v)), dr in zip(
+            zip(runs["rect_gather"]["rounds"],
+                runs["rect_gather"]["logits"]),
+            runs["dev_gather"]["rounds"]):
+        rel, first = rounds_rel(hr, dr, v)
+        dg_rel = max(dg_rel, rel)
+        flips += [r for r in first if r < len(hr[2])]
+    print(f"gather_stem: dev_gather served logits vs rect_gather, every "
+          f"round up to a flipped attend bit: rel {dg_rel:.2e} (gate "
+          f"{GATHER_GATES['dev_gather']:.0e}); scenes with a flipped bit "
+          f"{len(flips)}", flush=True)
+    if not dg_rel <= GATHER_GATES["dev_gather"]:
+        fail("gather_stem: dev_gather's served logits differ from "
+             "rect_gather's")
+
+    # gate: on one batch, the maps built on the card (nbr5_0 and the
+    # z-run plans included) equal the host's bit for bit
+    b4 = scenes[:4]
+    np_b = {s: make_batch([dict(x) for x in b4], pipes[s],
+                          np.random.default_rng(0)) for s in pipes}
+    dt = to_device({k: v for k, v in np_b["dev_gather"].items()
+                    if k != "_meta"}, dev)
+
+    def build_maps():
+        return device_maps.build_batch_maps(
+            dt["vox_coords"], dt["n_voxels"], dt["voxel_feats"],
+            LAYOUT_CAPS, conv0_kernel=dev_ve.conv1_kernel_size,
+            stem_mode="gather", ztriple=dev_ve.device_ztriple)
+    built = build_maps()
+    host_maps = np_b["rect_gather"]["maps"]
+    if "nbr5_0" not in host_maps or "stem_dense" in host_maps:
+        fail("gather_stem: the host batch ships no nbr5_0, or a stem pack")
+    for key, want in host_maps.items():
+        got = built[key].cpu().numpy()
+        if got.dtype != want.dtype or got.shape != want.shape \
+                or not np.array_equal(got, want):
+            fail(f"gather_stem: the map {key} built on the card differs "
+                 "from the host's")
+    build_ms = cuda_time(build_maps, 5)
+    print(f"gather_stem: nbr5_0 {host_maps['nbr5_0'].shape} and the other "
+          f"{len(host_maps) - 1} maps built on the card equal the host's "
+          f"bit for bit | build {build_ms:.3f} ms (median of 5, CUDA "
+          f"events)", flush=True)
+    del built
+
+    def on_card(s):
+        b = to_device({k: v for k, v in np_b[s].items() if k != "_meta"},
+                      dev)
+        for name, dim in SERVE_EXTRA.items():
+            b[f"{name}_seg_fts"] = torch.zeros(4, pipes[s].max_segments,
+                                               dim, device=dev)
+            b[f"{name}_seg_pad_masks"] = b["seg_pad_masks"]
+        return b
+    cards = {s: on_card(s) for s in pipes}
+
+    def forward(s):
+        model.voxel_enc = dev_ve if s == "dev_gather" else host_ve
+        try:
+            with torch.inference_mode():
+                return model(cards[s])
+        finally:
+            model.voxel_enc = host_ve
+    fwd_all = {s: cuda_times(lambda: forward(s), 5) for s in GATHER_SETUPS}
+    fwd_ms = {s: t[2] for s, t in fwd_all.items()}
+    # conv0 alone: the gathered conv over nbr5_0 against the dense-block
+    # stem on the same scenes and weights
+    fm = {s: flatten_maps(cards[s]["maps"]) for s in ("rect", "rect_gather")}
+    x0 = cards["rect_gather"]["voxel_feats"].reshape(
+        -1, cards["rect_gather"]["voxel_feats"].shape[-1])
+    with torch.inference_mode():
+        conv0_all = {
+            "gather": cuda_times(lambda: backbone.conv0(
+                x0, fm["rect_gather"]["nbr5_0"],
+                fm["rect_gather"]["valid_0"]), 9),
+            "dense_block": cuda_times(lambda: sparse.conv0_dense_block(
+                fm["rect"]["stem_dense"], fm["rect"]["stem_nbrblk"],
+                fm["rect"]["stem_slot"], backbone.conv0.kernel,
+                fm["rect"]["valid_0"], block=fm["rect"]["stem_block"],
+                kernel=backbone.conv1_kernel_size), 9)}
+    conv0_ms = {k: t[4] for k, t in conv0_all.items()}
+
+    def spread(t):
+        return f"{t[len(t) // 2]:.3f} ms (min {t[0]:.3f}, max {t[-1]:.3f})"
+    print(f"gather_stem: one forward of the checked batch (CUDA events, "
+          f"median of 5): " + ", ".join(f"{k} {spread(t)}" for k, t in
+                                       fwd_all.items())
+          + f" | conv0 alone (median of 9): gathered over nbr5_0 "
+          f"{spread(conv0_all['gather'])}, dense-block stem "
+          f"{spread(conv0_all['dense_block'])} on the same scenes "
+          f"({card})", flush=True)
+    # what those event spans hold: one traced call each, the device's busy
+    # time (its kernels) against the host's clock around the call; the
+    # rest is the device waiting on the host's launches and syncs
+
+    def conv0_gather():
+        with torch.inference_mode():
+            backbone.conv0(x0, fm["rect_gather"]["nbr5_0"],
+                           fm["rect_gather"]["valid_0"])
+    busy = {s: profile_run(lambda: forward(s), f"gather_stem {s} forward",
+                           top=3) for s in GATHER_SETUPS}
+    busy["conv0"] = profile_run(conv0_gather, "gather_stem conv0 gathered",
+                                top=3)
+
+    # gate: rect_gather against the dense-block rect, same weights and
+    # scenes, every conv plain in f32 (self-mask off: no attend bit);
+    # the as-served reading (bf16 operands, self-mask on) is printed
+    with all_plain(model), torch.inference_mode():
+        f32 = {s: out_rounds(model(cards[s])) for s in ("rect",
+                                                          "rect_gather")}
+    with torch.inference_mode():
+        served = {s: out_rounds(model(cards[s])) for s in ("rect",
+                                                             "rect_gather")}
+    valid = cards["rect"]["seg_pad_masks"]
+    dense_rel, _ = rounds_rel(f32["rect"], f32["rect_gather"], valid)
+    served_rel, served_flips = rounds_rel(served["rect"],
+                                          served["rect_gather"], valid)
+    print(f"gather_stem: rect_gather vs the dense-block rect, same weights "
+          f"and scenes, every round: all-plain f32 rel {dense_rel:.3e} "
+          f"(gate {GATHER_GATES['dense_f32']:.0e}); as served, up to a "
+          f"flipped attend bit, rel {served_rel:.3e} (not gated; first "
+          f"flipped round by scene {served_flips})", flush=True)
+    if not dense_rel <= GATHER_GATES["dense_f32"]:
+        fail("gather_stem: the gather stem's forward differs from the "
+             "dense-block stem's")
+    del model, backbone, cards, fm, x0, f32, served
+    torch.cuda.empty_cache()
+
+    # training with the gather stem, and one step against the dense block
+    exp = tempfile.mkdtemp(prefix="pq3d_gather_stem_")
+    try:
+        trainer = smoke_trainer(os.path.join(exp, "gather"),
+                                "data.instseg_options.stem_mode=gather")
+        if trainer.train_data.pipe_cfg.stem_mode != "gather":
+            fail("gather_stem: the trainer's pipeline is not the gather "
+                 "stem's")
+        batches = [b for _, b in zip(range(GATHER_TRAIN_STEPS),
+                                     trainer.train_data(0))]
+        if not all("nbr5_0" in b["maps"] for b in batches):
+            fail("gather_stem: a training batch ships no nbr5_0")
+        train = conv_train_steps(trainer, batches, zrun_conv,
+                                 "training, stem_mode gather", card,
+                                 phase="gather_stem")
+        if not (train["b1"]["fwd"] and train["b1"]["bwd"]):
+            fail("gather_stem: B1 did not run forward and dx in training")
+        pipe = trainer.train_data.pipe_cfg
+        loss_rel, grad_rel, per_tensor, loss_d, loss_g = two_pipe_step(
+            trainer, dataclasses.replace(pipe, stem_mode="dense_block"),
+            pipe)
+        print(f"gather_stem: one step all-plain f32 (TF32 off), direct "
+              f"criterion, dense-block stem vs gather stem on one batch: "
+              f"loss {loss_d:.6f} vs {loss_g:.6f} (rel {loss_rel:.2e}); "
+              f"gradients' largest difference over their maximum "
+              f"{grad_rel:.2e} (gate for both "
+              f"{GATHER_GATES['train_step']:.0e}); not gated: worst "
+              f"tensor over its own maximum {per_tensor:.2e}", flush=True)
+        if not max(loss_rel, grad_rel) <= GATHER_GATES["train_step"]:
+            fail("gather_stem: the gather stem's train step differs from "
+                 "the dense-block stem's")
+        trainer._close_loaders()
+        del trainer, batches
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    total = time.time() - t_phase
+    print(f"gather_stem: phase {total:.1f} s ({card})", flush=True)
+    for rec in runs.values():
+        for key in ("logits", "rounds", "pre", "np_batches"):
+            rec.pop(key)
+    return {"runs": runs, "forward_ms": fwd_ms, "conv0_ms": conv0_ms,
+            "traced_host_busy_ms": busy, "map_build_ms": build_ms,
+            "gates": {"dev_gather": dg_rel, "dense_f32": dense_rel,
+                      "served_vs_dense": served_rel,
+                      "train_loss": loss_rel, "train_grad": grad_rel},
+            "train": train, "phase_s": total}
+
+
+def reference_warm_start_phase(card, zrun_conv):
+    """Phase ``reference_warm_start`` (see the module docstring): a
+    reference-named state_dict of a full-width stage-1 model in
+    ``pytorch_model.bin``, then ``python -m pq3d_tpu_torch.run
+    --config-name instseg_sceneverse pretrain_ckpt_path=<dir>`` for 2
+    steps on the card.  Returns the phase's numbers."""
+    import shutil
+    import tempfile
+    import torch
+    from pq3d_tpu_torch.config import load_config
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.train.trainer import Query3DTrainer
+    from pq3d_tpu_torch.utils.weights import flax_leaves
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    from torch_reference_names import reference_state_dict
+    t_phase = time.time()
+    overrides = ["model.voxel_encoder.args.pallas_conv=true",
+                 "data.train=[SyntheticInstSeg]",
+                 "data.val=[SyntheticInstSeg]", "data.synthetic.num_train=8",
+                 "data.synthetic.num_val=4",
+                 "data.synthetic.n_points=70000",
+                 "data.synthetic.n_instances=24",
+                 "data.synthetic.n_segments=400", "solver.epochs=1",
+                 "solver.epochs_per_eval=0", "log_every=1", "device=cuda"]
+    cfg = load_config("instseg_sceneverse", overrides)
+    memories = tuple(cfg["model"]["memories"])
+    source = build_model(cfg, device="cpu", seed=7)
+    sd = reference_state_dict(source, memories, module_every=2)
+    src_state = source.state_dict()
+    n_leaves = sum(1 for c, _, _ in flax_leaves(source)
+                   if c in ("params", "batch_stats"))
+    groups = {"ME U-Net convs": ".kernel", "BN": ".running_var",
+              "feat_proj_list": "feat_proj_list", "in_proj": "in_proj_",
+              "mask head": "mask_head."}
+    counts = {g: sum(1 for k in sd if pat in k) for g, pat in
+              groups.items()}
+    exp = tempfile.mkdtemp(prefix="pq3d_reference_")
+    checked = {}
+    try:
+        ref_dir = os.path.join(exp, "reference")
+        os.makedirs(ref_dir)
+        path = os.path.join(ref_dir, "pytorch_model.bin")
+        t0 = time.time()
+        torch.save(sd, path)
+        print(f"reference_warm_start: {len(sd)} reference-named tensors "
+              f"({sum(k.startswith('module.') for k in sd)} under "
+              f"module.; " + ", ".join(f"{g} {n}" for g, n in
+                                      counts.items())
+              + f") of a full-width stage-1 model (seed 7), "
+              f"{os.path.getsize(path) / 2**20:.1f} MiB written in "
+              f"{time.time() - t0:.1f} s", flush=True)
+        if any(n == 0 for n in counts.values()):
+            fail("reference_warm_start: a group of reference names is "
+                 "missing from the state_dict")
+        del sd
+
+        def checking(orig):
+            def warm_start(self, p):
+                loaded = orig(self, p)
+                state = self.model.state_dict()
+                checked["report"] = self.warm_start_report
+                checked["differ"] = [k for k, v in src_state.items()
+                                     if not k.endswith("gauss_B")
+                                     and not torch.equal(state[k].cpu(), v)]
+                checked["device"] = str(next(self.model.parameters()).device)
+                return loaded
+            return warm_start
+        argv = ["--config-name", "instseg_sceneverse", *overrides,
+                f"exp_dir={os.path.join(exp, 'run')}",
+                f"pretrain_ckpt_path={ref_dir}"]
+        with patched(Query3DTrainer, "_warm_start", checking):
+            trainer, rec = recipe_stage("reference_warm_start", argv,
+                                        zrun_conv, True, card)
+        with open(os.path.join(exp, "run", "metrics.jsonl")) as f:
+            train = [json.loads(line) for line in f if '"train"' in line]
+        del trainer
+    finally:
+        shutil.rmtree(exp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    report = checked.get("report") or {}
+    losses = [r["loss"] for r in train]
+    print(f"reference_warm_start: report {len(report.get('loaded', []))} "
+          f"loaded (of {n_leaves} leaves), {len(report.get('missing', []))} "
+          f"missing, {len(report.get('mismatched', []))} mismatched, "
+          f"{len(report.get('unused', []))} unused | tensors on "
+          f"{checked.get('device')} differing from their source: "
+          f"{len(checked.get('differ', []))} | {len(losses)} steps, losses "
+          f"{[round(x, 4) for x in losses]} | B1 fwd {rec['counts']['fwd']} "
+          f"dx {rec['counts']['bwd']} ({card})", flush=True)
+    if not report or report["mismatched"] or report["unused"] \
+            or len(report["loaded"]) != n_leaves:
+        fail("reference_warm_start: the import left a leaf unloaded, or a "
+             "tensor mismatched or unused")
+    if checked["differ"] or not checked["device"].startswith("cuda"):
+        fail(f"reference_warm_start: {checked['differ'][:5]} on the card "
+             "differ from their source after the warm start")
+    if len(losses) != 2 or not math.isfinite(losses[0]):
+        fail("reference_warm_start: the run did not take 2 steps with a "
+             "finite first loss")
+    if not (rec["counts"]["fwd"] and rec["counts"]["bwd"]):
+        fail("reference_warm_start: B1 did not run forward and dx")
+    total = time.time() - t_phase
+    print(f"reference_warm_start: phase {total:.1f} s ({card})", flush=True)
+    return {"loaded": len(report["loaded"]), "losses": losses,
+            "launches": rec["counts"], "steps_per_s": rec["steps_per_s"],
+            "peak_gib": rec["peak"] / 2**30, "phase_s": total}
 
 
 def main():
@@ -4854,6 +5245,20 @@ def main():
     co_train = {f"conv_options_{k}_{p}": r["b1"][pk]
                 for k, r in co["train"].items() if "b1" in r
                 for p, pk in (("fwd", "fwd"), ("bwd", "bwd"))}
+    torch.cuda.empty_cache()
+
+    # ---- 17. gather_stem: the 125-tap gather stem, served and trained ---
+    gs = gather_stem_phase(card, dev, zrun_conv)
+    torch.cuda.empty_cache()
+
+    # ---- 18. reference_warm_start: reference weights into the trainer ---
+    rw = reference_warm_start_phase(card, zrun_conv)
+    new_paths = {**{f"gather_stem_{k}": r["launches"]
+                    for k, r in gs["runs"].items()},
+                 "gather_stem_train_fwd": gs["train"]["b1"]["fwd"],
+                 "gather_stem_train_bwd": gs["train"]["b1"]["bwd"],
+                 "reference_warm_start_fwd": rw["launches"]["fwd"],
+                 "reference_warm_start_bwd": rw["launches"]["bwd"]}
 
     # ---- kernels line + result -----------------------------------------
     def per_fwd(key):
@@ -4873,7 +5278,7 @@ def main():
         + dd["replicated"]["launches"]
         + sum(r["launches"] for r in sw["runs"].values())
         + sum(r["launches"] for r in co["runs"].values())
-        + sum(co_train.values()),
+        + sum(co_train.values()) + sum(new_paths.values()),
         "launches_by_path": {"serve": main_launches,
                              **{f"serve_{k}": r["launches"]
                                 for k, r in lay["runs"].items()},
@@ -4891,7 +5296,7 @@ def main():
                                 for k, r in sw["runs"].items()},
                              **{f"conv_options_{k}": r["launches"]
                                 for k, r in co["runs"].items()},
-                             **co_train},
+                             **co_train, **new_paths},
         "max_abs_err": max(r["max_abs_err_f32"] for r in per_shape),
         "ms": per_fwd("ms"), "host_ms": per_fwd("host_ms"),
         "plain_ms": per_fwd("plain_ms"), "bound_ms": per_fwd("bound_ms"),
@@ -4914,7 +5319,10 @@ def main():
                  f"replicated serving, phase swin_layouts' dev_flat_zt and "
                  f"flat_zt_bf16 runs (0 in its swin runs), phase "
                  f"conv_options' served setups (0 in its compact ones) and "
-                 f"its training runs (forward, dx); recipe_ms: the "
+                 f"its training runs (forward, dx), phase gather_stem's "
+                 f"rect_gather and dev_gather runs and its training "
+                 f"(forward, dx), phase reference_warm_start's 2 steps "
+                 f"(forward, dx); recipe_ms: the "
                  f"same sum "
                  f"as ms over one forward of 4 SceneVerse-replica scans",
         "recipe_ms": rc["b1_ms"], "recipe_shapes": rc["b1"],
@@ -4924,6 +5332,7 @@ def main():
                 for k, r in dd.items()},
         "swin_layouts": {k: v for k, v in sw.items() if k != "locks"},
         "conv_options": co,
+        "gather_stem": gs, "reference_warm_start": rw,
         "shapes": per_shape,
         "bwd_launches": tr["counts"]["bwd"],
         "bwd_ms": per_step("ms"), "bwd_host_ms": per_step("host_ms"),
@@ -4965,6 +5374,8 @@ def main():
                                                  sw["runs"].values()),
                              "conv_options": sum(r["b2_launches"] for r in
                                                  co["runs"].values()),
+                             "gather_stem": sum(r["b2_launches"] for r in
+                                                gs["runs"].values()),
                              "winconv": wc["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in wc["shapes"]),
         "ms": b2_fwd("ms"), "plain_ms": b2_fwd("plain_ms"),

@@ -448,12 +448,14 @@ _DEV_FLAT = ("data.instseg_options.device_maps=true",)
 _COMPACT = "data.instseg_options.compact_conv=true"
 _NATIVE_INT8 = ("model.voxel_encoder.args.grad_mode=native",
                 "model.voxel_encoder.args.int8_gather=true")
+_DEV_MAPS = (_PALLAS, "data.instseg_options.device_maps=true",
+             "model.voxel_encoder.args.device_maps="
+             "${data.instseg_options.level_caps}",
+             "model.voxel_encoder.args.device_ztriple=true")
+_GATHER = "data.instseg_options.stem_mode=gather"
 SERVING_LAYOUTS: Dict[str, Sequence[str]] = {
     "rect": (_PALLAS,),
-    "dev_maps": (_PALLAS, "data.instseg_options.device_maps=true",
-                 "model.voxel_encoder.args.device_maps="
-                 "${data.instseg_options.level_caps}",
-                 "model.voxel_encoder.args.device_ztriple=true"),
+    "dev_maps": _DEV_MAPS,
     "flat_zt": (_PALLAS, _FLAT, "data.instseg_options.ztriple_conv=true"),
     "flat_swin": _SWIN,
     "dev_flat_swin": _SWIN + _DEV_FLAT,
@@ -465,6 +467,11 @@ SERVING_LAYOUTS: Dict[str, Sequence[str]] = {
     "rect_sorted": (_PALLAS, "model.voxel_encoder.args.sorted_gather=true"),
     "flat_compact": (_PALLAS, _FLAT, _COMPACT),
     "flat_compact_int8": (_PALLAS, _FLAT, _COMPACT, *_NATIVE_INT8),
+    # the 125-tap gather stem (the JAX pipeline's default stem): nbr5_0
+    # built by the host, or on the device beside the other maps
+    "rect_gather": (_PALLAS, _GATHER),
+    "dev_gather": (*_DEV_MAPS, _GATHER,
+                   "model.voxel_encoder.args.device_stem=gather"),
 }
 # the host layout whose collate_flat derives each device layout's lock
 LOCK_PROBE = {"dev_flat_swin": "flat_swin", "dev_flat_zt": "flat_zt"}
@@ -487,7 +494,9 @@ def serving_config(layout: str = "rect", overrides: Sequence[str] = (),
     ``grad_mode: native`` and ``int8_gather``), ``rect_sorted``
     (``sorted_gather``), ``flat_compact`` (the flat pack with
     ``compact_conv``) and ``flat_compact_int8`` (that with ``native`` and
-    int8); further ``key=value`` overrides after the layout's."""
+    int8); ``rect_gather`` and ``dev_gather``, ``rect`` and ``dev_maps``
+    with the 125-tap gather stem in place of the YAML's dense-block one;
+    further ``key=value`` overrides after the layout's."""
     if layout not in SERVING_LAYOUTS:
         raise KeyError(f"unknown serving layout {layout!r}; known: "
                        f"{sorted(SERVING_LAYOUTS)}")

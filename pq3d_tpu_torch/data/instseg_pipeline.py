@@ -2,11 +2,12 @@
 
 Counterpart of ``pq3d_tpu/data/instseg_pipeline.py``: train-time
 augmentation, color normalization, voxelization, query sampling (FPS, or
-the GT object centres), sparse kernel maps, the dense-block stem pack or
-none (``stem_mode='none'``: the Swin3D backbone's stem reads ``nbr3_0``
-alone), the Swin3D window packs of levels 1-4 (``swin_window``), and in
-GT-query mode the GT segment masks as the decoder's offline attention
-masks.  Four layouts:
+the GT object centres), sparse kernel maps, the stem's map (``stem_mode``:
+the 125-tap ``nbr5_0`` of ``'gather'``, the JAX package's default, the
+dense-block stem pack of ``'dense_block'``, or none, ``'none'``: the
+Swin3D backbone's stem reads ``nbr3_0`` alone), the Swin3D window packs of
+levels 1-4 (``swin_window``), and in GT-query mode the GT segment masks as
+the decoder's offline attention masks.  Four layouts:
 
 - rectangular (B, ...) with host-built maps (``collate``), optionally
   with the z-run plans of levels 1-3 (``ztriple_conv``);
@@ -43,10 +44,11 @@ import numpy as np
 from pq3d_tpu_torch.ops import (device_flat_maps, kernel_maps, sampling,
                                 voxelize, window_maps)
 from pq3d_tpu_torch.ops.device_maps import (ZTRIPLE_LEVELS, bias_coords_16,
-                                            swin_bias_align)
+                                            stem_cap, swin_bias_align)
 
 # hierarchy levels with Swin3D window packs
 SWIN_LEVELS = (1, 2, 3, 4)
+STEM_MODES = ("gather", "dense_block", "none")
 
 COLOR_MEAN = np.array([0.47793125906962, 0.4303257521323044,
                        0.3749598901421883], np.float32)
@@ -64,6 +66,10 @@ class InstSegPipelineConfig:
     max_segments: int = 512
     max_instances: int = 120
     use_aug: bool = True                    # train-time only
+    # the gather stem's kernel: its nbr5_0 map has conv0_kernel^3 taps
+    # (5, the reference Res16UNet34C's conv1_kernel_size; 3 is the JAX
+    # package's faster deviation, 27 taps)
+    conv0_kernel: int = 5
     fps_subsample: int = 16384   # 0 = exact FPS
     voxel_bucket: int = 4096
     # hard per-level pads (static shapes across every batch)
@@ -78,11 +84,13 @@ class InstSegPipelineConfig:
     # 'gt' collates each scene's GT segment masks as ``offline_attn_mask``
     # (B, Q, S), True = attend: query i attends instance i's segments
     offline_mask_source: Optional[str] = None
-    # 'dense_block' packs level-0 voxels + features into dense 8^3 blocks so
-    # conv0 runs as a dense conv (ops/sparse.conv0_dense_block); 'none'
-    # ships no stem arrays (the swin3d backbone's stem reads nbr3_0 alone).
-    # The JAX package's 125-tap 'gather' stem is not ported
-    stem_mode: str = "dense_block"
+    # 'gather' ships the 125-tap map nbr5_0 for conv0; 'dense_block' packs
+    # level-0 voxels + features into dense 8^3 blocks so conv0 runs as a
+    # dense conv (ops/sparse.conv0_dense_block); 'none' ships neither (the
+    # swin3d backbone's stem reads nbr3_0 alone).  Under device_maps the
+    # device builds the stem's maps (the model's device_stem, which must
+    # equal this) and the host only counts a dense_block pack's blocks
+    stem_mode: str = "gather"
     stem_block: int = 8
     # fixed pad (in blocks) for the host-built dense-block stem pack; with
     # level_caps and no explicit cap, level_caps[0] // 16 (bucketed) is
@@ -132,14 +140,20 @@ class InstSegPipelineConfig:
             raise ValueError(
                 f"offline_mask_source {self.offline_mask_source!r} is not "
                 "None or 'gt'")
-        if self.stem_mode not in ("dense_block", "none"):
+        if self.stem_mode not in STEM_MODES:
             raise ValueError(
-                f"stem_mode {self.stem_mode!r} is not ported; the PyTorch "
-                "pipeline ships the 'dense_block' stem or none (swin3d)")
+                f"stem_mode {self.stem_mode!r} is not one of {STEM_MODES}")
         if self.device_maps and self.stem_block_cap is not None:
             raise ValueError(
                 "device_maps builds the stem pack at static caps; "
                 "stem_block_cap is for host maps only")
+        if (self.device_maps and self.stem_mode == "dense_block"
+                and self.stem_block != 8):
+            # the device builds pack 8^3 blocks, and the host's overflow
+            # count must count the blocks the device packs
+            raise ValueError(
+                f"device_maps packs the dense-block stem in 8^3 blocks; "
+                f"stem_block {self.stem_block} is for host maps only")
         if self.device_maps and self.flat_pack:
             # the flat device maps' shapes are the lock: nothing to bucket
             # or grow against, so every flat dim must be named up front
@@ -147,6 +161,11 @@ class InstSegPipelineConfig:
                 raise ValueError(
                     "device_maps + flat_pack supports neither compact_conv "
                     "nor level_cap_ladder (device shapes are compile-time)")
+            if self.stem_mode not in ("none", "dense_block"):
+                raise ValueError(
+                    "device_maps + flat_pack needs stem_mode 'none' "
+                    "(swin3d backbone) or 'dense_block' (res16unet); the "
+                    "125-tap 'gather' stem has no flat device build")
             missing = device_flat_maps.flat_caps_complete(
                 self.flat_shape_caps or {}, self.swin_window, SWIN_LEVELS,
                 self.stem_mode)
@@ -222,20 +241,10 @@ class InstSegPipelineConfig:
         return window_maps.bucket(n_win_max)
 
 
-def pipeline_config(options: Dict, conv1_kernel_size: int = 5
-                    ) -> InstSegPipelineConfig:
+def pipeline_config(options: Dict) -> InstSegPipelineConfig:
     """Pipeline config from a YAML ``data.instseg_options`` dict, read as
-    the JAX runner reads it (``level_cap_ladder`` as lists of ints);
-    ``conv0_kernel``, which shapes only JAX's 125-tap gather stem, must be
-    5 (JAX's default) or the model's ``conv1_kernel_size``; keys neither
-    package reads (e.g. ``num_labels``) are ignored."""
-    node = "data.instseg_options"
-    k0 = int(options.get("conv0_kernel", 5))
-    if k0 not in (5, int(conv1_kernel_size)):
-        raise NotImplementedError(
-            f"{node}.conv0_kernel={k0} shapes the 125-tap gather stem map, "
-            "which the port does not ship; its dense-block stem runs the "
-            f"model's conv1_kernel_size ({conv1_kernel_size})")
+    the JAX runner reads it (``level_cap_ladder`` as lists of ints); keys
+    neither package reads (e.g. ``num_labels``) are ignored."""
     names = {f.name for f in dataclasses.fields(InstSegPipelineConfig)}
     kw = {k: v for k, v in options.items() if k in names}
     if kw.get("level_cap_ladder"):
@@ -463,12 +472,14 @@ def _device_map_inputs(scenes: List[Dict[str, np.ndarray]],
     rows: such a scene is refused here (the rectangular layout with host
     maps bucket-pads it instead)."""
     caps = [int(c) for c in cfg.level_caps]
-    nb_cap = window_maps.bucket(caps[0] // 16)
+    nb_cap = stem_cap(caps)
     vox_coords = np.zeros((len(scenes), caps[0], 3), np.int32)
     n_voxels = np.zeros((len(scenes),), np.int32)
     for i, s in enumerate(scenes):
         biased = bias_coords_16(s["vox_coords"])[0]
         counts, nw = device_map_counts(biased, cfg.stem_block)
+        if cfg.stem_mode != "dense_block":
+            nw = 0                        # the device packs no stem blocks
         if any(n > c for n, c in zip(counts, caps)) or nw > nb_cap:
             raise ValueError(
                 f"scene {s.get('scan_id', '')!r} outgrows the device maps' "
@@ -484,7 +495,8 @@ def _host_maps(scenes: List[Dict[str, np.ndarray]],
                cfg: InstSegPipelineConfig, pad: List[int]
                ) -> Dict[str, np.ndarray]:
     """The scenes' host-built hierarchies at the per-level ``pad``, the
-    dense-block stem pack (``stem_mode='dense_block'``), the swin packs
+    stem's map (``stem_mode``: ``nbr5_0`` for 'gather', the dense-block
+    stem pack for 'dense_block'), the swin packs
     (``swin_window``; each padded to the batch's bucketed window count)
     and, with ``ztriple_conv``, the z-run plans of ZTRIPLE_LEVELS, as (B,
     ...) maps."""
@@ -531,6 +543,13 @@ def _host_maps(scenes: List[Dict[str, np.ndarray]],
                     [p["cell_to_vox"] for p in padded])
                 maps[f"{key}_slot"] = np.stack(
                     [p["vox_slot"] for p in padded])
+    if cfg.stem_mode == "gather":
+        k = len(kernel_maps.kernel_offsets(cfg.conv0_kernel))
+        nbr5 = np.empty((b, pad[0], k), np.int32)
+        for i, s in enumerate(scenes):
+            nbr5[i] = kernel_maps.build_neighbor_map(
+                s["vox_coords"], cfg.conv0_kernel, n_pad=pad[0])
+        maps["nbr5_0"] = nbr5
     if cfg.stem_mode != "dense_block":
         return maps
 
@@ -617,7 +636,8 @@ def collate_flat(scenes: List[Dict[str, np.ndarray]],
     ``rect_{l}`` (B, Pmax_l: each scene's flat rows of level l, -1 pad).
     The swin packs (``swin_window``) and the dense-block stem pack
     concatenate the scenes' packs, cells offset by the running window
-    count and voxel ids by the level's starts.  With ``compact_conv`` the
+    count and voxel ids by the level's starts; the gather stem's
+    ``nbr5_0`` is offset as the ``nbr3`` maps are.  With ``compact_conv`` the
     maps add each level's compact conv plan (``cmp{l}_*``).
     ``_meta['flat_dims']`` holds each flat dim before the lock."""
     b = len(scenes)
@@ -737,6 +757,16 @@ def collate_flat(scenes: List[Dict[str, np.ndarray]],
         maps["stem_c2v"] = c2v
         maps["stem_slot"] = slot
         maps["stem_nbrblk"] = nbrblk
+    elif cfg.stem_mode == "gather":
+        nbr5 = np.full((tot[0], len(kernel_maps.kernel_offsets(
+            cfg.conv0_kernel))), -1, np.int32)
+        for i, s in enumerate(scenes):
+            n0 = counts[0][i]
+            m = kernel_maps.build_neighbor_map(s["vox_coords"],
+                                               cfg.conv0_kernel)
+            nbr5[starts[0][i]:starts[0][i] + n0] = np.where(
+                m >= 0, m + starts[0][i], -1)
+        maps["nbr5_0"] = nbr5
 
     S = cfg.max_segments
     vf = np.zeros((tot[0], cin), np.float32)

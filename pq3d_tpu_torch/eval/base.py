@@ -19,35 +19,46 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 
 
-def truncate_batch_rows(tree: Any, n_real: int, batch_rows: int) -> Any:
+# the per-row lists that stand outside ``_meta``: the stage-2 trainer's
+# decoded texts (``MultitaskTrainer.postprocess_for_eval``); a caller adds
+# its own (the trainer: the meta keys it merges into the evaluators' batch)
+ROW_LISTS = frozenset({"answer_pred", "caption_pred"})
+
+
+def truncate_batch_rows(tree: Any, n_real: int, batch_rows: int,
+                        row_lists=ROW_LISTS) -> Any:
     """Cut the evaluator-facing copies of a wrap-padded batch to its
-    ``n_real`` rows: numpy arrays whose leading dim is ``batch_rows``
-    (anywhere in the tree; a list of such arrays, per round, is cut
-    elementwise) and other lists or tuples of length ``batch_rows``
-    (per-row payloads: meta lists, decoded texts)."""
+    ``n_real`` rows (``slice_batch_rows``)."""
     if n_real >= batch_rows:
         return tree
-    return slice_batch_rows(tree, 0, n_real, batch_rows)
+    return slice_batch_rows(tree, 0, n_real, batch_rows, row_lists)
 
 
-def slice_batch_rows(tree: Any, lo: int, hi: int, batch_rows: int) -> Any:
-    """Rows ``[lo, hi)`` of every per-row entry of a batch tree, as
-    ``truncate_batch_rows`` finds them."""
-    def cut(x):
+def slice_batch_rows(tree: Any, lo: int, hi: int, batch_rows: int,
+                     row_lists=ROW_LISTS) -> Any:
+    """Rows ``[lo, hi)`` of every per-row entry of a batch tree: numpy
+    arrays whose leading dim is ``batch_rows`` (anywhere in the tree; a
+    list of such arrays, per round or layer, is cut elementwise), and the
+    per-row lists: those of ``_meta`` (one entry a row, as the pipelines
+    collect them) and those at a key of ``row_lists``.  Any other list
+    keeps its length, whatever it is.  Lists and tuples come back as
+    plain lists."""
+    def cut(x, row):
         if isinstance(x, dict):
-            return {k: cut(v) for k, v in x.items()}
+            return {k: cut(v, row or k == "_meta" or k in row_lists)
+                    for k, v in x.items()}
         if isinstance(x, np.ndarray):
             return x[lo:hi] if (x.ndim >= 1
                                 and x.shape[0] == batch_rows) else x
         if isinstance(x, (list, tuple)):
+            if row and len(x) == batch_rows:
+                return list(x[lo:hi])
             if x and all(isinstance(v, np.ndarray) and v.ndim >= 1
                          and v.shape[0] == batch_rows for v in x):
-                return type(x)(v[lo:hi] for v in x)
-            if len(x) == batch_rows:
-                return type(x)(x[lo:hi])
-            return type(x)(cut(v) for v in x)
+                return [v[lo:hi] for v in x]
+            return [cut(v, False) for v in x]
         return x
-    return cut(tree)
+    return cut(tree, False)
 
 
 def take_rows(batch: Dict[str, Any], lo: int, hi: int) -> Dict[str, Any]:

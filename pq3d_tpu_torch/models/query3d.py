@@ -39,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -60,8 +61,7 @@ from pq3d_tpu_torch.models.posembed import (CoordinateEncoder,
                                             FourierPositionEncoding)
 from pq3d_tpu_torch.models.query_encoder import (QueryEncoderLayer,
                                                  QueryMaskEncoder)
-from pq3d_tpu_torch.models.sparse_unet import (DenseStemConv, Res16UNet,
-                                               SparseConv,
+from pq3d_tpu_torch.models.sparse_unet import (Res16UNet, SparseConv,
                                                SparseConvTranspose)
 from pq3d_tpu_torch.models.swin3d import Swin3DUNet, WindowAttention
 from pq3d_tpu_torch.models.t5 import RMSNorm, T5Decoder
@@ -97,7 +97,7 @@ class VoxelEncoderCfg:
     dropout: float = 0.1
     out_channels: int = 200
     bn_momentum: float = 0.02
-    conv1_kernel_size: int = 5
+    conv1_kernel_size: int = 5   # the stem conv0's kernel (k^3 taps)
     pallas_conv: bool = False    # route 3^3 convs to the z-run CUDA kernel
     # the conv options of models/sparse_unet: 'scatter_free' (custom
     # backwards) or 'native' (autograd); checkpointing in training ('none',
@@ -111,6 +111,10 @@ class VoxelEncoderCfg:
     # from the batch's 'vox_coords' / 'n_voxels': the static per-level caps,
     # equal to the pipeline's level_caps under its device_maps
     device_maps: Optional[Tuple[int, ...]] = None
+    # with device_maps: the stem's maps built there, 'dense_block' (the
+    # stem pack, at ops/device_maps.stem_cap blocks) or 'gather' (the
+    # 125-tap nbr5_0)
+    device_stem: str = "dense_block"
     device_ztriple: bool = False  # also build the z-run plans of levels 1-3
     # 'res16unet' or 'swin3d' (models/swin3d, window attention); the swin
     # window must equal the pipeline's data.instseg_options.swin_window
@@ -376,7 +380,7 @@ class Query3DUnified(nn.Module):
                 batch["vox_coords"], batch["n_voxels"],
                 dict(ve.device_flat_caps),
                 swin_window=ve.swin_window if swin else 0,
-                stem_mode="none" if swin else "dense_block",
+                stem_mode="none" if swin else ve.device_stem,
                 voxel_feats=batch["voxel_feats"], ztriple=ve.device_ztriple)
         if ve.device_maps is None:
             return batch["maps"]
@@ -387,7 +391,8 @@ class Query3DUnified(nn.Module):
                 "device_maps=True (and flat_pack=False)")
         return device_maps.build_batch_maps(
             batch["vox_coords"], batch["n_voxels"], batch["voxel_feats"],
-            level_caps=ve.device_maps, ztriple=ve.device_ztriple)
+            level_caps=ve.device_maps, conv0_kernel=ve.conv1_kernel_size,
+            stem_mode=ve.device_stem, ztriple=ve.device_ztriple)
 
     def _promotion(self):
         return JaxPromotion() if self.jax_promotion \
@@ -539,7 +544,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     t5_embed = {id(m.embed) for m in model.modules()
                 if isinstance(m, T5Decoder)}
     for mod in model.modules():
-        if isinstance(mod, (SparseConv, SparseConvTranspose, DenseStemConv)):
+        if isinstance(mod, (SparseConv, SparseConvTranspose)):
             k, cin, _ = mod.kernel.shape
             normal_(mod.kernel, math.sqrt(2.0 / (k * cin)))
         elif isinstance(mod, FourierPositionEncoding):
@@ -604,7 +609,14 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
     ``backbone_kwargs.config.window``, else ``args.swin_window``, else 4),
     ``PCDMask3DSegLevelEncoder`` its ``args.backbone`` (default
     ``res16unet``); any other name raises.  ``args.device_flat_caps`` (a
-    dict) builds the flat maps in the forward."""
+    dict) builds the flat maps in the forward, ``args.device_maps`` the
+    rectangular ones with the stem's maps of ``args.device_stem``
+    ('dense_block' or 'gather'); ``args.device_stem_blocks`` raises, since
+    the host's overflow count cannot follow another stem cap.  The stem
+    conv0 has ``data.instseg_options.conv0_kernel``^3 taps under the host
+    pipeline's gather stem (the JAX default), else
+    ``conv1_kernel_size``^3.  ``int8_gather`` under ``scatter_free``
+    warns: it changes nothing there."""
     dev = resolve_device(device)
     m = cfg["model"]
     ue = m["unified_encoder"]["args"]
@@ -638,18 +650,31 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
             raise NotImplementedError(
                 f"voxel encoder {name!r} is not ported (the port builds "
                 "PCDMask3DSegLevelEncoder and PCDMask3DSwin3DEncoder)")
-        if va.get("device_stem", "dense_block") != "dense_block" \
-                or va.get("device_stem_blocks") is not None:
+        device_stem = str(va.get("device_stem") or "dense_block")
+        if device_stem not in ("dense_block", "gather"):
             raise NotImplementedError(
-                "the port builds the 'dense_block' stem pack on the device "
-                "and at the pipeline's block cap only (device_stem, "
-                "device_stem_blocks)")
+                f"device_stem {device_stem!r}: the device builds the "
+                "'dense_block' stem pack or the 'gather' stem's nbr5_0")
+        if va.get("device_stem_blocks") is not None:
+            raise NotImplementedError(
+                "device_stem_blocks is not ported: the device stem pack "
+                "holds ops/device_maps.stem_cap(level_caps) blocks, the cap "
+                "the host's overflow count uses")
+        # the stem's kernel: the JAX model's gathered conv0 takes its taps
+        # from the batch's nbr5_0, which the host builds at the pipeline's
+        # conv0_kernel; the dense stem and the device-built nbr5_0 take
+        # conv1_kernel_size
+        stem_k = int(bk_cfg.get("conv1_kernel_size", 5))
+        iopt = (cfg.get("data") or {}).get("instseg_options") or {}
+        if iopt.get("stem_mode", "gather") == "gather" \
+                and not iopt.get("device_maps"):
+            stem_k = int(iopt.get("conv0_kernel", 5))
         voxel_enc = VoxelEncoderCfg(
             hlevels=tuple(va.get("hlevels", (0, 1, 2, 3))),
             dropout=va.get("dropout", 0.1),
             out_channels=bk.get("out_channels", 200),
             bn_momentum=bk_cfg.get("bn_momentum", 0.02),
-            conv1_kernel_size=bk_cfg.get("conv1_kernel_size", 5),
+            conv1_kernel_size=stem_k,
             pallas_conv=va.get("pallas_conv", False),
             # an override's bare `none` parses as None
             grad_mode=str(va.get("grad_mode") or "scatter_free"),
@@ -658,6 +683,7 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
             int8_gather=bool(va.get("int8_gather", False)),
             device_maps=(tuple(int(c) for c in va["device_maps"])
                          if va.get("device_maps") else None),
+            device_stem=device_stem,
             device_ztriple=bool(va.get("device_ztriple", False)),
             backbone=backbone,
             swin_window=int(bk_cfg.get("window",
@@ -666,6 +692,14 @@ def build_model(cfg: Dict[str, Any], device="cuda", seed: int = 0
                 (str(k), int(v)) for k, v in
                 dict(va["device_flat_caps"]).items()))
                 if va.get("device_flat_caps") else None))
+
+        if voxel_enc.int8_gather and voxel_enc.grad_mode == "scatter_free":
+            # the JAX package quantises only on its 'native' branches
+            warnings.warn(
+                "model.voxel_encoder.args.int8_gather is set under grad_mode "
+                "'scatter_free', where it changes nothing: int8 gathers run "
+                "only under grad_mode 'native', outside training",
+                stacklevel=2)
 
     mask_head_cfg = None
     if m.get("mask_head") is not None:

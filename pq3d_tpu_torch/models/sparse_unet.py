@@ -1,13 +1,17 @@
 """Sparse residual U-Net over kernel maps (PyTorch).
 
 Counterpart of ``pq3d_tpu/models/sparse_unet.py``: the Res16UNet34C
-topology -- dense-block 5^3 stem -> 4x stride-2 encoder ladder -> 4x
-transpose-conv decoder with skip concats -> final 1x1 conv -- where every
-sparse conv is a gather -> GEMM over precomputed neighbor maps.  The batch
-of scenes runs as one (B*P_l, C) array per level: ``flatten_maps`` offsets
-the rectangular layout's per-scene indices; the flat-pack layout
-(``data/instseg_pipeline.collate_flat``) arrives concatenated and offset
-by the host and passes through.
+topology -- 5^3 stem -> 4x stride-2 encoder ladder -> 4x transpose-conv
+decoder with skip concats -> final 1x1 conv -- where every sparse conv is
+a gather -> GEMM over precomputed neighbor maps.  The stem ``conv0`` runs
+as a dense conv over the batch's packed blocks where it ships a stem pack
+(``stem_dense``, ``stem_mode='dense_block'``), else as the 125-tap gather
+conv over ``nbr5_0`` (``stem_mode='gather'``), routed like every other
+conv below except that it never takes int8 (the JAX package builds it
+without the option).  The batch of scenes runs as one (B*P_l, C) array
+per level: ``flatten_maps`` offsets the rectangular layout's per-scene
+indices; the flat-pack layout (``data/instseg_pipeline.collate_flat``)
+arrives concatenated and offset by the host and passes through.
 
 Routing of a conv, in the JAX package's order (its ``SparseConv``):
 
@@ -39,8 +43,9 @@ plans never change which convs the kernel takes.  The JAX package guards
 its windowed kernel with an exception-overflow fallback; the Hopper
 kernel has no window, so every routed conv runs the kernel.
 
-``remat_policy`` (training only) checkpoints each BasicBlock and each
-stride-2 conv as the JAX package's ``remat_block_cls`` does, through
+``remat_policy`` (training only) checkpoints each BasicBlock, each
+stride-2 conv and the gathered stem as the JAX package's
+``remat_block_cls`` does, through
 ``torch.utils.checkpoint``: ``'full'`` recomputes everything, ``'dots'``
 saves the matrix products' outputs, ``'gather_only'`` everything but the
 gathered rows (``index_select``), ``'none'`` checkpoints nothing.  The
@@ -156,8 +161,8 @@ def flatten_maps(maps: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     table becomes absolute flat indices per level, and z-run plans get the
     scene offset on every base (a base is never -1: the codes mask it).
     Flat-pack maps (``valid_0`` without a batch dim) pass through.  The
-    dense-block stem pack is flattened where the batch ships one (a swin
-    batch has none)."""
+    dense-block stem pack, or the gather stem's ``nbr5_0``, is flattened
+    where the batch ships one (a swin batch has neither)."""
     if maps["valid_0"].dim() == 1:
         out = dict(maps)
         if "stem_c2v" in maps:
@@ -187,6 +192,8 @@ def flatten_maps(maps: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     for l in range(NUM_LEVELS):
         p_l = maps[f"valid_{l}"].shape[1]
         out[f"ancestor_{l}"] = off(maps["ancestor"][:, l, :], p_l)
+    if "nbr5_0" in maps:
+        out["nbr5_0"] = off(maps["nbr5_0"], maps["valid_0"].shape[1])
     if "stem_c2v" not in maps:
         return out
     nb = maps["stem_nbrblk"].shape[1]
@@ -204,7 +211,9 @@ def _conv_weight(k: int, cin: int, cout: int) -> nn.Parameter:
 
 class SparseConv(nn.Module):
     """Kernel-map sparse conv; ``kernel`` is (K, Cin, Cout) in
-    kernel_offsets order (K = 27 stride-1 3^3, K = 8 stride-2 down)."""
+    kernel_offsets order (K = 27 stride-1 3^3, K = 8 stride-2 down, K =
+    k^3 the stem, whose kernel the dense-block stem reads in the same
+    layout)."""
 
     def __init__(self, in_channels: int, out_channels: int, k: int = 27):
         super().__init__()
@@ -252,21 +261,6 @@ class SparseConv(nn.Module):
             return sparse.sparse_conv_sym(x, nbr, w, valid, sorted_maps=sg)
         return sparse.sparse_conv(x, nbr, w, None, valid, sorted_maps=sg,
                                   int8_gather=i8)
-
-
-class DenseStemConv(nn.Module):
-    """conv0 as a dense block conv (ops/sparse.conv0_dense_block); the
-    ``kernel`` keeps the gathered stem's (k^3, Cin, Cout) layout."""
-
-    def __init__(self, in_channels: int, out_channels: int, kernel: int = 5):
-        super().__init__()
-        self.kernel_size = kernel
-        self.kernel = _conv_weight(kernel ** 3, in_channels, out_channels)
-
-    def forward(self, dense_in, nbr_win, slot, valid, block: int):
-        return sparse.conv0_dense_block(dense_in, nbr_win, slot, self.kernel,
-                                        valid, block=block,
-                                        kernel=self.kernel_size)
 
 
 class SparseConvTranspose(nn.Module):
@@ -373,7 +367,9 @@ class Res16UNet(nn.Module):
         self.sorted_gather = sorted_gather
         self.int8_gather = int8_gather
         bm = bn_momentum
-        self.conv0 = DenseStemConv(in_channels, init_dim, conv1_kernel_size)
+        self.conv1_kernel_size = conv1_kernel_size
+        self.conv0 = SparseConv(in_channels, init_dim,
+                                k=conv1_kernel_size ** 3)
         self.bn0 = MaskedBatchNorm(init_dim, bm)
         ch = init_dim
         skip_ch = [init_dim]
@@ -454,7 +450,8 @@ class Res16UNet(nn.Module):
         if self.sorted_gather:
             sorted_idx = {id(t): sparse.sorted_conv_maps(t) for t in
                           [m for m in n if not isinstance(m, dict)]
-                          + [fm[f"child_{l}"] for l in range(4)]}
+                          + [fm[f"child_{l}"] for l in range(4)]
+                          + ([fm["nbr5_0"]] if "nbr5_0" in fm else [])}
         opts = ConvOptions(self.grad_mode, self.sorted_gather,
                            self.int8_gather and not self.training,
                            sorted_idx)
@@ -467,8 +464,18 @@ class Res16UNet(nn.Module):
         else:
             b, p0, _ = x.shape
 
-        out = self.conv0(fm["stem_dense"], fm["stem_nbrblk"], fm["stem_slot"],
-                         v[0], fm["stem_block"])
+        if "stem_dense" in fm:
+            out = sparse.conv0_dense_block(
+                fm["stem_dense"], fm["stem_nbrblk"], fm["stem_slot"],
+                self.conv0.kernel, v[0], block=fm["stem_block"],
+                kernel=self.conv1_kernel_size)
+        else:
+            stem = functools.partial(
+                self.conv0, nbr=fm["nbr5_0"], valid=v[0],
+                opts=dataclasses.replace(opts, int8_gather=False))
+            x0 = x.reshape(b * p0, -1)
+            out = stem(x0) if remat == "none" else remat_call(remat, stem,
+                                                               x0)
         out = F.relu(self.bn0(out, v[0]))
         skips = [out]
         for l in range(4):

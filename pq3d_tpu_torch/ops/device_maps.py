@@ -3,14 +3,16 @@
 Counterpart of ``pq3d_tpu/ops/device_maps.py``.  The host ships each
 scene's biased voxel coordinates (``bias_coords_16``) and its voxel count
 instead of 60-100 MB of int32 maps, and the model's forward builds the
-hierarchy, the dense-block stem pack and, optionally, the z-run plans on
-the caller's device, in the (B, ...) shapes that
+hierarchy, the stem's maps (the dense-block stem pack, or the gather
+stem's 125-tap ``nbr5_0``) and, optionally, the z-run plans on the
+caller's device, in the (B, ...) shapes that
 ``data/instseg_pipeline.collate`` ships:
 
 * voxel keys: coordinates are ravel-key sorted (``ops/voxelize``), so a
   linear packing with per-scene field bounds gives sorted keys per scene;
   pad rows carry ``PAD_KEY`` and sort last;
-* stride-1 neighbor maps: 27 offset queries answered by a batched
+* stride-1 neighbor maps: 27 (the stem's: k^3) offset queries answered
+  by a batched
   ``torch.searchsorted`` over the (B, N) sorted keys and an equality
   check; a query from a pad row, or one that lands on a pad, is -1;
 * stride-2 downsampling: parent keys of row-major child keys are not
@@ -103,6 +105,7 @@ def _compact(values: torch.Tensor, order: torch.Tensor,
 
 def build_device_hierarchy(coords0: torch.Tensor, n0: torch.Tensor,
                            level_caps: Sequence[int],
+                           conv0_kernel: int = 5, build_nbr5: bool = False,
                            num_levels: int = kernel_maps.NUM_LEVELS
                            ) -> Dict[str, torch.Tensor]:
     """Device twin of ``kernel_maps.build_hierarchy`` for a batch.
@@ -112,12 +115,17 @@ def build_device_hierarchy(coords0: torch.Tensor, n0: torch.Tensor,
         non-negative with a 16-aligned origin; pad rows arbitrary.
       n0: (B,) true voxel counts.
       level_caps: static per-level pads (level_caps[0] == cap0).
+      conv0_kernel, build_nbr5: with ``build_nbr5``, also the gather
+        stem's map ``nbr5_0`` (B, cap0, conv0_kernel^3).
 
     Returns the per-level arrays the host pipeline ships, in its dtypes:
     ``valid_l`` (B, cap_l), ``nbr3_l`` (B, cap_l, 27), ``child_l`` (B,
     cap_{l+1}, 8), ``parent_l`` / ``parent_off_l`` (B, cap_l),
-    ``ancestor`` (B, num_levels, cap0); and ``coords_l`` (B, cap_l, 3),
-    ``n_l`` (B,).
+    ``ancestor`` (B, num_levels, cap0), ``nbr5_0`` when asked; and
+    ``coords_l`` (B, cap_l, 3), ``n_l`` (B,).  The field bounds' margin of
+    3 holds the 5^3 offsets too: an offset past a scene's low edge packs
+    to a negative key or one whose coordinate passes the scene's largest,
+    where no voxel lies.
     """
     b, cap0, _ = coords0.shape
     if cap0 != level_caps[0] or len(level_caps) < num_levels:
@@ -145,6 +153,10 @@ def build_device_hierarchy(coords0: torch.Tensor, n0: torch.Tensor,
         out[f"n_{lvl}"] = n.int()
         out[f"nbr3_{lvl}"] = _neighbor_map(coords, keys, valid, n, off3,
                                            dy, dz)
+        if lvl == 0 and build_nbr5:
+            out["nbr5_0"] = _neighbor_map(
+                coords, keys, valid, n,
+                kernel_maps.kernel_offsets(conv0_kernel), dy, dz)
         if lvl == num_levels - 1:
             break
         cap_next = level_caps[lvl + 1]
@@ -241,22 +253,48 @@ def build_device_stem_pack(coords0: torch.Tensor, n0: torch.Tensor,
             "nbr_win": nbr_win, "n_win": n_win.int()}
 
 
+def stem_cap(level_caps: Sequence[int]) -> int:
+    """The device stem pack's static block cap: the host pipeline's
+    ``stem_pad_blocks`` default, ``bucket(level_caps[0] // 16)``, which the
+    host's overflow count under ``device_maps`` uses."""
+    return window_maps.bucket(int(level_caps[0]) // 16)
+
+
 def build_batch_maps(vox_coords: torch.Tensor, n_voxels: torch.Tensor,
                      voxel_feats: Optional[torch.Tensor],
                      level_caps: Sequence[int],
+                     conv0_kernel: int = 5,
+                     stem_mode: str = "dense_block",
                      stem_block: int = 8,
                      ztriple: bool = False) -> Dict[str, torch.Tensor]:
     """The ``maps`` dict of ``instseg_pipeline.collate`` built on the
     device from the biased voxel coords (B, cap0, 3) and true counts (B,):
-    hierarchy levels, the dense-block stem pack (with the packed
-    ``stem_dense`` blocks when ``voxel_feats`` (B, cap0, Cin) is given)
-    and, with ``ztriple``, the z-run plans of levels 1-3 from
+    hierarchy levels, the stem's maps of ``stem_mode`` ('dense_block': the
+    stem pack of ``stem_cap(level_caps)`` blocks, with the
+    packed ``stem_dense`` blocks when ``voxel_feats`` (B, cap0, Cin) is
+    given; 'gather': ``nbr5_0`` at ``conv0_kernel``) and, with
+    ``ztriple``, the z-run plans of levels 1-3 from
     ``zrun_conv.zrun_plan`` (the JAX package's ``device_zrun_plan``)."""
     caps = tuple(int(c) for c in level_caps)
-    maps = build_device_hierarchy(vox_coords, n_voxels, caps)
-    # the host pipeline's stem_pad_blocks default, the only stem cap the
-    # pipeline allows under device_maps
-    nb_cap = window_maps.bucket(caps[0] // 16)
+    maps = build_device_hierarchy(vox_coords, n_voxels, caps,
+                                  conv0_kernel=conv0_kernel,
+                                  build_nbr5=stem_mode == "gather")
+    if stem_mode == "dense_block":
+        maps.update(_stem_maps(vox_coords, n_voxels, voxel_feats,
+                               stem_cap(caps), stem_block))
+    if ztriple:
+        for l in ZTRIPLE_LEVELS:
+            maps[f"zt{l}_base"], maps[f"zt{l}_code"] = zrun_conv.zrun_plan(
+                maps[f"nbr3_{l}"])
+    return maps
+
+
+def _stem_maps(vox_coords: torch.Tensor, n_voxels: torch.Tensor,
+               voxel_feats: Optional[torch.Tensor], nb_cap: int,
+               stem_block: int) -> Dict[str, torch.Tensor]:
+    """The dense-block stem pack's maps (and packed features) for
+    ``build_batch_maps``."""
+    maps: Dict[str, torch.Tensor] = {}
     b3 = stem_block ** 3
     pack = build_device_stem_pack(vox_coords, n_voxels, nb_cap, stem_block)
     maps["stem_nbrblk"] = pack["nbr_win"]
@@ -270,8 +308,4 @@ def build_batch_maps(vox_coords: torch.Tensor, n_voxels: torch.Tensor,
         dense = voxel_feats.new_zeros(b, nb_cap * b3 + 1, cin)
         dense.scatter_(1, tgt[:, :, None].expand(-1, -1, cin), voxel_feats)
         maps["stem_dense"] = dense[:, :-1].reshape(b, nb_cap, b3 * cin)
-    if ztriple:
-        for l in ZTRIPLE_LEVELS:
-            maps[f"zt{l}_base"], maps[f"zt{l}_code"] = zrun_conv.zrun_plan(
-                maps[f"nbr3_{l}"])
     return maps

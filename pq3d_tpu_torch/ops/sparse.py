@@ -436,8 +436,10 @@ class _SparseConvSym(torch.autograd.Function):
         x, w, nbr, out_valid = ctx.saved_tensors
         sm = ctx.sorted_maps
         dy = _mask_rows(dy, out_valid)
-        dx = sparse_conv(dy, nbr, w.flip(0).transpose(1, 2),
-                         sorted_maps=sm).to(x.dtype)
+        dx = None
+        if ctx.needs_input_grad[0]:      # not for the stem: x is data
+            dx = sparse_conv(dy, nbr, w.flip(0).transpose(1, 2),
+                             sorted_maps=sm).to(x.dtype)
         dw = conv_weight_grad(x, nbr, dy, sorted_maps=sm).to(w.dtype)
         return dx, dw, None, None, None
 

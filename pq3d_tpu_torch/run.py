@@ -74,9 +74,7 @@ def build_instseg_trainer(cfg: Dict[str, Any]):
         raise NotImplementedError(f"trainer {cfg['trainer']!r} is not ported")
     iopt = cfg["data"]["instseg_options"]
     va = (cfg["model"].get("voxel_encoder") or {}).get("args", {})
-    bk_cfg = (va.get("backbone_kwargs") or {}).get("config") or {}
-    pipe_cfg = pipeline_config(
-        iopt, conv1_kernel_size=bk_cfg.get("conv1_kernel_size", 5))
+    pipe_cfg = pipeline_config(iopt)
     if pipe_cfg.device_maps or va.get("device_maps") \
             or va.get("device_flat_caps"):
         raise NotImplementedError(

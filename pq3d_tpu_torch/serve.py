@@ -261,7 +261,8 @@ class InstSegServer(_MicroBatchServer):
 
     Layouts (from ``pipe_cfg``): rectangular with host maps (needs
     ``level_caps``), rectangular with device-built maps (``device_maps``:
-    the model must be built with ``voxel_enc.device_maps == level_caps``;
+    the model must be built with ``voxel_enc.device_maps == level_caps``
+    and ``voxel_enc.device_stem == stem_mode``;
     the server refuses a mismatch either way), the flat pack with host
     maps (``flat_pack``: no ``level_caps`` needed; the first batch, and
     any that overflows it, sets ``pipe_cfg.flat_shape_caps``), or the flat
@@ -313,6 +314,13 @@ class InstSegServer(_MicroBatchServer):
                     "pipe_cfg.device_maps=True needs the model built with "
                     f"voxel_enc.device_maps == level_caps (model: "
                     f"{caps or None}, pipe: {tuple(pipe_cfg.level_caps)})")
+            # the host counts the stem blocks of its stem_mode
+            if ve.device_stem != pipe_cfg.stem_mode:
+                raise ValueError(
+                    "pipe_cfg.device_maps=True needs the model's device "
+                    "stem to be the pipeline's: voxel_enc.device_stem == "
+                    f"stem_mode; model {ve.device_stem!r}, pipe "
+                    f"{pipe_cfg.stem_mode!r}")
         elif caps or flat_caps:
             raise ValueError(
                 "the model's voxel_enc.device_maps or device_flat_caps is "

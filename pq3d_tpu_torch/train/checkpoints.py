@@ -9,8 +9,9 @@ dropout draws from, a gradient-accumulation window), in
 renames it, so an interrupted save leaves the previous snapshot whole.
 ``load_pretrain`` is the non-strict warm start (stage 2 from a stage-1
 checkpoint): by name and shape, as the JAX package's is by flax path and
-shape.  The JAX package's orbax format and its warm start
-from reference ``.bin`` files are not ported.
+shape.  ``reference_weights`` finds the reference's torch files
+(``pytorch_model*.bin``) that ``utils/hf_import.import_query3d`` reads
+for the other warm start.  The JAX package's orbax format is not ported.
 """
 from __future__ import annotations
 
@@ -105,19 +106,35 @@ def load_pretrain(model: torch.nn.Module,
 def find_pretrain(path: str) -> Optional[str]:
     """The ``state.pt`` that ``pretrain_ckpt_path`` names: a checkpoint
     dir (its ``latest``), one snapshot's dir, or the file; None when there
-    is none.  Reference ``pytorch_model*.bin`` files raise: importing them
-    is ROADMAP A.3, not ported."""
+    is none."""
     for cand in (os.path.join(path, "latest", _FILE),
                  os.path.join(path, _FILE)):
         if os.path.isfile(cand):
             return cand
     if os.path.isfile(path) and os.path.basename(path) == _FILE:
         return path
-    if (os.path.isdir(path) and glob.glob(
-            os.path.join(path, "pytorch_model*.bin"))) or (
-            path.endswith((".bin", ".pth", ".pt")) and os.path.isfile(path)):
-        raise NotImplementedError(
-            f"warm start from reference torch weights ({path!r}) is not "
-            f"ported (ROADMAP A.3, HF import); give a checkpoint of this "
-            f"package")
     return None
+
+
+def reference_weights(path: str) -> List[str]:
+    """The reference's torch weight files that ``pretrain_ckpt_path``
+    names, as the JAX trainer finds them: a directory's
+    ``pytorch_model*.bin`` (sorted), or one ``.bin`` / ``.pth`` / ``.pt``
+    file that is not a checkpoint of this package; [] when there is
+    none."""
+    if find_pretrain(path) is not None:
+        return []
+    if os.path.isdir(path):
+        return sorted(glob.glob(os.path.join(path, "pytorch_model*.bin")))
+    if path.endswith((".bin", ".pth", ".pt")) and os.path.isfile(path):
+        return [path]
+    return []
+
+
+def load_reference_state_dict(files: List[str]) -> Dict[str, torch.Tensor]:
+    """The merged state_dict of the reference's weight files (tensors
+    only, read on the host)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for f in files:
+        sd.update(torch.load(f, map_location="cpu", weights_only=True))
+    return sd

@@ -6,8 +6,9 @@ The host pipeline runs in a background thread (``prefetch_batches``) so
 it overlaps the step on the card.  The optimizer and schedule are built once
 (``_lazy_init``, at the start of ``run`` or on the first batch), where
 ``resume`` also restores ``latest`` and the epoch to continue from; without
-a resume, ``pretrain_ckpt_path`` warm-starts the model non-strictly (same
-name and shape) from another run's checkpoint.  Each epoch saves
+a resume, ``pretrain_ckpt_path`` warm-starts the model non-strictly from
+another run's checkpoint (same name and shape) or from the reference's
+torch weights (``pytorch_model*.bin``, ``utils/hf_import``).  Each epoch saves
 ``latest``, every ``epochs_per_save`` epochs ``ckpt_N``, and every
 improvement of the evaluator's target metric ``best``.  SIGUSR1 or
 SIGTERM saves ``latest`` after the current step and ends the run, so a
@@ -52,12 +53,16 @@ import torch
 
 from pq3d_tpu_torch.device import resolve_device
 from pq3d_tpu_torch.parallel import dist
-from pq3d_tpu_torch.eval.base import truncate_batch_rows
+from pq3d_tpu_torch.eval.base import ROW_LISTS, truncate_batch_rows
 from pq3d_tpu_torch.serve import to_device
 from pq3d_tpu_torch.train.checkpoints import (CheckpointManager,
-                                              find_pretrain, load_pretrain)
+                                              find_pretrain,
+                                              load_pretrain,
+                                              load_reference_state_dict,
+                                              reference_weights)
 from pq3d_tpu_torch.train.metrics import ExpTracker, MetricsLogger
 from pq3d_tpu_torch.train.state import make_eval_step, make_train_step
+from pq3d_tpu_torch.utils.hf_import import import_query3d
 from pq3d_tpu_torch.utils.profiling import StepProfiler
 
 
@@ -144,6 +149,8 @@ class Query3DTrainer:
         self.ddp: Optional[torch.nn.Module] = None
         self._preempted = False
         self.warm_started: List[str] = []   # names a warm start loaded
+        # a reference-weights warm start's report (utils/hf_import)
+        self.warm_start_report: Optional[Dict[str, list]] = None
 
     def _lazy_init(self):
         from pq3d_tpu_torch.optim.optimizers import (GradientAccumulator,
@@ -191,19 +198,35 @@ class Query3DTrainer:
         self._eval_step = make_eval_step(self.model, self.loss_fn)
 
     def _warm_start(self, path: str) -> List[str]:
-        """Non-strict warm start from another run's checkpoint (stage 2
-        from stage 1): same-named, same-shaped parameters and BatchNorm
-        statistics; returns the loaded names."""
+        """Non-strict warm start: from another run's checkpoint (stage 2
+        from stage 1: same-named, same-shaped parameters and BatchNorm
+        statistics), or from the reference's torch weights
+        (``pytorch_model*.bin``, through ``utils/hf_import.import_query3d``
+        with the config's memories, as the JAX trainer); returns the
+        loaded names (flax paths for reference weights)."""
         ckpt = find_pretrain(path)
-        if ckpt is None:
+        if ckpt is not None:
+            state = torch.load(ckpt, map_location="cpu",
+                               weights_only=False)["model"]
+            loaded = load_pretrain(self.model, state)
+            print(f"[trainer] warm start from {ckpt}: {len(loaded)} tensors "
+                  f"loaded")
+            return loaded
+        files = reference_weights(path)
+        if not files:
             print(f"[trainer] warm start: nothing loadable at {path!r}")
             return []
-        state = torch.load(ckpt, map_location="cpu",
-                           weights_only=False)["model"]
-        loaded = load_pretrain(self.model, state)
-        print(f"[trainer] warm start from {ckpt}: {len(loaded)} tensors "
-              f"loaded")
-        return loaded
+        memories = tuple(self.cfg["model"].get(
+            "memories", ("mv", "pc", "voxel", "prompt")))
+        report = import_query3d(load_reference_state_dict(files),
+                                self.model, memories=memories)
+        self.warm_start_report = report
+        print(f"[trainer] warm start from {len(files)} torch file(s): "
+              f"{len(report['loaded'])} loaded, "
+              f"{len(report['missing'])} missing, "
+              f"{len(report['mismatched'])} mismatched, "
+              f"{len(report['unused'])} unused")
+        return report["loaded"]
 
     def _put(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         return to_device({k: v for k, v in batch.items()
@@ -459,8 +482,9 @@ class MultitaskTrainer(Query3DTrainer):
                 if n_real:
                     rows = int(eval_batch["query_pad_masks"].shape[0])
                     host_out = truncate_batch_rows(host_out, n_real, rows)
-                    eval_batch = truncate_batch_rows(eval_batch, n_real,
-                                                     rows)
+                    # the meta lists, merged in above, are per row
+                    eval_batch = truncate_batch_rows(
+                        eval_batch, n_real, rows, ROW_LISTS | set(meta))
                 evaluator.update(host_out, eval_batch)
             results = evaluator.record()
             for k, v in results.items():

@@ -15,8 +15,8 @@ Conversions by module type:
   ``mean``/``var`` buffers;
 - raw parameters keep their flax names (CLIP's ``positional_embedding``
   and ``text_projection``, ``RMSNorm``'s ``weight``);
-- sparse convs keep their (K, Cin, Cout) layout and tap order;
-- ``DenseStemConv``'s kernel keeps the (k^3, Cin, Cout) layout too
+- sparse convs keep their (K, Cin, Cout) layout and tap order; the stem
+  ``conv0`` keeps the (k^3, Cin, Cout) layout whichever stem runs it
   (``ops/sparse.conv0_dense_block`` reshapes it for ``F.conv3d``);
 - ``FourierPositionEncoding``: the ``buffers`` collection's ``gauss_B``;
 - the unified model's ``img_encoder``, which flax creates only when the
@@ -39,17 +39,21 @@ The stage-2 heads and encoders need no rule of their own: ``qa_head``
 ``mlp{i}`` keep the flax names.
 
 Every leaf is consumed exactly once and every parameter and buffer of the
-model is filled; anything left over or missing raises.
+model is filled; anything left over or missing raises.  ``flax_leaves``
+lists the model's leaves the other way round (collection, flax path,
+flax-layout shape), for importers that resolve a checkpoint leaf by leaf
+(``utils/hf_import.import_query3d``) and write each through
+``torch_name``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from pq3d_tpu_torch.models.layers import BatchNorm
+from pq3d_tpu_torch.models.layers import BatchNorm, MaskedBatchNorm
 
 _RENAMES = {
     nn.Linear: {"bias": "bias"},
@@ -92,6 +96,31 @@ def torch_name(model: nn.Module, path: Tuple[str, ...], value: np.ndarray
     module = model.get_submodule(".".join(mod_path))
     attr, value = _target(module, leaf, value)
     return ".".join(mod_path + (attr,)), value
+
+
+def flax_leaves(model: nn.Module
+                ) -> List[Tuple[str, Tuple[str, ...], Tuple[int, ...]]]:
+    """(collection, flax path, flax-layout shape) of every parameter and
+    buffer of ``model``, the inverse of ``torch_name``: parameters are
+    ``params``, the batch norms' statistics ``batch_stats``, any other
+    buffer (the Fourier features' ``gauss_B``) ``buffers``; a Linear's
+    ``weight`` is its transposed ``kernel``."""
+    out = []
+    for mod_name, module in model.named_modules():
+        prefix = tuple(mod_name.split(".")) if mod_name else ()
+        back = {v: k for k, v in _RENAMES.get(type(module), {}).items()}
+        if isinstance(module, nn.Linear):
+            back["weight"] = "kernel"
+        stats = isinstance(module, (BatchNorm, MaskedBatchNorm))
+        for attr, t in module.named_parameters(recurse=False):
+            shape = tuple(t.shape)
+            if isinstance(module, nn.Linear) and attr == "weight":
+                shape = shape[::-1]
+            out.append(("params", prefix + (back.get(attr, attr),), shape))
+        for attr, t in module.named_buffers(recurse=False):
+            out.append(("batch_stats" if stats else "buffers",
+                        prefix + (back.get(attr, attr),), tuple(t.shape)))
+    return out
 
 
 def load_flax_variables(model: nn.Module,

@@ -302,7 +302,9 @@ def eval_batches(n_items=5, batch=2, seed=0):
     """Global eval batches over ``n_items`` items (the last wrap-padded,
     ``_meta['n_real']``), with each item's model outputs: og3d logits
     (ScanReferEval), stage-1 logits and targets (InstSegEval) and a
-    caption (Scan2CapEval)."""
+    caption (Scan2CapEval); the items' meta lists (the reference caption,
+    the corpus key) under ``_meta``, as the stage-2 loader collects
+    them."""
     rng = np.random.default_rng(seed)
     q, s, m, c, o = 6, 12, 3, 20, 5
     items = []
@@ -335,7 +337,9 @@ def eval_batches(n_items=5, batch=2, seed=0):
                  if isinstance(rows[0][k], np.ndarray)
                  else [r[k] for r in rows]) for k in rows[0]}
         b["query_pad_masks"] = np.ones((batch, q), bool)
-        b["_meta"] = {"n_real": min(batch, n_items - start)}
+        b["_meta"] = {"caption": b.pop("caption"),
+                      "corpus_key": b.pop("corpus_key"),
+                      "n_real": min(batch, n_items - start)}
         out.append(b)
     return out
 
@@ -350,18 +354,22 @@ def evaluators():
 
 def run_evaluators(batches, split=True):
     """Every evaluator over ``batches``, each scoring this rank's real
-    rows (all of them in one process), as the trainers feed them."""
-    from pq3d_tpu_torch.eval.base import rank_share, truncate_batch_rows
+    rows (all of them in one process), as the trainers feed them: the
+    meta lists merged into the batch and cut as per-row lists."""
+    from pq3d_tpu_torch.eval.base import (ROW_LISTS, rank_share,
+                                          truncate_batch_rows)
     evs = evaluators()
     shares = rank_share(iter(batches), len(batches[0]["query_pad_masks"]),
                         dist.rank(), dist.world()) if split else batches
     for b in shares:
-        n_real = b["_meta"]["n_real"]
+        meta = b["_meta"]
+        n_real = meta["n_real"]
         if n_real == 0:
             continue
         rows = len(b["query_pad_masks"])
-        b = truncate_batch_rows({k: v for k, v in b.items() if k != "_meta"},
-                                n_real, rows)
+        b = {k: v for k, v in b.items() if k != "_meta"}
+        b.update({k: v for k, v in meta.items() if k != "n_real"})
+        b = truncate_batch_rows(b, n_real, rows, ROW_LISTS | set(meta))
         evs["refer"].update({"og3d_logits": b["og3d_logits"]}, b)
         evs["caption"].update({"caption_pred": b["caption_pred"]}, b)
         evs["instseg"].update(

@@ -493,7 +493,7 @@ def _layout_batch(seed, **kw):
                                    n_segments=40) for n in (40000, 50000)]
     cfg = InstSegPipelineConfig(num_queries=16, max_segments=64,
                                 max_instances=8, voxel_bucket=8192,
-                                use_aug=False, **kw)
+                                use_aug=False, stem_mode="dense_block", **kw)
     return make_batch(scenes, cfg, np.random.default_rng(seed))
 
 
@@ -567,7 +567,8 @@ def test_flat_train_batch_backwards_match_plain(cuda_device):
                                    n_segments=40) for n in (40000, 50000)]
     cfg = InstSegPipelineConfig(num_queries=16, max_segments=64,
                                 max_instances=8, voxel_bucket=8192,
-                                flat_pack=True, ztriple_conv=True)
+                                flat_pack=True, ztriple_conv=True,
+                                stem_mode="dense_block")
     maps = make_batch(scenes, cfg, rng, train=True)["maps"]
     rows = [maps[f"valid_{l}"].shape[0] for l in range(5)]
     routed = {(lvl, cin, cout) for _, lvl, cin, cout

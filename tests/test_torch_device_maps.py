@@ -347,6 +347,9 @@ def test_serving_config_and_training_refusal(layout, monkeypatch):
     "model.voxel_encoder.args.device_stem=gathered",
     "model.voxel_encoder.args.device_stem_blocks=512"])
 def test_build_model_refuses_other_device_stems(override):
+    """A device stem the port does not build is refused by build_model, and
+    so is a stem block cap other than the one the host's overflow count
+    uses (``ops/device_maps.stem_cap``)."""
     from pq3d_tpu_torch.config import serving_config
     cfg = serving_config("dev_maps", [override])
     with pytest.raises(NotImplementedError, match="stem"):

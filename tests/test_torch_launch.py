@@ -174,7 +174,7 @@ class _Recording(InstSegServer):
 def _server(model, device):
     pipe = InstSegPipelineConfig(
         voxel_size=0.15, num_queries=8, max_segments=32, max_instances=8,
-        voxel_bucket=128, use_aug=False,
+        voxel_bucket=128, use_aug=False, stem_mode="dense_block",
         level_caps=[512, 256, 128, 128, 128])
     return _Recording(model, pipe, batch_size=2, num_classes=20, topk=20,
                       max_delay_s=0.01, extra_features={"mv": 16, "pc": 16},

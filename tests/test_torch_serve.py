@@ -59,7 +59,7 @@ def test_server_answers_and_matches_jax_forward():
     rng = np.random.default_rng(0)
     pipe = InstSegPipelineConfig(
         voxel_size=0.15, num_queries=8, max_segments=32, max_instances=8,
-        voxel_bucket=128, use_aug=False,
+        voxel_bucket=128, use_aug=False, stem_mode="dense_block",
         level_caps=[512, 256, 128, 128, 128])
     scenes = [synthetic.make_scene(rng, n_points=n, n_instances=3,
                                    n_segments=16) for n in (600, 900, 700)]

@@ -233,7 +233,8 @@ def test_inst_seg_server_serves_the_cast():
     model = cast_model_bf16(tm.eval())
     pipe = tpipe.InstSegPipelineConfig(
         voxel_size=0.15, num_queries=8, max_segments=32, max_instances=8,
-        voxel_bucket=128, use_aug=False, level_caps=[512, 256, 128, 128, 128])
+        voxel_bucket=128, use_aug=False, stem_mode="dense_block",
+        level_caps=[512, 256, 128, 128, 128])
     rng = np.random.default_rng(0)
     scenes = [tsyn.make_scene(rng, n_points=n, n_instances=3, n_segments=16)
               for n in (600, 900)]

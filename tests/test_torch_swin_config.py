@@ -1,11 +1,11 @@
 """The Swin3D stage-1 path from its config, on the CPU.
 
-- No option that the JAX package reads is dropped in silence: a
-  ``conv0_kernel`` other than 5 or the model's stem kernel and a voxel
-  encoder the port does not build raise ``NotImplementedError``; the
+- No option that the JAX package reads is dropped in silence: a voxel
+  encoder the port does not build raises ``NotImplementedError``; the
   options that raised until the port had them (``compact_conv``,
-  ``level_cap_ladder``, ``sorted_gather``, ``int8_gather``) now reach the
-  pipeline and the model; ``swin_window`` is read.
+  ``level_cap_ladder``, ``conv0_kernel``, ``sorted_gather``,
+  ``int8_gather``) now reach the pipeline and the model; ``swin_window``
+  is read.
 - ``PCDMask3DSwin3DEncoder`` builds the Swin3D backbone (window from
   ``backbone_kwargs.config.window``, else ``args.swin_window``, else 4),
   ``INSTSEG_SWIN3D_SYNTHETIC`` is ``instseg_swin3d_synthetic.yaml``, and a
@@ -73,15 +73,14 @@ def small_swin(monkeypatch):
     ("model.voxel_encoder.args.int8_gather", "true"),
     ("model.voxel_encoder.name", "PCDMask3DEncoder")])
 def test_unported_option_is_refused_by_name(key, value):
-    """The stem kernel and the encoder name are refused by name; the four
-    conv options the port now has are read (the pipeline's, or the
-    backbone's attribute), no longer refused."""
+    """The encoder name is refused by name; the gather stem's kernel and
+    the four conv options the port now has are read (the pipeline's, or
+    the backbone's attribute), no longer refused."""
     cfg = tconfig.load_config("instseg_synthetic", [f"{key}={value}",
                                                     "device=cpu"])
     leaf = key.split(".")[-1]
-    if "name" in key or "conv0" in key:
-        match = leaf if "name" not in key else "PCDMask3DEncoder"
-        with pytest.raises(NotImplementedError, match=match):
+    if "name" in key:
+        with pytest.raises(NotImplementedError, match="PCDMask3DEncoder"):
             trun.build_instseg_trainer(cfg)
         return
     trainer = trun.build_instseg_trainer(cfg)
@@ -102,7 +101,7 @@ def test_swin_options_are_read():
     iopt = dict(tconfig.INSTSEG_SYNTHETIC["data"]["instseg_options"],
                 compact_conv=False, level_cap_ladder=None, conv0_kernel=3,
                 swin_window=2, stem_mode="none")
-    pipe = tpipe.pipeline_config(iopt, conv1_kernel_size=3)
+    pipe = tpipe.pipeline_config(iopt)
     assert pipe.swin_window == 2 and pipe.stem_mode == "none"
     small = ["model.hidden_size=32",
              "model.unified_encoder.args.num_attention_heads=4",

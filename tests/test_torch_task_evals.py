@@ -170,7 +170,7 @@ def test_truncate_batch_rows_equals_jax():
     rng = np.random.default_rng(0)
     tree = {"a": rng.random((4, 3)), "b": [rng.random((4, 2)),
                                            rng.random((4, 5))],
-            "texts": ["w", "x", "y", "z"], "scene": rng.random((2, 4)),
+            "answer_pred": ["w", "x", "y", "z"], "scene": rng.random((2, 4)),
             "nested": {"c": rng.random((4,)), "short": [1, 2]}}
     got = tbase.truncate_batch_rows(tree, 3, 4)
     want = jbase.truncate_batch_rows(tree, 3, 4)
@@ -184,5 +184,6 @@ def test_truncate_batch_rows_equals_jax():
                 same(x, y) for x, y in zip(a, b))
         return np.array_equal(a, b)
     assert same(got, want)
-    assert got["texts"] == ["w", "x", "y"] and got["scene"].shape == (2, 4)
+    assert got["answer_pred"] == ["w", "x", "y"] \
+        and got["scene"].shape == (2, 4)
     assert tbase.truncate_batch_rows(tree, 4, 4) is tree

@@ -41,8 +41,8 @@ def _batch(seed=0):
     rng = np.random.default_rng(seed)
     pipe = InstSegPipelineConfig(
         voxel_size=0.1, num_queries=8, max_segments=32, max_instances=8,
-        voxel_bucket=128, use_aug=False, level_caps=[1024, 512, 256, 128,
-                                                     128])
+        voxel_bucket=128, use_aug=False, stem_mode="dense_block",
+        level_caps=[1024, 512, 256, 128, 128])
     scenes = [synthetic.make_scene(rng, n_points=n, n_instances=3,
                                    n_segments=16) for n in (1400, 1800)]
     return make_batch(scenes, pipe, rng), rng

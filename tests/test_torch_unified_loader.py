@@ -164,7 +164,8 @@ def test_instseg_pool_matches_worker_path():
            "debug": {"flag": False}}
     pipe = InstSegPipelineConfig(voxel_size=0.15, num_queries=8,
                                  max_segments=32, max_instances=8,
-                                 voxel_bucket=128, use_aug=True)
+                                 voxel_bucket=128, use_aug=True,
+                                 stem_mode="dense_block")
     mk = lambda nw: tdatasets.InstSegLoader(  # noqa: E731
         tdatasets.SyntheticInstSeg(cfg, "train"), pipe, batch_size=2,
         train=True, seed=3, extra_features={"mv": 8}, num_workers=nw)

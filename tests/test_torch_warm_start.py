@@ -186,11 +186,18 @@ def test_published_warm_start_count(monkeypatch, capsys):
 
 
 def test_reference_bin_weights_raise(tmp_path):
+    """Reference weight files are found (a directory's pytorch_model*.bin,
+    or the file) beside no port checkpoint, and one that does not hold a
+    state_dict raises when read, never loads nothing in silence."""
     (tmp_path / "pytorch_model.bin").write_bytes(b"")
-    for path in (str(tmp_path), str(tmp_path / "pytorch_model.bin")):
-        with pytest.raises(NotImplementedError, match="A.3"):
-            tckpt.find_pretrain(path)
+    bin_path = str(tmp_path / "pytorch_model.bin")
+    for path in (str(tmp_path), bin_path):
+        assert tckpt.find_pretrain(path) is None
+        assert tckpt.reference_weights(path) == [bin_path]
+        with pytest.raises(EOFError):
+            tckpt.load_reference_state_dict(tckpt.reference_weights(path))
     assert tckpt.find_pretrain(str(tmp_path / "absent")) is None
+    assert tckpt.reference_weights(str(tmp_path / "absent")) == []
 
 
 def _metrics(exp, prefix):
