@@ -282,7 +282,7 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
 16. conv_options -- the voxel encoder's remaining conv options at the
                slice's widths (instseg_sceneverse + pallas_conv: true,
                random weights from a seed), phase 5b's scenes and caps:
-               InstSegServer(batch_size=4) serves 4 warm and 16 timed
+               InstSegServer(batch_size=4) serves 4 warm and 8 timed
                scenes in rect, rect_int8 (grad_mode native + int8_gather),
                rect_sorted (sorted_gather), flat_compact (the flat pack with
                compact_conv) and flat_compact_int8, printing scenes/s,
@@ -342,6 +342,26 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                report loads every leaf, with nothing mismatched or unused;
                every warm-started tensor on the card equals its source bit
                for bit; the first loss is finite; B1 runs forward and dx;
+19. export -- pq3d_tpu_torch.export (torch.export artifacts; B1 is the
+               operator pq3d::zrun_conv): (i) the slice's full-width stage-1
+               model (phase 5b's caps, random weights from a seed, rect) is
+               exported on the CPU, on the batch of 4 of phase 5b's first
+               timed scenes, by a second process that sees no card
+               (``chip_smoke.py --export-stage1 PATH``, run while this one
+               exports stage 2), written to a temporary file and loaded
+               with device="cuda"; gates: the graph holds one pq3d.zrun_conv node
+               per routed conv, the loaded program launches B1 that often a
+               forward over 1 + 5 forwards and B2 never, its logits equal
+               the eager card forward's within 1e-5 in every round up to a
+               flipped attend bit; (ii) unified_tasks_sceneverse at its
+               widths exported on the card on a batch of 8 of phase 10's
+               requests: tokens equal to eager's, ground_logits within
+               1e-5; each prints the export seconds, graph nodes, the
+               artifact's MiB, the load (and move) seconds and one
+               forward's ms exported against eager (CUDA events, median of
+               5); (iii) VoxelLevelEncoder (hidden 768) on (i)'s batch with
+               B1 against all-plain within 2e-2, B1 launched once per routed
+               conv; every timing runs after the CPU process has ended;
 then a summary line (B1 against B2 in this run), one JSON line with every
 hand kernel's numbers, and the result line.
 
@@ -4183,8 +4203,9 @@ def swin_layouts_phase(card, dev):
 # bound's prediction), the ladder's rungs and the training runs
 CONV_SETUPS = ("rect", "rect_int8", "rect_sorted", "flat_compact",
                "flat_compact_int8")
-# timed requests a setup: 4 batches of 4 (32 held the script past 700 s)
-CONV_TIMED = 16
+# timed requests a setup: 2 batches of 4 (32 held the script past 700 s;
+# 16 until phase export joined it)
+CONV_TIMED = 8
 # flat_compact against rect (JAX's tests/test_flat_pack.py:177 bound, here
 # over the scale); an int8 setup against its f32 twin; the card's int8
 # forward against the CPU's on one scene
@@ -4917,15 +4938,266 @@ def reference_warm_start_phase(card, zrun_conv):
             "peak_gib": rec["peak"] / 2**30, "phase_s": total}
 
 
+EXPORT_FORWARDS = 5       # timed forwards of each program (median)
+EXPORT_GATES = {"stage1": 1e-5, "ground": 1e-5, "voxel_level": 2e-2}
+EXPORT_KEYS = ("predictions_class", "predictions_mask")
+
+
+def export_stage1_setup(device):
+    """Phase export's stage-1 model (the slice's, phase 5b's caps, random
+    weights from seed 0; the same weights on every device) and its batch
+    of phase 5b's first 4 timed scenes with the served extra features, on
+    ``device``; returns (model, batch, numpy batch)."""
+    import numpy as np
+    import torch
+    from pq3d_tpu_torch.config import serving_config
+    from pq3d_tpu_torch.data.instseg_pipeline import (make_batch,
+                                                      pipeline_config)
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.serve import to_device
+    cfg = serving_config("rect",
+                         [f"data.instseg_options.level_caps={LAYOUT_CAPS}"])
+    pipe = pipeline_config(cfg["data"]["instseg_options"])
+    model = build_model(cfg, device=device.type, seed=0)
+    np_b = make_batch([dict(s) for s in make_scenes(4, seed=3)], pipe,
+                      np.random.default_rng(0))
+    np_b.pop("_meta")
+    b = to_device(np_b, device)
+    for name, dim in SERVE_EXTRA.items():
+        b[f"{name}_seg_fts"] = torch.zeros(4, pipe.max_segments, dim,
+                                           device=device)
+        b[f"{name}_seg_pad_masks"] = b["seg_pad_masks"]
+    return model, b, np_b
+
+
+def export_stage1_cpu(path):
+    """Phase export's CPU host (``python3 chip_smoke.py --export-stage1
+    PATH``, started by the phase with no card visible): exports the
+    stage-1 forward on the CPU and writes the artifact to ``path``; prints
+    one JSON line of its readings."""
+    import torch
+    from pq3d_tpu_torch import export
+    cpu = torch.device("cpu")
+    model, b, _ = export_stage1_setup(cpu)
+    t0 = time.time()
+    program = export.export_program(model, b, outputs=EXPORT_KEYS)
+    export_s = time.time() - t0
+    t0 = time.time()
+    blob = export.save_program(program)
+    with open(path, "wb") as f:
+        f.write(blob)
+    print(json.dumps({
+        "export_s": export_s, "save_s": time.time() - t0,
+        "nodes": len(program.graph.nodes),
+        "zrun_conv_nodes": export.kernel_nodes(program),
+        "platforms": export.exported_platforms(program),
+        "artifact_mib": len(blob) / 2**20}), flush=True)
+
+
+def export_phase(card, dev, zrun_conv):
+    """Phase ``export`` (see the module docstring): the stage-1 forward
+    exported on the CPU (by a second process that sees no card, while this
+    one exports stage 2 on the card) and run on the card, stage 2 exported
+    on the card, and VoxelLevelEncoder at full width.  Every timing runs
+    after the CPU process has ended.  Returns the phase's numbers."""
+    import subprocess
+    import tempfile
+    import numpy as np
+    import torch
+    from pq3d_tpu_torch import export
+    from pq3d_tpu_torch.config import load_config
+    from pq3d_tpu_torch.data.unified_pipeline import (UnifiedPipelineConfig,
+                                                      collate_unified,
+                                                      process_item)
+    from pq3d_tpu_torch.models.encoders import VoxelLevelEncoder
+    from pq3d_tpu_torch.models.query3d import build_model, init_weights
+    from pq3d_tpu_torch.ops import windowed_conv
+    from pq3d_tpu_torch.serve import to_device
+    t_phase = time.time()
+    out = {}
+
+    def report(label, r, load_what):
+        print(f"export: {label}: exported in {r['export_s']:.1f} s, "
+              f"{r['nodes']} graph nodes ({r['zrun_conv_nodes']} "
+              f"pq3d.zrun_conv), artifact {r['artifact_mib']:.1f} MiB, "
+              f"{load_what} {r['load_s']:.1f} s | one forward "
+              f"{r['exported_ms']:.1f} ms exported against "
+              f"{r['eager_ms']:.1f} ms eager (CUDA events, median of "
+              f"{EXPORT_FORWARDS}) ({card})", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="pq3d_export_") as tmp:
+        path = os.path.join(tmp, "stage1.pt2")
+        cpu_host = subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--export-stage1", path],
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            # (ii) stage 2 at its published widths, exported on the card
+            cfg = load_config("unified_tasks_sceneverse")
+            upipe = UnifiedPipelineConfig(**cfg["data"]["unified_options"])
+            feature_dims = {"mv": 768, "voxel": 128}
+            umodel = build_model(cfg, device="cuda", seed=0)
+            rng = np.random.default_rng(5)
+            items = [process_item(sc, l, upipe, rng, False, feature_dims)
+                     for sc, l in unified_requests(8, seed=2)]
+            np2 = collate_unified([{k: v for k, v in it.items()
+                                    if not k.startswith("meta_")}
+                                   for it in items], upipe, feature_dims,
+                                  train=False)
+            for key in ("obj_fts", "response"):
+                np2.pop(key, None)
+            b2d = to_device(np2, dev)
+            ukeys = ("ground_logits", "generation_tokens")
+            t0 = time.time()
+            program = export.export_program(umodel, b2d, outputs=ukeys)
+            s2 = {"export_s": time.time() - t0,
+                  "nodes": len(program.graph.nodes),
+                  "zrun_conv_nodes": export.kernel_nodes(program)}
+            blob = export.save_program(program)
+            s2["artifact_mib"] = len(blob) / 2**20
+            del program
+            t0 = time.time()
+            fn2 = export.load_forward(blob)
+            s2["load_s"] = time.time() - t0
+            del blob
+            stdout, stderr = cpu_host.communicate(timeout=900)
+        finally:
+            if cpu_host.poll() is None:
+                cpu_host.kill()
+                cpu_host.wait()
+        if cpu_host.returncode != 0:
+            fail(f"export: the CPU export of stage 1 failed "
+                 f"(rc {cpu_host.returncode}):\n{stderr[-3000:]}")
+        s1 = json.loads(stdout.strip().splitlines()[-1])
+        with open(path, "rb") as f:
+            blob = f.read()
+
+    # (i) stage 1: the artifact exported on the CPU, loaded onto the card
+    model, bd, np_b = export_stage1_setup(dev)
+    routed = model.voxel_encoder.backbone.routed_convs(level_rows(np_b))
+    if s1["zrun_conv_nodes"] != len(routed):
+        fail(f"export: the stage-1 graph holds {s1['zrun_conv_nodes']} "
+             f"pq3d.zrun_conv nodes; the forward routes {len(routed)} "
+             f"convs")
+    if tuple(s1["platforms"]) != ("cpu",):
+        fail("export: the stage-1 artifact's weights are not on the CPU")
+    t0 = time.time()
+    fn = export.load_forward(blob, device="cuda")
+    s1["load_s"] = time.time() - t0
+    del blob
+    zrun_conv.reset_counts()                  # main path starts here
+    windowed_conv.reset_counts()
+    got = fn(bd)
+    exp_ms = cuda_times(lambda: fn(bd), EXPORT_FORWARDS)
+    torch.cuda.synchronize()
+    launches, b2 = zrun_conv.launches, windowed_conv.launches
+    forwards = 1 + EXPORT_FORWARDS            # main path ends here
+    print(f"export: stage1: B1 launched {launches} times over {forwards} "
+          f"forwards of the loaded program ({len(routed)} routed convs a "
+          f"forward), B2 {b2} times", flush=True)
+    if launches != len(routed) * forwards or b2:
+        fail("export: the loaded stage-1 program did not launch B1 once "
+             "per routed conv and forward, or launched B2")
+    with torch.inference_mode():
+        ref = model(bd)
+    rel, first = rounds_rel(out_rounds(ref), out_rounds(got),
+                            bd["seg_pad_masks"])
+    n_rounds = len(ref["predictions_class"])
+    print(f"export: stage1 exported logits against the eager card forward, "
+          f"every round up to a flipped attend bit: rel {rel:.2e} (gate "
+          f"{EXPORT_GATES['stage1']:.0e}); scenes with a flipped bit "
+          f"{sum(f < n_rounds for f in first)}", flush=True)
+    if not rel <= EXPORT_GATES["stage1"]:
+        fail("export: the exported stage-1 forward disagrees with eager")
+
+    def eager1():
+        with torch.inference_mode():
+            model(bd)
+    s1.update(exported_ms=exp_ms[len(exp_ms) // 2],
+              eager_ms=cuda_time(eager1, EXPORT_FORWARDS),
+              launches=launches, forwards=forwards, rel=rel, b2_launches=b2)
+    report("stage1", s1, "load and move")
+    out["stage1"] = s1
+    del fn, got, ref
+    torch.cuda.empty_cache()
+
+    # (iii) VoxelLevelEncoder at full width on the same batch
+    vle = VoxelLevelEncoder(pallas_conv=True).eval()
+    init_weights(vle, torch.Generator().manual_seed(4))
+    vle.to(dev)
+    vrouted = vle.backbone.routed_convs(level_rows(np_b))
+    outs = {}
+    for use_kernel in (True, False):
+        vle.backbone.pallas_conv = use_kernel
+        zrun_conv.reset_counts()
+        with torch.inference_mode():
+            mask, scales = vle(bd["voxel_feats"], bd["maps"])
+        torch.cuda.synchronize()
+        outs[use_kernel] = ([mask] + scales, zrun_conv.launches)
+    vrel = max(rel_err(a, r) for a, r in zip(outs[True][0], outs[False][0]))
+    finite = all(torch.isfinite(t).all().item() for t in outs[True][0])
+    print(f"export: VoxelLevelEncoder (hidden 768, hlevels 0-3) with B1 "
+          f"against all-plain: rel {vrel:.2e} (gate "
+          f"{EXPORT_GATES['voxel_level']:.0e}) | mask features "
+          f"{tuple(outs[True][0][0].shape)} | B1 launched "
+          f"{outs[True][1]} times ({len(vrouted)} routed convs), "
+          f"{outs[False][1]} all-plain", flush=True)
+    if not (finite and vrel <= EXPORT_GATES["voxel_level"]) \
+            or outs[True][1] != len(vrouted) or not vrouted \
+            or outs[False][1]:
+        fail("export: VoxelLevelEncoder with B1 disagrees with all-plain, "
+             "or B1 did not launch once per routed conv")
+    out["voxel_level"] = {"rel": vrel, "launches": outs[True][1],
+                          "routed": len(vrouted)}
+    del vle, outs, model, bd
+    torch.cuda.empty_cache()
+
+    # (ii)'s gates and timings
+    got = fn2(b2d)
+    with torch.inference_mode():
+        ref = umodel(b2d)
+    valid = b2d["query_pad_masks"]
+    grel = rel_err(got["ground_logits"][valid], ref["ground_logits"][valid])
+    same = torch.equal(got["generation_tokens"], ref["generation_tokens"])
+    print(f"export: stage2 (unified_tasks_sceneverse, batch 8, "
+          f"{got['generation_tokens'].shape[1]} greedy tokens): tokens "
+          f"{'equal' if same else 'DIFFER'} to eager, ground_logits rel "
+          f"{grel:.2e} (gate {EXPORT_GATES['ground']:.0e})", flush=True)
+    if not same or not grel <= EXPORT_GATES["ground"]:
+        fail("export: the exported stage-2 forward disagrees with eager")
+
+    def eager2():
+        with torch.inference_mode():
+            umodel(b2d)
+    s2.update(exported_ms=cuda_time(lambda: fn2(b2d), EXPORT_FORWARDS),
+              eager_ms=cuda_time(eager2, EXPORT_FORWARDS), ground_rel=grel)
+    report("stage2", s2, "load")
+    out["stage2"] = s2
+    del fn2, umodel
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t_phase
+    print(f"export: phase {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
                     help="trace one served forward; write the table here")
+    ap.add_argument("--export-stage1", metavar="PATH",
+                    help="phase export's CPU host: export the stage-1 "
+                         "forward on the CPU to PATH and exit")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "pq3d_tpu_torch")):
         fail("pq3d_tpu_torch/ is not beside chip_smoke.py: run it from a "
              "checkout of the repository")
     sys.path.insert(0, HERE)
+    if args.export_stage1:
+        import warnings
+        warnings.filterwarnings("ignore", message="level .* > configured cap")
+        export_stage1_cpu(args.export_stage1)
+        return
     import warnings
     import numpy as np
     import torch
@@ -5253,12 +5525,18 @@ def main():
 
     # ---- 18. reference_warm_start: reference weights into the trainer ---
     rw = reference_warm_start_phase(card, zrun_conv)
+    torch.cuda.empty_cache()
+
+    # ---- 19. export: torch.export artifacts, B1 as pq3d::zrun_conv -----
+    ex = export_phase(card, dev, zrun_conv)
     new_paths = {**{f"gather_stem_{k}": r["launches"]
                     for k, r in gs["runs"].items()},
                  "gather_stem_train_fwd": gs["train"]["b1"]["fwd"],
                  "gather_stem_train_bwd": gs["train"]["b1"]["bwd"],
                  "reference_warm_start_fwd": rw["launches"]["fwd"],
-                 "reference_warm_start_bwd": rw["launches"]["bwd"]}
+                 "reference_warm_start_bwd": rw["launches"]["bwd"],
+                 "export": ex["stage1"]["launches"],
+                 "export_voxel_level": ex["voxel_level"]["launches"]}
 
     # ---- kernels line + result -----------------------------------------
     def per_fwd(key):
@@ -5322,7 +5600,9 @@ def main():
                  f"its training runs (forward, dx), phase gather_stem's "
                  f"rect_gather and dev_gather runs and its training "
                  f"(forward, dx), phase reference_warm_start's 2 steps "
-                 f"(forward, dx); recipe_ms: the "
+                 f"(forward, dx), phase export's {ex['stage1']['forwards']} "
+                 f"forwards of the stage-1 program exported on the CPU and "
+                 f"its VoxelLevelEncoder forward; recipe_ms: the "
                  f"same sum "
                  f"as ms over one forward of 4 SceneVerse-replica scans",
         "recipe_ms": rc["b1_ms"], "recipe_shapes": rc["b1"],
@@ -5332,7 +5612,7 @@ def main():
                 for k, r in dd.items()},
         "swin_layouts": {k: v for k, v in sw.items() if k != "locks"},
         "conv_options": co,
-        "gather_stem": gs, "reference_warm_start": rw,
+        "gather_stem": gs, "reference_warm_start": rw, "export": ex,
         "shapes": per_shape,
         "bwd_launches": tr["counts"]["bwd"],
         "bwd_ms": per_step("ms"), "bwd_host_ms": per_step("host_ms"),
@@ -5376,6 +5656,7 @@ def main():
                                                  co["runs"].values()),
                              "gather_stem": sum(r["b2_launches"] for r in
                                                 gs["runs"].values()),
+                             "export": ex["stage1"]["b2_launches"],
                              "winconv": wc["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in wc["shapes"]),
         "ms": b2_fwd("ms"), "plain_ms": b2_fwd("plain_ms"),

@@ -7,12 +7,17 @@
   holds a swin model and a pipeline to one window;
 - ObjectEncoder: per-object (or per-segment) feature projection, with an
   optional PointNet++ backbone over raw object point clouds (the padded
-  (B, O, P, 3+C) layout, or the flat one: the batch's real objects only).
+  (B, O, P, 3+C) layout, or the flat one: the batch's real objects only);
+- VoxelLevelEncoder (``PCDMask3DEncoder``): the U-Net's voxel-level mask
+  features and per-level features, no segment pooling;
+- SemanticEncoder: label embeddings of the predicted class distribution,
+  with the prediction mixup curriculum (``mixup_predictions``,
+  ``linear_decay_mixup_ratio``).
 """
 from __future__ import annotations
 
 import warnings
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -227,6 +232,113 @@ class ObjectEncoder(nn.Module):
         if self.use_projection:
             obj_feats = self.LayerNorm_0(self.input_feat_proj(obj_feats))
         return self.drop(obj_feats)
+
+
+class VoxelLevelEncoder(nn.Module):
+    """Voxel-level Mask3D encoder (the JAX package's ``VoxelLevelEncoder``,
+    registered as ``PCDMask3DEncoder``): Res16UNet -> mask features at the
+    level-0 voxels plus a projected feature map per hlevel, on the
+    rectangular (B, P_l) maps.  With ``pallas_conv`` the routed stride-1
+    3^3 convs run kernel B1, as in the segment-level encoder.
+
+    Returns (mask_feature (B, P0, hidden), [(B, P_l, hidden) per hlevel]).
+    ``freeze_backbone`` runs the U-Net in eval mode and without gradient
+    (JAX: batch statistics off, ``stop_gradient`` on its features)."""
+
+    def __init__(self, hidden_size: int = 768,
+                 hlevels: Sequence[int] = (0, 1, 2, 3),
+                 dropout: float = 0.1, freeze_backbone: bool = False,
+                 backbone_out_channels: int = 200, bn_momentum: float = 0.02,
+                 conv1_kernel_size: int = 5, remat_policy: str = "full",
+                 grad_mode: str = "native", pallas_conv: bool = False):
+        super().__init__()
+        self.hlevels = list(hlevels)
+        self.freeze_backbone = freeze_backbone
+        self.backbone = Res16UNet(out_channels=backbone_out_channels,
+                                  conv1_kernel_size=conv1_kernel_size,
+                                  pallas_conv=pallas_conv,
+                                  bn_momentum=bn_momentum,
+                                  grad_mode=grad_mode,
+                                  remat_policy=remat_policy)
+        p = self.backbone.feature_channels
+        self.mask_proj = ProjectLN(p[4], hidden_size, dropout)
+        for i, hlevel in enumerate(self.hlevels):
+            self.add_module(f"scale_proj_{i}", ProjectLN(p[hlevel],
+                                                         hidden_size,
+                                                         dropout))
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if self.freeze_backbone:
+            self.backbone.eval()
+        return self
+
+    def forward(self, voxel_feats: torch.Tensor,
+                maps: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        # feature_maps are flat (B*P_l, C), [L4, L3, L2, L1, L0]
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.freeze_backbone):
+            _, feature_maps = self.backbone(voxel_feats, maps)
+        b, p0 = maps["valid_0"].shape
+        mask_feat = self.mask_proj(feature_maps[4].reshape(b, p0, -1))
+        multi_scale = []
+        for i, hlevel in enumerate(self.hlevels):
+            p_l = maps[f"valid_{4 - hlevel}"].shape[1]
+            multi_scale.append(getattr(self, f"scale_proj_{i}")(
+                feature_maps[hlevel].reshape(b, p_l, -1)))
+        return mask_feat, multi_scale
+
+
+class SemanticEncoder(nn.Module):
+    """Label-embedding encoder with the prediction mixup curriculum (the
+    JAX package's ``SemanticEncoder``).  The semantic embedding table
+    (GloVe or CLIP label vectors) is the fixed buffer
+    ``semantic_embedding`` (``buffers/semantic_embedding`` in the flax
+    tree).  Returns (embeddings (..., hidden), the mean class logits)."""
+
+    def __init__(self, hidden_size: int = 768, embed_dim: int = 300,
+                 num_classes: int = 607, use_matmul_label: bool = False,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.use_matmul_label = use_matmul_label
+        self.register_buffer("semantic_embedding",
+                             torch.randn(num_classes, embed_dim) * 0.02)
+        self.sem_emb_proj = ProjectLN(embed_dim, hidden_size, dropout)
+
+    def forward(self, cls_logits_list: Sequence[torch.Tensor],
+                obj_labels: Optional[torch.Tensor] = None,
+                mixup_ratio=0.0):
+        table = self.semantic_embedding
+        logits = sum(cls_logits_list) / len(cls_logits_list)
+        probs = torch.softmax(logits, -1).detach()
+        if obj_labels is not None and mixup_ratio > 0:
+            probs = mixup_predictions(probs, obj_labels, mixup_ratio)
+        if self.use_matmul_label:
+            embeds = probs @ table
+        else:
+            embeds = table[probs.argmax(-1)]
+        return self.sem_emb_proj(embeds), logits
+
+
+def mixup_predictions(probs: torch.Tensor, labels: torch.Tensor,
+                      ratio) -> torch.Tensor:
+    """Blend predicted class distributions with the one-hot ground truth
+    at ``ratio`` (rows with a negative label keep their prediction)."""
+    valid = labels >= 0
+    onehot = nn.functional.one_hot(labels.clamp_min(0).long(),
+                                   probs.shape[-1]).to(probs.dtype)
+    mixed = torch.where(valid[..., None], onehot, probs)
+    return probs * (1 - ratio) + mixed * ratio
+
+
+def linear_decay_mixup_ratio(step, total_steps, stage1: float,
+                             stage2: float) -> torch.Tensor:
+    """Curriculum: 1 until ``stage1 * total_steps``, then a linear decay
+    to 0 at ``stage2 * total_steps`` (an f32 scalar tensor)."""
+    s1, s2 = stage1 * total_steps, stage2 * total_steps
+    ratio = torch.as_tensor(s2 - step, dtype=torch.float32) / max(s2 - s1, 1)
+    return ratio.clamp(0.0, 1.0)
 
 
 def check_swin_window(model, pipe_cfg) -> None:

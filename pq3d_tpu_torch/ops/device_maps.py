@@ -309,3 +309,10 @@ def _stem_maps(vox_coords: torch.Tensor, n_voxels: torch.Tensor,
         dense.scatter_(1, tgt[:, :, None].expand(-1, -1, cin), voxel_feats)
         maps["stem_dense"] = dense[:, :-1].reshape(b, nb_cap, b3 * cin)
     return maps
+
+
+def hierarchy_to_host_format(dev: Dict[str, torch.Tensor],
+                             num_levels: int = 5) -> Dict[str, np.ndarray]:
+    """The device-built maps as numpy arrays (a test and debug helper)."""
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v) for k, v in dev.items()}

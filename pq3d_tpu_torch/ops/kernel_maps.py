@@ -1,5 +1,5 @@
 """Host-side sparse-convolution kernel maps (numpy); copy of
-``pq3d_tpu/ops/kernel_maps.py`` trimmed to what the serving slice uses.
+``pq3d_tpu/ops/kernel_maps.py``.
 
 Replaces the MinkowskiEngine coordinate manager.  All maps are built on the
 host inside the input pipeline, per scene, and padded to static sizes.
@@ -152,6 +152,47 @@ def morton_order(coords: np.ndarray, bits: int = 10) -> np.ndarray:
             code |= ((c[:, d] >> np.uint64(b)) & np.uint64(1)) << \
                 np.uint64(3 * b + d)
     return np.argsort(code, kind="stable")
+
+
+def build_block_pack(coords: np.ndarray, block: int = 8
+                     ) -> Dict[str, np.ndarray]:
+    """Pack sparse voxels into dense ``block^3`` spatial blocks (the JAX
+    package's ``build_block_pack``): inside an occupied block a conv is a
+    dense 3D conv, and blocks exchange halos through whole-block gathers.
+
+    Returns dict:
+      vox_slot   (N,)  flat dense-cell index (block_id * block^3 + cell)
+      nbr_blocks (n_blocks, 3, 3, 3) neighbor block ids (-1 outside)
+      n_blocks   scalar int
+    """
+    bcoord = np.floor_divide(coords, block)
+    lo = bcoord.min(0) if len(bcoord) else np.zeros(3, np.int64)
+    bshift = bcoord - lo
+    dims = bshift.max(0) + 1 if len(bshift) else np.ones(3, np.int64)
+    key = (bshift[:, 0].astype(np.int64) * dims[1] + bshift[:, 1]) * dims[2] \
+        + bshift[:, 2]
+    ukeys, binv = np.unique(key, return_inverse=True)
+    n_blocks = len(ukeys)
+    local = coords - bcoord * block
+    cell = (local[:, 0] * block + local[:, 1]) * block + local[:, 2]
+    vox_slot = (binv * block ** 3 + cell).astype(np.int32)
+
+    ub = np.stack([ukeys // (dims[1] * dims[2]),
+                   (ukeys // dims[2]) % dims[1],
+                   ukeys % dims[2]], axis=1)
+    nbr_blocks = np.full((n_blocks, 3, 3, 3), -1, np.int32)
+    for dx in range(3):
+        for dy in range(3):
+            for dz in range(3):
+                q = ub + np.array([dx - 1, dy - 1, dz - 1])
+                inside = ((q >= 0) & (q < dims)).all(1)
+                qk = (q[:, 0] * dims[1] + q[:, 1]) * dims[2] + q[:, 2]
+                pos = np.searchsorted(ukeys, qk)
+                pos_c = np.minimum(pos, n_blocks - 1)
+                hit = (ukeys[pos_c] == qk) & inside
+                nbr_blocks[:, dx, dy, dz] = np.where(hit, pos_c, -1)
+    return {"vox_slot": vox_slot, "nbr_blocks": nbr_blocks,
+            "n_blocks": n_blocks}
 
 
 def downsample_coords(coords: np.ndarray

@@ -38,7 +38,6 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
 
 def _round(t: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
@@ -274,6 +273,28 @@ def sparse_conv_transpose(x: torch.Tensor, parent: torch.Tensor,
     return out.to(x.dtype)
 
 
+def pool_transpose(x_coarse: torch.Tensor, ancestor: torch.Tensor,
+                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Broadcast coarse features to fine voxels by ancestor index
+    (MinkowskiPoolingTranspose chained to level 0): each fine row takes the
+    row of its ancestor; rows with ``valid`` False are zero."""
+    out = fast_row_gather(x_coarse, ancestor.long().clamp_min(0))
+    if valid is not None:
+        out = torch.where(valid[:, None], out, 0)
+    return out
+
+
+def avg_pool_stride2(x: torch.Tensor, child: torch.Tensor) -> torch.Tensor:
+    """Average-pool fine features into coarse voxels through the (Nc, K)
+    child map (-1 = no child); a coarse row without children is 0."""
+    m = child >= 0
+    n_coarse, k = child.shape
+    xi = fast_row_gather(x, child.long().clamp_min(0).reshape(-1))
+    xi = torch.where(m[..., None], xi.reshape(n_coarse, k, -1), 0)
+    cnt = m.sum(1, keepdim=True).clamp_min(1)
+    return xi.sum(1) / cnt
+
+
 def _stem_halo(dense_in: torch.Tensor, nbr_win: torch.Tensor, block: int,
                kernel: int, compute_dtype: torch.dtype) -> torch.Tensor:
     """(NB, h, h, h, Cin) channels-last halo blocks, h = block +
@@ -345,8 +366,12 @@ class _StemConv(torch.autograd.Function):
         ctx.conf = (block, kernel, compute_dtype, w.shape)
         halo = _stem_halo(dense_in, nbr_win, block, kernel, compute_dtype)
         w5 = _conv3d_layout(_round(w, compute_dtype), kernel)
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            y = F.conv3d(halo.permute(0, 4, 1, 2, 3), w5)  # (NB, Cout, b^3)
+        # conv3d's function with cuDNN's TF32 off as an argument of the
+        # call: an exported graph keeps the arguments, while a flags
+        # context would be lost and the card would run TF32
+        y = torch._convolution(halo.permute(0, 4, 1, 2, 3), w5, None,
+                               [1] * 3, [0] * 3, [1] * 3, False, [0] * 3, 1,
+                               False, False, True, False)  # (NB, Cout, b^3)
         cout = w.shape[-1]
         y = y.permute(0, 2, 3, 4, 1).reshape(-1, cout)
         return _round(y, compute_dtype)
@@ -372,8 +397,9 @@ def conv0_dense_block(dense_in: torch.Tensor, nbr_win: torch.Tensor,
 
     The JAX package runs this as XLA ``conv_general_dilated`` on halo
     blocks; here each block gathers its halo from the 27 neighbouring
-    blocks and ``F.conv3d`` runs the 5^3 conv (both are cross-correlation,
-    so the weights only change layout).  The output is rounded to
+    blocks and a dense 3D conv (``torch._convolution``, without TF32) runs
+    the 5^3 conv (both are cross-correlation, so the weights only change
+    layout).  The output is rounded to
     ``compute_dtype`` like the JAX version's.  The per-cell rows go back
     to voxels by a gather through ``slot``, whose backward is autograd's
     ``index_add`` (slot is one-to-one, so no two voxels add into a cell).

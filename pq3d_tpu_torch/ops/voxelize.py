@@ -1,5 +1,4 @@
-"""Host-side voxelization (numpy); copy of ``pq3d_tpu/ops/voxelize.py``
-trimmed to what the serving slice uses.
+"""Host-side voxelization (numpy); copy of ``pq3d_tpu/ops/voxelize.py``.
 
 Replaces ``ME.utils.sparse_quantize``.  Runs in the input pipeline so that
 device code only ever sees fixed-shape arrays.
@@ -25,6 +24,17 @@ def ravel_hash(coords: np.ndarray) -> np.ndarray:
     return keys
 
 
+def fnv_hash(coords: np.ndarray) -> np.ndarray:
+    """FNV64-1A hash over integer coordinate rows (may collide, fast)."""
+    assert coords.ndim == 2
+    coords = coords.copy().astype(np.uint64)
+    h = np.uint64(14695981039346656037) * np.ones(len(coords), dtype=np.uint64)
+    for d in range(coords.shape[1]):
+        h *= np.uint64(1099511628211)
+        h ^= coords[:, d]
+    return h
+
+
 def quantize(points: np.ndarray, voxel_size: float
              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Quantize float points to integer voxel coords, deduplicating.
@@ -46,3 +56,17 @@ def quantize(points: np.ndarray, voxel_size: float
     inverse = np.empty(len(keys), dtype=np.int64)
     inverse[order] = group_id
     return grid[unique_index], unique_index, inverse
+
+
+def voxel_downsample_random(points: np.ndarray, voxel_size: float,
+                            rng: np.random.Generator) -> np.ndarray:
+    """Pick one random point per voxel: the indices of the picked points,
+    in voxel-key order."""
+    grid = np.floor(points / voxel_size).astype(np.int32)
+    keys = ravel_hash(grid)
+    noise = rng.random(len(keys))
+    order = np.lexsort((noise, keys))
+    sorted_keys = keys[order]
+    first = np.ones(len(keys), dtype=bool)
+    first[1:] = sorted_keys[1:] != sorted_keys[:-1]
+    return order[first]

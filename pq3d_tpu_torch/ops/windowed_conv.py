@@ -31,7 +31,10 @@ not, so it computes ``sparse_conv``'s function.  On a CUDA tensor
 :func:`windowed_sparse_conv` launches ``csrc/windowed_conv.cu``; on a CPU
 tensor it runs :func:`windowed_sparse_conv_folded_reference`.  A failed
 build or launch, or a plan whose slab does not fit shared memory, raises:
-there is no fallback to the plain version on the card.
+there is no fallback to the plain version on the card.  The wrapper calls
+the kernel directly and is no ``torch.library`` operator (kernel B1 is
+one): no model path calls it, so no exported forward (``export.py``)
+reaches it.
 """
 from __future__ import annotations
 

@@ -11,19 +11,25 @@ carries (``zcode``).  The conv computed from it is the same function as
 
 The TPU kernel's windows, selection masks and exception pass worked around
 Mosaic's one-vreg in-VMEM gather; an indexed read is native on Hopper, so
-the port keeps only ``zbase``/``zcode``.  On a CUDA tensor
-:func:`zrun_conv` launches ``csrc/zrun_conv.cu``; on a CPU tensor it runs
-:func:`zrun_conv_reference`.  A failed build or launch raises: there is no
+the port keeps only ``zbase``/``zcode``.
+
+The kernel is the operator ``pq3d::zrun_conv`` (``torch.library``), so
+``torch.export`` keeps each call as one graph node and an exported program
+launches the kernel wherever it is loaded onto a card (``export.py``).
+:func:`zrun_conv` checks its inputs and calls the op.  The op's CUDA
+implementation launches ``csrc/zrun_conv.cu`` and counts the launch; its
+CPU implementation is :func:`zrun_conv_reference`; its fake implementation
+gives (N, Cout) in x.dtype.  A failed build or launch raises: there is no
 fallback to the plain version on the card.  The kernel works on tiles of
 ``TILE`` rows and skips every (tile, tap) pair that no row of the tile
 references (:func:`tile_tap_mask` computes the same pairs).
 
-Training goes through :func:`zrun_conv_sym`, the counterpart of
-``pallas_zt_conv_sym``: the 3^3 stencil is symmetric, so ``dx`` is the
-same kernel applied to the masked ``dy`` with ``flip_k(W)^T``, and ``dW``
-re-gathers ``x`` through the same plan (``ops/sparse.ztriple_weight_grad``,
-plain PyTorch, as the JAX package computes it in XLA) instead of storing the
-27 x N x Cin gathered taps.
+The op's backward is the counterpart of ``pallas_zt_conv_sym``'s: the 3^3
+stencil is symmetric, so ``dx`` is the same kernel applied to the masked
+``dy`` with ``flip_k(W)^T``, and ``dW`` re-gathers ``x`` through the same
+plan (``ops/sparse.ztriple_weight_grad``, plain PyTorch, as the JAX package
+computes it in XLA) instead of storing the 27 x N x Cin gathered taps.
+Training calls it through :func:`zrun_conv_sym`.
 """
 from __future__ import annotations
 
@@ -198,34 +204,61 @@ def zrun_conv(x: torch.Tensor, w: torch.Tensor, zbase: torch.Tensor,
     Cout) over the z-run plan; operands rounded to bf16, f32 accumulation,
     output in x.dtype, rows with ``out_valid`` False zeroed.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (one launch per column slice of :func:`kernel_shape`, Cin and Cout
-    padded with zeros there and the pad cut off y) and counts the call
-    once under ``phase`` ("fwd" or "bwd").  Not differentiable itself:
-    training goes through :func:`zrun_conv_sym`."""
+    Checks the inputs, then calls the op ``pq3d::zrun_conv``: a CPU tensor
+    runs the plain version; a CUDA tensor launches the kernel (one launch
+    per column slice of :func:`kernel_shape`, Cin and Cout padded with
+    zeros there and the pad cut off y) and counts the call once under
+    ``phase`` ("fwd" or "bwd").  Differentiable through the op's backward
+    (see :func:`zrun_conv_sym`)."""
     n, cin = x.shape
     k, wcin, cout = w.shape
     if k != 27 or wcin != cin:
         raise ValueError(f"zrun_conv: w {tuple(w.shape)} does not match "
                          f"x {tuple(x.shape)}")
-    cin_p, slices = kernel_shape(cin, cout)
-    if x.device.type == "cpu":
-        return zrun_conv_reference(x, w, zbase, zcode, out_valid)
-    if x.device.type != "cuda":
+    kernel_shape(cin, cout)
+    if phase not in phase_launches:
+        raise ValueError(f"zrun_conv: unknown phase {phase!r}")
+    if x.device.type == "cuda":
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"zrun_conv: x must be f32 or bf16, got "
+                            f"{x.dtype}")
+        if (zbase.shape != (n, 9) or zbase.dtype != torch.int32
+                or zcode.shape != (n, 9, 3) or zcode.dtype != torch.int8):
+            raise ValueError("zrun_conv: zbase must be (N, 9) int32 and "
+                             "zcode (N, 9, 3) int8")
+        if out_valid is not None and (out_valid.shape != (n,)
+                                      or out_valid.dtype != torch.bool):
+            raise ValueError("zrun_conv: out_valid must be (N,) bool")
+        tensors = [x, w, zbase, zcode] + ([out_valid] if out_valid
+                                          is not None else [])
+        if any(t.device != x.device for t in tensors):
+            raise ValueError("zrun_conv: all inputs must be on one device")
+    elif x.device.type != "cpu":
         raise ValueError(f"zrun_conv: unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"zrun_conv: x must be f32 or bf16, got {x.dtype}")
-    if (zbase.shape != (n, 9) or zbase.dtype != torch.int32
-            or zcode.shape != (n, 9, 3) or zcode.dtype != torch.int8):
-        raise ValueError("zrun_conv: zbase must be (N, 9) int32 and zcode "
-                         "(N, 9, 3) int8")
-    if out_valid is not None and (out_valid.shape != (n,)
-                                  or out_valid.dtype != torch.bool):
-        raise ValueError("zrun_conv: out_valid must be (N,) bool")
-    tensors = [x, zbase, zcode] + ([out_valid] if out_valid is not None
-                                   else [])
-    if any(t.device != x.device for t in tensors + [w]):
-        raise ValueError("zrun_conv: all inputs must be on one device")
+    return torch.ops.pq3d.zrun_conv(x, w, zbase, zcode, out_valid, phase)
+
+
+# B1 as an operator of its own, so that torch.export keeps each call as one
+# graph node (an exported program then launches the kernel wherever it is
+# loaded onto a card) and autograd reaches the kernel's backward
+@torch.library.custom_op(
+    "pq3d::zrun_conv", mutates_args=(),
+    schema="(Tensor x, Tensor w, Tensor zbase, Tensor zcode, "
+           "Tensor? out_valid, str phase) -> Tensor")
+def _zrun_conv_op(x, w, zbase, zcode, out_valid, phase):
+    return zrun_conv_reference(x, w, zbase, zcode, out_valid)
+
+
+@_zrun_conv_op.register_fake
+def _zrun_conv_fake(x, w, zbase, zcode, out_valid, phase):
+    return x.new_empty(x.shape[0], w.shape[2])
+
+
+@_zrun_conv_op.register_kernel("cuda")
+def _zrun_conv_launch(x, w, zbase, zcode, out_valid, phase):
+    n, cin = x.shape
+    cout = w.shape[2]
+    cin_p, slices = kernel_shape(cin, cout)
     # the kernel gathers bf16 rows by 16-byte async copies: f32 x is cast
     # once here.  Each tap's W goes in as the image of its shared-memory
     # tile, which the kernel copies whole: (Cin/8, Cout/8) blocks of 8 x 8
@@ -235,8 +268,12 @@ def zrun_conv(x: torch.Tensor, w: torch.Tensor, zbase: torch.Tensor,
         xb = torch.nn.functional.pad(xb, (0, cin_p - cin))
     xb = xb.contiguous()
     if xb.data_ptr() % 16:
-        raise ValueError("zrun_conv: bf16 x must be 16-byte aligned (the "
-                         "kernel's 16-byte row copies)")
+        if phase == "fwd":
+            raise ValueError("zrun_conv: bf16 x must be 16-byte aligned "
+                             "(the kernel's 16-byte row copies)")
+        # a gradient from autograd may start at an offset (one half of a
+        # torch.cat's gradient): the dx pass copies it
+        xb = xb.clone()
     cout_p = slices[-1][0] + slices[-1][1]
     wb = w.to(torch.bfloat16)
     if (cin_p, cout_p) != (cin, cout):
@@ -275,6 +312,33 @@ def zrun_conv(x: torch.Tensor, w: torch.Tensor, zbase: torch.Tensor,
     return y
 
 
+def _zrun_conv_setup(ctx, inputs, output):
+    x, w, zbase, zcode, out_valid, _ = inputs
+    ctx.save_for_backward(x, w, zbase, zcode, out_valid)
+
+
+def _zrun_conv_backward(ctx, dy):
+    """The scatter-free symmetric-stencil backward: dx is the same conv
+    (through :func:`zrun_conv`, so the kernel on the card) on the masked dy
+    with ``flip_k(W)^T``, dW the plain re-gather; saves only the input, W
+    and the plan."""
+    x, w, zbase, zcode, out_valid = ctx.saved_tensors
+    if out_valid is not None:
+        dy = torch.where(out_valid[:, None], dy, 0)
+    dy = dy.contiguous()
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        dx = zrun_conv(dy, w.flip(0).transpose(1, 2), zbase, zcode,
+                       phase="bwd").to(x.dtype)
+    if ctx.needs_input_grad[1]:
+        dw = sparse.ztriple_weight_grad(x, zbase, zcode, dy).to(w.dtype)
+    return dx, dw, None, None, None, None
+
+
+_zrun_conv_op.register_autograd(_zrun_conv_backward,
+                                setup_context=_zrun_conv_setup)
+
+
 def reset_counts() -> None:
     """Set every launch count to 0."""
     global launches
@@ -283,34 +347,11 @@ def reset_counts() -> None:
         phase_launches[k] = 0
 
 
-class _ZrunConvSym(torch.autograd.Function):
-    """The z-run conv with the scatter-free symmetric-stencil backward;
-    saves only its input, W and the plan."""
-
-    @staticmethod
-    def forward(ctx, x, w, zbase, zcode, out_valid):
-        ctx.save_for_backward(x, w, zbase, zcode, out_valid)
-        return zrun_conv(x, w, zbase, zcode, out_valid)
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, w, zbase, zcode, out_valid = ctx.saved_tensors
-        if out_valid is not None:
-            dy = torch.where(out_valid[:, None], dy, 0)
-        dy = sparse._aligned(dy)
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = zrun_conv(dy, w.flip(0).transpose(1, 2), zbase, zcode,
-                           phase="bwd").to(x.dtype)
-        if ctx.needs_input_grad[1]:
-            dw = sparse.ztriple_weight_grad(x, zbase, zcode, dy).to(w.dtype)
-        return dx, dw, None, None, None
-
-
 def zrun_conv_sym(x: torch.Tensor, w: torch.Tensor, zbase: torch.Tensor,
                   zcode: torch.Tensor,
                   out_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """:func:`zrun_conv` with a backward: dx launches the same kernel on
-    the masked dy with ``flip_k(W)^T`` (the plain version on the CPU), dW
-    is ``ops/sparse.ztriple_weight_grad``."""
-    return _ZrunConvSym.apply(x, w, zbase, zcode, out_valid)
+    """:func:`zrun_conv` on the training path, the counterpart of
+    ``pallas_zt_conv_sym``: dx launches the same kernel on the masked dy
+    with ``flip_k(W)^T`` (the plain version on the CPU), dW is
+    ``ops/sparse.ztriple_weight_grad``."""
+    return zrun_conv(x, w, zbase, zcode, out_valid)

@@ -121,6 +121,20 @@ def assign(costs: np.ndarray) -> np.ndarray:
     return out
 
 
+def match_layer(pred_logits: torch.Tensor, mask_logits: torch.Tensor,
+                labels: torch.Tensor, tgt_masks: torch.Tensor,
+                inst_valid: torch.Tensor, seg_valid: torch.Tensor,
+                cfg: InstSegLossConfig) -> torch.Tensor:
+    """Hungarian match of one prediction round -> (B, M) query index per
+    target (padded targets get arbitrary distinct queries); the
+    assignment of :func:`round_costs` and :func:`assign` for one round."""
+    batch = {"instance_labels": labels, "segment_masks": tgt_masks,
+             "instance_valid": inst_valid, "seg_pad_masks": seg_valid}
+    costs = round_costs([pred_logits], [mask_logits], batch, cfg)
+    col = assign(costs.cpu().numpy())[0]
+    return torch.from_numpy(col).to(pred_logits.device)
+
+
 def instseg_layer_loss(pred_logits: torch.Tensor, mask_logits: torch.Tensor,
                        col4row: torch.Tensor, labels: torch.Tensor,
                        tgt_masks: torch.Tensor, inst_valid: torch.Tensor,

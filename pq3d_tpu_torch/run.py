@@ -68,10 +68,13 @@ def build_instseg_trainer(cfg: Dict[str, Any]):
     from pq3d_tpu_torch.optim.losses import (InstSegLossConfig,
                                              instseg_direct_loss,
                                              instseg_set_loss)
-    from pq3d_tpu_torch.train.trainer import Query3DTrainer
+    from pq3d_tpu_torch.train.trainer import DefaultTrainer, Query3DTrainer
 
-    if cfg.get("trainer", "Query3DTrainer") != "Query3DTrainer":
-        raise NotImplementedError(f"trainer {cfg['trainer']!r} is not ported")
+    trainers = {"Query3DTrainer": Query3DTrainer,
+                "DefaultTrainer": DefaultTrainer}
+    trainer_name = cfg.get("trainer", "Query3DTrainer")
+    if trainer_name not in trainers:
+        raise NotImplementedError(f"trainer {trainer_name!r} is not ported")
     iopt = cfg["data"]["instseg_options"]
     va = (cfg["model"].get("voxel_encoder") or {}).get("args", {})
     pipe_cfg = pipeline_config(iopt)
@@ -131,11 +134,10 @@ def build_instseg_trainer(cfg: Dict[str, Any]):
             full_resolution=bool(ev.get("full_resolution", True)),
             official_protocol=bool(ev.get("official_protocol", True)),
             min_region_size=float(ev.get("min_region_size", 100.0)))
-    return Query3DTrainer(cfg, model, loss_fn, train_loader, val_loader,
-                          evaluator,
-                          total_steps=_optimizer_total_steps(
-                              cfg, steps_per_epoch),
-                          device=device)
+    return trainers[trainer_name](
+        cfg, model, loss_fn, train_loader, val_loader, evaluator,
+        total_steps=_optimizer_total_steps(cfg, steps_per_epoch),
+        device=device)
 
 
 def build_multitask_trainer(cfg: Dict[str, Any]):

@@ -427,6 +427,11 @@ class Query3DTrainer:
             self._close_loaders()
 
 
+class DefaultTrainer(Query3DTrainer):
+    """The generic epoch-loop trainer: Query3DTrainer under the second name
+    the JAX package registers (configs select either)."""
+
+
 class MultitaskTrainer(Query3DTrainer):
     """Stage-2 trainer: ``train_data`` is the mixed task loader,
     ``val_sets`` a list of ``(name, loader, evaluator)``.  Evaluation

@@ -657,3 +657,75 @@ def test_data_parallel_step_on_the_card(cuda_device, tmp_path, monkeypatch,
     assert grads.keys() == got.keys()
     assert max((got[k] - g).abs().max().item()
                for k, g in grads.items()) <= 1e-4 * top
+
+
+@pytest.mark.cuda
+def test_zrun_conv_op_check_on_the_card(cuda_device):
+    """torch.library.opcheck of ``pq3d::zrun_conv`` on CUDA tensors at a
+    routed shape: schema, fake shape rule, autograd registration (its dx
+    launches the kernel) and traced calls agree with the eager op."""
+    rng = np.random.default_rng(5)
+    nbr, valid = _scene(rng, extent=40, n_pts=9000)
+    n = nbr.shape[0]
+    x = torch.from_numpy(rng.standard_normal((n, 96)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((27, 96, 128)) * 0.05)
+                         .astype(np.float32))
+    zb, zc = tzr.zrun_plan(torch.from_numpy(nbr).to(cuda_device))
+    vd = torch.from_numpy(valid).to(cuda_device)
+    xd, wd = x.to(cuda_device), w.to(cuda_device)
+    before = dict(tzr.phase_launches)
+    torch.library.opcheck(torch.ops.pq3d.zrun_conv.default,
+                          (xd, wd, zb, zc, vd, "fwd"))
+    torch.library.opcheck(torch.ops.pq3d.zrun_conv.default,
+                          (xd.clone().requires_grad_(),
+                           wd.clone().requires_grad_(), zb, zc, vd, "fwd"))
+    torch.cuda.synchronize()
+    assert tzr.phase_launches["fwd"] > before["fwd"]
+    assert tzr.phase_launches["bwd"] > before["bwd"]
+
+
+@pytest.mark.cuda
+def test_export_on_the_cpu_runs_on_the_card(cuda_device):
+    """An artifact exported on the CPU, loaded with device="cuda": one
+    pq3d.zrun_conv node per routed conv, B1 launched that often a forward,
+    and the first decoder round within 1e-5 of the eager forward on the
+    card (the later rounds read the self-mask's attend bits, which the
+    card's atomic segment sums may flip).  Random weights from the port's
+    init: every conv, the dense-block stem's included, does work (the
+    stem's cuDNN conv must run without TF32 in both)."""
+    from pq3d_tpu_torch import export
+    from pq3d_tpu_torch.models import query3d
+    from pq3d_tpu_torch.serve import to_device
+    caps = (65536, 40960, 16384, 4096, 2048)
+    b = _layout_batch(3, level_caps=caps)
+    torch.manual_seed(0)
+    model = query3d.Query3DUnified(
+        memories=("voxel",), heads=("mask",), hidden_size=32,
+        unified=query3d.UnifiedEncoderCfg(num_layers=1, num_blocks=1,
+                                          num_attention_heads=4),
+        voxel_enc=query3d.VoxelEncoderCfg(hlevels=(0, 1), out_channels=20,
+                                          pallas_conv=True),
+        mask_head_cfg=query3d.MaskHeadCfg(21, (0, 2))).eval()
+    query3d.init_weights(model, torch.Generator().manual_seed(0))
+    bc = to_device({k: v for k, v in b.items() if k != "_meta"},
+                   torch.device("cpu"))
+    rows = [int(np.prod(b["maps"][f"valid_{l}"].shape)) for l in range(5)]
+    routed = model.voxel_encoder.backbone.routed_convs(rows)
+    assert routed
+    keys = ("predictions_class", "predictions_mask")
+    blob = export.export_forward(model, bc, outputs=keys)
+    assert export.kernel_nodes(blob) == len(routed)
+    assert export.exported_platforms(blob) == ("cpu",)
+    fn = export.load_forward(blob, device="cuda")
+    bd = to_device(bc, cuda_device)
+    before = tzr.launches
+    got = fn(bd)
+    torch.cuda.synchronize()
+    assert tzr.launches - before == len(routed)
+    model.to(cuda_device)
+    with torch.no_grad():
+        ref = model(bd)
+    for key in keys:
+        g, r = got[key][0].float(), ref[key][0].float()
+        assert g.device.type == "cuda" and torch.isfinite(g).all()
+        assert (g - r).abs().max() <= 1e-5 * r.abs().max()

@@ -1,5 +1,6 @@
 """pq3d_tpu_torch stands alone: it imports neither JAX nor the JAX package,
-nor scikit-learn, which the card's machine lacks (checked in a
+nor scikit-learn or transformers (the HF tokenizers' optional dependency),
+which the card's machine lacks (checked in a
 subprocess, since this suite's conftest imports jax), its
 entry points (model, server, trainer CLI) refuse to run on a machine
 without CUDA unless asked for the CPU, and its config dict is the slices'
@@ -26,15 +27,19 @@ NEEDED = ["pq3d_tpu_torch." + m for m in (
     "eval.qa_eval", "eval.caption_eval", "eval.caption_metrics",
     "eval.text_utils", "data.sceneverse", "data.replica",
     "data.label_utils", "data.scannet200_constants", "ops.device_maps",
-    "utils.profiling")]
+    "utils.profiling", "export", "data.augmentor", "data.tokenizers",
+    "models.legacy_encoders", "utils.io_utils", "utils.metric_utils",
+    "utils.box_utils")]
 import pq3d_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(pq3d_tpu_torch.__path__,
                                               "pq3d_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "flax", "pq3d_tpu", "yaml", "sklearn")
-             or m.startswith(("jax.", "flax.", "pq3d_tpu.", "sklearn.")))
+             if m in ("jax", "flax", "pq3d_tpu", "yaml", "sklearn",
+                      "transformers")
+             or m.startswith(("jax.", "flax.", "pq3d_tpu.", "sklearn.",
+                              "transformers.")))
 missing = sorted(set(NEEDED) - set(mods))
 print(len(mods), bad, missing)
 sys.exit(1 if bad or missing or len(mods) < 40 else 0)
