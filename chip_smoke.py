@@ -108,7 +108,7 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                1024 points, the CLIP-large text tower, the mixed query
                decoder, the grounding head, T5-small greedy decode of 50
                tokens; random weights from a seed) behind
-               UnifiedServer(batch_size=8) answers 64 requests that cycle
+               UnifiedServer(batch_size=8) answers 32 requests that cycle
                through SyntheticRefer, SyntheticQA and SyntheticCaption
                (scenes of 50,000 points, 32 instances; TXT and LOC
                prompts): scenes/s, p50/p99, the server's stage seconds,
@@ -176,9 +176,14 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                batch of 4) as ``python -m pq3d_tpu_torch.launch
                --nproc-per-node 2 --backend gloo --devices cuda:0,cuda:0``
                (two ranks on the one card: nccl refuses that) and as one
-               nccl rank, four steps each; stage 2 (DDP_STAGE2:
-               unified_tasks_sceneverse at its widths and batch of 128,
-               64 a rank) likewise for three steps.  In each rank
+               nccl rank, 2 steps each (STAGE_STEPS; the epoch has 4);
+               stage 2 (DDP_STAGE2: unified_tasks_sceneverse at its widths
+               and batch of 128, 64 a rank) likewise for 2 steps (of 3),
+               with the synthetic tokenizer named in the config (the
+               YAML's HF names fall back to it on a host without their
+               files).
+               A run ends after its steps as a preemption ends it, with
+               its checkpoint saved.  In each rank
                (``ddp_rank``) step 1 runs all-plain in f32 with dropout
                and the self-mask off, and the later steps are the main
                path: B1's counts are set to 0 after step 1 and read after
@@ -200,7 +205,7 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                unified_tasks_sceneverse (random weights from a seed), B1
                and B2 counted from 0 over (a) and (b) and gated at 0.
                (a) The model with heads [ground, generation, qa] (8864
-               answers) behind UnifiedServer(batch_size=8), 8 warm and 64
+               answers) behind UnifiedServer(batch_size=8), 8 warm and 32
                timed requests of phase 10's kind, in the JAX package's
                bench.py setups: f32 (padded, one phase), bf16
                (cast_model_bf16 + cast=cast_batch_bf16), two_bf16
@@ -242,7 +247,7 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                1.3) and flat_swin_bf16 (cast_model_bf16 + cast_batch_bf16),
                and phase 5b's Res16UNet in dev_flat_zt (flat maps and z-run
                plans built on the card, B1 routed) and flat_zt_bf16; each
-               serves phase 5b's 4 warm scenes, then 64 timed ones (16
+               serves phase 5b's 4 warm scenes, then 8 timed ones (2
                batches, all queued at once, so p50/p99 include the queue)
                and prints scenes/s, p50/p99, the stage seconds,
                host-to-device bytes a batch, the flat map build's device
@@ -310,7 +315,7 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                none on the same 3 batches, full's peak memory below none's;
 17. gather_stem -- the 125-tap gather stem (the JAX pipeline's default)
                at the slice's widths, phase 5b's scenes and caps:
-               InstSegServer(batch_size=4) serves 4 warm and 16 timed
+               InstSegServer(batch_size=4) serves 4 warm and 8 timed
                scenes in rect_gather (nbr5_0 built by the host) and
                dev_gather (nbr5_0 and every other map built on the card),
                printing scenes/s, p50/p99, the stage seconds,
@@ -351,17 +356,45 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                exports stage 2), written to a temporary file and loaded
                with device="cuda"; gates: the graph holds one pq3d.zrun_conv node
                per routed conv, the loaded program launches B1 that often a
-               forward over 1 + 5 forwards and B2 never, its logits equal
+               forward over 1 + 3 forwards and B2 never, its logits equal
                the eager card forward's within 1e-5 in every round up to a
                flipped attend bit; (ii) unified_tasks_sceneverse at its
                widths exported on the card on a batch of 8 of phase 10's
-               requests: tokens equal to eager's, ground_logits within
-               1e-5; each prints the export seconds, graph nodes, the
-               artifact's MiB, the load (and move) seconds and one
-               forward's ms exported against eager (CUDA events, median of
-               5); (iii) VoxelLevelEncoder (hidden 768) on (i)'s batch with
+               requests and run as exported, in memory (stage 1 carries
+               the save and load round trip): tokens equal to eager's,
+               ground_logits within 1e-5; each prints the export seconds,
+               graph nodes, stage 1's artifact MiB and load (and move)
+               seconds and one forward's ms exported against eager (CUDA
+               events, median of 3); (iii) VoxelLevelEncoder (hidden 768) on (i)'s batch with
                B1 against all-plain within 2e-2, B1 launched once per routed
                conv; every timing runs after the CPU process has ended;
+20. mesh    -- (run right after phase 13, whose records it reads) the
+               data x fsdp x tp mesh (parallel/mesh.py, parallel/tp.py)
+               on 2 gloo ranks on cuda:0 through the launcher (their
+               allocator with expandable segments, MESH_ALLOC_CONF), reusing
+               phase 13's numbers: (i) phase 13's stage-1 run with
+               parallel.fsdp=2, 2 steps (step 1 all-plain in f32, dropout
+               and self-mask off); gates: step 1's global loss within
+               DDP_GATE of phase 13's one nccl rank, B1 forward and dx once
+               per routed conv in each rank in step 2 and B2 never, B1
+               against its plain version at rank 0's last routed shapes,
+               the gathered weights' checksums equal on both ranks and in
+               the checkpoint; prints each rank's parameter bytes on the
+               card beside the full model's, steps/s beside phase 13's
+               2-rank DDP and the peak a rank; (ii) phase 13's stage-2 run
+               with parallel.tp=2, 2 steps; gates: step 1's loss within
+               DDP_GATE of phase 13's one rank, the tp peers' replicated
+               weights' checksums equal, B1 never; prints the tensor-
+               parallel collectives a step and their share of it; (iii)
+               InstSegServer(mesh=["cuda:0", "cuda:0"], batch_size=4) on
+               phase 5b's 8 timed scenes against one server, the
+               decoder's self-mask off in both (all-plain: final logits
+               within REPLICA_GATE; as built: within MESH_BUILT_GATE, B1
+               launched once per routed conv of each part's forward, each
+               part routing by its own rows, and B1 against its plain
+               version at one part's routed shapes), and UnifiedServer
+               with the same mesh on 8 of phase 10's requests (tokens
+               equal to one server's); prints scenes/s;
 then a summary line (B1 against B2 in this run), one JSON line with every
 hand kernel's numbers, and the result line.
 
@@ -1754,7 +1787,7 @@ def train_check_phase(trainer, zrun_conv, batch):
             "all_plain_rel": all_plain_rel, "run_to_run_rel": floor}
 
 
-UNIFIED_REQUESTS = 64    # 8 batches of 8
+UNIFIED_REQUESTS = 32    # 4 batches of 8
 # card against the CPU, max|diff| / max|ref|: between the f32 reading
 # (about 3e-6) and the TF32 control's (about 7e-4 to 1.4e-3) on an H100
 UNIFIED_GATE = 1e-4
@@ -2716,7 +2749,7 @@ def recipe_phase(card, dev, zrun_conv, synth_ms, flops_peak, bw_peak):
 # ---- phase ddp: data-parallel training and replicated serving ----------
 
 # the stage-1 run of phase ddp: phase 8's trainer (full width, the
-# 70k-point scenes) at a global batch of 4, four steps of one epoch
+# 70k-point scenes) at a global batch of 4, an epoch of four steps
 DDP_STAGE1 = ["model.voxel_encoder.args.pallas_conv=true",
               "data.train=[SyntheticInstSeg]", "data.val=[SyntheticInstSeg]",
               "data.synthetic.num_train=16", "data.synthetic.num_val=4",
@@ -2734,9 +2767,22 @@ DDP_STAGE2 = ["data.train=[SyntheticRefer,SyntheticQA,SyntheticCaption]",
               "data.synthetic.num_train=128", "data.synthetic.num_val=4",
               "solver.sched.args.warmup_steps=0", "solver.epochs=1",
               "solver.epochs_per_eval=0", "solver.epochs_per_save=0",
-              "log_every=1"]
+              "log_every=1",
+              # the synthetic tokenizer the YAML's HF names fall back to
+              # here (no local HF files), without importing transformers
+              "data_wrapper.tokenizer=null",
+              "data_wrapper.generation_tokenizer=null"]
 DDP_GATE = FLAT_RECT_GATE       # step 1's global loss, 2 ranks against 1
 REPLICA_GATE = 1e-5             # replicated against one server's logits
+# the mesh server as built against one server as built (self-mask off):
+# a part's convs route by its rows, so a conv B1 runs for the whole batch
+# may run plain for a part, and the two sum in other orders; B1's own gate
+# against its plain version (b1_shapes) bounds that
+MESH_BUILT_GATE = 1e-2
+# each stage's runs (phase ddp's and phase mesh's) end after these steps:
+# step 1 (all-plain) and the timed ones after it; a smaller dataset would
+# shuffle other scenes into step 1
+STAGE_STEPS = {"stage1": 2, "stage2": 2}
 
 
 def ddp_rank(argv):
@@ -2757,12 +2803,19 @@ def ddp_rank(argv):
     from pq3d_tpu_torch.parallel import dist
     from pq3d_tpu_torch.serve import to_device
     from pq3d_tpu_torch.train.trainer import Query3DTrainer
+    from pq3d_tpu_torch.ops import windowed_conv
+    from pq3d_tpu_torch.parallel import tp
     report_dir, run_args = argv[0], argv[1:]
+    max_steps = None
+    if run_args and run_args[0].startswith("--steps="):
+        max_steps = int(run_args[0].split("=", 1)[1])
+        run_args = run_args[1:]
     rank = dist.rank()
     rec = {"rank": rank, "world": dist.world(),
            "backend": (torch.distributed.get_backend()
                        if dist.is_initialized() else None),
-           "steps": [], "bn_s": 0.0, "bn_calls": 0}
+           "steps": [], "bn_s": 0.0, "bn_calls": 0, "tp_s": 0.0,
+           "tp_calls": 0, "memory": [], "wall": {"entry": time.time()}}
     last = {}
     timed = {"on": False}
     sum_fn = dist._AllReduceSum
@@ -2782,11 +2835,37 @@ def ddp_rank(argv):
         return staticmethod(call)
     sum_fn.forward, sum_fn.backward = timing(fwd), timing(bwd)
     plain = staticmethod(fwd), staticmethod(bwd)
+
+    def tp_timing(fn):
+        """The tensor-parallel collectives (the all-reduces of a row
+        product's forward and a column product's backward, the all-gathers
+        of the gathered and scattered ones), timed between synchronizes
+        inside the timed steps."""
+        def call(*a):
+            if not timed["on"]:
+                return fn(*a)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            rec["tp_s"] += time.perf_counter() - t0
+            rec["tp_calls"] += 1
+            return out
+        return call
+    tp_saved = (tp._Reduce.forward, tp._Copy.backward, tp._gather)
+    tp._Reduce.forward = staticmethod(tp_timing(tp_saved[0]))
+    tp._Copy.backward = staticmethod(tp_timing(tp_saved[1]))
+    tp._gather = tp_timing(tp_saved[2])
     inner = Query3DTrainer.train_batch
 
     def train_batch(self, batch):
         backbone = getattr(getattr(self.model, "voxel_encoder", None),
                            "backbone", None)
+        mem = memory_now()
+        rec["memory"].append(mem)
+        print(f"[rank {rank}] before step {len(rec['memory'])}: "
+              + memory_text(mem), flush=True)
+        rec["wall"].setdefault("first_start", time.time())
         if "first" not in rec:
             with all_plain(self.model):
                 m = inner(self, batch)
@@ -2795,6 +2874,7 @@ def ddp_rank(argv):
             rec["first_end"] = time.perf_counter()
             torch.cuda.reset_peak_memory_stats()
             zrun_conv.reset_counts()        # the main path starts here
+            windowed_conv.reset_counts()
             return m
         routed = (len(backbone.routed_convs(level_rows(batch)))
                   if backbone is not None else 0)
@@ -2808,6 +2888,9 @@ def ddp_rank(argv):
                              "end": time.perf_counter(),
                              "routed": routed, "loss": float(m["loss"])})
         last["batch"] = batch
+        rec["wall"]["last_end"] = time.time()
+        if max_steps and len(rec["steps"]) + 1 >= max_steps:
+            self._preempted = True      # ends the run after this step
         return m
     Query3DTrainer.train_batch = train_batch
     try:
@@ -2815,10 +2898,24 @@ def ddp_rank(argv):
     finally:
         Query3DTrainer.train_batch = inner
         sum_fn.forward, sum_fn.backward = plain
+        tp._Reduce.forward = staticmethod(tp_saved[0])
+        tp._Copy.backward = staticmethod(tp_saved[1])
+        tp._gather = tp_saved[2]
     torch.cuda.synchronize()
     rec["launches"] = dict(zrun_conv.phase_launches)   # main path ends
+    rec["b2_launches"] = windowed_conv.launches
     rec["peak_bytes"] = torch.cuda.max_memory_allocated()
-    rec["checksum"] = dist.param_checksum(trainer.model)
+    rec["peak_reserved"] = torch.cuda.max_memory_reserved()
+    sharding = trainer.sharding
+    if sharding is None:
+        rec["checksum"] = dist.param_checksum(trainer.model)
+    else:
+        full = sharding.full_state_dict()
+        rec["checksum"] = dist.tensor_checksum(list(full.values()))
+        rec["replicated_checksum"] = sharding.replicated_checksum()
+        rec["param_bytes"] = sum(p.nbytes for p in sharding.params)
+        rec["full_param_bytes"] = sum(full[n].nbytes for n in sharding.names)
+        rec["mesh"] = sharding.mesh.describe()
     backbone = getattr(getattr(trainer.model, "voxel_encoder", None),
                        "backbone", None)
     if rank == 0 and backbone is not None:
@@ -2829,23 +2926,28 @@ def ddp_rank(argv):
             zrun_conv, flatten_maps(to_device(b["maps"], dev)),
             backbone.routed_convs(level_rows(b)), dev, flops_peak,
             bw_peak, f"ddp rank {rank}")
+    rec["wall"]["exit"] = time.time()
     with open(os.path.join(report_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
 
 
-def ddp_launch(label, nproc, backend, config, overrides, work):
+def ddp_launch(label, nproc, backend, config, overrides, work, steps=None,
+               env=None):
     """``python -m pq3d_tpu_torch.launch`` of ``nproc`` ranks on cuda:0
-    over ``backend`` with ``ddp_rank`` as the entry; returns the ranks'
-    reports and the run's logged metrics (rank 0's ``metrics.jsonl``).
-    Fails the phase when the launch exits non-zero."""
+    over ``backend`` with ``ddp_rank`` as the entry (``steps``: the run
+    ends after that many steps, as a preemption ends it; ``env``: added
+    to the ranks' environment); returns the ranks' reports and the run's
+    logged metrics (rank 0's ``metrics.jsonl``).  Fails the phase when
+    the launch exits non-zero."""
     out = os.path.join(work, label)
     os.makedirs(out)
     cmd = [sys.executable, "-m", "pq3d_tpu_torch.launch", "--nproc-per-node",
            str(nproc), "--backend", backend, "--devices",
            ",".join(["cuda:0"] * nproc), "--entry", "chip_smoke:ddp_rank",
-           "--", out, "--config-name", config, *overrides,
+           "--", out, *([f"--steps={steps}"] if steps else []),
+           "--config-name", config, *overrides,
            f"exp_dir={os.path.join(out, 'run')}"]
-    env = dict(os.environ, PYTHONPATH=HERE)
+    env = dict(os.environ, PYTHONPATH=HERE, **(env or {}))
     t0 = time.time()
     with open(os.path.join(out, "log.txt"), "w") as log:
         proc = subprocess.run(cmd, cwd=HERE, env=env, stdout=log,
@@ -2853,17 +2955,65 @@ def ddp_launch(label, nproc, backend, config, overrides, work):
     wall = time.time() - t0
     text = open(os.path.join(out, "log.txt")).read()
     if proc.returncode:
-        print(text[-6000:], flush=True)
+        errors = [line for line in text.splitlines()
+                  if "Error" in line or "Killed" in line][:20]
+        memory = [line for line in text.splitlines()
+                  if "] before step" in line or "[launch]" in line]
+        print("\n".join(errors + memory) + "\n" + text[-6000:],
+              flush=True)
         fail(f"ddp: {label} ({nproc} rank(s), {backend}) exited "
              f"{proc.returncode}")
+    for line in text.splitlines():
+        if line.startswith("[run] mesh"):
+            print(f"ddp: {label}: {line}", flush=True)
+            break
     reports = []
     for r in range(nproc):
         with open(os.path.join(out, f"rank{r}.json")) as f:
             reports.append(json.load(f))
     with open(os.path.join(out, "run", "metrics.jsonl")) as f:
         logged = [json.loads(line) for line in f]
+    w = reports[0]["wall"]
+    split = {"start": w["entry"] - t0, "setup": w["first_start"] - w["entry"],
+             "steps": w["last_end"] - w["first_start"],
+             "end": w["exit"] - w["last_end"]}
+    split["exit"] = wall - sum(split.values())
     return {"reports": reports, "logged": logged, "wall_s": wall,
+            "wall_split": split,
             "ckpt": os.path.join(out, "run", "ckpt", "latest", "state.pt")}
+
+
+def memory_now():
+    """The card's free memory, this process's allocations on it, its host
+    RSS and the host's available memory, in GiB."""
+    import torch
+    free, total = torch.cuda.mem_get_info()
+    host = {}
+    for path, key in (("/proc/self/status", "VmRSS"),
+                      ("/proc/meminfo", "MemAvailable")):
+        with open(path) as f:
+            for line in f:
+                if line.startswith(key + ":"):
+                    host[key] = int(line.split()[1]) / 2**20
+    return {"card_free": free / 2**30, "card_total": total / 2**30,
+            "allocated": torch.cuda.memory_allocated() / 2**30,
+            "reserved": torch.cuda.memory_reserved() / 2**30,
+            "host_rss": host.get("VmRSS"),
+            "host_available": host.get("MemAvailable")}
+
+
+def memory_text(m):
+    return (f"card free {m['card_free']:.2f} of {m['card_total']:.2f} GiB, "
+            f"this rank allocated {m['allocated']:.2f} GiB (reserved "
+            f"{m['reserved']:.2f}); host RSS {m['host_rss']:.2f} GiB, host "
+            f"available {m['host_available']:.2f} GiB")
+
+
+def wall_text(run):
+    s = run["wall_split"]
+    return (f"{run['wall_s']:.1f} s (start {s['start']:.1f}, setup "
+            f"{s['setup']:.1f}, steps {s['steps']:.1f}, rank 0's end "
+            f"{s['end']:.1f}, exit {s['exit']:.1f})")
 
 
 def ddp_summary(run):
@@ -2885,10 +3035,14 @@ def ddp_summary(run):
 
 def ddp_stage(label, config, overrides, work, card, with_b1):
     """One stage of phase ddp: 2 gloo ranks on cuda:0, then one nccl rank
-    at the same global batch; gates and prints; returns the numbers."""
+    at the same global batch, ``STAGE_STEPS[label]`` steps each; gates and
+    prints; returns the numbers."""
     import torch
-    two = ddp_launch(f"{label}_gloo2", 2, "gloo", config, overrides, work)
-    one = ddp_launch(f"{label}_nccl1", 1, "nccl", config, overrides, work)
+    steps = STAGE_STEPS[label]
+    two = ddp_launch(f"{label}_gloo2", 2, "gloo", config, overrides, work,
+                     steps)
+    one = ddp_launch(f"{label}_nccl1", 1, "nccl", config, overrides, work,
+                     steps)
     r0, r1 = two["reports"]
     if not (r0["backend"] == r1["backend"] == "gloo" and r0["world"] == 2
             and one["reports"][0]["backend"] == "nccl"):
@@ -2932,8 +3086,8 @@ def ddp_stage(label, config, overrides, work, card, with_b1):
           f"{s1['peak_gib']} GiB; synced batch norm all-reduces "
           f"{s2['bn_calls_a_step']} a step, their share of train_batch "
           f"{s2['bn_share']}; B1 launches per rank {s2['launches']} "
-          f"against {s1['launches']}; launch wall {two['wall_s']:.1f} s "
-          f"and {one['wall_s']:.1f} s ({card})", flush=True)
+          f"against {s1['launches']}; launch wall {wall_text(two)} and "
+          f"{wall_text(one)} ({card})", flush=True)
     return {"loss_2": loss2, "loss_1": loss1, "loss_rel": rel,
             "two": s2, "one": s1, "b1": r0.get("b1"),
             "launches": {"fwd": sum(r["launches"]["fwd"]
@@ -3069,6 +3223,306 @@ def ddp_phase(card, zrun_conv):
         shutil.rmtree(work, ignore_errors=True)
     rp = replicated_phase(card, zrun_conv)
     return {"stage1": s1, "stage2": s2, "replicated": rp}
+
+
+# phase 13's runs (the same global batches, the same steps) on a mesh
+MESH_STAGE1 = DDP_STAGE1 + ["parallel.fsdp=2"]
+MESH_STAGE2 = DDP_STAGE2 + ["parallel.tp=2"]
+# the mesh ranks' allocator: two tensor-parallel ranks, each holding all
+# 128 rows, reserved 37.21 GiB each with the default one (peak allocated
+# 23.85), leaving 2.65 GiB of the card free
+MESH_ALLOC_CONF = "expandable_segments:True"
+
+
+def mesh_train_phase(card, dd, work, labels=("stage1_fsdp", "stage2_tp")):
+    """Phase mesh (i)-(ii): FSDP stage 1 and tensor-parallel stage 2 on 2
+    gloo ranks on cuda:0 (``labels``: which), gated against phase 13's
+    records ``dd``."""
+    import torch
+    out = {}
+    for label, stage, config, overrides in (
+            ("stage1_fsdp", "stage1", "instseg_sceneverse", MESH_STAGE1),
+            ("stage2_tp", "stage2", "unified_tasks_sceneverse",
+             MESH_STAGE2)):
+        if label not in labels:
+            continue
+        ref = dd[stage]
+        run = ddp_launch(label, 2, "gloo", config, overrides, work,
+                         STAGE_STEPS[stage],
+                         env={"PYTORCH_CUDA_ALLOC_CONF": MESH_ALLOC_CONF})
+        r0, r1 = run["reports"]
+        if not (r0["backend"] == r1["backend"] == "gloo"
+                and r0["mesh"].endswith("collectives: gloo")):
+            fail(f"mesh: {label} ran on {r0['backend']}: {r0['mesh']}")
+        loss = [x["loss"] for x in run["logged"] if x["prefix"] == "train"
+                and x["step"] == 1][0]
+        rel = abs(loss - ref["loss_1"]) / abs(ref["loss_1"])
+        if not (r0["first"]["loss"] == r1["first"]["loss"] == loss
+                and rel <= DDP_GATE):
+            fail(f"mesh: {label}: step 1's global loss {loss!r} (ranks "
+                 f"{r0['first']['loss']!r}, {r1['first']['loss']!r}) "
+                 f"against phase 13's one rank {ref['loss_1']!r}: rel "
+                 f"{rel:.2e} (gate {DDP_GATE:.0e})")
+        sums = torch.load(run["ckpt"], map_location="cpu",
+                          weights_only=False)["rank_checksums"]
+        if not r0["checksum"] == r1["checksum"] == sums[0] == sums[1]:
+            fail(f"mesh: {label}: the gathered weights differ: ranks "
+                 f"{r0['checksum']}, {r1['checksum']}, checkpoint {sums}")
+        for r in run["reports"]:
+            routed = sum(x["routed"] for x in r["steps"])
+            fwd, bwd = r["launches"]["fwd"], r["launches"]["bwd"]
+            b1_ok = (fwd == bwd == routed > 0) if label == "stage1_fsdp" \
+                else fwd + bwd == 0
+            if not b1_ok or r["b2_launches"]:
+                fail(f"mesh: {label} rank {r['rank']}: B1 launched {fwd} "
+                     f"forward, {bwd} dx for {routed} routed convs; B2 "
+                     f"{r['b2_launches']}")
+        s = ddp_summary(run)
+        tp_share = [r["tp_s"] / sum(x["s"] for x in r["steps"])
+                    for r in run["reports"]]
+        tp_calls = [r["tp_calls"] / len(r["steps"]) for r in run["reports"]]
+        if label == "stage2_tp":
+            if r0["replicated_checksum"] != r1["replicated_checksum"]:
+                fail("mesh: stage2_tp: the tp peers' replicated weights "
+                     "differ")
+            if not min(tp_calls) > 0:
+                fail("mesh: stage2_tp: no tensor-parallel collective ran")
+        base = ref["two"]
+        print(f"mesh: {label}: step 1 all-plain f32 global loss "
+              f"{loss:.6f} against phase 13's one nccl rank "
+              f"{ref['loss_1']:.6f} (rel {rel:.2e}, gate {DDP_GATE:.0e}); "
+              f"gathered weights' checksums equal on both ranks and in the "
+              f"checkpoint; parameter bytes a rank "
+              f"{[r['param_bytes'] for r in run['reports']]} of the full "
+              f"model's {r0['full_param_bytes']} "
+              f"({r0['param_bytes'] / r0['full_param_bytes']:.3f}); "
+              f"{s['steps_per_s']:.3f} steps/s against phase 13's 2-rank "
+              f"DDP {base['steps_per_s']:.3f} (train_batch s "
+              f"{s['step_s']}); peak a rank {s['peak_gib']} GiB (DDP "
+              f"{base['peak_gib']}), reserved "
+              f"{[r['peak_reserved'] / 2**30 for r in run['reports']]} GiB; "
+              f"tensor-parallel collectives a step "
+              f"{tp_calls}, their share of train_batch {tp_share}; synced "
+              f"batch norm all-reduces a step {s['bn_calls_a_step']}; B1 "
+              f"launches per rank {s['launches']}; before the last step "
+              + "; ".join(f"rank {r['rank']}: {memory_text(r['memory'][-1])}"
+                          for r in run["reports"])
+              + f"; launch wall {wall_text(run)} ({card})", flush=True)
+        out[label] = {"loss": loss, "loss_rel": rel, "summary": s,
+                      "param_bytes": [r["param_bytes"]
+                                      for r in run["reports"]],
+                      "full_param_bytes": r0["full_param_bytes"],
+                      "tp_calls_a_step": tp_calls, "tp_share": tp_share,
+                      "b1": r0.get("b1"), "mesh": r0["mesh"],
+                      "memory": [r["memory"] for r in run["reports"]],
+                      "wall_split": run["wall_split"],
+                      "b2_launches": sum(r["b2_launches"]
+                                         for r in run["reports"]),
+                      "launches": {"fwd": sum(r["launches"]["fwd"]
+                                              for r in run["reports"]),
+                                   "bwd": sum(r["launches"]["bwd"]
+                                              for r in run["reports"])}}
+    return out
+
+
+def mesh_server_phase(card, zrun_conv):
+    """Phase mesh (iii): InstSegServer and UnifiedServer with
+    mesh=["cuda:0", "cuda:0"] against one server each (see the module
+    docstring).  Each part of a batch routes its convs by its own rows.
+    Two stage-1 pairs, both with the decoder's self-mask off
+    (replicated_phase says why): all-plain (``all_plain``), gated at
+    REPLICA_GATE, and the main path, the model as built, gated at
+    MESH_BUILT_GATE; then B1 against its plain version at the routed
+    shapes of one part's forward (``b1_shapes``)."""
+    import dataclasses
+    import threading
+    import torch
+    from pq3d_tpu_torch.config import load_config, serving_config
+    from pq3d_tpu_torch.data import unified_datasets as uds
+    from pq3d_tpu_torch.data.instseg_pipeline import pipeline_config
+    from pq3d_tpu_torch.data.unified_pipeline import UnifiedPipelineConfig
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.models.sparse_unet import flatten_maps
+    from pq3d_tpu_torch.ops import windowed_conv
+    from pq3d_tpu_torch.serve import InstSegServer, UnifiedServer
+    mesh = ["cuda:0", "cuda:0"]
+
+    class Recording(InstSegServer):
+        """Keeps each scene's final logits and each part's first batch; a
+        mesh part runs on its device's thread after ``_dispatch`` returns,
+        so each part's scene ids wait in that part's queue, in batch
+        order."""
+
+        def __init__(self, *a, **k):
+            self.logits, self._pending, self.part_batch = {}, {}, {}
+            self._lock = threading.Lock()
+            super().__init__(*a, **k)
+
+        def _dispatch(self, scenes):
+            n = max(len(self.mesh_models), 1)
+            rows = self.batch_size // n
+            with self._lock:
+                for part in range(n):
+                    self._pending.setdefault(part, []).append(
+                        [id(s) for s in scenes[part * rows:
+                                               (part + 1) * rows]])
+            return super()._dispatch(scenes)
+
+        def _forward_on(self, model, batch):
+            cls_l, mask_l = super()._forward_on(model, batch)
+            part = next(i for i, r in enumerate(self.mesh_models or [model])
+                        if r is model)
+            with self._lock:
+                self.part_batch.setdefault(part, batch)
+                for i, sid in enumerate(self._pending[part].pop(0)):
+                    self.logits[sid] = (cls_l[i].float(),
+                                        mask_l[i].float(),
+                                        batch["seg_pad_masks"][i])
+            return cls_l, mask_l
+
+    cfg = serving_config("rect",
+                         [f"data.instseg_options.level_caps={LAYOUT_CAPS}"])
+    pipe = dataclasses.replace(pipeline_config(cfg["data"]
+                                               ["instseg_options"]),
+                               fps_subsample=0)
+    model = build_model(cfg, device="cuda", seed=0)
+    backbone = model.voxel_encoder.backbone
+    expected = []       # routed convs of each forward (each mesh part's)
+    model.register_forward_pre_hook(
+        lambda mod, args: expected.append(len(backbone.routed_convs(
+            level_rows(args[0])))))
+    scenes = make_scenes(8, seed=3)
+
+    def serve(on_mesh):
+        srv = Recording(model, pipe, batch_size=4, num_classes=200,
+                        topk=100, max_delay_s=SERVE_HOLD_S,
+                        extra_features={"mv": 768, "pc": 768},
+                        **({"mesh": mesh} if on_mesh
+                           else {"device": "cuda:0"}))
+        try:
+            answers = [f.result(timeout=900)
+                       for f in [srv.submit(s) for s in scenes]]
+            settle(srv, len(scenes))
+        finally:
+            srv.close()
+        for a in answers:
+            if not isinstance(a, list):
+                fail("mesh: a request got no answer")
+        return srv
+
+    serve(False)                # warm-up: the timed servers start warm
+    rels, rates = {}, {}
+    model.unified_encoder.use_self_mask = False
+    for built in (False, True):
+        with (contextlib.nullcontext() if built else all_plain(model)):
+            one = serve(False)
+            if built:
+                zrun_conv.reset_counts()         # main path starts here
+                windowed_conv.reset_counts()
+                expected.clear()
+            srv = serve(True)
+        if built:
+            launches = zrun_conv.launches        # main path ends here
+            b2 = windowed_conv.launches
+            parts = list(expected)
+        rels[built] = max(
+            max(rel_err(srv.logits[id(s)][0], one.logits[id(s)][0]),
+                rel_err(srv.logits[id(s)][1][srv.logits[id(s)][2]],
+                        one.logits[id(s)][1][one.logits[id(s)][2]]))
+            for s in scenes)
+        rates[built] = (srv.stats.summary()["scenes_per_sec"],
+                        one.stats.summary()["scenes_per_sec"])
+    model.unified_encoder.use_self_mask = True
+    if not (rels[False] <= REPLICA_GATE and rels[True] <= MESH_BUILT_GATE
+            and len(parts) == 2 * 2 and launches == sum(parts) > 0
+            and b2 == 0):
+        fail(f"mesh: the stage-1 mesh server: logits rel {rels[False]:.2e} "
+             f"all-plain (gate {REPLICA_GATE:.0e}), {rels[True]:.2e} as "
+             f"built (gate {MESH_BUILT_GATE:.0e}); B1 launches {launches} "
+             f"against routed convs per part forward {parts}; B2 {b2}")
+    print(f"mesh: InstSegServer(mesh=2 x cuda:0, batch 4): 8 scenes, final "
+          f"logits against one server, self-mask off: rel {rels[False]:.2e}"
+          f" all-plain (gate {REPLICA_GATE:.0e}), {rels[True]:.2e} as "
+          f"built (gate {MESH_BUILT_GATE:.0e}); B1 launches {launches} = "
+          f"routed convs of each part's forward {parts}; "
+          f"{rates[True][0]:.3f} scenes/s against one server's "
+          f"{rates[True][1]:.3f} (all-plain pair: {rates[False][0]:.3f} "
+          f"against {rates[False][1]:.3f}) ({card})", flush=True)
+    # B1 at the routed shapes of one part's forward (a part's rows)
+    pb = srv.part_batch[0]
+    dev = torch.device("cuda", 0)
+    flops_peak, bw_peak = peaks_for(torch.cuda.get_device_name(dev))
+    maps = {k: v.clone() if torch.is_tensor(v) else v   # out of the
+            for k, v in pb["maps"].items()}             # inference mode
+    part_b1 = b1_shapes(zrun_conv, flatten_maps(maps),
+                        backbone.routed_convs(level_rows(pb)), dev,
+                        flops_peak, bw_peak, "mesh part")
+    if not part_b1:
+        fail("mesh: a part's forward routed no conv to B1")
+    del model, srv, one, pb, maps
+    torch.cuda.empty_cache()
+
+    ucfg = load_config("unified_tasks_sceneverse")
+    upipe = UnifiedPipelineConfig(**ucfg["data"]["unified_options"])
+    umodel = build_model(ucfg, device="cuda", seed=0)
+    reqs = unified_requests(8, seed=2)
+    tokens, urates = {}, {}
+    for on_mesh in (False, True):
+        srv = UnifiedServer(umodel, upipe, batch_size=8,
+                            feature_dims={"mv": 768, "voxel": 128},
+                            max_delay_s=SERVE_HOLD_S,
+                            detokenize=uds.detokenize,
+                            **({"mesh": mesh} if on_mesh
+                               else {"device": "cuda:0"}))
+        try:
+            answers = [f.result(timeout=900)
+                       for f in [srv.submit(r) for r in reqs]]
+            settle(srv, len(reqs))
+        finally:
+            srv.close()
+        tokens[on_mesh] = [a["generation_tokens"] for a in answers]
+        urates[on_mesh] = srv.stats.summary()["scenes_per_sec"]
+    same = all((a == b).all() for a, b in zip(tokens[True], tokens[False]))
+    print(f"mesh: UnifiedServer(mesh=2 x cuda:0, batch 8): 8 requests, "
+          f"tokens {'equal to' if same else 'NOT equal to'} one server's; "
+          f"{urates[True]:.3f} requests/s against {urates[False]:.3f} "
+          f"({card})", flush=True)
+    if not same:
+        fail("mesh: the unified mesh server's tokens differ from one "
+             "server's")
+    del umodel
+    torch.cuda.empty_cache()
+    return {"logits_rel_plain": rels[False], "logits_rel_built": rels[True],
+            "launches": launches, "b2_launches": b2, "b1": part_b1,
+            "scenes_per_s": rates[True][0],
+            "one_scenes_per_s": rates[True][1],
+            "unified_per_s": urates[True],
+            "unified_one_per_s": urates[False]}
+
+
+def mesh_phase(card, zrun_conv, dd):
+    """Phase mesh: (i)-(ii) through the launcher, (iii) in this process."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"mesh: this process holds {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB ({torch.cuda.memory_reserved() / 2**30:.2f} reserved); the "
+          f"card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free "
+          f"for the ranks ({card})", flush=True)
+    work = tempfile.mkdtemp(prefix="pq3d_mesh_")
+    try:
+        out = mesh_train_phase(card, dd, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["server"] = mesh_server_phase(card, zrun_conv)
+    out["seconds"] = time.time() - t0
+    print(f"mesh: phase {out['seconds']:.1f} s ({card})", flush=True)
+    return out
 
 
 # the JAX package's bench.py serving setups: (bf16 cast, two-phase, flat)
@@ -3600,7 +4054,7 @@ def variants_phase(card, dev):
 SWIN_GATES = {"dev_flat": 1e-5, "card_cpu": 1e-3,
               "card_cpu_served": 4 * 2**-8, "bf16_mask": 0.2}
 SWIN_BF16_REPS = 4  # forwards of the checked batch a bf16 gate reads
-SWIN_TIMED = 64     # timed requests a setup: 16 batches of 4
+SWIN_TIMED = 8      # timed requests a setup: 2 batches of 4
 SWIN_SEEDS = (1, 2)  # more weight seeds for the bf16 readings
 # the swin config's run.py call: a few steps, then the evaluator
 SWIN_TRAIN = ["data.synthetic.num_train=6", "data.synthetic.num_val=4",
@@ -4596,7 +5050,7 @@ def conv_options_phase(card, dev, zrun_conv):
 
 
 GATHER_SETUPS = ("rect_gather", "dev_gather")
-GATHER_TIMED = 16    # timed requests a setup: 4 batches of 4
+GATHER_TIMED = 8     # timed requests a setup: 2 batches of 4
 # dev_gather's served logits against rect_gather's (the same maps, built
 # on the card); rect_gather against the dense-block rect on the same
 # weights and batch, every conv plain in f32 (the stems sum the same
@@ -4938,7 +5392,7 @@ def reference_warm_start_phase(card, zrun_conv):
             "peak_gib": rec["peak"] / 2**30, "phase_s": total}
 
 
-EXPORT_FORWARDS = 5       # timed forwards of each program (median)
+EXPORT_FORWARDS = 3       # timed forwards of each program (median)
 EXPORT_GATES = {"stage1": 1e-5, "ground": 1e-5, "voxel_level": 2e-2}
 EXPORT_KEYS = ("predictions_class", "predictions_mask")
 
@@ -4998,8 +5452,9 @@ def export_phase(card, dev, zrun_conv):
     """Phase ``export`` (see the module docstring): the stage-1 forward
     exported on the CPU (by a second process that sees no card, while this
     one exports stage 2 on the card) and run on the card, stage 2 exported
-    on the card, and VoxelLevelEncoder at full width.  Every timing runs
-    after the CPU process has ended.  Returns the phase's numbers."""
+    on the card and run in memory, and VoxelLevelEncoder at full width.
+    Every timing runs after the CPU process has ended.  Returns the
+    phase's numbers."""
     import subprocess
     import tempfile
     import numpy as np
@@ -5017,10 +5472,12 @@ def export_phase(card, dev, zrun_conv):
     out = {}
 
     def report(label, r, load_what):
+        saved = (f"artifact {r['artifact_mib']:.1f} MiB, {load_what} "
+                 f"{r['load_s']:.1f} s" if load_what else
+                 "run in memory, not saved")
         print(f"export: {label}: exported in {r['export_s']:.1f} s, "
               f"{r['nodes']} graph nodes ({r['zrun_conv_nodes']} "
-              f"pq3d.zrun_conv), artifact {r['artifact_mib']:.1f} MiB, "
-              f"{load_what} {r['load_s']:.1f} s | one forward "
+              f"pq3d.zrun_conv), {saved} | one forward "
               f"{r['exported_ms']:.1f} ms exported against "
               f"{r['eager_ms']:.1f} ms eager (CUDA events, median of "
               f"{EXPORT_FORWARDS}) ({card})", flush=True)
@@ -5054,13 +5511,10 @@ def export_phase(card, dev, zrun_conv):
             s2 = {"export_s": time.time() - t0,
                   "nodes": len(program.graph.nodes),
                   "zrun_conv_nodes": export.kernel_nodes(program)}
-            blob = export.save_program(program)
-            s2["artifact_mib"] = len(blob) / 2**20
+            # the program runs as exported, in memory: stage 1's artifact
+            # carries the save and load round trip
+            fn2 = export.load_forward(program)
             del program
-            t0 = time.time()
-            fn2 = export.load_forward(blob)
-            s2["load_s"] = time.time() - t0
-            del blob
             stdout, stderr = cpu_host.communicate(timeout=900)
         finally:
             if cpu_host.poll() is None:
@@ -5172,7 +5626,7 @@ def export_phase(card, dev, zrun_conv):
             umodel(b2d)
     s2.update(exported_ms=cuda_time(lambda: fn2(b2d), EXPORT_FORWARDS),
               eager_ms=cuda_time(eager2, EXPORT_FORWARDS), ground_rel=grel)
-    report("stage2", s2, "load")
+    report("stage2", s2, None)
     out["stage2"] = s2
     del fn2, umodel
     torch.cuda.empty_cache()
@@ -5216,6 +5670,15 @@ def main():
     # pads those levels to buckets (the printed level rows show it)
     warnings.filterwarnings("ignore", message="level .* > configured cap")
 
+    laps = {"t": time.time(), "phase": "1"}
+
+    def lap(nxt):
+        """Print the seconds the phase before ``nxt`` took."""
+        now = time.time()
+        print(f"timing: phase {laps['phase']} {now - laps['t']:.1f} s",
+              flush=True)
+        laps.update(t=now, phase=nxt)
+
     # ---- 1. device ------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5230,6 +5693,7 @@ def main():
     flops_peak, bw_peak = peaks_for(kind)
     dev = torch.device("cuda")
 
+    lap("2")
     # ---- 2. build: one nvcc for each source, all started together ------
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.time()
@@ -5253,6 +5717,7 @@ def main():
         if not regs:
             fail(f"no ptxas report in {name}'s build log")
 
+    lap("3")
     # ---- 3. kernel against its plain version at the routed shapes -------
     cfg = slice_config()
     pipe = pipeline_config(cfg["data"]["instseg_options"])
@@ -5282,6 +5747,7 @@ def main():
               for r in per_shape}
     torch.cuda.empty_cache()
 
+    lap("4")
     # ---- 4. serve -------------------------------------------------------
     expected = []        # routed convs of each forward the server runs
     model.register_forward_pre_hook(
@@ -5340,6 +5806,7 @@ def main():
           f"zrun_conv launches {main_launches} = routed convs per forward "
           f"{expected} ({card})", flush=True)
 
+    lap("5")
     # ---- 5. check: served forward vs every conv on its plain version ----
     b = to_device({k: v for k, v in batch.items() if k != "_meta"}, dev)
     for name in ("mv", "pc"):
@@ -5422,15 +5889,18 @@ def main():
     del model, backbone, srv, outs, got, ref, out, enc_out, b, fm
     torch.cuda.empty_cache()
 
+    lap("5b")
     # ---- 5b. serve_layouts: rect, dev_maps, flat_zt, rect on a pool ----
     lay = serve_layouts_phase(card, dev, zrun_conv, args.profile)
     torch.cuda.empty_cache()
 
+    lap("6")
     # ---- 6. winconv: kernel B2 on the served batch's coordinates --------
     wc = winconv_phase(served, batch, pipe, shapes,
                        {(r["level"], r["cin"], r["cout"]): r["ms"]
                         for r in per_shape}, dev, flops_peak, bw_peak)
 
+    lap("7")
     # ---- 7. kernel_bwd: the backward at a training batch's shapes -------
     import tempfile
     exp_dir = tempfile.mkdtemp(prefix="pq3d_smoke_")
@@ -5455,11 +5925,13 @@ def main():
                                bw_peak)
         del tfm
 
+        lap("8")
         # ---- 8. train ---------------------------------------------------
         windowed_conv.reset_counts()
         tr = train_phase(trainer, zrun_conv, warm, card)
         b2_train = windowed_conv.launches
 
+        lap("9")
         # ---- 9. train_check ---------------------------------------------
         tc = train_check_phase(trainer, zrun_conv, warm)
         if args.profile:
@@ -5469,6 +5941,7 @@ def main():
         del trainer
         torch.cuda.empty_cache()
 
+        lap("9b")
         # ---- 9b. flat_train: the flat pack with the z-run gather conv ----
         t0 = time.time()
         trainer = smoke_trainer(os.path.join(exp_dir, "flat"), *FLAT_ZT)
@@ -5486,32 +5959,45 @@ def main():
     del trainer
     torch.cuda.empty_cache()
 
+    lap("10")
     # ---- 10. unified: stage-2 serving at full width ---------------------
     unified_phase(card, dev, args.profile)
     torch.cuda.empty_cache()
 
+    lap("11")
     # ---- 11. unified_train: stage-2 training at full width --------------
     unified_train_phase(card, dev, args.profile)
     torch.cuda.empty_cache()
 
+    lap("12")
     # ---- 12. recipe: the two-stage recipe on SceneVerse-layout files ----
     rc = recipe_phase(card, dev, zrun_conv,
                       sum(r["ms"] * r["per_forward"] for r in per_shape),
                       flops_peak, bw_peak)
     torch.cuda.empty_cache()
 
+    lap("13")
     # ---- 13. ddp: data-parallel training and replicated serving ---------
     dd = ddp_phase(card, zrun_conv)
     torch.cuda.empty_cache()
 
+    lap("20")
+    # ---- 20. mesh: FSDP, tensor parallelism, the mesh server (right
+    # after phase 13, whose records it reads) ----------------------------
+    ms = mesh_phase(card, zrun_conv, dd)
+    torch.cuda.empty_cache()
+
+    lap("14")
     # ---- 14. unified_variants: the rest of stage 2 ----------------------
     vr = variants_phase(card, dev)
     torch.cuda.empty_cache()
 
+    lap("15")
     # ---- 15. swin_layouts: Swin3D, the flat device maps, the stage-1 cast
     sw = swin_layouts_phase(card, dev)
     torch.cuda.empty_cache()
 
+    lap("16")
     # ---- 16. conv_options: the voxel encoder's remaining conv options ----
     co = conv_options_phase(card, dev, zrun_conv)
     co_train = {f"conv_options_{k}_{p}": r["b1"][pk]
@@ -5519,14 +6005,17 @@ def main():
                 for p, pk in (("fwd", "fwd"), ("bwd", "bwd"))}
     torch.cuda.empty_cache()
 
+    lap("17")
     # ---- 17. gather_stem: the 125-tap gather stem, served and trained ---
     gs = gather_stem_phase(card, dev, zrun_conv)
     torch.cuda.empty_cache()
 
+    lap("18")
     # ---- 18. reference_warm_start: reference weights into the trainer ---
     rw = reference_warm_start_phase(card, zrun_conv)
     torch.cuda.empty_cache()
 
+    lap("19")
     # ---- 19. export: torch.export artifacts, B1 as pq3d::zrun_conv -----
     ex = export_phase(card, dev, zrun_conv)
     new_paths = {**{f"gather_stem_{k}": r["launches"]
@@ -5536,7 +6025,12 @@ def main():
                  "reference_warm_start_fwd": rw["launches"]["fwd"],
                  "reference_warm_start_bwd": rw["launches"]["bwd"],
                  "export": ex["stage1"]["launches"],
-                 "export_voxel_level": ex["voxel_level"]["launches"]}
+                 "export_voxel_level": ex["voxel_level"]["launches"],
+                 "mesh_train_fwd": ms["stage1_fsdp"]["launches"]["fwd"],
+                 "mesh_train_bwd": ms["stage1_fsdp"]["launches"]["bwd"],
+                 "mesh_serve": ms["server"]["launches"]}
+
+    lap("end")
 
     # ---- kernels line + result -----------------------------------------
     def per_fwd(key):
@@ -5602,7 +6096,9 @@ def main():
                  f"(forward, dx), phase reference_warm_start's 2 steps "
                  f"(forward, dx), phase export's {ex['stage1']['forwards']} "
                  f"forwards of the stage-1 program exported on the CPU and "
-                 f"its VoxelLevelEncoder forward; recipe_ms: the "
+                 f"its VoxelLevelEncoder forward, phase mesh's FSDP "
+                 f"stage-1 step 2 on both ranks (forward, dx) and its "
+                 f"mesh server's part forwards; recipe_ms: the "
                  f"same sum "
                  f"as ms over one forward of 4 SceneVerse-replica scans",
         "recipe_ms": rc["b1_ms"], "recipe_shapes": rc["b1"],
@@ -5613,6 +6109,7 @@ def main():
         "swin_layouts": {k: v for k, v in sw.items() if k != "locks"},
         "conv_options": co,
         "gather_stem": gs, "reference_warm_start": rw, "export": ex,
+        "mesh": ms,
         "shapes": per_shape,
         "bwd_launches": tr["counts"]["bwd"],
         "bwd_ms": per_step("ms"), "bwd_host_ms": per_step("host_ms"),
@@ -5657,6 +6154,9 @@ def main():
                              "gather_stem": sum(r["b2_launches"] for r in
                                                 gs["runs"].values()),
                              "export": ex["stage1"]["b2_launches"],
+                             "mesh": ms["stage1_fsdp"]["b2_launches"]
+                             + ms["stage2_tp"]["b2_launches"]
+                             + ms["server"]["b2_launches"],
                              "winconv": wc["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in wc["shapes"]),
         "ms": b2_fwd("ms"), "plain_ms": b2_fwd("plain_ms"),

@@ -211,9 +211,11 @@ class InstSegLoader:
     last batch by wrap-around and marks ``_meta['n_real']``.
     ``num_workers > 0`` builds the batches in an epoch-persistent spawn
     pool, each from ``SeedSequence([seed, epoch, b])``, in order; release
-    it with ``close()``.  Rank ``rank`` of ``world`` data-parallel ranks
-    builds every global batch of ``batch_size`` rows as one process does
-    and yields its own contiguous rows (``eval/base.rank_share``)."""
+    it with ``close()``.  Row ``rank`` of ``world`` ranks that hold rows
+    (under a mesh: ``parallel/dist.row_index`` of ``dist.rows``; tp peers
+    share theirs) builds every global batch of ``batch_size`` rows as one
+    process does and yields its own contiguous rows
+    (``eval/base.rank_share``)."""
 
     def __init__(self, dataset, pipe_cfg: InstSegPipelineConfig,
                  batch_size: int, train: bool, seed: int = 0,

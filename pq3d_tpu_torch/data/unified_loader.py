@@ -19,7 +19,9 @@ the same cores); the batches are the same.
 
 Under data parallelism every rank draws the same global batches (and the
 same mixture schedule) and yields its own contiguous rows of each
-(``eval/base.rank_share``); each rank runs its own pool.
+(``eval/base.rank_share``); each rank runs its own pool.  Under a mesh the
+rows are those of the rank's row index (``parallel/dist.row_index``), so
+tp peers yield the same rows.
 """
 from __future__ import annotations
 

@@ -47,7 +47,7 @@ import socket
 import subprocess
 import sys
 import time
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 DEFAULT_ENTRY = "pq3d_tpu_torch.run:main"
 
@@ -144,16 +144,19 @@ def spawn_local(args, run_args: Sequence[str]) -> int:
     old = {s: signal.signal(s, forward)
            for s in (signal.SIGTERM, signal.SIGINT, signal.SIGUSR1)}
     rc = 0
+    failed: List[Tuple[int, int]] = []
     try:
         while [p.poll() for p in procs].count(None):
-            failed = [p.returncode for p in procs
+            failed = [(r, p.returncode) for r, p in enumerate(procs)
                       if p.returncode not in (None, 0)]
             if failed:
-                rc = failed[0]
+                rc = failed[0][1]
                 break
             time.sleep(0.2)
         else:
-            rc = next((p.returncode for p in procs if p.returncode), 0)
+            failed = [(r, p.returncode) for r, p in enumerate(procs)
+                      if p.returncode]
+            rc = failed[0][1] if failed else 0
     finally:
         for p in procs:         # a rank failed: the others would wait on
             if p.poll() is None:    # it in a collective until the timeout
@@ -163,8 +166,12 @@ def spawn_local(args, run_args: Sequence[str]) -> int:
         for s, h in old.items():
             signal.signal(s, h)
     if rc:
-        print(f"[launch] a rank exited with {rc}; stopped the others",
-              file=sys.stderr)
+        which = ", ".join(
+            f"rank {r} with {c}" + (f" ({signal.strsignal(-c)})"
+                                    if c < 0 else "")
+            for r, c in failed)
+        print(f"[launch] a rank exited with {rc} ({which}); stopped the "
+              f"others", file=sys.stderr)
     return rc
 
 

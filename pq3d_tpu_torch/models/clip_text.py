@@ -39,9 +39,13 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 def _dense(lin: nn.Linear, x: torch.Tensor,
            dtype: Optional[torch.dtype]) -> torch.Tensor:
-    """``lin(x)``, or with ``dtype`` its input and parameters cast to it."""
+    """``lin(x)``, or with ``dtype`` its input and parameters cast to it
+    (under tensor parallelism, in the Linear's mode: ``parallel/tp``)."""
     if dtype is None:
         return lin(x)
+    if hasattr(lin, "tp_mode"):
+        from pq3d_tpu_torch.parallel.tp import linear
+        return linear(lin, x, dtype)
     return F.linear(x.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
 
 
@@ -57,9 +61,9 @@ class CLIPAttention(nn.Module):
         self.out_proj = nn.Linear(width, width)
 
     def forward(self, x, attend_mask):
-        b, L, w = x.shape
+        b, L, _ = x.shape
         h = self.heads
-        d = w // h
+        d = self.q_proj.weight.shape[0] // h    # the heads this rank runs
 
         def split(t):
             return t.reshape(b, L, h, d).transpose(1, 2)
@@ -73,7 +77,7 @@ class CLIPAttention(nn.Module):
         mask = causal[None, None] & attend_mask[:, None, None, :]
         probs = masked_softmax(logits, mask)
         out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
-        return _dense(self.out_proj, out.transpose(1, 2).reshape(b, L, w),
+        return _dense(self.out_proj, out.transpose(1, 2).reshape(b, L, -1),
                       self.dtype)
 
 

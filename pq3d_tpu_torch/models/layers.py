@@ -21,7 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pq3d_tpu_torch.parallel.dist import all_reduce_sum, world
+from pq3d_tpu_torch.parallel.dist import all_reduce_sum
+from pq3d_tpu_torch.parallel.dist import rows as row_ranks
 
 NEG_INF = -1e9
 FLAX_LN_EPS = 1e-6   # flax.linen.LayerNorm's default epsilon
@@ -75,6 +76,9 @@ class MultiHeadAttention(nn.Module):
                  zero_attn: bool = False):
         super().__init__()
         self.n_head = n_head
+        # under tensor parallelism (parallel/tp.py) the module runs heads
+        # [head_offset, head_offset + n_head) of its own
+        self.head_offset = 0
         self.zero_attn = zero_attn
         self.drop = nn.Dropout(dropout)
         self.q_proj = nn.Linear(d_model, d_model)
@@ -94,6 +98,9 @@ class MultiHeadAttention(nn.Module):
                 attn_mask = attn_mask[:, None, None, :]
             elif attn_mask.dim() == 3:     # (B, Q, Kv)
                 attn_mask = attn_mask[:, None, :, :]
+            elif attn_mask.shape[1] > h:   # (B, H, Q, Kv): this rank's heads
+                attn_mask = attn_mask[:, self.head_offset:
+                                      self.head_offset + h]
         probs = self.drop(masked_softmax(logits, attn_mask,
                                          zero_attn=self.zero_attn))
         out = torch.einsum("bhqt,bhtv->bhqv", probs.to(vp.dtype), vp)
@@ -207,7 +214,9 @@ class SpatialSelfAttentionLayer(nn.Module):
 
 def global_moments(x: torch.Tensor, w: torch.Tensor):
     """Mean and biased variance per channel of the rows of ``x`` (N, C)
-    weighted by ``w`` (N, 1), over every rank: the weighted sums and the
+    weighted by ``w`` (N, 1), over every rank of the row group
+    (``parallel/dist.rows``: the ranks that hold different rows; tp peers
+    share theirs and are not counted twice): the weighted sums and the
     count in one all-reduce, then the squared deviations from the global
     mean in a second (two passes, as one process computes them); both
     all-reduces carry the gradient back to every rank's rows."""
@@ -262,7 +271,7 @@ class MaskedBatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             w = valid[:, None].float()
-            if world() > 1:
+            if row_ranks() > 1:
                 mean, var = global_moments(xf, w)
             else:
                 cnt = w.sum().clamp_min(1.0)
@@ -308,7 +317,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         if self.training:
-            if world() > 1:
+            if row_ranks() > 1:
                 rows = x.reshape(-1, x.shape[-1])
                 mean, var = global_moments(rows, rows.new_ones(len(rows), 1))
             else:

@@ -73,6 +73,10 @@ class T5Attention(nn.Module):
         self.o = nn.Linear(inner, d_model, bias=False)
         self.relative_attention_bias = (
             nn.Embedding(NUM_BUCKETS, heads) if has_rel_bias else None)
+        # under tensor parallelism (parallel/tp.py) the module runs a slice
+        # of the heads, and reads that slice of the position bias: the
+        # mesh whose tp group it runs over
+        self.tp_mesh = None
 
     def _split(self, t):
         return t.reshape(t.shape[0], t.shape[1], self.heads,
@@ -84,8 +88,12 @@ class T5Attention(nn.Module):
         rel = torch.arange(klen, device=dev)[None, :] \
             - torch.arange(qlen, device=dev)[:, None]
         bucket = relative_position_bucket(rel)
-        return self.relative_attention_bias(bucket.long()).permute(
+        table = self.relative_attention_bias(bucket.long()).permute(
             2, 0, 1)[None]
+        if self.tp_mesh is not None:
+            from pq3d_tpu_torch.parallel.tp import scatter
+            table = scatter(table, self.tp_mesh, 1)
+        return table
 
     def kv_proj(self, kv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return self._split(self.k(kv)), self._split(self.v(kv))
@@ -201,9 +209,9 @@ class T5Decoder(nn.Module):
         for blk in blocks:
             ck, cv = blk.cross_attn.kv_proj(enc)
             caches.append({
-                "self_k": ck.new_zeros(b, self.heads, max_tokens,
+                "self_k": ck.new_zeros(b, blk.self_attn.heads, max_tokens,
                                        self.d_kv),
-                "self_v": ck.new_zeros(b, self.heads, max_tokens,
+                "self_v": ck.new_zeros(b, blk.self_attn.heads, max_tokens,
                                        self.d_kv),
                 "cross_k": ck, "cross_v": cv})
         bias_full = blocks[0].self_attn.pos_bias_table(max_tokens,

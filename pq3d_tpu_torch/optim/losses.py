@@ -16,11 +16,13 @@ assignment of the real targets (padded targets cost a constant, so they
 never change it).
 
 Under a process group each rank holds a slice of the global batch, and
-every count a loss divides by is summed over the ranks (``global_sum``):
-a rank's loss is its rows' share of the loss of the global batch, which
-the ranks' shares sum to (the JAX package computes it on the global batch
-at once).  The train step scales the share by the world size, so DDP's
-gradient average is the gradient of the global loss.
+every count a loss divides by is summed over the ranks that hold rows
+(``global_sum``, over the mesh's row group): a rank's loss is its rows'
+share of the loss of the global batch, which the row group's shares sum
+to (the JAX package computes it on the global batch at once).  The DDP
+train step scales the share by the world size, so DDP's gradient average
+is the gradient of the global loss; the mesh's step sums the shares'
+gradients instead (``train/state.py``).
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 from scipy.optimize import linear_sum_assignment
 
-from pq3d_tpu_torch.parallel.dist import global_sum, world
+from pq3d_tpu_torch.parallel.dist import global_sum, rows
 
 PAD_COST = 1e4  # constant cost for padded targets (preserves real matching)
 
@@ -319,7 +321,7 @@ def cross_entropy(logits: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
 
 def _global_mean(x: torch.Tensor) -> torch.Tensor:
     """This rank's share of the mean of ``x`` over every rank's entries."""
-    if world() == 1:
+    if rows() == 1:
         return x.mean()
     return x.sum() / global_sum(torch.tensor(float(x.numel()),
                                              device=x.device))

@@ -1,16 +1,26 @@
-"""Data parallelism across processes with ``torch.distributed``;
-counterpart of ``pq3d_tpu/parallel/multihost.py`` and of the ``data`` axis
-of ``pq3d_tpu/parallel/mesh.py``.
+"""Process groups and the reductions over the batch's rows;
+counterpart of ``pq3d_tpu/parallel/multihost.py`` and of the ``data``
+axis of ``pq3d_tpu/parallel/mesh.py``.
 
 The JAX package runs one controller: its batch is one logical array under
 ``jit``, so every reduction over the batch is global.  Here each process
 (a rank) holds one slice of the global batch, so what reduces over the
-batch says so: the masked batch norms sum their statistics over the ranks
-(``all_reduce_sum``, with autograd), the losses divide by counts summed
-over the ranks (``global_sum``), and the evaluators merge what the ranks
-scored (``merge_eval_dicts``, ``gather_in_order``).  Without a process
-group every helper is the identity and ``rank()`` / ``world()`` are 0 / 1,
-so one process computes exactly what it computed before this module.
+batch says so: the masked batch norms sum their statistics over the
+ranks that hold rows (``all_reduce_sum``, with autograd), the losses
+divide by counts summed over them (``global_sum``), and the evaluators
+merge what they scored (``merge_eval_dicts``, ``gather_in_order``).
+
+Which ranks hold rows is the mesh's business (``parallel/mesh.py``): the
+rows split over its ``data x fsdp`` ranks, the row group, and the ``tp``
+peers of a rank share its rows.  ``make_mesh`` registers the mesh here
+(``set_mesh``); the helpers then reduce over the rank's row group, and
+the evaluator merges take only tp-rank 0 of each row group, since its tp
+peers score the same rows.  ``rows()`` / ``row_index()`` are the size of
+the row group and the rank's place in it.  Without a mesh every rank
+holds rows (``rows() == world()``); without a process group every helper
+is the identity and ``rank()`` / ``world()`` are 0 / 1, so one process
+computes exactly what it computed before this module.  ``any_rank``
+agrees over every rank: a preemption flag must stop tp peers too.
 
 Object collectives (``all_gather_object``, ``gather_object``,
 ``broadcast_object``) pickle through the backend's own device: CPU tensors
@@ -18,7 +28,6 @@ under gloo (which all-gathers no CUDA tensor), the rank's card under nccl.
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 from datetime import timedelta
 from typing import Any, Dict, List, Mapping, Optional
@@ -39,29 +48,37 @@ def world() -> int:
     return dist.get_world_size() if is_initialized() else 1
 
 
-@dataclasses.dataclass(frozen=True)
-class MeshConfig:
-    """The config's ``parallel:`` node.  Only the ``data`` axis is ported:
-    ``data`` is -1 (every rank) or the world size; the JAX package's
-    ``fsdp`` and ``tp`` axes raise above 1."""
-    data: int = -1
+# the mesh registered by parallel/mesh.make_mesh (None: every rank holds
+# rows of its own)
+_MESH: List[Any] = [None]
 
-    @classmethod
-    def from_config(cls, cfg: Mapping[str, Any]) -> "MeshConfig":
-        node = cfg.get("parallel") or {}
-        for axis in ("fsdp", "tp"):
-            if int(node.get(axis, 1)) > 1:
-                raise NotImplementedError(
-                    f"parallel.{axis}={node[axis]}: only data parallelism "
-                    f"is ported; FSDP, tensor parallelism and the "
-                    f"sharded-batch mesh server wait in ROADMAP's queue A")
-        n = world()
-        data = int(node.get("data", -1))
-        if data not in (-1, n):
-            raise ValueError(f"parallel.data={data} but the run has {n} "
-                             f"ranks: data parallelism spans every rank "
-                             f"(-1)")
-        return cls(data=n)
+
+def set_mesh(mesh: Any) -> None:
+    """Register ``mesh`` (a ``parallel.mesh.Mesh``, or None to drop it):
+    the reductions below then run over its row group."""
+    _MESH[0] = mesh
+
+
+def get_mesh() -> Any:
+    return _MESH[0]
+
+
+def rows() -> int:
+    """The ranks that hold different rows of the batch (data x fsdp)."""
+    m = _MESH[0]
+    return m.n_rows if m is not None else world()
+
+
+def row_index() -> int:
+    """This rank's place among them: which rows of the batch it holds."""
+    m = _MESH[0]
+    return m.row_index if m is not None else rank()
+
+
+def _row_group():
+    """The process group of this rank's row group (None: every rank)."""
+    m = _MESH[0]
+    return m.row_group if m is not None else None
 
 
 def env_ranks(mode: str, environ: Mapping[str, str] = os.environ
@@ -115,6 +132,7 @@ def init_process_group(backend: str, rank: int, world: int, addr: str,
 
 
 def destroy_process_group() -> None:
+    set_mesh(None)
     if is_initialized():
         dist.destroy_process_group()
 
@@ -136,32 +154,32 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t):
         t = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=_row_group())
         return t
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad)
+        dist.all_reduce(grad, group=_row_group())
         return grad
 
 
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the ranks, differentiable: the backward sums
-    the gradient over the ranks, so a rank's gradient holds what every
+    """The sum of ``t`` over the row group, differentiable: the backward
+    sums the gradient over it, so a rank's gradient holds what every
     rank's loss owes to its rows."""
-    if world() == 1:
+    if rows() == 1:
         return t
     return _AllReduceSum.apply(t)
 
 
 def global_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the ranks, as a constant (loss normalisers:
-    counts over the global batch)."""
-    if world() == 1:
+    """The sum of ``t`` over the row group, as a constant (loss
+    normalisers: counts over the global batch)."""
+    if rows() == 1:
         return t
     t = t.detach().clone()
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=_row_group())
     return t
 
 
@@ -202,13 +220,20 @@ def broadcast_object(obj: Any, src: int = 0) -> Any:
     return box[0]
 
 
+def _scorers(every: List[Any]) -> List[Any]:
+    """The entries of tp-rank 0 of each row group, in row order, from a
+    list in rank order (the mesh lays ranks out row-major, tp last)."""
+    m = _MESH[0]
+    return every if m is None else every[::m.cfg.tp]
+
+
 def merge_eval_dicts(eval_dict: Dict[str, List]) -> Dict[str, List]:
-    """Every rank's evaluator ``(value, count)`` pairs, rank-major (the
+    """The evaluator ``(value, count)`` pairs of every row, row-major (the
     JAX package's ``merge_eval_dicts``)."""
     if world() == 1:
         return eval_dict
     merged: Dict[str, List] = {}
-    for d in all_gather_object(eval_dict):
+    for d in _scorers(all_gather_object(eval_dict)):
         for k, pairs in d.items():
             merged.setdefault(k, []).extend(pairs)
     return merged
@@ -224,6 +249,7 @@ def gather_in_order(chunks: List[List[Any]]) -> Optional[List[Any]]:
     every = gather_object(chunks)
     if every is None:
         return None
+    every = _scorers(every)
     out: List[Any] = []
     for u in range(max(len(c) for c in every)):
         for c in every:
@@ -236,8 +262,14 @@ def param_checksum(module: torch.nn.Module) -> int:
     """An integer sum of the bits of every parameter and buffer, weighted
     by their place: ranks whose checksums differ hold different weights
     (equal checksums are what bit-identical weights give)."""
+    return tensor_checksum(list(module.parameters())
+                           + list(module.buffers()))
+
+
+def tensor_checksum(tensors: List[torch.Tensor]) -> int:
+    """``param_checksum`` of a list of tensors."""
     total = 0
-    for i, t in enumerate(list(module.parameters()) + list(module.buffers())):
+    for i, t in enumerate(tensors):
         t = t.detach().contiguous().reshape(-1)
         ints = {8: torch.int64, 4: torch.int32, 2: torch.int16,
                 1: torch.uint8}[t.element_size()]

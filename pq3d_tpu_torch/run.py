@@ -22,15 +22,17 @@ SceneVerse layout's (stage 1: ``ScanNetInstSegSceneVerse``; stage 2: the
 seven from ``ScanReferSceneVerse`` to ``Scan2CapSceneVerse``).
 
 Under a process group (``python -m pq3d_tpu_torch.launch``) every rank
-runs ``main``: the ``parallel:`` node may name only the ``data`` axis
-(``parallel/dist.MeshConfig``), rank 0 picks the experiment dir and
-writes ``config.json``, and each rank trains on its rows of the global
-batch.  The flat pack and the flat object layout have no batch dim to
-split: with more than one rank
-it raises unless ``dataloader.allow_single_device`` is set, and then rank
-0 trains alone while the other ranks return; a ``batchsize`` (or
-``batchsize_eval``) that the world size does not divide takes the same
-rule.
+runs ``main``: the ``parallel:`` node, ``{data, fsdp, tp,
+fsdp_min_size}``, lays the ranks out as a mesh (``parallel/mesh.py``;
+``data x fsdp x tp`` must be the world), rank 0 picks the experiment dir
+and writes ``config.json``, and each rank trains on the rows of its row
+index (the rows split over ``data x fsdp``; tp peers share theirs), with
+its parameters sharded where ``fsdp`` or ``tp`` is above 1.  The flat
+pack and the flat object layout have no batch dim to split: with more
+than one rank it raises unless ``dataloader.allow_single_device`` is set,
+and then rank 0 trains alone while the other ranks return; a
+``batchsize`` (or ``batchsize_eval``) that ``data x fsdp`` does not
+divide takes the same rule.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from typing import Any, Dict, List, Optional
 
 from pq3d_tpu_torch.config import load_config, parse_value, set_dotted
 from pq3d_tpu_torch.parallel import dist
+from pq3d_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
 
 def _optimizer_total_steps(cfg: Dict[str, Any], steps_per_epoch: int) -> int:
@@ -93,7 +96,7 @@ def build_instseg_trainer(cfg: Dict[str, Any]):
                  else dl.get("batchsize_eval", dl["batchsize"]))
         loader = InstSegLoader(ds, pipe_cfg, bs, train, seed=seed,
                                num_workers=int(dl.get("num_workers", 0)),
-                               rank=dist.rank(), world=dist.world())
+                               rank=dist.row_index(), world=dist.rows())
         return loader, len(ds) // bs
 
     train_loader, steps_per_epoch = make_loader("train", True)
@@ -207,11 +210,12 @@ def build_multitask_trainer(cfg: Dict[str, Any]):
         train_ds = make_ds(ds_name, "train")
         train_loaders.append(UnifiedTaskLoader(
             train_ds, pipe_cfg, bs, True, seed=seed, num_workers=nw,
-            rank=dist.rank(), world=dist.world()))
+            rank=dist.row_index(), world=dist.rows()))
         steps_per_epoch += len(train_ds) // bs
         val_loader = UnifiedTaskLoader(make_ds(ds_name, "val"),
                                        pipe_cfg, bs_eval, False, seed=seed,
-                                       rank=dist.rank(), world=dist.world())
+                                       rank=dist.row_index(),
+                                       world=dist.rows())
         ev_name = train_ds.evaluator
         save_dir = (os.path.join(cfg["exp_dir"], "eval_results", ev_name)
                     if save else None)
@@ -284,7 +288,8 @@ def experiment_name(cfg: Dict[str, Any]) -> str:
 def single_device_reason(cfg: Dict[str, Any]) -> Optional[str]:
     """Why a run of more than one rank must train on one device (the flat
     pack or the flat object layout, whose arrays have no batch dim to
-    split; a batch size the world size does not divide), or None."""
+    split; a batch size the row group, ``data x fsdp``, does not divide),
+    or None."""
     data = cfg.get("data") or {}
     iopt = data.get("instseg_options") or {}
     uopt = data.get("unified_options") or {}
@@ -298,9 +303,9 @@ def single_device_reason(cfg: Dict[str, Any]) -> Optional[str]:
     dl = cfg["dataloader"]
     for key in ("batchsize", "batchsize_eval"):
         bs = int(dl.get(key, dl["batchsize"]))
-        if bs % dist.world():
+        if bs % dist.rows():
             return (f"dataloader.{key}={bs} does not split over "
-                    f"{dist.world()} ranks")
+                    f"{dist.rows()} ranks of rows (parallel.data x fsdp)")
     return None
 
 
@@ -324,7 +329,9 @@ def main(argv: Optional[List[str]] = None):
             set_dotted(cfg, key.strip(), parse_value(val))
         cfg["resume"] = True
 
-    dist.MeshConfig.from_config(cfg)
+    mesh = make_mesh(MeshConfig.from_config(cfg))
+    if mesh.world > 1:
+        print(f"[run] {mesh.describe()}", flush=True)
     reason = single_device_reason(cfg) if dist.world() > 1 else None
     if reason:
         if not (cfg.get("dataloader") or {}).get("allow_single_device"):

@@ -2,8 +2,8 @@
 per-request answers.
 
 Counterpart of ``pq3d_tpu/serve.py`` (``ServerStats``, ``_MicroBatchServer``,
-``InstSegServer``, ``UnifiedServer`` and ``ReplicatedServer``, one server
-per device; the sharded-batch mesh server is not ported):
+``InstSegServer``, ``UnifiedServer``, their sharded-batch mesh form and
+``ReplicatedServer``, one server per device):
 
 - a submit() queue with futures, so callers get per-scene results;
 - micro-batching: up to ``batch_size`` scenes per step, waiting at most
@@ -24,8 +24,20 @@ per device; the sharded-batch mesh server is not ported):
   ``cast_model_bf16``) and the two-phase decode of a ``two_phase``
   generation head.
 
-The forward runs under ``torch.inference_mode()`` on the server's device;
-device results are read back in ``_finish``.
+- the mesh server (``mesh=``, a list of devices that forms the mesh's
+  ``data`` axis; ``serving_mesh()`` lists every visible card): one model
+  replica a device (``parallel/mesh.replicate``), each collated
+  rectangular batch split by rows into ``len(mesh)`` equal parts, one
+  thread a device running its part's forward, the answers joined in
+  request order.  A part routes each sparse conv by its own rows, as a
+  data-parallel training rank does.  One process drives every
+  device, as the JAX package's one controller does.  It refuses what
+  JAX's refuses: a ``batch_size`` the mesh does not divide, the flat
+  layouts (``flat_pack``, ``compact_conv``, ``flat_obj``: no batch dim
+  to split) and ``mesh`` together with ``device``.
+
+The forward runs under ``torch.inference_mode()`` on the server's device
+(the mesh's devices); device results are read back in ``_finish``.
 """
 from __future__ import annotations
 
@@ -53,6 +65,7 @@ from pq3d_tpu_torch.data.unified_pipeline import (UnifiedPipelineConfig,
 from pq3d_tpu_torch.device import resolve_device
 from pq3d_tpu_torch.eval.instseg_eval import rank_instances
 from pq3d_tpu_torch.models.encoders import check_swin_window
+from pq3d_tpu_torch.parallel.mesh import replicate
 
 # spawn-pool worker protocol for the stage-1 host preprocessing: module
 # level, so spawned workers find the functions by name; a worker runs numpy
@@ -125,6 +138,9 @@ class _MicroBatchServer:
         self.max_delay_s = max_delay_s
         self.cast = cast
         self.stats = ServerStats()
+        # one thread a mesh device runs its part of each batch, in order
+        self._parts = [_futures.ThreadPoolExecutor(1)
+                       for _ in getattr(self, "mesh", None) or ()]
         self._q: "queue.Queue" = queue.Queue()
         self._closed = False
         self._close_lock = threading.Lock()
@@ -146,6 +162,8 @@ class _MicroBatchServer:
                 self._closed = True
                 self._q.put(None)
         self._thread.join()
+        for pool in self._parts:
+            pool.shutdown()
 
     def _collect(self, first_timeout=None):
         """``None`` blocks until a request; ``0.0`` drains what is queued
@@ -240,6 +258,89 @@ class _MicroBatchServer:
     def _finish(self, state):
         raise NotImplementedError
 
+    def _place(self, model, mesh, device, batch_size: int) -> None:
+        """``self.device``, ``self.mesh`` and ``self.model`` (with
+        ``self.mesh_models``, one replica a mesh device) from the
+        constructor's arguments; the refusals both servers share."""
+        if mesh is not None and device is not None:
+            raise ValueError("mesh and device pinning are exclusive: a "
+                             "sharded server spans devices, a pinned one "
+                             "owns exactly one")
+        self.mesh = None
+        self.mesh_models: List[Any] = []
+        if mesh is None:
+            self.device = resolve_device("cuda" if device is None
+                                         else device)
+            self.model = model
+            return
+        self.mesh = [resolve_device(d) for d in mesh]
+        if not self.mesh:
+            raise ValueError("mesh serving needs at least one device")
+        if batch_size % len(self.mesh):
+            raise ValueError(
+                f"batch_size {batch_size} not divisible by the mesh's "
+                f"data axis ({len(self.mesh)}); the sharded forward would "
+                f"be ragged")
+        self.device = self.mesh[0]
+        self.mesh_models = replicate(model, self.mesh)
+        self.model = self.mesh_models[0]
+
+    def _run_parts(self, np_batch: Dict[str, Any], forward) -> List[Any]:
+        """``forward(model, batch on its device)`` of each mesh part of
+        ``np_batch`` (its rows split into ``len(mesh)`` equal parts), each
+        on its device's thread; returns the parts' futures, in row
+        order."""
+        n = len(self.mesh)
+        b = self.batch_size // n
+        parts = [split_rows(np_batch, i * b, (i + 1) * b, self.batch_size)
+                 for i in range(n)]
+
+        def run(model, device, part):
+            return forward(model, to_device(part, device))
+        return [pool.submit(run, m, d, part)
+                for pool, m, d, part in zip(self._parts, self.mesh_models,
+                                            self.mesh, parts)]
+
+
+def serving_mesh(devices=None) -> List[torch.device]:
+    """The ``data`` axis of a mesh server: ``devices``, or every visible
+    card (raises without CUDA: pass ``["cpu", "cpu"]`` to split batches
+    on the host)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass devices= to "
+                               "serve a mesh on the host")
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device(d) for d in devices]
+
+
+def split_rows(tree: Any, lo: int, hi: int, rows: int) -> Any:
+    """Rows ``[lo, hi)`` of every array of a collated batch (nested dicts
+    included).  Every array of a rectangular batch has the batch's
+    ``rows`` leading (JAX's ``shard_batch`` splits each on its dim 0);
+    one that has not raises."""
+    if isinstance(tree, dict):
+        return {k: split_rows(v, lo, hi, rows) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) and tree.ndim >= 1:
+        if tree.shape[0] != rows:
+            raise ValueError(f"a batch array of shape {tree.shape} has no "
+                             f"leading dim of {rows} rows to split")
+        return tree[lo:hi]
+    return tree
+
+
+def _cat_parts(futs: List[Any]) -> Any:
+    """The mesh parts' outputs (tuples or dicts of tensors) read back to
+    the host and joined along the rows."""
+    parts = [f.result() for f in futs]
+
+    def cat(tensors):
+        return torch.cat([t.cpu() for t in tensors])
+    if isinstance(parts[0], dict):
+        return {k: cat([p[k] for p in parts]) for k in parts[0]}
+    return tuple(cat([p[i] for p in parts]) for i in range(len(parts[0])))
+
 
 def to_device(np_batch: Dict[str, Any], device: torch.device
               ) -> Dict[str, Any]:
@@ -277,14 +378,25 @@ class InstSegServer(_MicroBatchServer):
     each batch on the device before the forward.  With ``num_workers >
     0`` each real scene's ``process_scene`` runs on a spawn pool
     (``data/pool.BatchPool``) with its own seed, the scenes' running
-    count; otherwise in process from the server's rng."""
+    count; otherwise in process from the server's rng.
+
+    ``mesh`` (a list of devices, ``serving_mesh()``) in place of ``device``
+    makes it the mesh server (module docstring): the rectangular layouts
+    only, with or without device-built maps, ``batch_size`` a multiple of
+    the mesh's length; ``model`` may live anywhere, each device gets its
+    replica."""
 
     def __init__(self, model, pipe_cfg: InstSegPipelineConfig,
                  batch_size: int, num_classes: int, topk: int = 100,
                  score_threshold: float = 0.0, max_delay_s: float = 0.05,
                  extra_features: Optional[Dict[str, int]] = None,
-                 device="cuda", num_workers: int = 0, cast=None):
-        self.device = resolve_device(device)
+                 device=None, num_workers: int = 0, cast=None, mesh=None):
+        if mesh is not None and (pipe_cfg.flat_pack
+                                 or pipe_cfg.compact_conv):
+            raise ValueError(
+                "mesh serving needs the rectangular layout: flat_pack/"
+                "compact_conv arrays have no batch dim to shard")
+        self._place(model, mesh, device, batch_size)
         if not pipe_cfg.level_caps and not pipe_cfg.flat_pack:
             raise ValueError(
                 "serving requires pipe_cfg.level_caps: fixed level pads "
@@ -327,7 +439,6 @@ class InstSegServer(_MicroBatchServer):
                 "set but the pipeline ships host maps: set "
                 "pipe_cfg.device_maps=True (the model would look for "
                 "'vox_coords' the batch does not carry)")
-        self.model = model
         self.pipe_cfg = pipe_cfg
         self.num_classes = num_classes
         self.topk = topk
@@ -364,10 +475,15 @@ class InstSegServer(_MicroBatchServer):
                                             flat_shape_caps=new)
 
     def _forward(self, batch):
+        return self._forward_on(self.model, batch)
+
+    def _forward_on(self, model, batch):
+        """The final round's class and mask logits of ``model`` (the
+        server's, or a mesh replica) on ``batch``, on its device."""
         if self.cast is not None:
             batch = self.cast(batch)
         with torch.inference_mode():
-            out = self.model(batch)
+            out = model(batch)
         return out["predictions_class"][-1], out["predictions_mask"][-1]
 
     def _preprocess(self, scenes):
@@ -400,13 +516,19 @@ class InstSegServer(_MicroBatchServer):
                 (self.batch_size, S, dim), np.float32)
             np_batch[f"{name}_seg_pad_masks"] = np_batch["seg_pad_masks"]
         t2 = time.time()
-        cls_l, mask_l = self._forward(to_device(np_batch, self.device))
+        if self.mesh is not None:
+            cls_l = self._run_parts(np_batch, self._forward_on)
+            mask_l = None
+        else:
+            cls_l, mask_l = self._forward(to_device(np_batch, self.device))
         self.stats.add_stage("put_dispatch", time.time() - t2)
         return (n_real, cls_l, mask_l, np_batch["seg_pad_masks"], meta)
 
     def _finish(self, state):
         n_real, cls_l, mask_l, seg_valid, meta = state
         t0 = time.time()
+        if mask_l is None:          # the mesh parts' futures
+            cls_l, mask_l = _cat_parts(cls_l)
         cls_l = cls_l.float().cpu().numpy()
         mask_l = mask_l.float().cpu().numpy()
         self.stats.add_stage("readback", time.time() - t0)
@@ -434,26 +556,36 @@ class UnifiedServer(_MicroBatchServer):
     device, readback, the per-request answers).  With a ``two_phase``
     generation head the forward returns the decoder's input states and
     ``model.decode_states`` is enqueued on them right after, with nothing
-    read back between the two."""
+    read back between the two.  ``mesh`` (a list of devices) in place of
+    ``device`` makes it the mesh server (module docstring), in the padded
+    object layout only."""
 
     def __init__(self, model, pipe_cfg: UnifiedPipelineConfig,
                  batch_size: int, feature_dims: Dict[str, int],
                  detokenize=None, max_delay_s: float = 0.05,
-                 device="cuda", cast=None):
-        self.device = resolve_device(device)
-        self.model = model
+                 device=None, cast=None, mesh=None):
+        if mesh is not None and getattr(pipe_cfg, "flat_obj", False):
+            raise ValueError(
+                "mesh serving needs the padded object layout: flat_obj "
+                "arrays have no batch dim to shard")
+        self._place(model, mesh, device, batch_size)
         self.pipe_cfg = pipe_cfg
         self.feature_dims = feature_dims
         self.detokenize = detokenize
         super().__init__(batch_size, max_delay_s, cast=cast)
 
     def _forward(self, batch):
+        return self._forward_on(self.model, batch)
+
+    def _forward_on(self, model, batch):
+        """``ground_logits`` and ``generation_tokens`` of ``model`` (the
+        server's, or a mesh replica) on ``batch``, on its device."""
         if self.cast is not None:
             batch = self.cast(batch)
         with torch.inference_mode():
-            out = self.model(batch)
+            out = model(batch)
             if "generation_enc" in out:
-                out["generation_tokens"] = self.model.decode_states(
+                out["generation_tokens"] = model.decode_states(
                     out["generation_enc"], out["generation_enc_mask"])
         return {k: out[k] for k in ("ground_logits", "generation_tokens")
                 if k in out}
@@ -478,13 +610,18 @@ class UnifiedServer(_MicroBatchServer):
                     if k not in ("obj_fts", "response")}
         t2 = time.time()
         self.stats.add_stage("collate", t2 - t1)
-        out = self._forward(to_device(np_batch, self.device))
+        if self.mesh is not None:
+            out = self._run_parts(np_batch, self._forward_on)
+        else:
+            out = self._forward(to_device(np_batch, self.device))
         self.stats.add_stage("forward_decode", time.time() - t2)
         return (n_real, out, np_batch["query_pad_masks"])
 
     def _finish(self, state):
         n_real, out, obj_valid = state
         t0 = time.time()
+        if isinstance(out, list):   # the mesh parts' futures
+            out = _cat_parts(out)
         out = {k: v.float().cpu().numpy() if v.is_floating_point()
                else v.cpu().numpy() for k, v in out.items()}
         # object slots are query slots in the unified batch (one query per

@@ -36,11 +36,19 @@ class CheckpointManager:
 
     def save(self, name: str, model, optimizer, scheduler, step: int,
              tracker: Dict[str, Any],
-             extra: Optional[Dict[str, Any]] = None) -> None:
+             extra: Optional[Dict[str, Any]] = None,
+             model_state: Optional[Dict[str, Any]] = None,
+             optimizer_state: Optional[Dict[str, Any]] = None) -> None:
+        """``model_state`` / ``optimizer_state``, when given, are written in
+        place of the objects' own state dicts (a sharded model's gathered
+        state, ``parallel/mesh.Sharding``)."""
         path = self._path(name)
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        payload = {"model": model.state_dict(),
-                   "optimizer": optimizer.state_dict(),
+        payload = {"model": (model.state_dict() if model_state is None
+                             else model_state),
+                   "optimizer": (optimizer.state_dict()
+                                 if optimizer_state is None
+                                 else optimizer_state),
                    "scheduler": scheduler.state_dict(),
                    "step": int(step), "tracker": dict(tracker),
                    **(extra or {})}

@@ -19,6 +19,16 @@ accumulation the micro-steps that do not step skip DDP's all-reduce
 (``GradientAccumulator.preload``), so one all-reduce carries the window
 and its mean is taken after it; there ``grad_norm`` is the norm of that
 mean, where one process reports the k-th micro-step's own.
+
+On a sharded mesh (``sharding``, from ``parallel/mesh.shard_params``:
+``fsdp`` or ``tp`` above 1) the forward and the backward run inside
+``sharding.gathered()`` (the fsdp shards gathered), on the share itself;
+``sharding.reduce_grads`` then sums each gradient over the ranks that
+must add it and keeps the rank's block, the clip reads the norm of the
+whole model's gradient (``sharding.global_norm``: each element once), and
+AdamW steps on the blocks.  Under accumulation the micro-steps that do
+not step keep their own gradients in the compute shape, unreduced (the
+counterpart of ``no_sync``), and the k-th reduces the window's sum.
 """
 from __future__ import annotations
 
@@ -31,7 +41,7 @@ import torch.nn as nn
 from pq3d_tpu_torch.optim.optimizers import (GradientAccumulator,
                                              clip_by_global_norm_,
                                              global_norm)
-from pq3d_tpu_torch.parallel.dist import global_sum, world
+from pq3d_tpu_torch.parallel.dist import global_sum, rows
 
 LossFn = Callable[[Dict, Dict], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
@@ -41,7 +51,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     grad_norm_max: Optional[float] = None,
                     mark: Optional[Callable[[str], None]] = None,
                     accumulator: Optional[GradientAccumulator] = None,
-                    ddp: Optional[nn.Module] = None):
+                    ddp: Optional[nn.Module] = None, sharding=None):
     """``step(batch) -> metrics``: ``loss``, ``grad_norm`` (of this call's
     gradients, before the clip) and the loss parts, as detached device
     scalars.  ``mark``, when given, is called with ``"forward"``,
@@ -49,11 +59,16 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     step has been issued (a profiler records an event there).  With an
     ``accumulator`` the optimizer steps only when it closes a window.
     ``ddp`` is ``model`` wrapped in ``DistributedDataParallel``: the
-    forward goes through it."""
+    forward goes through it.  ``sharding`` is the model's placement on a
+    sharded mesh (module docstring)."""
     params = [p for p in model.parameters() if p.requires_grad]
     mark = mark or (lambda part: None)
     forward = model if ddp is None else ddp
-    n_ranks = world()
+    n_ranks = rows()
+    if sharding is not None:
+        return _sharded_step(model, optimizer, scheduler, loss_fn,
+                             grad_norm_max, mark, accumulator, sharding,
+                             params)
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
         model.train()
@@ -89,23 +104,71 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             optimizer.step()
             scheduler.step()
         mark("optimizer")
-        metrics = {"loss": total.detach(),
-                   **{k: v.detach() for k, v in parts.items()}}
-        if n_ranks > 1:
-            summed = global_sum(torch.stack([v.float()
-                                             for v in metrics.values()]))
-            metrics = dict(zip(metrics, summed.unbind()))
+        metrics = _summed_metrics(total, parts)
         return {"loss": metrics.pop("loss"), "grad_norm": norm, **metrics}
 
     return step
 
 
-def make_eval_step(model: nn.Module, loss_fn: Optional[LossFn] = None):
+def _summed_metrics(total, parts) -> Dict[str, torch.Tensor]:
+    """The loss and its parts, each summed over the row group's shares."""
+    metrics = {"loss": total.detach(),
+               **{k: v.detach() for k, v in parts.items()}}
+    if rows() > 1:
+        summed = global_sum(torch.stack([v.float()
+                                         for v in metrics.values()]))
+        metrics = dict(zip(metrics, summed.unbind()))
+    return metrics
+
+
+def _sharded_step(model, optimizer, scheduler, loss_fn, grad_norm_max,
+                  mark, accumulator, sharding, params):
+    """``make_train_step`` on a sharded mesh (module docstring)."""
+    def step(batch: Dict) -> Dict[str, torch.Tensor]:
+        model.train()
+        closing = accumulator is not None and \
+            accumulator.mini_step == accumulator.every_k - 1
+        with sharding.gathered():
+            out = model(batch)
+            mark("forward")
+            total, parts = loss_fn(out, batch)
+            mark("loss")
+            optimizer.zero_grad(set_to_none=True)
+            if closing:
+                accumulator.preload(params)
+            total.backward()
+        mark("backward")
+        grads = sharding.local_grads(params)
+        if accumulator is not None and not closing:
+            # a micro-step inside the window: this rank's own gradients
+            norm = global_norm(grads)
+            accumulator.add(grads)
+        else:
+            grads = sharding.reduce_grads(params, grads)
+            for p, g in zip(params, grads):
+                p.grad = g
+            if closing:
+                accumulator.close_synced(grads)
+            norm = sharding.global_norm(params, grads)
+            if grad_norm_max:
+                clip_by_global_norm_(grads, grad_norm_max, norm)
+            optimizer.step()
+            scheduler.step()
+        mark("optimizer")
+        metrics = _summed_metrics(total, parts)
+        return {"loss": metrics.pop("loss"), "grad_norm": norm, **metrics}
+
+    return step
+
+
+def make_eval_step(model: nn.Module, loss_fn: Optional[LossFn] = None,
+                   sharding=None):
     """``step(batch) -> outputs`` in eval mode, plus ``eval_loss`` when a
-    loss is given."""
+    loss is given; on a sharded mesh inside ``sharding.gathered()``."""
     def step(batch: Dict) -> Dict:
         model.eval()
-        with torch.inference_mode():
+        with (sharding.gathered() if sharding is not None
+              else contextlib.nullcontext()), torch.inference_mode():
             out = model(batch)
             if loss_fn is not None:
                 out = dict(out)

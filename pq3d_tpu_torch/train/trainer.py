@@ -39,6 +39,19 @@ checkpoints.  Only rank 0 writes checkpoints, the metrics log and
 A preemption signal on any rank stops every rank (an all-reduce of the
 flag after each step), so no rank leaves the others waiting in a
 collective.
+
+On a sharded mesh (``parallel.fsdp`` or ``parallel.tp`` above 1; ``run.py``
+makes the mesh, ``parallel/mesh.py``) the rows split over the row group
+(``dist.rows`` ranks; tp peers share theirs) and ``_lazy_init`` places the
+restored or warm-started model on the mesh (``mesh.shard_params``) in
+place of the DDP wrap: each rank keeps its blocks of the parameters and,
+as AdamW makes them, of the moments; a full optimizer state restored from
+a checkpoint is cut to the blocks.  Dropout seeds take the row index
+(``rng_seed + dist.row_index()``), so tp peers draw the same masks.  A
+checkpoint holds the gathered model and optimizer state in one process's
+format (every rank gathers it, rank 0 writes it), so one process and any
+mesh resume each other's checkpoints; its ``rank_checksums`` are those of
+the gathered state, which must agree.
 """
 from __future__ import annotations
 
@@ -147,6 +160,7 @@ class Query3DTrainer:
         self._accumulator = self._memory_generator = None
         self._train_step = self._eval_step = None
         self.ddp: Optional[torch.nn.Module] = None
+        self.sharding = None                # parallel/mesh.Sharding
         self._preempted = False
         self.warm_started: List[str] = []   # names a warm start loaded
         # a reference-weights warm start's report (utils/hf_import)
@@ -156,7 +170,7 @@ class Query3DTrainer:
         from pq3d_tpu_torch.optim.optimizers import (GradientAccumulator,
                                                      accumulation_steps,
                                                      build_from_config)
-        seed = int(self.cfg.get("rng_seed", 42)) + self.rank
+        seed = int(self.cfg.get("rng_seed", 42)) + dist.row_index()
         torch.manual_seed(seed)
         self._memory_generator = torch.Generator(
             device=self.device).manual_seed(seed)
@@ -179,7 +193,12 @@ class Query3DTrainer:
         elif self.cfg.get("pretrain_ckpt_path"):
             self.warm_started = self._warm_start(
                 str(self.cfg["pretrain_ckpt_path"]))
-        if dist.is_initialized():
+        mesh = dist.get_mesh()
+        if mesh is not None and mesh.cfg.sharded:
+            from pq3d_tpu_torch.parallel.mesh import shard_params
+            self.sharding = shard_params(self.model, mesh)
+            self.sharding.shard_optimizer_state(self._optimizer)
+        elif dist.is_initialized():
             from torch.nn.parallel import DistributedDataParallel
             ids = [self.device.index if self.device.index is not None
                    else torch.cuda.current_device()] \
@@ -194,8 +213,10 @@ class Query3DTrainer:
                                            self._scheduler, self.loss_fn,
                                            self._grad_norm,
                                            accumulator=self._accumulator,
-                                           ddp=self.ddp)
-        self._eval_step = make_eval_step(self.model, self.loss_fn)
+                                           ddp=self.ddp,
+                                           sharding=self.sharding)
+        self._eval_step = make_eval_step(self.model, self.loss_fn,
+                                         self.sharding)
 
     def _warm_start(self, path: str) -> List[str]:
         """Non-strict warm start: from another run's checkpoint (stage 2
@@ -290,8 +311,16 @@ class Query3DTrainer:
         and ``rank_checksums`` the weights' checksums, which must
         agree."""
         extra = self._rank_state()
+        model_state = optimizer_state = None
+        if self.sharding is not None:
+            from pq3d_tpu_torch.parallel.mesh import full_state_dict
+            model_state = full_state_dict(self.model)
+            optimizer_state = self.sharding.full_optimizer_state(
+                self._optimizer)
         if dist.is_initialized():
-            sums = dist.all_gather_object(dist.param_checksum(self.model))
+            sums = dist.all_gather_object(
+                dist.param_checksum(self.model) if model_state is None
+                else dist.tensor_checksum(list(model_state.values())))
             if len(set(sums)) != 1:
                 raise RuntimeError(f"the ranks' weights differ before "
                                    f"saving {name!r}: checksums {sums}")
@@ -300,7 +329,9 @@ class Query3DTrainer:
         if self.rank == 0:
             self.ckpt.save(name, self.model, self._optimizer,
                            self._scheduler, self.step,
-                           self.tracker.state_dict(), extra)
+                           self.tracker.state_dict(), extra,
+                           model_state=model_state,
+                           optimizer_state=optimizer_state)
 
     def _log(self, metrics: Dict[str, Any], prefix: str) -> None:
         if self.logger is not None:

@@ -123,6 +123,32 @@ def flax_leaves(model: nn.Module
     return out
 
 
+def param_paths(model: nn.Module
+                ) -> List[Tuple[str, Tuple[str, ...], Tuple[int, ...], bool]]:
+    """(dotted torch name, flax path, flax-layout shape, transposed) of
+    every parameter of ``model``, in ``named_parameters`` order:
+    ``transposed`` marks a Linear's ``weight``, the flax ``kernel`` with
+    its dims reversed (``parallel/mesh.py`` places each parameter by the
+    JAX package's rules on the flax path and layout)."""
+    out = []
+    seen = set()
+    for mod_name, module in model.named_modules():
+        prefix = tuple(mod_name.split(".")) if mod_name else ()
+        back = {v: k for k, v in _RENAMES.get(type(module), {}).items()}
+        linear = isinstance(module, nn.Linear)
+        if linear:
+            back["weight"] = "kernel"
+        for attr, t in module.named_parameters(recurse=False):
+            if id(t) in seen:
+                continue
+            seen.add(id(t))
+            flip = linear and attr == "weight"
+            shape = tuple(t.shape)[::-1] if flip else tuple(t.shape)
+            out.append((".".join(prefix + (attr,)),
+                        prefix + (back.get(attr, attr),), shape, flip))
+    return out
+
+
 def load_flax_variables(model: nn.Module,
                         variables: Dict[str, Dict[str, Any]]) -> None:
     """Fill ``model``'s parameters and buffers from a flax variable tree

@@ -488,7 +488,7 @@ def case_refusals(d, argv):
                                        "true"]),
                         ("batchsize", ["dataloader.batchsize=3"]),
                         ("batchsize_eval", ["dataloader.batchsize_eval=1"]),
-                        ("tp", ["parallel.tp=2"]),
+                        ("tp", ["parallel.tp=3"]),
                         ("data", ["parallel.data=4"])):
         try:
             run.main([*argv, *extra, f"exp_dir={d}/{name}"])

@@ -1,9 +1,9 @@
 """``python -m pq3d_tpu_torch.run`` refusals under two gloo ranks on the
 CPU (through ``python -m pq3d_tpu_torch.launch``, the tiny stage-1 widths
 of ``tests/test_torch_trainer.py``): the flat pack and a batch size (or
-eval batch size) the world does not divide raise ``ValueError``,
-``parallel.tp`` ``NotImplementedError``, ``parallel.data`` other than the
-world ``ValueError``; a preemption flag raised on rank 1 alone stops both
+eval batch size) the world does not divide raise ``ValueError``, and so
+do a ``parallel.tp`` and a ``parallel.data`` whose mesh does not make the
+world; a preemption flag raised on rank 1 alone stops both
 ranks after the same step, with ``latest`` saved; with
 ``dataloader.allow_single_device`` the flat pack trains on rank 0 alone
 while rank 1 returns.
@@ -32,7 +32,7 @@ def _refusal_checks(tmp_path):
         for name, kind in (("flat_pack", "ValueError"),
                            ("batchsize", "ValueError"),
                            ("batchsize_eval", "ValueError"),
-                           ("tp", "NotImplementedError"),
+                           ("tp", "ValueError"),
                            ("data", "ValueError")):
             assert rk[name] is not None and rk[name][0] == kind, \
                 (name, rk[name])

@@ -29,7 +29,7 @@ NEEDED = ["pq3d_tpu_torch." + m for m in (
     "data.label_utils", "data.scannet200_constants", "ops.device_maps",
     "utils.profiling", "export", "data.augmentor", "data.tokenizers",
     "models.legacy_encoders", "utils.io_utils", "utils.metric_utils",
-    "utils.box_utils")]
+    "utils.box_utils", "parallel.dist", "parallel.mesh", "parallel.tp")]
 import pq3d_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(pq3d_tpu_torch.__path__,
                                               "pq3d_tpu_torch.")]
@@ -52,6 +52,27 @@ def test_port_imports_no_jax_and_no_jax_package():
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _top_imports(path):
+    tree = ast.parse(open(os.path.join(REPO, path)).read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return {n.split(".")[0] for n in names}
+
+
+@pytest.mark.parametrize("path", ["tools/torch_mesh_phase.py",
+                                  "tests/_torch_mesh_worker.py"])
+def test_mesh_programs_import_no_jax(path):
+    """The mesh's card tool and its CPU ranks' program run the port
+    alone."""
+    top = _top_imports(path)
+    assert not top & {"jax", "flax", "pq3d_tpu", "yaml", "sklearn"}, top
+    assert "pq3d_tpu_torch" in top
 
 
 def test_chip_smoke_imports_no_jax():

@@ -9,7 +9,8 @@ helpers it decodes the environment with (``parallel/dist.py``) and
   environments;
 - no silent fallback: more local ranks than cards without ``--devices``
   raises, ``--devices`` must list every local rank, the backend follows
-  the device unless named, ``parallel.fsdp`` / ``tp`` above 1 raise;
+  the device unless named, a ``parallel`` node whose axes do not make
+  the world raises;
 - ``python`` mode calls the entry in process; ``--nproc-per-node 2``
   stops the other rank and returns the exit code when one rank fails;
 - ``ReplicatedServer`` with two replicas on ``["cpu", "cpu"]`` serves
@@ -32,6 +33,7 @@ from pq3d_tpu_torch.data import synthetic
 from pq3d_tpu_torch.data.instseg_pipeline import InstSegPipelineConfig
 from pq3d_tpu_torch.models import query3d as tq3d
 from pq3d_tpu_torch.parallel import dist
+from pq3d_tpu_torch.parallel.mesh import MeshConfig
 from pq3d_tpu_torch.serve import InstSegServer, ReplicatedServer
 
 torch.set_num_threads(1)
@@ -123,13 +125,11 @@ def test_devices_and_backends_never_fall_back():
     args, _ = launch.parse_args(["--nproc-per-node", "2", "--devices",
                                  "cuda:0,cuda:0", "--backend", "gloo"])
     assert args.backend == "gloo"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dist.MeshConfig.from_config({"parallel": {"fsdp": 2}})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dist.MeshConfig.from_config({"parallel": {"tp": 2}})
-    with pytest.raises(ValueError, match="every rank"):
-        dist.MeshConfig.from_config({"parallel": {"data": 2}})
-    assert dist.MeshConfig.from_config({}) == dist.MeshConfig(data=1)
+    # the parallel node's axes must make the world (one rank here)
+    for node in ({"fsdp": 2}, {"tp": 2}, {"data": 2}):
+        with pytest.raises(ValueError, match="does not make the run's 1"):
+            MeshConfig.from_config({"parallel": node}).resolve(1)
+    assert MeshConfig.from_config({}).resolve(1) == MeshConfig(data=1)
 
 
 def _fail_rank1(argv):
