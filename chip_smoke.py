@@ -171,19 +171,32 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                tensors, finite metrics of all seven datasets; B1 against its
                plain version at the routed shapes of 4 replica scans, with
                its ms a forward beside phase 3's;
-13. ddp    -- data parallelism through the launcher: stage 1 (DDP_STAGE1:
-               phase 8's trainer, full width, 70k-point scenes, a global
-               batch of 4) as ``python -m pq3d_tpu_torch.launch
-               --nproc-per-node 2 --backend gloo --devices cuda:0,cuda:0``
-               (two ranks on the one card: nccl refuses that) and as one
-               nccl rank, 2 steps each (STAGE_STEPS; the epoch has 4);
-               stage 2 (DDP_STAGE2: unified_tasks_sceneverse at its widths
-               and batch of 128, 64 a rank) likewise for 2 steps (of 3),
-               with the synthetic tokenizer named in the config (the
-               YAML's HF names fall back to it on a host without their
-               files).
-               A run ends after its steps as a preemption ends it, with
-               its checkpoint saved.  In each rank
+13. ddp    -- data parallelism through the launcher, in two launches whose
+               ranks run their runs one after another: ``python -m
+               pq3d_tpu_torch.launch --nproc-per-node 2 --backend gloo
+               --devices cuda:0,cuda:0`` (two ranks on the one card: nccl
+               refuses that) runs stage 1 (DDP_STAGE1: phase 8's trainer,
+               full width, 70k-point scenes, a global batch of 4), phase
+               20's stage 1 under FSDP, stage 2 (DDP_STAGE2:
+               unified_tasks_sceneverse at its widths and batch of 128, 64
+               a rank) and phase 20's stage 2 under tensor parallelism;
+               one nccl rank runs stages 1 and 2; 2 steps a run
+               (STAGE_STEPS; the epochs have 4 and 3), stage 2 with the
+               synthetic tokenizer named in the config (the YAML's HF
+               names fall back to it on a host without their files).
+               Every stage-1 run reads a user config by path
+               (``--config-name`` relative to the ranks' working
+               directory; the launcher makes it absolute): the packaged
+               instseg_sceneverse.yaml written to a file with its name an
+               embedded interpolation and its eval batch 4
+               (USER_CONFIG_EDITS).  While the launches run, this process
+               makes phase 19's exports (host work).  Each launch prints
+               rank 0's wall split (the launcher's start, the rank's
+               interpreter, imports, group init, the entry's imports, the
+               runs, the exit), each run its own (config, model build,
+               datasets and loaders, the first batch, step 1, the timed
+               steps, the end).  A run ends after its steps as a
+               preemption ends it, with its checkpoint saved.  In each rank
                (``ddp_rank``) step 1 runs all-plain in f32 with dropout
                and the self-mask off, and the later steps are the main
                path: B1's counts are set to 0 after step 1 and read after
@@ -192,7 +205,10 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                loss of the two ranks within DDP_GATE of the one rank's, B1
                launched forward and dx in each stage-1 rank as often as
                its rows route (and never on stage 2), rank 0's B1 against
-               its plain version at its last batch's routed shapes;
+               its plain version at its last batch's routed shapes, every
+               rank's resolved config and the run's config.json equal to
+               the packaged config with USER_CONFIG_OVERRIDES (the file
+               read, its interpolation resolved);
                printed: steps/s of 2 ranks against 1, peak memory per
                rank, the synced batch norms' all-reduces a step and their
                share of it.  Then ReplicatedServer with two stage-1
@@ -347,14 +363,16 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                report loads every leaf, with nothing mismatched or unused;
                every warm-started tensor on the card equals its source bit
                for bit; the first loss is finite; B1 runs forward and dx;
-19. export -- pq3d_tpu_torch.export (torch.export artifacts; B1 is the
-               operator pq3d::zrun_conv): (i) the slice's full-width stage-1
-               model (phase 5b's caps, random weights from a seed, rect) is
-               exported on the CPU, on the batch of 4 of phase 5b's first
-               timed scenes, by a second process that sees no card
-               (``chip_smoke.py --export-stage1 PATH``, run while this one
-               exports stage 2), written to a temporary file and loaded
-               with device="cuda"; gates: the graph holds one pq3d.zrun_conv node
+19. export -- (run right after phase 13, whose launches its exports run
+               beside) pq3d_tpu_torch.export (torch.export artifacts; B1
+               is the operator pq3d::zrun_conv): (i) the slice's full-width
+               stage-1 model (phase 5b's caps, random weights from a seed,
+               rect) is exported on the CPU, on the batch of 4 of phase
+               5b's first timed scenes, by a second process that sees no
+               card and takes two host threads (``chip_smoke.py
+               --export-stage1 PATH``, run while this one exports stage 2),
+               written to a temporary file and loaded with device="cuda";
+               gates: the graph holds one pq3d.zrun_conv node
                per routed conv, the loaded program launches B1 that often a
                forward over 1 + 3 forwards and B2 never, its logits equal
                the eager card forward's within 1e-5 in every round up to a
@@ -368,11 +386,11 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                events, median of 3); (iii) VoxelLevelEncoder (hidden 768) on (i)'s batch with
                B1 against all-plain within 2e-2, B1 launched once per routed
                conv; every timing runs after the CPU process has ended;
-20. mesh    -- (run right after phase 13, whose records it reads) the
+20. mesh    -- (run after phase 19; it reads phase 13's records) the
                data x fsdp x tp mesh (parallel/mesh.py, parallel/tp.py)
-               on 2 gloo ranks on cuda:0 through the launcher (their
-               allocator with expandable segments, MESH_ALLOC_CONF), reusing
-               phase 13's numbers: (i) phase 13's stage-1 run with
+               on 2 gloo ranks on cuda:0, in phase 13's 2-rank launch
+               (whose allocator has expandable segments, MESH_ALLOC_CONF),
+               reusing phase 13's numbers: (i) phase 13's stage-1 run with
                parallel.fsdp=2, 2 steps (step 1 all-plain in f32, dropout
                and self-mask off); gates: step 1's global loss within
                DDP_GATE of phase 13's one nccl rank, B1 forward and dx once
@@ -395,8 +413,10 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                version at one part's routed shapes), and UnifiedServer
                with the same mesh on 8 of phase 10's requests (tokens
                equal to one server's); prints scenes/s;
-then a summary line (B1 against B2 in this run), one JSON line with every
-hand kernel's numbers, and the result line.
+The phases run in the order 1-13, 19, 20, 14-18, each ending with a
+``timing: phase N`` line.  Then a summary line (B1 against B2 in this
+run), one JSON line with every hand kernel's numbers, and the result
+line.
 
     python3 chip_smoke.py --profile PATH
 
@@ -2748,16 +2768,16 @@ def recipe_phase(card, dev, zrun_conv, synth_ms, flops_peak, bw_peak):
 
 # ---- phase ddp: data-parallel training and replicated serving ----------
 
-# the stage-1 run of phase ddp: phase 8's trainer (full width, the
-# 70k-point scenes) at a global batch of 4, an epoch of four steps
+# the stage-1 runs of phase ddp: phase 8's trainer (full width, the
+# 70k-point scenes) at a global batch of 4, an epoch of four steps, on the
+# user config that user_config writes (its eval batch is 4)
 DDP_STAGE1 = ["model.voxel_encoder.args.pallas_conv=true",
               "data.train=[SyntheticInstSeg]", "data.val=[SyntheticInstSeg]",
               "data.synthetic.num_train=16", "data.synthetic.num_val=4",
               "data.synthetic.n_points=70000",
               "data.synthetic.n_instances=24",
               "data.synthetic.n_segments=400", "dataloader.batchsize=4",
-              # the YAML's eval batch of 1 does not split over 2 ranks
-              "dataloader.batchsize_eval=4", "solver.epochs=1", "solver.epochs_per_eval=0",
+              "solver.epochs=1", "solver.epochs_per_eval=0",
               "solver.epochs_per_save=0", "log_every=1"]
 # stage 2: phase 11's widths and scenes at the YAML's batch of 128, one
 # batch a dataset (three steps)
@@ -2783,95 +2803,169 @@ MESH_BUILT_GATE = 1e-2
 # step 1 (all-plain) and the timed ones after it; a smaller dataset would
 # shuffle other scenes into step 1
 STAGE_STEPS = {"stage1": 2, "stage2": 2}
+# phase mesh's runs: phase ddp's (the same global batches, the same steps)
+# on a mesh
+MESH_STAGE1 = DDP_STAGE1 + ["parallel.fsdp=2"]
+MESH_STAGE2 = DDP_STAGE2 + ["parallel.tp=2"]
+# the 2-rank launch's allocator: two tensor-parallel ranks, each holding
+# all 128 rows, reserved 37.21 GiB each with the default one (peak
+# allocated 23.85), leaving 2.65 GiB of the card free
+MESH_ALLOC_CONF = "expandable_segments:True"
+# phase ddp's configs: stage 1's runs read the user config that
+# user_config writes from STAGE1_BASE; stage 2's runs name STAGE2_CONFIG
+STAGE1_BASE = "instseg_sceneverse"
+STAGE2_CONFIG = "unified_tasks_sceneverse"
+DDP_DEVICE = "cuda:0"           # the card of every rank of phase ddp
+# the user config that phase ddp's stage-1 runs name by path: the packaged
+# instseg_sceneverse.yaml with these lines changed (the YAML's eval batch
+# of 1 does not split over 2 ranks), which is the packaged config with
+# USER_CONFIG_OVERRIDES
+USER_CONFIG_EDITS = (('name: "instseg-sceneverse"',
+                      'name: "smoke-${rng_seed}"'),
+                     ("  batchsize_eval: 1\n", "  batchsize_eval: 4\n"))
+USER_CONFIG_OVERRIDES = ["name=smoke-${rng_seed}",
+                         "dataloader.batchsize_eval=4"]
+
+
+def user_config(work):
+    """Write phase ddp's user config (USER_CONFIG_EDITS on the packaged
+    instseg_sceneverse.yaml) into ``work``; returns its path."""
+    from pq3d_tpu_torch.config import config_path
+    with open(config_path(STAGE1_BASE)) as f:
+        text = f.read()
+    for old, new in USER_CONFIG_EDITS:
+        if text.count(old) != 1:
+            fail(f"ddp: the packaged {STAGE1_BASE}.yaml holds "
+                 f"{text.count(old)} lines {old!r}, not one")
+        text = text.replace(old, new)
+    path = os.path.join(work, "smoke_instseg.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def process_start():
+    """This process's start on the wall clock: its start in clock ticks
+    after boot (/proc/self/stat) against the uptime."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return time.time() - (uptime - ticks / os.sysconf("SC_CLK_TCK"))
 
 
 def ddp_rank(argv):
-    """One rank of phase ddp, run by ``python -m pq3d_tpu_torch.launch
-    --entry chip_smoke:ddp_rank -- REPORT_DIR <run arguments>``: it runs
-    ``pq3d_tpu_torch.run.main`` with the trainer's ``train_batch`` wrapped
-    to take step 1 all-plain (``all_plain``), set B1's counts to 0 after
-    it (the main path is steps 2 on), time every later step (host clock
-    to a synchronize) with the synced batch norms' all-reduces inside it
-    (forward and backward, each between two synchronizes) and count its
-    routed convs; then rank 0 holds B1 against its plain version at the
-    routed shapes of its last batch; each rank writes REPORT_DIR/
-    rank{r}.json."""
+    """One rank of phases ddp and mesh, run by ``python -m
+    pq3d_tpu_torch.launch --entry chip_smoke:ddp_rank -- REPORT_DIR --run
+    LABEL --steps=N <run arguments> [--run LABEL ...]``: it runs
+    ``pq3d_tpu_torch.run.main`` once a run, one run after another in this
+    process (which joined the group once), each with the trainer's
+    ``train_batch`` wrapped to take step 1 all-plain (``all_plain``), set
+    B1's counts to 0 after it (a run's main path is steps 2 on), time
+    every later step (host clock to a synchronize) with the synced batch
+    norms' all-reduces and the tensor-parallel collectives inside it (each
+    between two synchronizes) and count its routed convs; the run ends
+    after N steps, as a preemption ends it.  Then rank 0 holds B1 against
+    its plain version at the routed shapes of the run's last batch.  Each
+    rank writes REPORT_DIR/{LABEL}_rank{r}.json a run: the readings, the
+    config the rank resolved, the run's wall stamps and the process's
+    start-up stamps (process start, the launcher's rank stamps, this
+    entry)."""
+    entry = time.time()
+    import copy
+    import gc
     import torch
-    from pq3d_tpu_torch import run
+    from pq3d_tpu_torch import launch, run
+    from pq3d_tpu_torch.models import query3d
     from pq3d_tpu_torch.models.sparse_unet import flatten_maps
-    from pq3d_tpu_torch.ops import zrun_conv
-    from pq3d_tpu_torch.parallel import dist
+    from pq3d_tpu_torch.ops import windowed_conv, zrun_conv
+    from pq3d_tpu_torch.parallel import dist, tp
     from pq3d_tpu_torch.serve import to_device
     from pq3d_tpu_torch.train.trainer import Query3DTrainer
-    from pq3d_tpu_torch.ops import windowed_conv
-    from pq3d_tpu_torch.parallel import tp
-    report_dir, run_args = argv[0], argv[1:]
-    max_steps = None
-    if run_args and run_args[0].startswith("--steps="):
-        max_steps = int(run_args[0].split("=", 1)[1])
-        run_args = run_args[1:]
+    start = {"process": process_start(), "entry": entry,
+             "imported": time.time(),
+             **json.loads(os.environ[launch.RANK_WALL_ENV])}
+    report_dir, runs, device_args = argv[0], [], []
+    for arg in argv[1:]:
+        if arg == "--run":
+            runs.append({"label": None, "steps": None, "argv": []})
+        elif arg.startswith("device="):
+            device_args.append(arg)     # the launcher's, for every run
+        elif runs[-1]["label"] is None:
+            runs[-1]["label"] = arg
+        elif arg.startswith("--steps=") and not runs[-1]["argv"]:
+            runs[-1]["steps"] = int(arg.split("=", 1)[1])
+        else:
+            runs[-1]["argv"].append(arg)
     rank = dist.rank()
-    rec = {"rank": rank, "world": dist.world(),
-           "backend": (torch.distributed.get_backend()
-                       if dist.is_initialized() else None),
-           "steps": [], "bn_s": 0.0, "bn_calls": 0, "tp_s": 0.0,
-           "tp_calls": 0, "memory": [], "wall": {"entry": time.time()}}
-    last = {}
-    timed = {"on": False}
-    sum_fn = dist._AllReduceSum
-    fwd, bwd = sum_fn.forward, sum_fn.backward
+    cur = {"timed": False}
 
-    def timing(fn):
-        def call(ctx, t):
-            if not timed["on"]:
-                return fn(ctx, t)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(ctx, t)
-            torch.cuda.synchronize()
-            rec["bn_s"] += time.perf_counter() - t0
-            rec["bn_calls"] += 1
-            return out
-        return staticmethod(call)
-    sum_fn.forward, sum_fn.backward = timing(fwd), timing(bwd)
-    plain = staticmethod(fwd), staticmethod(bwd)
-
-    def tp_timing(fn):
-        """The tensor-parallel collectives (the all-reduces of a row
-        product's forward and a column product's backward, the all-gathers
-        of the gathered and scattered ones), timed between synchronizes
-        inside the timed steps."""
+    def timing(fn, key):
+        """``fn`` timed between synchronizes inside the timed steps, into
+        the run's ``{key}_s`` and ``{key}_calls``: the synced batch norms'
+        all-reduces (``bn``), the tensor-parallel collectives (``tp``: the
+        all-reduces of a row product's forward and a column product's
+        backward, the all-gathers of the gathered and scattered ones)."""
         def call(*a):
-            if not timed["on"]:
+            if not cur["timed"]:
                 return fn(*a)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*a)
             torch.cuda.synchronize()
-            rec["tp_s"] += time.perf_counter() - t0
-            rec["tp_calls"] += 1
+            cur["rec"][f"{key}_s"] += time.perf_counter() - t0
+            cur["rec"][f"{key}_calls"] += 1
             return out
         return call
-    tp_saved = (tp._Reduce.forward, tp._Copy.backward, tp._gather)
-    tp._Reduce.forward = staticmethod(tp_timing(tp_saved[0]))
-    tp._Copy.backward = staticmethod(tp_timing(tp_saved[1]))
-    tp._gather = tp_timing(tp_saved[2])
-    inner = Query3DTrainer.train_batch
+    sum_fn = dist._AllReduceSum
+    saved = {"bn": (sum_fn.forward, sum_fn.backward),
+             "tp": (tp._Reduce.forward, tp._Copy.backward, tp._gather),
+             "train_batch": Query3DTrainer.train_batch,
+             "build_model": query3d.build_model,
+             "builders": dict(run.BUILDERS)}
+    sum_fn.forward = staticmethod(timing(saved["bn"][0], "bn"))
+    sum_fn.backward = staticmethod(timing(saved["bn"][1], "bn"))
+    tp._Reduce.forward = staticmethod(timing(saved["tp"][0], "tp"))
+    tp._Copy.backward = staticmethod(timing(saved["tp"][1], "tp"))
+    tp._gather = timing(saved["tp"][2], "tp")
+
+    def build_model(*a, **k):
+        t0 = time.time()
+        try:
+            return saved["build_model"](*a, **k)
+        finally:
+            w = cur["rec"]["wall"]
+            w["model_s"] = w.get("model_s", 0.0) + time.time() - t0
+    query3d.build_model = build_model
+
+    def builder(fn):
+        def build(cfg):
+            cur["rec"]["wall"]["build_start"] = time.time()
+            cur["rec"]["cfg"] = copy.deepcopy(cfg)  # as this rank resolved it
+            try:
+                return fn(cfg)
+            finally:
+                cur["rec"]["wall"]["built"] = time.time()
+        return build
+    for task, fn in saved["builders"].items():
+        run.BUILDERS[task] = builder(fn)
 
     def train_batch(self, batch):
+        rec = cur["rec"]
         backbone = getattr(getattr(self.model, "voxel_encoder", None),
                            "backbone", None)
         mem = memory_now()
         rec["memory"].append(mem)
-        print(f"[rank {rank}] before step {len(rec['memory'])}: "
-              + memory_text(mem), flush=True)
+        print(f"[rank {rank}] {rec['label']} before step "
+              f"{len(rec['memory'])}: " + memory_text(mem), flush=True)
         rec["wall"].setdefault("first_start", time.time())
         if "first" not in rec:
             with all_plain(self.model):
-                m = inner(self, batch)
+                m = saved["train_batch"](self, batch)
             rec["first"] = {k: float(v) for k, v in m.items()}
             torch.cuda.synchronize()
             rec["first_end"] = time.perf_counter()
+            rec["wall"]["first_end"] = time.time()
             torch.cuda.reset_peak_memory_stats()
             zrun_conv.reset_counts()        # the main path starts here
             windowed_conv.reset_counts()
@@ -2880,107 +2974,170 @@ def ddp_rank(argv):
                   if backbone is not None else 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        timed["on"] = True
-        m = inner(self, batch)
+        cur["timed"] = True
+        m = saved["train_batch"](self, batch)
         torch.cuda.synchronize()
-        timed["on"] = False
+        cur["timed"] = False
         rec["steps"].append({"s": time.perf_counter() - t0,
                              "end": time.perf_counter(),
                              "routed": routed, "loss": float(m["loss"])})
-        last["batch"] = batch
+        cur["last"] = batch
         rec["wall"]["last_end"] = time.time()
-        if max_steps and len(rec["steps"]) + 1 >= max_steps:
+        if cur["max_steps"] and len(rec["steps"]) + 1 >= cur["max_steps"]:
             self._preempted = True      # ends the run after this step
         return m
     Query3DTrainer.train_batch = train_batch
     try:
-        trainer = run.main(run_args)
+        for spec in runs:
+            rec = {"label": spec["label"], "rank": rank,
+                   "world": dist.world(),
+                   "backend": (torch.distributed.get_backend()
+                               if dist.is_initialized() else None),
+                   "steps": [], "bn_s": 0.0, "bn_calls": 0, "tp_s": 0.0,
+                   "tp_calls": 0, "memory": [], "start": start,
+                   "wall": {"run_start": time.time()}}
+            cur.update(rec=rec, max_steps=spec["steps"], last=None,
+                       timed=False)
+            trainer = run.main(spec["argv"] + device_args)
+            torch.cuda.synchronize()
+            rec["launches"] = dict(zrun_conv.phase_launches)  # path ends
+            rec["b2_launches"] = windowed_conv.launches
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+            rec["peak_reserved"] = torch.cuda.max_memory_reserved()
+            sharding = trainer.sharding
+            if sharding is None:
+                rec["checksum"] = dist.param_checksum(trainer.model)
+            else:
+                full = sharding.full_state_dict()
+                rec["checksum"] = dist.tensor_checksum(list(full.values()))
+                rec["replicated_checksum"] = sharding.replicated_checksum()
+                rec["param_bytes"] = sum(p.nbytes for p in sharding.params)
+                rec["full_param_bytes"] = sum(full[n].nbytes
+                                              for n in sharding.names)
+                rec["mesh"] = sharding.mesh.describe()
+                del full
+            backbone = getattr(getattr(trainer.model, "voxel_encoder",
+                                       None), "backbone", None)
+            if rank == 0 and backbone is not None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+                b = cur["last"]
+                flops_peak, bw_peak = peaks_for(
+                    torch.cuda.get_device_name(dev))
+                rec["b1"] = b1_shapes(
+                    zrun_conv, flatten_maps(to_device(b["maps"], dev)),
+                    backbone.routed_convs(level_rows(b)), dev, flops_peak,
+                    bw_peak, f"ddp {spec['label']} rank {rank}")
+            rec["wall"]["run_end"] = time.time()
+            with open(os.path.join(report_dir, f"{spec['label']}_rank"
+                                   f"{rank}.json"), "w") as f:
+                json.dump(rec, f)
+            del trainer, sharding, backbone
+            cur.update(rec=None, last=None)
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
-        Query3DTrainer.train_batch = inner
-        sum_fn.forward, sum_fn.backward = plain
-        tp._Reduce.forward = staticmethod(tp_saved[0])
-        tp._Copy.backward = staticmethod(tp_saved[1])
-        tp._gather = tp_saved[2]
-    torch.cuda.synchronize()
-    rec["launches"] = dict(zrun_conv.phase_launches)   # main path ends
-    rec["b2_launches"] = windowed_conv.launches
-    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
-    rec["peak_reserved"] = torch.cuda.max_memory_reserved()
-    sharding = trainer.sharding
-    if sharding is None:
-        rec["checksum"] = dist.param_checksum(trainer.model)
-    else:
-        full = sharding.full_state_dict()
-        rec["checksum"] = dist.tensor_checksum(list(full.values()))
-        rec["replicated_checksum"] = sharding.replicated_checksum()
-        rec["param_bytes"] = sum(p.nbytes for p in sharding.params)
-        rec["full_param_bytes"] = sum(full[n].nbytes for n in sharding.names)
-        rec["mesh"] = sharding.mesh.describe()
-    backbone = getattr(getattr(trainer.model, "voxel_encoder", None),
-                       "backbone", None)
-    if rank == 0 and backbone is not None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-        b = last["batch"]
-        flops_peak, bw_peak = peaks_for(torch.cuda.get_device_name(dev))
-        rec["b1"] = b1_shapes(
-            zrun_conv, flatten_maps(to_device(b["maps"], dev)),
-            backbone.routed_convs(level_rows(b)), dev, flops_peak,
-            bw_peak, f"ddp rank {rank}")
-    rec["wall"]["exit"] = time.time()
-    with open(os.path.join(report_dir, f"rank{rank}.json"), "w") as f:
-        json.dump(rec, f)
+        Query3DTrainer.train_batch = saved["train_batch"]
+        sum_fn.forward = staticmethod(saved["bn"][0])
+        sum_fn.backward = staticmethod(saved["bn"][1])
+        tp._Reduce.forward = staticmethod(saved["tp"][0])
+        tp._Copy.backward = staticmethod(saved["tp"][1])
+        tp._gather = saved["tp"][2]
+        query3d.build_model = saved["build_model"]
+        run.BUILDERS.update(saved["builders"])
 
 
-def ddp_launch(label, nproc, backend, config, overrides, work, steps=None,
-               env=None):
+def ddp_launch(label, nproc, backend, runs, work, env=None, procs=None):
     """``python -m pq3d_tpu_torch.launch`` of ``nproc`` ranks on cuda:0
-    over ``backend`` with ``ddp_rank`` as the entry (``steps``: the run
-    ends after that many steps, as a preemption ends it; ``env``: added
-    to the ranks' environment); returns the ranks' reports and the run's
-    logged metrics (rank 0's ``metrics.jsonl``).  Fails the phase when
-    the launch exits non-zero."""
+    over ``backend`` with ``ddp_rank`` as the entry, which runs ``runs``
+    ((label, config, overrides, steps): each run ends after that many
+    steps, as a preemption ends it) one after another in each rank
+    (``env``: added to the ranks' environment; ``procs``: the launch's
+    process is appended, for a caller that must stop it).  Returns
+    {"runs": {label: {"reports", "logged", "ckpt_checksums", "config",
+    "overrides", "exp_dir", "wall_split"}}, "wall_s", "start_split"}:
+    each run's readings and rank 0's wall split of it, and the launch's
+    wall split up to the first run (the launcher's start, the rank's
+    interpreter, its imports, the group's init, the entry's imports) and
+    after the last (the exit).  Fails the phase when the launch exits
+    non-zero."""
+    import torch
     out = os.path.join(work, label)
     os.makedirs(out)
+    args = []
+    for run_label, config, overrides, steps in runs:
+        args += ["--run", run_label, f"--steps={steps}", "--config-name",
+                 config, *overrides,
+                 f"exp_dir={os.path.join(out, run_label)}"]
     cmd = [sys.executable, "-m", "pq3d_tpu_torch.launch", "--nproc-per-node",
            str(nproc), "--backend", backend, "--devices",
-           ",".join(["cuda:0"] * nproc), "--entry", "chip_smoke:ddp_rank",
-           "--", out, *([f"--steps={steps}"] if steps else []),
-           "--config-name", config, *overrides,
-           f"exp_dir={os.path.join(out, 'run')}"]
+           ",".join([DDP_DEVICE] * nproc), "--entry", "chip_smoke:ddp_rank",
+           "--", out, *args]
     env = dict(os.environ, PYTHONPATH=HERE, **(env or {}))
     t0 = time.time()
     with open(os.path.join(out, "log.txt"), "w") as log:
-        proc = subprocess.run(cmd, cwd=HERE, env=env, stdout=log,
-                              stderr=subprocess.STDOUT, timeout=900)
+        proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+        if procs is not None:
+            procs.append(proc)
+        try:
+            rc = proc.wait(timeout=1200)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     wall = time.time() - t0
     text = open(os.path.join(out, "log.txt")).read()
-    if proc.returncode:
+    if rc:
         errors = [line for line in text.splitlines()
                   if "Error" in line or "Killed" in line][:20]
         memory = [line for line in text.splitlines()
                   if "] before step" in line or "[launch]" in line]
         print("\n".join(errors + memory) + "\n" + text[-6000:],
               flush=True)
-        fail(f"ddp: {label} ({nproc} rank(s), {backend}) exited "
-             f"{proc.returncode}")
+        fail(f"ddp: {label} ({nproc} rank(s), {backend}) exited {rc}")
     for line in text.splitlines():
-        if line.startswith("[run] mesh"):
+        if line.startswith("[run] mesh") and "rank 0 at" in line:
             print(f"ddp: {label}: {line}", flush=True)
-            break
-    reports = []
-    for r in range(nproc):
-        with open(os.path.join(out, f"rank{r}.json")) as f:
-            reports.append(json.load(f))
-    with open(os.path.join(out, "run", "metrics.jsonl")) as f:
-        logged = [json.loads(line) for line in f]
-    w = reports[0]["wall"]
-    split = {"start": w["entry"] - t0, "setup": w["first_start"] - w["entry"],
-             "steps": w["last_end"] - w["first_start"],
-             "end": w["exit"] - w["last_end"]}
-    split["exit"] = wall - sum(split.values())
-    return {"reports": reports, "logged": logged, "wall_s": wall,
-            "wall_split": split,
-            "ckpt": os.path.join(out, "run", "ckpt", "latest", "state.pt")}
+    result = {"runs": {}, "wall_s": wall}
+    for run_label, config, overrides, steps in runs:
+        reports = []
+        for r in range(nproc):
+            with open(os.path.join(out, f"{run_label}_rank{r}.json")) as f:
+                reports.append(json.load(f))
+        run_dir = os.path.join(out, run_label)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        state = torch.load(os.path.join(run_dir, "ckpt", "latest",
+                                        "state.pt"),
+                           map_location="cpu", weights_only=False,
+                           mmap=True)
+        with open(os.path.join(run_dir, "config.json")) as f:
+            snapshot = json.load(f)
+        w = reports[0]["wall"]
+        result["runs"][run_label] = {
+            "reports": reports, "logged": logged,
+            "ckpt_checksums": state.get("rank_checksums"),
+            "snapshot": snapshot,
+            "config": config, "overrides": overrides, "exp_dir": run_dir,
+            "wall_split": {
+                "config": w["build_start"] - w["run_start"],
+                "model": w["model_s"],
+                "data": w["built"] - w["build_start"] - w["model_s"],
+                "first_batch": w["first_start"] - w["built"],
+                "first_step": w["first_end"] - w["first_start"],
+                "steps": w["last_end"] - w["first_end"],
+                "end": w["run_end"] - w["last_end"]}}
+        del state
+    s = reports[0]["start"]
+    last = max(r["reports"][0]["wall"]["run_end"]
+               for r in result["runs"].values())
+    result["start_split"] = {
+        "launcher": s["process"] - t0, "interpreter": s["main"]
+        - s["process"], "imports": s["imports"] - s["main"],
+        "group": s["group"] - s["imports"],
+        "entry": s["imported"] - s["group"],
+        "runs": last - s["imported"], "exit": wall - (last - t0)}
+    return result
 
 
 def memory_now():
@@ -3009,11 +3166,15 @@ def memory_text(m):
             f"available {m['host_available']:.2f} GiB")
 
 
+def split_text(split):
+    return ", ".join(f"{k.replace('_', ' ')} {v:.1f}"
+                     for k, v in split.items())
+
+
 def wall_text(run):
-    s = run["wall_split"]
-    return (f"{run['wall_s']:.1f} s (start {s['start']:.1f}, setup "
-            f"{s['setup']:.1f}, steps {s['steps']:.1f}, rank 0's end "
-            f"{s['end']:.1f}, exit {s['exit']:.1f})")
+    """A run's wall split (rank 0's), in seconds."""
+    return (f"{sum(run['wall_split'].values()):.1f} s "
+            f"({split_text(run['wall_split'])})")
 
 
 def ddp_summary(run):
@@ -3033,16 +3194,33 @@ def ddp_summary(run):
             "launches": [r["launches"] for r in reps]}
 
 
-def ddp_stage(label, config, overrides, work, card, with_b1):
-    """One stage of phase ddp: 2 gloo ranks on cuda:0, then one nccl rank
-    at the same global batch, ``STAGE_STEPS[label]`` steps each; gates and
-    prints; returns the numbers."""
-    import torch
-    steps = STAGE_STEPS[label]
-    two = ddp_launch(f"{label}_gloo2", 2, "gloo", config, overrides, work,
-                     steps)
-    one = ddp_launch(f"{label}_nccl1", 1, "nccl", config, overrides, work,
-                     steps)
+def check_user_config(label, run, path):
+    """Gate: every rank's resolved config and the run's snapshot
+    (config.json) equal the packaged instseg_sceneverse with
+    USER_CONFIG_OVERRIDES and the run's own overrides: the user file at
+    ``path`` was read, by path, with its embedded interpolation."""
+    from pq3d_tpu_torch.config import load_config
+    want = load_config(STAGE1_BASE, [
+        *USER_CONFIG_OVERRIDES, *run["overrides"],
+        f"exp_dir={run['exp_dir']}", f"device={DDP_DEVICE}"])
+    got = [r["cfg"] for r in run["reports"]] + [run["snapshot"]]
+    if any(g != want for g in got):
+        diff = sorted(k for g in got for k in set(g) | set(want)
+                      if g.get(k) != want.get(k))
+        fail(f"ddp: {label}: the config read from {path} differs from the "
+             f"packaged one with {USER_CONFIG_OVERRIDES} at {diff}")
+    print(f"ddp: {label}: read --config-name {path} (a user YAML file, "
+          f"given relative to the ranks' working directory): every rank's "
+          f"config and the snapshot equal the packaged "
+          f"{STAGE1_BASE} with {USER_CONFIG_OVERRIDES} (name "
+          f"{want['name']!r})", flush=True)
+
+
+def ddp_stage(label, two, one, card, with_b1):
+    """One stage of phase ddp: its run on 2 gloo ranks on cuda:0 (``two``)
+    against its run on one nccl rank at the same global batch (``one``),
+    ``STAGE_STEPS[label]`` steps each; gates and prints; returns the
+    numbers."""
     r0, r1 = two["reports"]
     if not (r0["backend"] == r1["backend"] == "gloo" and r0["world"] == 2
             and one["reports"][0]["backend"] == "nccl"):
@@ -3051,8 +3229,7 @@ def ddp_stage(label, config, overrides, work, card, with_b1):
              f"{one['reports'][0]['backend']}")
     if r0["checksum"] != r1["checksum"]:
         fail(f"ddp: {label}: the two ranks end with different weights")
-    sums = torch.load(two["ckpt"], map_location="cpu",
-                      weights_only=False)["rank_checksums"]
+    sums = two["ckpt_checksums"]
     if sums != [r0["checksum"]] * 2:
         fail(f"ddp: {label}: the checkpoint's rank checksums {sums}")
     loss2 = [x["loss"] for x in two["logged"] if x["prefix"] == "train"
@@ -3086,10 +3263,12 @@ def ddp_stage(label, config, overrides, work, card, with_b1):
           f"{s1['peak_gib']} GiB; synced batch norm all-reduces "
           f"{s2['bn_calls_a_step']} a step, their share of train_batch "
           f"{s2['bn_share']}; B1 launches per rank {s2['launches']} "
-          f"against {s1['launches']}; launch wall {wall_text(two)} and "
+          f"against {s1['launches']}; run wall {wall_text(two)} and "
           f"{wall_text(one)} ({card})", flush=True)
     return {"loss_2": loss2, "loss_1": loss1, "loss_rel": rel,
             "two": s2, "one": s1, "b1": r0.get("b1"),
+            "wall_split": {"two": two["wall_split"],
+                           "one": one["wall_split"]},
             "launches": {"fwd": sum(r["launches"]["fwd"]
                                     for r in two["reports"]),
                          "bwd": sum(r["launches"]["bwd"]
@@ -3208,48 +3387,112 @@ def replicated_phase(card, zrun_conv):
             "launches": launches, "scenes_per_s": st["scenes_per_sec"]}
 
 
-def ddp_phase(card, zrun_conv):
-    """Phase ddp: stage 1 and stage 2 through the launcher (2 gloo ranks
-    on cuda:0 against 1 nccl rank), then ReplicatedServer."""
+def ddp_phase(card, zrun_conv, beside=None):
+    """Phase ddp: two launches, each running its runs one after another in
+    its ranks: 2 gloo ranks on cuda:0 run stage 1 (DDP_STAGE1, read from
+    the user YAML file that ``user_config`` writes, named by a path
+    relative to the ranks' working directory), stage 1 with
+    ``parallel.fsdp=2``, stage 2 and stage 2 with ``parallel.tp=2`` (the
+    two mesh runs are phase mesh's, gated there on these records), and 1
+    nccl rank runs stage 1 (the same file) and stage 2; then the gates,
+    and ReplicatedServer.  ``beside``: a function this process runs while
+    the launches run (phase export's exports, which are host work).
+    Returns the numbers, with the mesh runs' records under
+    ``mesh_runs``."""
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
     work = tempfile.mkdtemp(prefix="pq3d_ddp_")
+    procs = []
     try:
-        s1 = ddp_stage("stage1", "instseg_sceneverse", DDP_STAGE1, work,
-                       card, with_b1=True)
-        s2 = ddp_stage("stage2", "unified_tasks_sceneverse", DDP_STAGE2,
-                       work, card, with_b1=False)
+        path = os.path.relpath(user_config(work), HERE)
+        steps1, steps2 = STAGE_STEPS["stage1"], STAGE_STEPS["stage2"]
+        stage1 = ("stage1", path, DDP_STAGE1, steps1)
+        stage2 = ("stage2", STAGE2_CONFIG, DDP_STAGE2, steps2)
+        plan = {"gloo2": (2, "gloo", [
+                    stage1, ("stage1_fsdp", path, MESH_STAGE1, steps1),
+                    stage2, ("stage2_tp", STAGE2_CONFIG, MESH_STAGE2,
+                             steps2)],
+                    {"PYTORCH_CUDA_ALLOC_CONF": MESH_ALLOC_CONF}),
+                "nccl1": (1, "nccl", [stage1, stage2], None)}
+
+        def launch_all():
+            return {label: ddp_launch(label, n, backend, runs, work, env,
+                                      procs)
+                    for label, (n, backend, runs, env) in plan.items()}
+        t0 = time.time()
+        with ThreadPoolExecutor(1) as pool:
+            job = pool.submit(launch_all)
+            try:
+                if beside is not None:
+                    beside()
+                    print(f"ddp: this process's work beside the launches "
+                          f"ended {time.time() - t0:.1f} s after they "
+                          f"began", flush=True)
+            except BaseException:
+                for p in procs:             # stop the launch under way
+                    if p.poll() is None:
+                        p.kill()
+                raise
+            launches = job.result()
+        print(f"ddp: launches ended {time.time() - t0:.1f} s after they "
+              f"began", flush=True)
+        gloo, nccl = launches["gloo2"]["runs"], launches["nccl1"]["runs"]
+        for label, run in (("stage1_gloo2", gloo["stage1"]),
+                           ("stage1_fsdp_gloo2", gloo["stage1_fsdp"]),
+                           ("stage1_nccl1", nccl["stage1"])):
+            check_user_config(label, run, path)
+        s1 = ddp_stage("stage1", gloo["stage1"], nccl["stage1"], card,
+                       with_b1=True)
+        s2 = ddp_stage("stage2", gloo["stage2"], nccl["stage2"], card,
+                       with_b1=False)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    walls = {}
+    for label, launch in launches.items():
+        walls[label] = {"wall_s": launch["wall_s"],
+                        "start_split": launch["start_split"],
+                        "runs": {k: r["wall_split"]
+                                 for k, r in launch["runs"].items()}}
+        print(f"ddp: launch {label}: {launch['wall_s']:.1f} s (rank 0: "
+              f"{split_text(launch['start_split'])}); its runs: "
+              + "; ".join(f"{k} {wall_text(r)}"
+                          for k, r in launch["runs"].items())
+              + f" ({card})", flush=True)
     rp = replicated_phase(card, zrun_conv)
-    return {"stage1": s1, "stage2": s2, "replicated": rp}
+    return {"stage1": s1, "stage2": s2, "replicated": rp,
+            "launch_walls": walls,
+            "mesh_runs": {k: gloo[k] for k in ("stage1_fsdp", "stage2_tp")}}
 
 
-# phase 13's runs (the same global batches, the same steps) on a mesh
-MESH_STAGE1 = DDP_STAGE1 + ["parallel.fsdp=2"]
-MESH_STAGE2 = DDP_STAGE2 + ["parallel.tp=2"]
-# the mesh ranks' allocator: two tensor-parallel ranks, each holding all
-# 128 rows, reserved 37.21 GiB each with the default one (peak allocated
-# 23.85), leaving 2.65 GiB of the card free
-MESH_ALLOC_CONF = "expandable_segments:True"
+# phase mesh's runs: label -> (phase ddp's stage it mirrors, config,
+# overrides); phase ddp makes them in its 2-rank launch
+MESH_RUNS = {"stage1_fsdp": ("stage1", STAGE1_BASE,
+                             USER_CONFIG_OVERRIDES + MESH_STAGE1),
+             "stage2_tp": ("stage2", STAGE2_CONFIG, MESH_STAGE2)}
 
 
 def mesh_train_phase(card, dd, work, labels=("stage1_fsdp", "stage2_tp")):
+    """Phase mesh (i)-(ii) in a launch of their own (``labels``: which of
+    MESH_RUNS), on 2 gloo ranks on cuda:0, gated against phase ddp's
+    records ``dd`` (tools/torch_mesh_phase.py)."""
+    launch = ddp_launch("mesh", 2, "gloo", [
+        (label, MESH_RUNS[label][1], MESH_RUNS[label][2],
+         STAGE_STEPS[MESH_RUNS[label][0]]) for label in labels], work,
+        env={"PYTORCH_CUDA_ALLOC_CONF": MESH_ALLOC_CONF})
+    print(f"mesh: launch {launch['wall_s']:.1f} s (rank 0: "
+          f"{split_text(launch['start_split'])})", flush=True)
+    return mesh_train_gates(card, dd, launch["runs"])
+
+
+def mesh_train_gates(card, dd, runs):
     """Phase mesh (i)-(ii): FSDP stage 1 and tensor-parallel stage 2 on 2
-    gloo ranks on cuda:0 (``labels``: which), gated against phase 13's
-    records ``dd``."""
-    import torch
+    gloo ranks on cuda:0 (``runs``: their records), gated against phase
+    ddp's records ``dd``."""
     out = {}
-    for label, stage, config, overrides in (
-            ("stage1_fsdp", "stage1", "instseg_sceneverse", MESH_STAGE1),
-            ("stage2_tp", "stage2", "unified_tasks_sceneverse",
-             MESH_STAGE2)):
-        if label not in labels:
-            continue
+    for label, run in runs.items():
+        stage = MESH_RUNS[label][0]
         ref = dd[stage]
-        run = ddp_launch(label, 2, "gloo", config, overrides, work,
-                         STAGE_STEPS[stage],
-                         env={"PYTORCH_CUDA_ALLOC_CONF": MESH_ALLOC_CONF})
         r0, r1 = run["reports"]
         if not (r0["backend"] == r1["backend"] == "gloo"
                 and r0["mesh"].endswith("collectives: gloo")):
@@ -3263,15 +3506,14 @@ def mesh_train_phase(card, dd, work, labels=("stage1_fsdp", "stage2_tp")):
                  f"{r0['first']['loss']!r}, {r1['first']['loss']!r}) "
                  f"against phase 13's one rank {ref['loss_1']!r}: rel "
                  f"{rel:.2e} (gate {DDP_GATE:.0e})")
-        sums = torch.load(run["ckpt"], map_location="cpu",
-                          weights_only=False)["rank_checksums"]
+        sums = run["ckpt_checksums"]
         if not r0["checksum"] == r1["checksum"] == sums[0] == sums[1]:
             fail(f"mesh: {label}: the gathered weights differ: ranks "
                  f"{r0['checksum']}, {r1['checksum']}, checkpoint {sums}")
         for r in run["reports"]:
             routed = sum(x["routed"] for x in r["steps"])
             fwd, bwd = r["launches"]["fwd"], r["launches"]["bwd"]
-            b1_ok = (fwd == bwd == routed > 0) if label == "stage1_fsdp" \
+            b1_ok = (fwd == bwd == routed > 0) if stage == "stage1" \
                 else fwd + bwd == 0
             if not b1_ok or r["b2_launches"]:
                 fail(f"mesh: {label} rank {r['rank']}: B1 launched {fwd} "
@@ -3281,12 +3523,12 @@ def mesh_train_phase(card, dd, work, labels=("stage1_fsdp", "stage2_tp")):
         tp_share = [r["tp_s"] / sum(x["s"] for x in r["steps"])
                     for r in run["reports"]]
         tp_calls = [r["tp_calls"] / len(r["steps"]) for r in run["reports"]]
-        if label == "stage2_tp":
+        if stage == "stage2":
             if r0["replicated_checksum"] != r1["replicated_checksum"]:
-                fail("mesh: stage2_tp: the tp peers' replicated weights "
+                fail(f"mesh: {label}: the tp peers' replicated weights "
                      "differ")
             if not min(tp_calls) > 0:
-                fail("mesh: stage2_tp: no tensor-parallel collective ran")
+                fail(f"mesh: {label}: no tensor-parallel collective ran")
         base = ref["two"]
         print(f"mesh: {label}: step 1 all-plain f32 global loss "
               f"{loss:.6f} against phase 13's one nccl rank "
@@ -3307,7 +3549,7 @@ def mesh_train_phase(card, dd, work, labels=("stage1_fsdp", "stage2_tp")):
               f"launches per rank {s['launches']}; before the last step "
               + "; ".join(f"rank {r['rank']}: {memory_text(r['memory'][-1])}"
                           for r in run["reports"])
-              + f"; launch wall {wall_text(run)} ({card})", flush=True)
+              + f"; run wall {wall_text(run)} ({card})", flush=True)
         out[label] = {"loss": loss, "loss_rel": rel, "summary": s,
                       "param_bytes": [r["param_bytes"]
                                       for r in run["reports"]],
@@ -3501,24 +3743,30 @@ def mesh_server_phase(card, zrun_conv):
 
 
 def mesh_phase(card, zrun_conv, dd):
-    """Phase mesh: (i)-(ii) through the launcher, (iii) in this process."""
+    """Phase mesh: (i)-(ii) gated on the runs that phase ddp's 2-rank launch
+    made (``dd["mesh_runs"]``; without them, in a launch of their own),
+    (iii) in this process."""
     import gc
     import shutil
     import tempfile
     import torch
     t0 = time.time()
-    gc.collect()
-    torch.cuda.empty_cache()
-    free, total = torch.cuda.mem_get_info()
-    print(f"mesh: this process holds {torch.cuda.memory_allocated() / 2**30:.2f}"
-          f" GiB ({torch.cuda.memory_reserved() / 2**30:.2f} reserved); the "
-          f"card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free "
-          f"for the ranks ({card})", flush=True)
-    work = tempfile.mkdtemp(prefix="pq3d_mesh_")
-    try:
-        out = mesh_train_phase(card, dd, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    if "mesh_runs" in dd:
+        out = mesh_train_gates(card, dd, dd["mesh_runs"])
+    else:
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(f"mesh: this process holds "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved); the "
+              f"card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB "
+              f"free for the ranks ({card})", flush=True)
+        work = tempfile.mkdtemp(prefix="pq3d_mesh_")
+        try:
+            out = mesh_train_phase(card, dd, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
     out["server"] = mesh_server_phase(card, zrun_conv)
     out["seconds"] = time.time() - t0
     print(f"mesh: phase {out['seconds']:.1f} s ({card})", flush=True)
@@ -5428,9 +5676,11 @@ def export_stage1_cpu(path):
     """Phase export's CPU host (``python3 chip_smoke.py --export-stage1
     PATH``, started by the phase with no card visible): exports the
     stage-1 forward on the CPU and writes the artifact to ``path``; prints
-    one JSON line of its readings."""
+    one JSON line of its readings.  It runs beside phase ddp's ranks, so it
+    takes two of the host's threads."""
     import torch
     from pq3d_tpu_torch import export
+    torch.set_num_threads(2)
     cpu = torch.device("cpu")
     model, b, _ = export_stage1_setup(cpu)
     t0 = time.time()
@@ -5448,40 +5698,25 @@ def export_stage1_cpu(path):
         "artifact_mib": len(blob) / 2**20}), flush=True)
 
 
-def export_phase(card, dev, zrun_conv):
-    """Phase ``export`` (see the module docstring): the stage-1 forward
-    exported on the CPU (by a second process that sees no card, while this
-    one exports stage 2 on the card) and run on the card, stage 2 exported
-    on the card and run in memory, and VoxelLevelEncoder at full width.
-    Every timing runs after the CPU process has ended.  Returns the
-    phase's numbers."""
+def export_prepare(card, dev):
+    """Phase export's exports, which are host work: starts the CPU export of
+    stage 1 in a second process that sees no card (``chip_smoke.py
+    --export-stage1 PATH``), exports stage 2 on the card meanwhile (the
+    trace runs on fake tensors; the program runs as exported, in memory),
+    waits for the CPU export and loads its artifact onto the card.  Phase
+    ddp runs it beside its launches.  Returns what ``export_phase``
+    reads."""
     import subprocess
     import tempfile
     import numpy as np
-    import torch
     from pq3d_tpu_torch import export
     from pq3d_tpu_torch.config import load_config
     from pq3d_tpu_torch.data.unified_pipeline import (UnifiedPipelineConfig,
                                                       collate_unified,
                                                       process_item)
-    from pq3d_tpu_torch.models.encoders import VoxelLevelEncoder
-    from pq3d_tpu_torch.models.query3d import build_model, init_weights
-    from pq3d_tpu_torch.ops import windowed_conv
+    from pq3d_tpu_torch.models.query3d import build_model
     from pq3d_tpu_torch.serve import to_device
-    t_phase = time.time()
-    out = {}
-
-    def report(label, r, load_what):
-        saved = (f"artifact {r['artifact_mib']:.1f} MiB, {load_what} "
-                 f"{r['load_s']:.1f} s" if load_what else
-                 "run in memory, not saved")
-        print(f"export: {label}: exported in {r['export_s']:.1f} s, "
-              f"{r['nodes']} graph nodes ({r['zrun_conv_nodes']} "
-              f"pq3d.zrun_conv), {saved} | one forward "
-              f"{r['exported_ms']:.1f} ms exported against "
-              f"{r['eager_ms']:.1f} ms eager (CUDA events, median of "
-              f"{EXPORT_FORWARDS}) ({card})", flush=True)
-
+    t0 = time.time()
     with tempfile.TemporaryDirectory(prefix="pq3d_export_") as tmp:
         path = os.path.join(tmp, "stage1.pt2")
         cpu_host = subprocess.Popen(
@@ -5506,9 +5741,9 @@ def export_phase(card, dev, zrun_conv):
                 np2.pop(key, None)
             b2d = to_device(np2, dev)
             ukeys = ("ground_logits", "generation_tokens")
-            t0 = time.time()
+            t1 = time.time()
             program = export.export_program(umodel, b2d, outputs=ukeys)
-            s2 = {"export_s": time.time() - t0,
+            s2 = {"export_s": time.time() - t1,
                   "nodes": len(program.graph.nodes),
                   "zrun_conv_nodes": export.kernel_nodes(program)}
             # the program runs as exported, in memory: stage 1's artifact
@@ -5526,6 +5761,48 @@ def export_phase(card, dev, zrun_conv):
         s1 = json.loads(stdout.strip().splitlines()[-1])
         with open(path, "rb") as f:
             blob = f.read()
+    cpu_s = time.time() - t0
+    t1 = time.time()
+    fn = export.load_forward(blob, device="cuda")
+    s1["load_s"] = time.time() - t1
+    wall = time.time() - t0
+    print(f"export: prepared in {wall:.1f} s: stage 2 exported in "
+          f"{s2['export_s']:.1f} s, the CPU export of stage 1 (exported in "
+          f"{s1['export_s']:.1f} s, saved in {s1['save_s']:.1f} s) ended "
+          f"{cpu_s:.1f} s after the start, its load and move "
+          f"{s1['load_s']:.1f} s ({card})", flush=True)
+    return {"fn": fn, "s1": s1, "fn2": fn2, "s2": s2, "umodel": umodel,
+            "b2d": b2d, "prepare_s": wall}
+
+
+def export_phase(card, dev, zrun_conv, prep=None):
+    """Phase ``export`` (see the module docstring): the card part, on
+    ``export_prepare``'s programs (``prep``; made here when None): the
+    stage-1 artifact exported on the CPU run on the card, the stage-2
+    program exported on the card run in memory, and VoxelLevelEncoder at
+    full width.  Returns the phase's numbers."""
+    import torch
+    from pq3d_tpu_torch.models.encoders import VoxelLevelEncoder
+    from pq3d_tpu_torch.models.query3d import init_weights
+    from pq3d_tpu_torch.ops import windowed_conv
+    t_phase = time.time()
+    if prep is None:
+        prep = export_prepare(card, dev)
+    fn, s1, fn2, s2 = prep["fn"], prep["s1"], prep["fn2"], prep["s2"]
+    umodel, b2d = prep["umodel"], prep["b2d"]
+    out = {"prepare_s": prep["prepare_s"]}
+    prep.clear()
+
+    def report(label, r, load_what):
+        saved = (f"artifact {r['artifact_mib']:.1f} MiB, {load_what} "
+                 f"{r['load_s']:.1f} s" if load_what else
+                 "run in memory, not saved")
+        print(f"export: {label}: exported in {r['export_s']:.1f} s, "
+              f"{r['nodes']} graph nodes ({r['zrun_conv_nodes']} "
+              f"pq3d.zrun_conv), {saved} | one forward "
+              f"{r['exported_ms']:.1f} ms exported against "
+              f"{r['eager_ms']:.1f} ms eager (CUDA events, median of "
+              f"{EXPORT_FORWARDS}) ({card})", flush=True)
 
     # (i) stage 1: the artifact exported on the CPU, loaded onto the card
     model, bd, np_b = export_stage1_setup(dev)
@@ -5536,10 +5813,6 @@ def export_phase(card, dev, zrun_conv):
              f"convs")
     if tuple(s1["platforms"]) != ("cpu",):
         fail("export: the stage-1 artifact's weights are not on the CPU")
-    t0 = time.time()
-    fn = export.load_forward(blob, device="cuda")
-    s1["load_s"] = time.time() - t0
-    del blob
     zrun_conv.reset_counts()                  # main path starts here
     windowed_conv.reset_counts()
     got = fn(bd)
@@ -5977,8 +6250,18 @@ def main():
     torch.cuda.empty_cache()
 
     lap("13")
-    # ---- 13. ddp: data-parallel training and replicated serving ---------
-    dd = ddp_phase(card, zrun_conv)
+    # ---- 13. ddp: data-parallel training (with phase 20's mesh runs in
+    # the same launch) and replicated serving; phase 19's exports, which
+    # are host work, made in this process while the launches run --------
+    prep = {}
+    dd = ddp_phase(card, zrun_conv,
+                   beside=lambda: prep.update(export_prepare(card, dev)))
+    torch.cuda.empty_cache()
+
+    lap("19")
+    # ---- 19. export: torch.export artifacts, B1 as pq3d::zrun_conv -----
+    ex = export_phase(card, dev, zrun_conv, prep)
+    del prep
     torch.cuda.empty_cache()
 
     lap("20")
@@ -6015,9 +6298,6 @@ def main():
     rw = reference_warm_start_phase(card, zrun_conv)
     torch.cuda.empty_cache()
 
-    lap("19")
-    # ---- 19. export: torch.export artifacts, B1 as pq3d::zrun_conv -----
-    ex = export_phase(card, dev, zrun_conv)
     new_paths = {**{f"gather_stem_{k}": r["launches"]
                     for k, r in gs["runs"].items()},
                  "gather_stem_train_fwd": gs["train"]["b1"]["fwd"],

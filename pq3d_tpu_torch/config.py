@@ -1,427 +1,208 @@
-"""The slices' configurations as plain dicts (no YAML parser needed).
+"""The port's configs and their loader; counterpart of
+``pq3d_tpu/config/config.py``.
 
-``INSTSEG_SCENEVERSE`` is ``pq3d_tpu/config/configs/instseg_sceneverse.yaml``
-as ``yaml.safe_load`` reads it (``${...}`` interpolations left as
-strings); ``INSTSEG_SCENEVERSE_MODEL`` and ``INSTSEG_SCENEVERSE_OPTIONS``
-are its ``model`` and ``data.instseg_options`` sections, and
-``INSTSEG_SCENEVERSE_GT`` is ``instseg_sceneverse_gt.yaml``, the GT-query
-variant, ``INSTSEG_SYNTHETIC`` ``instseg_synthetic.yaml``, the same
-model narrowed on synthetic scenes, and ``INSTSEG_SWIN3D_SYNTHETIC``
-``instseg_swin3d_synthetic.yaml``, that one with the Swin3D backbone.
-The stage-1 slices add one override, ``model.voxel_encoder.args.pallas_conv: true``,
-which routes the decoder's 96/128-channel stride-1 3^3 convs to the z-run
-CUDA kernel.  ``UNIFIED_TASKS_SCENEVERSE`` and ``UNIFIED_TASKS_SYNTHETIC``
-are ``unified_tasks_{sceneverse,synthetic}.yaml``, the stage-2 unified
-model, read the same way.  ``load_config`` resolves a named config with
-``key=value`` overrides, as the JAX package's loader does for its YAML
-files, and ``serving_config`` sets one of the stage-1 serving layouts up.
+The six packaged configs are the YAML files of ``pq3d_tpu_torch/configs/``
+(copies of the JAX package's ``pq3d_tpu/config/configs/``), read by the
+port's own YAML reader (``utils/yaml_reader``: no PyYAML).  ``CONFIGS[name]``
+is each file as ``yaml.safe_load`` reads it (``${...}`` interpolations left
+as strings); ``INSTSEG_SCENEVERSE``, ``INSTSEG_SCENEVERSE_GT`` (the
+GT-query variant), ``INSTSEG_SYNTHETIC``, ``INSTSEG_SWIN3D_SYNTHETIC``,
+``UNIFIED_TASKS_SCENEVERSE`` and ``UNIFIED_TASKS_SYNTHETIC`` name them, and
+``INSTSEG_SCENEVERSE_MODEL`` and ``INSTSEG_SCENEVERSE_OPTIONS`` the first
+one's ``model`` and ``data.instseg_options`` sections.  The files are read
+at the first use of one of these names.
+
+``load_config(name_or_path, overrides)`` reads a YAML file by path, or a
+bare name looked up in ``default_config_dir()`` (``.yaml`` added), applies
+dotted ``key=value`` overrides whose values are read as YAML
+(``parse_value``, the JAX loader's ``_parse_override_value``), and then
+resolves ``${a.b}`` interpolations (a whole-string one keeps the
+referenced value's type; one inside a string is replaced by its text;
+list indices may stand in the path), as the JAX loader does.  The stage-1
+slices add one override, ``model.voxel_encoder.args.pallas_conv: true``,
+which routes the decoder's 96/128-channel stride-1 3^3 convs to the
+z-run CUDA kernel; ``serving_config`` sets one of the stage-1 serving
+layouts up.
 """
 from __future__ import annotations
 
-import ast
 import copy
+import os
 import re
 from typing import Any, Dict, Optional, Sequence
 
-INSTSEG_SCENEVERSE_OPTIONS: Dict[str, Any] = {
-    "num_labels": 200,
-    "ignore_label": -100,
-    "filter_out_classes": [0, 2],
-    "voxel_size": 0.02,
-    "num_queries": 120,
-    "query_sample_strategy": "fps",
-    "max_segments": 512,
-    "max_instances": 120,
-    "voxel_bucket": 8192,
-    "stem_mode": "dense_block",
-    "level_caps": [65536, 32768, 8192, 2048, 512],
-}
+from pq3d_tpu_torch.utils import yaml_reader
 
-INSTSEG_SCENEVERSE_MODEL: Dict[str, Any] = {
-    "name": "Query3DUnified",
-    "memories": ["voxel", "mv", "pc"],
-    "hidden_size": 768,
-    "use_offline_voxel_fts": False,
-    "use_offline_attn_mask": False,
-    "obj_loc": {"spatial_dim": 5, "dim_loc": 3,
-                "pairwise_rel_type": "center"},
-    "voxel_encoder": {
-        "name": "PCDMask3DSegLevelEncoder",
-        "args": {
-            "backbone_kwargs": {
-                "config": {"conv1_kernel_size": 5, "bn_momentum": 0.02},
-                "in_channels": 3,
-                "out_channels": 200,
-                "out_fpn": True,
-            },
-            "freeze_backbone": False,
-            "hlevels": [0, 1, 2, 3],
-            "hidden_size": "${model.hidden_size}",
-            "dropout": 0.1,
-        },
-    },
-    "mv_encoder": {
-        "name": "ObjectEncoder",
-        "args": {"input_feat_size": 768,
-                 "hidden_size": "${model.hidden_size}",
-                 "use_projection": True, "use_cls_head": False,
-                 "dropout": 0.1},
-    },
-    "pc_encoder": {
-        "name": "ObjectEncoder",
-        "args": {"input_feat_size": 768,
-                 "hidden_size": "${model.hidden_size}",
-                 "use_projection": True, "use_cls_head": False,
-                 "dropout": 0.1},
-    },
-    "unified_encoder": {
-        "name": "QueryMaskEncoder",
-        "args": {"hidden_size": "${model.hidden_size}",
-                 "num_attention_heads": 12, "num_layers": 4,
-                 "spatial_selfattn": True, "memories": "${model.memories}",
-                 "structure": "parallel", "use_self_mask": True,
-                 "num_blocks": 3},
-    },
-    "heads": ["mask"],
-    "mask_head": {
-        "name": "MaskHeadSegLevel",
-        "args": {"hidden_size": "${model.hidden_size}", "num_targets": 201,
-                 "memories_for_match": "${model.memories}",
-                 "filter_out_classes":
-                     "${data.instseg_options.filter_out_classes}"},
-    },
-    "loss_list": ["InstSegLoss"],
-    "InstSegLoss": {
-        "criterion_type": "set",
-        "criterion": {"num_classes": "${data.instseg_options.num_labels}",
-                      "losses": ["labels", "masks"],
-                      "ignore_label": "${data.instseg_options.ignore_label}"},
-        "matcher": {"cost_class": 2.0, "cost_mask": 5.0, "cost_dice": 2.0,
-                    "ignore_label": "${data.instseg_options.ignore_label}"},
-    },
-}
-
-INSTSEG_SCENEVERSE: Dict[str, Any] = {
-    "name": "instseg-sceneverse",
-    "base_dir": "outputs",
-    "exp_dir": "",
-    "rng_seed": 42,
-    "mode": "train",
-    "resume": False,
-    "pretrain_ckpt_path": "",
-    "log_every": 10,
-    "debug": {"flag": False, "debug_size": 10},
-    "data": {
-        "train": ["ScanNetInstSegSceneVerse"],
-        "val": ["ScanNetInstSegSceneVerse"],
-        "test": ["ScanNetInstSegSceneVerse"],
-        "scene_verse_base": None,
-        "scene_verse_aux": None,
-        "load_scan_options": {
-            "load_inst_info": True, "load_pc_info": True,
-            "load_segment_info": True, "load_image_segment_feat": False,
-            "load_point_segment_feat": False},
-        "instseg_options": INSTSEG_SCENEVERSE_OPTIONS,
-    },
-    "dataloader": {"batchsize": 4, "batchsize_eval": 1, "num_workers": 0},
-    "task": "InstSeg",
-    "data_wrapper": "InstSegDatasetWrapper",
-    "trainer": "Query3DTrainer",
-    "solver": {
-        "gradient_accumulation_steps": 1,
-        "lr": "1e-4",          # a string, as YAML 1.1 reads it
-        "grad_norm": 80,
-        "epochs": 600,
-        "epochs_per_eval": 200,
-        "optim": {"name": "AdamW", "args": {"betas": [0.9, 0.98]}},
-        "sched": {"name": "warmup_cosine", "args": {"warmup_steps": 0}},
-    },
-    "eval": {"name": "InstSegEval", "topk_per_scene": 100,
-             "use_dbscan": False,
-             "ignore_label": "${data.instseg_options.ignore_label}",
-             "dataset_name": "ScanNet"},
-    "model": INSTSEG_SCENEVERSE_MODEL,
-}
+PACKAGED = ("instseg_sceneverse", "instseg_synthetic",
+            "instseg_swin3d_synthetic", "instseg_sceneverse_gt",
+            "unified_tasks_sceneverse", "unified_tasks_synthetic")
+# module names -> (packaged config, path of keys inside it)
+_NAMED = {"INSTSEG_SCENEVERSE": ("instseg_sceneverse",),
+          "INSTSEG_SCENEVERSE_MODEL": ("instseg_sceneverse", "model"),
+          "INSTSEG_SCENEVERSE_OPTIONS": ("instseg_sceneverse", "data",
+                                         "instseg_options"),
+          "INSTSEG_SCENEVERSE_GT": ("instseg_sceneverse_gt",),
+          "INSTSEG_SYNTHETIC": ("instseg_synthetic",),
+          "INSTSEG_SWIN3D_SYNTHETIC": ("instseg_swin3d_synthetic",),
+          "UNIFIED_TASKS_SCENEVERSE": ("unified_tasks_sceneverse",),
+          "UNIFIED_TASKS_SYNTHETIC": ("unified_tasks_synthetic",)}
+_PACKAGED_CACHE: Dict[str, Dict[str, Any]] = {}
 
 
-
-def _gt_variant(cfg: Dict[str, Any]) -> Dict[str, Any]:
-    """``instseg_sceneverse_gt.yaml`` from ``instseg_sceneverse.yaml``:
-    queries at the GT object centres, the GT segment masks as the
-    decoder's offline attention masks, the direct criterion, 200 epochs."""
-    gt = copy.deepcopy(cfg)
-    gt["name"] = "instseg-sceneverse-gt"
-    gt["data"]["instseg_options"].update(query_sample_strategy="gt",
-                                         offline_mask_source="gt")
-    gt["solver"].update(epochs=200, epochs_per_eval=50)
-    gt["model"]["use_offline_attn_mask"] = True
-    gt["model"]["InstSegLoss"]["criterion_type"] = "direct"
-    return gt
+def default_config_dir() -> str:
+    """The packaged configs' directory."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs")
 
 
-INSTSEG_SCENEVERSE_GT: Dict[str, Any] = _gt_variant(INSTSEG_SCENEVERSE)
+def _configs() -> Dict[str, Dict[str, Any]]:
+    if not _PACKAGED_CACHE:
+        _PACKAGED_CACHE.update(
+            (name, read_config(config_path(name))) for name in PACKAGED)
+    return _PACKAGED_CACHE
 
 
-def _synthetic_variant(cfg: Dict[str, Any]) -> Dict[str, Any]:
-    """``instseg_synthetic.yaml`` (the JAX runner's first example) from
-    ``instseg_sceneverse.yaml``: the same schema on SyntheticInstSeg
-    scenes of 4000 points, hidden 128, 8 heads, one block a layer, batch
-    2, 2 epochs."""
-    syn = copy.deepcopy(cfg)
-    syn.update(name="instseg-synthetic", log_every=5,
-               debug={"flag": False, "debug_size": 4})
-    data = syn["data"]
-    for key in ("scene_verse_base", "scene_verse_aux", "load_scan_options"):
-        del data[key]
-    data.update(train=["SyntheticInstSeg"], val=["SyntheticInstSeg"],
-                test=["SyntheticInstSeg"],
-                synthetic={"num_train": 16, "num_val": 4, "n_points": 4000,
-                           "n_instances": 8, "n_segments": 64})
-    data["instseg_options"] = {
-        "num_labels": 200, "ignore_label": -100, "filter_out_classes": [0, 2],
-        "voxel_size": 0.05, "num_queries": 120,
-        "query_sample_strategy": "fps", "max_segments": 128,
-        "max_instances": 32, "voxel_bucket": 2048,
-        "stem_mode": "dense_block",
-        "level_caps": [4096, 2048, 1024, 512, 256]}
-    syn["data"] = {k: data[k] for k in ("train", "val", "test", "synthetic",
-                                        "instseg_options")}
-    syn["dataloader"] = {"batchsize": 2, "batchsize_eval": 2,
-                         "num_workers": 0}
-    syn["solver"].update(epochs=2, epochs_per_eval=2)
-    syn["eval"] = {"name": "InstSegEval", "topk_per_scene": 100,
-                   "ignore_label": "${data.instseg_options.ignore_label}"}
-    model = syn["model"]
-    model["hidden_size"] = 128
-    model["unified_encoder"]["args"].update(num_attention_heads=8,
-                                            num_blocks=1)
-    return syn
+def __getattr__(name: str) -> Any:
+    if name == "CONFIGS":
+        return _configs()
+    if name in _NAMED:
+        node: Any = _configs()
+        for part in _NAMED[name]:
+            node = node[part]
+        return node
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-INSTSEG_SYNTHETIC: Dict[str, Any] = _synthetic_variant(INSTSEG_SCENEVERSE)
+def config_path(name_or_path: str) -> str:
+    """The file ``load_config`` reads, in the JAX loader's order: an
+    existing path; else ``default_config_dir()/name``, with ``.yaml``
+    added when the name has no YAML extension; else
+    ``FileNotFoundError``."""
+    if os.path.exists(name_or_path):
+        return name_or_path
+    candidate = os.path.join(default_config_dir(), name_or_path)
+    if not candidate.endswith((".yaml", ".yml")):
+        candidate += ".yaml"
+    if os.path.exists(candidate):
+        return candidate
+    raise FileNotFoundError(f"config not found: {name_or_path}")
 
 
-def _swin_variant(cfg: Dict[str, Any]) -> Dict[str, Any]:
-    """``instseg_swin3d_synthetic.yaml`` from ``instseg_synthetic.yaml``:
-    the PCDMask3DSwin3DEncoder (the Swin3D window-attention U-Net at its
-    defaults), window packs of window 4 and no stem arrays."""
-    swin = copy.deepcopy(cfg)
-    swin["name"] = "instseg-swin3d-synthetic"
-    swin["data"]["instseg_options"].update(swin_window=4, stem_mode="none")
-    ve = swin["model"]["voxel_encoder"]
-    ve["name"] = "PCDMask3DSwin3DEncoder"
-    del ve["args"]["backbone_kwargs"]["config"]["conv1_kernel_size"]
-    return swin
+def read_config(path: str) -> Dict[str, Any]:
+    """The YAML file at ``path`` as a dict (an empty file is ``{}``),
+    interpolations unresolved."""
+    raw = yaml_reader.load(path)
+    if raw is None:
+        return {}
+    if not isinstance(raw, dict):
+        raise ValueError(f"{path}: a config is a mapping, not a "
+                         f"{type(raw).__name__}")
+    return raw
 
 
-INSTSEG_SWIN3D_SYNTHETIC: Dict[str, Any] = _swin_variant(INSTSEG_SYNTHETIC)
+_INTERP = re.compile(r"\$\{([^}]+)\}")
 
 
-def _unified_model(hidden, txt_tower, freeze_pc, n_heads, n_layers,
-                   ground_hidden, gen_args):
-    """The ``model`` section the two unified YAML files share the form of."""
-    def obj_enc(**args):
-        return {"name": "ObjectEncoder",
-                "args": {**args, "hidden_size": "${model.hidden_size}",
-                         "dropout": 0.1, "use_cls_head": False}}
-    return {
-        "name": "Query3DUnified",
-        "memories": ["mv", "pc", "voxel", "prompt"],
-        "hidden_size": hidden,
-        "use_offline_voxel_fts": True,
-        "use_offline_attn_mask": False,
-        "skip_query_encoder_mask_pred": True,
-        "obj_loc": {"spatial_dim": 5, "dim_loc": 6,
-                    "pairwise_rel_type": "center"},
-        "txt_encoder": {"name": "CLIPLanguageEncoder",
-                        "args": {"use_projection": True,
-                                 "projection_type": "mlp",
-                                 "num_projection_layers": 1}},
-        "txt_tower": txt_tower,
-        "mv_encoder": obj_enc(input_feat_size=768, use_projection=True),
-        "voxel_encoder": obj_enc(input_feat_size=128, use_projection=True),
-        "pc_encoder": obj_enc(backbone="pointnet++",
-                              freeze_backbone=freeze_pc),
-        "unified_encoder": {
-            "name": "QueryMaskEncoder",
-            "args": {"hidden_size": "${model.hidden_size}",
-                     "num_attention_heads": n_heads, "num_layers": n_layers,
-                     "spatial_selfattn": True,
-                     "memories": "${model.memories}",
-                     "drop_memories_test": [], "memory_dropout": 0.6,
-                     "structure": "mixed", "use_self_mask": False,
-                     "num_blocks": 1}},
-        "heads": ["ground", "generation"],
-        "ground_head": {"name": "GroundHead",
-                        "args": {"hidden_size": ground_hidden,
-                                 "input_size": "${model.hidden_size}",
-                                 "dropout": 0.3}},
-        "generation_head": {
-            "name": "T5",
-            "args": {**gen_args, "input_size": "${model.hidden_size}",
-                     "use_projection": True},
-            "lr": "1e-5"},
-        "loss_list": ["ground_loss", "generation_loss"],
-        "loss_weights": {"ground_loss": 10},
-    }
+class _Missing:
+    pass
 
 
-def _unified_solver(warmup_steps, epochs, epochs_per_eval):
-    return {"gradient_accumulation_steps": 1, "lr": "1e-4", "grad_norm": 5.0,
-            "optim": {"name": "AdamW", "args": {"betas": [0.9, 0.98]}},
-            "sched": {"name": "warmup_cosine",
-                      "args": {"warmup_steps": warmup_steps}},
-            "epochs": epochs, "epochs_per_eval": epochs_per_eval}
+_MISSING = _Missing()
 
 
-UNIFIED_TASKS_SCENEVERSE: Dict[str, Any] = {
-    "name": "unified-sceneverse",
-    "base_dir": "outputs",
-    "exp_dir": "",
-    "rng_seed": 42,
-    "mode": "train",
-    "resume": False,
-    "pretrain_ckpt_path": "",
-    "log_every": 50,
-    "debug": {"flag": False, "debug_size": 4},
-    "data": {
-        "scene_verse_base": None,
-        "scene_verse_aux": None,
-        "scene_verse_pred": None,
-        "load_scan_options": {"load_image_obj_feat": True,
-                              "load_voxel_obj_feat": True},
-        "train": ["ScanReferSceneVerse", "Sr3DSceneVerse", "Nr3DSceneVerse",
-                  "Multi3DReferSceneVerse", "ScanQASceneVerse",
-                  "SQA3DSceneVerse", "Scan2CapSceneVerse"],
-        "val": "${data.train}",
-        "test": "${data.train}",
-        "Nr3DSceneVerse": {"sr3d_plus_aug": True},
-        "unified_options": {"max_obj_len": 80, "num_points": 1024,
-                            "prompt_len": 77, "response_len": 50},
-    },
-    "task": "Query3D",
-    "data_wrapper": {"train": "UnifiedTaskDatasetWrapper",
-                     "tokenizer": "openai/clip-vit-large-patch14",
-                     "generation_tokenizer": "t5-small"},
-    "trainer": "MultitaskTrainer",
-    "dataloader": {"batchsize": 128, "batchsize_eval": 128,
-                   "num_workers": 0},
-    "solver": _unified_solver(5000, 50, 10),
-    "eval": {"save": False},
-    "model": _unified_model(
-        768, {"vocab_size": 49408, "width": 768, "layers": 12, "heads": 12},
-        freeze_pc=True, n_heads=12, n_layers=4, ground_hidden=384,
-        gen_args={"variant": "t5-small", "vocab_size": 32128,
-                  "d_model": 512, "d_kv": 64, "d_ff": 2048,
-                  "num_layers": 6, "num_heads": 8, "max_new_tokens": 50}),
-}
-
-UNIFIED_TASKS_SYNTHETIC: Dict[str, Any] = {
-    "name": "unified-synthetic",
-    "base_dir": "outputs",
-    "exp_dir": "",
-    "rng_seed": 42,
-    "mode": "train",
-    "resume": False,
-    "pretrain_ckpt_path": "",
-    "log_every": 5,
-    "debug": {"flag": False, "debug_size": 4},
-    "data": {
-        "train": ["SyntheticRefer", "SyntheticQA", "SyntheticCaption"],
-        "val": "${data.train}",
-        "test": "${data.train}",
-        "synthetic": {"num_train": 32, "num_val": 8, "n_points": 3000,
-                      "n_instances": 8},
-        "unified_options": {"max_obj_len": 32, "num_points": 256,
-                            "prompt_len": 16, "response_len": 8},
-    },
-    "task": "Query3D",
-    "data_wrapper": {"train": "UnifiedTaskDatasetWrapper"},
-    "trainer": "MultitaskTrainer",
-    "dataloader": {"batchsize": 8, "batchsize_eval": 8, "num_workers": 0},
-    "solver": _unified_solver(10, 2, 2),
-    "eval": {"save": False},
-    "model": _unified_model(
-        128, {"vocab_size": 64, "width": 64, "layers": 2, "heads": 4},
-        freeze_pc=False, n_heads=8, n_layers=2, ground_hidden=64,
-        gen_args={"variant": "t5-synthetic", "vocab_size": 64,
-                  "d_model": 64, "d_kv": 16, "d_ff": 128, "num_layers": 2,
-                  "num_heads": 4, "max_new_tokens": 8}),
-}
-
-CONFIGS = {"instseg_sceneverse": INSTSEG_SCENEVERSE,
-           "instseg_synthetic": INSTSEG_SYNTHETIC,
-           "instseg_swin3d_synthetic": INSTSEG_SWIN3D_SYNTHETIC,
-           "instseg_sceneverse_gt": INSTSEG_SCENEVERSE_GT,
-           "unified_tasks_sceneverse": UNIFIED_TASKS_SCENEVERSE,
-           "unified_tasks_synthetic": UNIFIED_TASKS_SYNTHETIC}
-
-_REF = re.compile(r"^\$\{([\w.]+)\}$")
-
-
-def _resolve(node, root):
-    if isinstance(node, dict):
-        return {k: _resolve(v, root) for k, v in node.items()}
-    if isinstance(node, list):
-        return [_resolve(v, root) for v in node]
-    if isinstance(node, str):
-        m = _REF.match(node)
-        if m:
-            target = root
-            for part in m.group(1).split("."):
-                target = target[part]
-            return _resolve(target, root)
+def _select(cfg: Any, dotted: str, default: Any = None) -> Any:
+    """``cfg``'s value at the dotted path (a digit part indexes a list),
+    or ``default`` (the JAX ``Config.select``)."""
+    node = cfg
+    for part in dotted.split("."):
+        if isinstance(node, dict) and part in node:
+            node = node[part]
+        elif isinstance(node, list) and part.isdigit() \
+                and int(part) < len(node):
+            node = node[int(part)]
+        else:
+            return default
     return node
 
 
+def _resolve(value: Any, root: Dict[str, Any]) -> Any:
+    """``value`` with its interpolations resolved against ``root``, dicts
+    in place, in the JAX ``_resolve_node``'s order; a missing reference
+    raises ``KeyError``."""
+    if isinstance(value, dict):
+        for k in list(value.keys()):
+            value[k] = _resolve(value[k], root)
+        return value
+    if isinstance(value, list):
+        return [_resolve(v, root) for v in value]
+    if isinstance(value, str):
+        full = _INTERP.fullmatch(value)
+        if full:    # a whole-string interpolation keeps the value's type
+            ref = _select(root, full.group(1), _MISSING)
+            if ref is _MISSING:
+                raise KeyError(f"interpolation {value!r} not found")
+            return _resolve(copy.deepcopy(ref)
+                            if isinstance(ref, (dict, list)) else ref, root)
+
+        def sub(m):
+            ref = _select(root, m.group(1), _MISSING)
+            if ref is _MISSING:
+                raise KeyError(f"interpolation {m.group(0)!r} not found")
+            return str(ref)
+        return _INTERP.sub(sub, value)
+    return value
+
+
 def parse_value(text: str) -> Any:
-    """A ``key=value`` override's value as YAML reads a scalar or a flow
-    list: true/false/null, numbers, Python literals (nested lists of
-    numbers among them, e.g. a ``level_cap_ladder``), ``[a, b]`` lists of
-    those (bare words become strings), anything else a string."""
-    t = text.strip()
-    low = t.lower()
-    if low in ("true", "false"):
-        return low == "true"
-    if low in ("null", "none", "~"):
-        return None
-    if t.startswith("[") and t.endswith("]"):
-        try:
-            return ast.literal_eval(t)
-        except (ValueError, SyntaxError):
-            pass
-        inner = t[1:-1].strip()
-        return [parse_value(v) for v in inner.split(",")] if inner else []
+    """A ``key=value`` override's value, as the JAX loader reads it: the
+    text as a YAML document (``yes`` a bool, ``{a: 1}`` a dict, empty
+    None, ``[a, b]`` a list), and a string that ``float`` takes (``1e-4``,
+    ``inf``) a float; text the YAML reader refuses stays a string."""
     try:
-        return ast.literal_eval(t)
-    except (ValueError, SyntaxError):
-        return t
+        value = yaml_reader.loads(text)
+    except ValueError:
+        return text
+    if isinstance(value, str):
+        try:
+            return float(value)
+        except ValueError:
+            return value
+    return value
 
 
 def set_dotted(cfg: Dict[str, Any], dotted: str, value: Any) -> None:
-    """Set ``cfg[a][b][c] = value`` for ``dotted = "a.b.c"``, creating
-    missing levels."""
+    """Set ``cfg[a][b][c] = value`` for ``dotted = "a.b.c"``; a missing
+    or non-mapping level on the way becomes an empty mapping (the JAX
+    ``Config.set_dotted``)."""
     *path, leaf = dotted.split(".")
     node = cfg
     for part in path:
-        node = node.setdefault(part, {})
+        if not isinstance(node.get(part), dict):
+            node[part] = {}
+        node = node[part]
     node[leaf] = value
 
 
-def load_config(name: str, overrides: Sequence[str] = ()) -> Dict[str, Any]:
-    """The named config with dotted ``key=value`` overrides applied, then
-    interpolations resolved."""
-    if name.endswith(".yaml"):
-        name = name[:-5]
-    if name not in CONFIGS:
-        raise KeyError(f"unknown config {name!r}; known: {sorted(CONFIGS)}")
-    raw = copy.deepcopy(CONFIGS[name])
+def apply_overrides(cfg: Dict[str, Any], overrides: Sequence[str] = ()
+                    ) -> Dict[str, Any]:
+    """``cfg`` (changed in place and returned) with the dotted
+    ``key=value`` overrides applied, then its interpolations resolved."""
     for ov in overrides:
         key, sep, val = ov.partition("=")
         if not sep:
-            raise ValueError(f"override {ov!r} is not key=value")
-        set_dotted(raw, key.strip(), parse_value(val))
-    return _resolve(raw, raw)
+            raise ValueError(f"override must look like key=value, got "
+                             f"{ov!r}")
+        set_dotted(cfg, key.strip(), parse_value(val))
+    return _resolve(cfg, cfg)
+
+
+def load_config(name_or_path: str, overrides: Sequence[str] = ()
+                ) -> Dict[str, Any]:
+    """The config at ``name_or_path`` (a YAML file, or a packaged name;
+    see ``config_path``) with dotted ``key=value`` overrides applied, then
+    interpolations resolved."""
+    return apply_overrides(read_config(config_path(name_or_path)),
+                           overrides)
 
 
 def slice_config() -> Dict[str, Any]:

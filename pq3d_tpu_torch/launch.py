@@ -10,6 +10,11 @@ calls the runner in each:
         model.voxel_encoder.args.pallas_conv=true
     python -m pq3d_tpu_torch.launch --nproc-per-node 2 --devices cpu,cpu \\
         -- --config-name instseg_synthetic solver.epochs=1
+    python -m pq3d_tpu_torch.launch --nproc-per-node 4 -- \\
+        --config-name my_exp.yaml         # a YAML file by path
+
+A ``--config-name`` that names an existing file is passed on as an
+absolute path (``absolute_config``), so each rank reads the caller's file.
 
 Modes:
   python  -- one process, no process group (the default without
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import json
 import os
 import signal
 import socket
@@ -50,6 +56,7 @@ import time
 from typing import List, Optional, Sequence, Tuple
 
 DEFAULT_ENTRY = "pq3d_tpu_torch.run:main"
+RANK_WALL_ENV = "PQ3D_RANK_WALL"
 
 
 def submit_slurm(args, run_args: Sequence[str]) -> str:
@@ -177,8 +184,14 @@ def spawn_local(args, run_args: Sequence[str]) -> int:
 
 def run_rank(args, run_args: Sequence[str]) -> None:
     """One rank (``dist`` or ``slurm`` mode): join the group on this
-    rank's device, call the entry, leave the group."""
+    rank's device, call the entry, leave the group.  The entry finds in
+    ``os.environ[RANK_WALL_ENV]`` (JSON) when this rank reached this
+    function (``main``), ended its imports (``imports``: torch) and joined
+    the group (``group``), on the wall clock, for a caller that splits a
+    launch's start-up time."""
+    wall = {"main": time.time()}
     from pq3d_tpu_torch.parallel import dist
+    wall["imports"] = time.time()
     env = dist.env_ranks(args.mode)
     rank = args.rank if args.rank is not None else env["rank"]
     world = args.world_size if args.world_size is not None else env["world"]
@@ -193,8 +206,27 @@ def run_rank(args, run_args: Sequence[str]) -> None:
     dist.init_process_group(args.backend or default_backend(device), rank,
                             world, args.master_addr or env["addr"],
                             args.master_port or env["port"])
+    wall["group"] = time.time()
+    os.environ[RANK_WALL_ENV] = json.dumps(wall)
     call_entry(args.entry, [*run_args, f"device={device}"])
     dist.destroy_process_group()
+
+
+def absolute_config(run_args: Sequence[str]) -> List[str]:
+    """The runner's arguments with a ``--config-name`` that names an
+    existing file made absolute, so every rank, and a requeued SLURM job,
+    reads the caller's file whatever its working directory (a packaged
+    config's bare name stays as it is)."""
+    out = list(run_args)
+    for i, arg in enumerate(out):
+        if arg == "--config-name" and i + 1 < len(out) \
+                and os.path.exists(out[i + 1]):
+            out[i + 1] = os.path.abspath(out[i + 1])
+        elif arg.startswith("--config-name=") \
+                and os.path.exists(arg.partition("=")[2]):
+            out[i] = "--config-name=" + os.path.abspath(
+                arg.partition("=")[2])
+    return out
 
 
 def call_entry(entry: str, run_args: Sequence[str]):
@@ -236,6 +268,7 @@ def parse_args(argv=None):
     run_args = list(args.run_args)
     if run_args and run_args[0] == "--":
         run_args = run_args[1:]
+    run_args = absolute_config(run_args)
     if any(a.startswith("device=") for a in run_args) and \
             (args.nproc_per_node or args.devices
              or args.mode in ("dist", "slurm")):

@@ -142,20 +142,43 @@ class CrossAttentionLayer(nn.Module):
             q, k, memory, attn_mask=attend_mask)))
 
 
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def _glu(x: torch.Tensor) -> torch.Tensor:
+    return F.glu(x, dim=-1)
+
+
+ACTIVATIONS = {"relu": F.relu, "gelu": _gelu_tanh, "glu": _glu}
+
+
+def get_activation(name: str):
+    """The FFN's activation by its JAX name: ``relu``; ``gelu`` as
+    ``jax.nn.gelu`` computes it by default, the tanh approximation;
+    ``glu``, the last axis halved, ``a * sigmoid(b)``.  Another name
+    raises ``KeyError``, as in the JAX package."""
+    return ACTIVATIONS[name]
+
+
 class FFNLayer(nn.Module):
-    """Post-norm residual feed-forward (ReLU); one dropout after the
-    activation and one on the residual branch, as in the JAX layer."""
+    """Post-norm residual feed-forward; one dropout after the activation
+    (``get_activation``; ``glu`` halves the hidden width that ``Dense_1``
+    reads) and one on the residual branch, as in the JAX layer."""
 
     def __init__(self, d_model: int, dim_feedforward: int = 2048,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, activation: str = "relu"):
         super().__init__()
+        self.activation = activation
+        self.act = get_activation(activation)
         self.LayerNorm_0 = nn.LayerNorm(d_model, eps=FLAX_LN_EPS)
         self.Dense_0 = nn.Linear(d_model, dim_feedforward)
-        self.Dense_1 = nn.Linear(dim_feedforward, d_model)
+        self.Dense_1 = nn.Linear(dim_feedforward // 2 if activation == "glu"
+                                 else dim_feedforward, d_model)
         self.drop = nn.Dropout(dropout)
 
     def forward(self, tgt):
-        h = self.drop(F.relu(self.Dense_0(tgt)))
+        h = self.drop(self.act(self.Dense_0(tgt)))
         return self.LayerNorm_0(tgt + self.drop(self.Dense_1(h)))
 
 

@@ -15,6 +15,9 @@ with the parallel update over the scene memories, ``(1 - gate) * query +
 gate * update``; as in the JAX layer, that update reads every scene
 memory of the layer, ``drop_memories_test`` notwithstanding.
 
+``QueryEncoder`` is the non-mask decoder: the same layers with no mask
+prediction, after whole-memory sample dropout (its class docstring).
+
 Memories are a dict name -> (feat, attend_mask, pos) with True = attend.
 With ``use_self_mask`` the thresholded mask logits of each round become
 the next round's cross-attention masks.  Every sublayer drops out at
@@ -49,13 +52,15 @@ def memory_keep_mean(stacked: torch.Tensor, u: torch.Tensor,
 
 class QueryEncoderLayer(nn.Module):
     """One decoder layer: per-memory cross attention in the given
-    structure, then self-attention and FFN."""
+    structure, then self-attention and FFN (``activation``: the FFN's,
+    ``layers.get_activation``)."""
 
     def __init__(self, d_model: int, n_head: int, memories: Sequence[str],
                  dim_feedforward: int = 2048, dropout: float = 0.1,
                  spatial_selfattn: bool = False,
                  structure: str = "parallel", memory_dropout: float = 0.0,
-                 drop_memories_test: Sequence[str] = ()):
+                 drop_memories_test: Sequence[str] = (),
+                 activation: str = "relu"):
         super().__init__()
         if structure not in ("parallel", "sequential", "mixed", "gate"):
             raise NotImplementedError(
@@ -74,7 +79,7 @@ class QueryEncoderLayer(nn.Module):
         for m in self.memories:
             self.add_module(f"cross_attns_{m}",
                             CrossAttentionLayer(d_model, n_head, dropout))
-        self.ffn = FFNLayer(d_model, dim_feedforward, dropout)
+        self.ffn = FFNLayer(d_model, dim_feedforward, dropout, activation)
         if structure == "gate":
             self.gate_proj = nn.Linear(d_model, d_model)
 
@@ -195,3 +200,78 @@ class QueryMaskEncoder(nn.Module):
                 query = getattr(self, f"layer{i}")(query, inputs,
                                                    pairwise_locs)
         return query, predictions_class, predictions_mask
+
+
+class QueryEncoder(nn.Module):
+    """The non-mask decoder (the JAX package's registered ``QueryEncoder``,
+    which no config builds there either): ``num_layers`` layers over the
+    memories with no mask prediction, after whole-memory sample dropout.
+    In train mode each scene memory (every memory but ``prompt``) of each
+    sample is zeroed, feature and position, with probability
+    ``memory_dropout``: one uniform draw a sample and memory, the memories
+    in order, from the generator that ``set_memory_generator`` gives,
+    never the global RNG.  In eval mode the memories in
+    ``drop_memories_test`` are zeroed for every sample.  The attend masks
+    stay.  Layer i reads voxel level i when the ``voxel`` memory's feature
+    is a list.  Returns ``(query, [], [])``."""
+
+    def __init__(self, hidden_size: int = 768, num_attention_heads: int = 12,
+                 num_layers: int = 4,
+                 memories: Sequence[str] = ("mv", "pc", "prompt"),
+                 structure: str = "sequential",
+                 spatial_selfattn: bool = False, memory_dropout: float = 0.0,
+                 drop_memories_test: Sequence[str] = ()):
+        super().__init__()
+        self.num_layers = num_layers
+        self.memories = list(memories)
+        self.memory_dropout = memory_dropout
+        self.drop_memories_test = set(drop_memories_test)
+        self.memory_generator: Optional[torch.Generator] = None
+        for i in range(num_layers):
+            self.add_module(f"layer{i}", QueryEncoderLayer(
+                hidden_size, num_attention_heads, self.memories,
+                spatial_selfattn=spatial_selfattn, structure=structure))
+
+    def set_memory_generator(self, generator: torch.Generator) -> None:
+        """The generator the memory dropout draws from."""
+        self.memory_generator = generator
+
+    def drop_memories(self, inputs: Dict[str, Memory]) -> Dict[str, Memory]:
+        """``inputs`` with the dropped scene memories zeroed (see the
+        class docstring); the same dict when none can drop."""
+        if not ((self.training and self.memory_dropout > 0)
+                or (not self.training and self.drop_memories_test)):
+            return inputs
+        if self.training and self.memory_generator is None:
+            raise RuntimeError("memory_dropout draws from its own "
+                               "generator: call set_memory_generator")
+        inputs = dict(inputs)
+        for m in self.memories:
+            if m == "prompt":
+                continue
+            feat, mask, pos = inputs[m]
+            if self.training:
+                drop = torch.rand((feat.shape[0],),
+                                  generator=self.memory_generator,
+                                  device=feat.device) < self.memory_dropout
+            else:
+                drop = torch.full((feat.shape[0],),
+                                  m in self.drop_memories_test,
+                                  dtype=torch.bool, device=feat.device)
+            feat = torch.where(drop[:, None, None], 0.0, feat)
+            if pos is not None:
+                pos = torch.where(drop[:, None, None], 0.0, pos)
+            inputs[m] = (feat, mask, pos)
+        return inputs
+
+    def forward(self, inputs: Dict[str, Memory],
+                pairwise_locs: Optional[torch.Tensor] = None):
+        inputs = dict(self.drop_memories(inputs))
+        query = inputs["query"][0]
+        voxel_feat = inputs.get("voxel", (None,))[0]
+        for i in range(self.num_layers):
+            if isinstance(voxel_feat, (list, tuple)):
+                _, mask, pos = inputs["voxel"]
+                inputs["voxel"] = (voxel_feat[i], mask, pos)
+            query = getattr(self, f"layer{i}")(query, inputs, pairwise_locs)
+        return query, [], []

@@ -17,10 +17,10 @@ partitions each product by the parameters' ``PartitionSpec``.
 - ``col_local`` / ``row_local``: the pairs where a column output reaches
   its row partner through elementwise ops and head-local attention only
   (``MultiHeadAttention``, ``CLIPAttention`` and ``T5Attention`` with
-  ``heads % tp == 0``, ``FFNLayer``, T5's ``wi/wo``): the column products
-  keep their slice (the module runs ``heads / tp`` heads), and the row
-  product all-reduces once, so a pair costs one all-reduce in the
-  forward.
+  ``heads % tp == 0``, ``FFNLayer`` but with ``glu``, T5's ``wi/wo``):
+  the column products keep their slice (the module runs ``heads / tp``
+  heads), and the row product all-reduces once, so a pair costs one
+  all-reduce in the forward.
 
 Megatron's ``f`` is the identity forward and an all-reduce of the
 gradient backward (``_Copy``), ``g`` the mirror (``_Reduce``).  The
@@ -201,7 +201,9 @@ def install(model: nn.Module, mesh, placements: Dict[str, tuple]) -> None:
             if pair((mod.q, mod.k, mod.v), mod.o, mod.heads):
                 mod.heads //= tp
                 mod.tp_mesh = mesh
-        elif isinstance(mod, FFNLayer):
+        elif isinstance(mod, FFNLayer) and mod.activation != "glu":
+            # glu multiplies feature j by feature j + F/2, which another
+            # tp peer's column slice holds: col and row for it
             pair((mod.Dense_0,), mod.Dense_1, None)
         elif isinstance(mod, T5DecoderBlock):
             pair((mod.wi,), mod.wo, None)

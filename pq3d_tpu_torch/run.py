@@ -9,8 +9,10 @@
     python -m pq3d_tpu_torch.run --config-name instseg_sceneverse_gt \\
         data.scene_verse_base=SCENEVERSE_ROOT
 
-Loads the named config dict (``pq3d_tpu_torch/config.py``), applies dotted
-overrides, names the experiment dir, snapshots the resolved config as
+Loads the config, a packaged name (``pq3d_tpu_torch/configs/``) or the path
+of a YAML file (``--config-name path/to/exp.yaml``, absolute or relative to
+the working directory; ``config.load_config``), applies dotted overrides,
+names the experiment dir, snapshots the resolved config as
 ``config.json``, builds the trainer of the config's ``task`` (``InstSeg``:
 stage 1; ``Query3D``: stage 2, the unified tasks) and runs train or test.
 ``device`` (default ``cuda``) picks where the model runs; ``resume=True``
@@ -42,7 +44,7 @@ import os
 import time
 from typing import Any, Dict, List, Optional
 
-from pq3d_tpu_torch.config import load_config, parse_value, set_dotted
+from pq3d_tpu_torch.config import apply_overrides, load_config
 from pq3d_tpu_torch.parallel import dist
 from pq3d_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
@@ -323,10 +325,7 @@ def main(argv: Optional[List[str]] = None):
             raise FileNotFoundError(f"Resuming failed: {snap} does not exist")
         print(f"Resuming from {cfg['exp_dir']}")
         with open(snap) as f:
-            cfg = json.load(f)
-        for ov in args.overrides:
-            key, _, val = ov.partition("=")
-            set_dotted(cfg, key.strip(), parse_value(val))
+            cfg = apply_overrides(json.load(f), args.overrides)
         cfg["resume"] = True
 
     mesh = make_mesh(MeshConfig.from_config(cfg))

@@ -31,6 +31,11 @@ conv's ``{name}_bn``), ``WindowAttention``'s relative-position table is a
 raw parameter that keeps its flax name ``rel_bias`` ((2w-1)^3, heads),
 and its ``qkv`` / ``proj`` are ``nn.Linear``.
 
+The decoders need no rule of their own: ``QueryMaskEncoder`` and the
+non-mask ``QueryEncoder`` keep the flax names ``layer{i}`` and, in each
+layer, ``self_attn``, ``cross_attns_{memory}``, ``ffn`` (``Dense_0``,
+``Dense_1``, ``LayerNorm_0``) and ``gate_proj``.
+
 The stage-2 heads and encoders need no rule of their own: ``qa_head``
 (``MLPHead_0``), ``GroundHeadV1``'s four ``MLPHead``s, the decoder's
 ``gate_proj``, the text projection's ``projection{i}``, BERT's

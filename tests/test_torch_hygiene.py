@@ -29,7 +29,8 @@ NEEDED = ["pq3d_tpu_torch." + m for m in (
     "data.label_utils", "data.scannet200_constants", "ops.device_maps",
     "utils.profiling", "export", "data.augmentor", "data.tokenizers",
     "models.legacy_encoders", "utils.io_utils", "utils.metric_utils",
-    "utils.box_utils", "parallel.dist", "parallel.mesh", "parallel.tp")]
+    "utils.box_utils", "parallel.dist", "parallel.mesh", "parallel.tp",
+    "utils.yaml_reader", "config")]
 import pq3d_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(pq3d_tpu_torch.__path__,
                                               "pq3d_tpu_torch.")]

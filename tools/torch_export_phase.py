@@ -4,9 +4,10 @@ card.
 
     python3 tools/torch_export_phase.py
 
-Runs the phase exactly as chip_smoke.py does (same inputs, gates and
-prints), without the phases before it; kernel B1 is built at its first
-launch.
+Runs the phase as chip_smoke.py does (same inputs, gates and prints),
+without the phases before it: its exports (``chip_smoke.export_prepare``),
+which the script makes beside phase 13's launches, are made here first,
+then its card part; kernel B1 is built at its first launch.
 """
 import os
 import subprocess

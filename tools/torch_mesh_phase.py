@@ -3,11 +3,13 @@
 after a probe of the collectives it rests on.
 
     python3 tools/torch_mesh_phase.py          # probe, phase ddp, phase mesh
+                                               # (on the launch's mesh runs)
     python3 tools/torch_mesh_phase.py --probe  # the probe alone
     python3 tools/torch_mesh_phase.py --save-ddp-records PATH
         # and phase ddp's records written to PATH
     python3 tools/torch_mesh_phase.py --ddp-records PATH
-        # phase mesh on phase ddp's records from an earlier call
+        # phase mesh on phase ddp's records from an earlier call, its two
+        # runs in a launch of their own
     python3 tools/torch_mesh_phase.py --ddp-records PATH --crowd-gib N \
         [--alloc-conf VALUE]
         # phase mesh's tensor-parallel launch alone while this process
@@ -266,6 +268,7 @@ def main():
     if args.ddp_records:
         with open(args.ddp_records) as f:
             dd = json.load(f)
+        dd.pop("mesh_runs", None)       # phase mesh launches its runs anew
     else:
         dd = chip_smoke.ddp_phase(card, zrun_conv)
         print(f"ddp phase: {time.time() - t0:.1f} s", flush=True)
