@@ -6,10 +6,11 @@
 Phases (one line each; any failure exits non-zero, nothing is skipped):
 
 1. device   -- requires CUDA; prints the card's name and power limit;
-2. build    -- builds csrc/zrun_conv.cu and csrc/windowed_conv.cu with nvcc
-               (sm_90a) from this checkout, one nvcc each, both started
-               together, and prints the build seconds and B1's registers and
-               spills per instantiation (ptxas -v);
+2. build    -- builds csrc/zrun_conv.cu, csrc/windowed_conv.cu and
+               csrc/hungarian.cu with nvcc (sm_90a) from this checkout, one
+               nvcc each, all started together, and prints the build
+               seconds and each kernel's registers and spills per
+               instantiation (ptxas -v);
 3. kernel   -- the z-run 3^3 conv kernel (B1) against its plain PyTorch
                version at the routed shapes of the serving slice (maps from
                the port's pipeline on a full-size synthetic batch): error,
@@ -80,10 +81,31 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                steps (loss, grad norm, host-pipeline s, device ms per step;
                steps/s, scenes/s, peak memory; per step the level rows,
                B1's forward and dx launches, each of which must sum to the
-               routed convs of every step's own batch, and the z-run
-               gather conv's calls), then 5 steps on one batch, whose loss
-               (train mode, dropout off, read before and after them) must
-               fall;
+               routed convs of every step's own batch, the assignment
+               kernel's launches, which must be one a step (the set loss
+               matches on the card), and the z-run gather conv's calls),
+               then 5 steps on one batch, whose loss (train mode, dropout
+               off, read before and after them) must fall;
+8b. assign -- the set loss's assignment kernel (csrc/hungarian.cu, one
+               warp a (round, scene) lane; the counterpart of the JAX
+               package's lax.while_loop solver, no Pallas kernel) at full
+               width, 52 lanes of 120 x 120 (13 rounds x 4 scenes), on
+               (i) the costs the set loss builds from phase 8's batch
+               (its forward in eval mode), (ii) random costs with 20
+               padded rows a lane at PAD_COST and (iii) the same with
+               every query column tied (a round of identical queries);
+               gates: the set loss on (i) runs under
+               torch.cuda.set_sync_debug_mode("error") (no host sync) with
+               one launch, col4row and each lane's Dijkstra steps equal to
+               the plain version's (on a CPU copy) on every row of every
+               lane, every lane a permutation, the real rows' cost within
+               1e-5 relative of scipy's on the real rows alone (or, beside
+               padded rows, 4 f32 ulps of PAD_COST a real row:
+               ASSIGN_ULPS), the launches equal to the calls; prints the kernel's median ms
+               over 20 CUDA-event pairs, the wrapper's host us a call, the
+               parent's path (the copy to the host, one scipy call a lane,
+               the assignment back) in ms, the plain version's ms, the
+               bound (bytes) and the steps a lane (max, mean);
 9. train_check -- one train step (dropout off) with B1 against the same
                step all-plain (loss) and with every backward on its plain
                version (routed-conv weight gradients), and each routed conv
@@ -97,8 +119,9 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                scenes, seed and batch; phase 8's figures printed beside
                its own; gates: phase 8's (B1's launches against the routed
                convs at each step's flat totals, the loss on one batch
-               falls) and phase 9's, the z-run gather conv forward and
-               backward in every step, and one step all-plain in f32
+               falls, the assignment kernel once a step) and phase 9's,
+               the z-run gather conv forward and backward in every step,
+               and one step all-plain in f32
                (TF32, dropout and the self-mask off, direct criterion) on
                one batch collated in both layouts: the flat loss within
                1e-4 relative of the rectangular one, and the gradients,
@@ -164,7 +187,10 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                evaluator; per run the seconds, steps/s, host-pipeline
                seconds a batch, peak memory and B1's launches, which must
                equal the routed convs of every forward (forward) and of
-               every train forward (dx); gates: finite metrics, no metric
+               every train forward (dx), and the assignment kernel's,
+               which must be one a set loss (every stage-1 train step and
+               eval forward), 0 under the GT variant's direct criterion
+               and on stage 2; gates: finite metrics, no metric
                lost across the resume, every GT batch with its offline
                mask, a finite direct loss, train_check (phase 9) on a GT
                batch, the warm start loading RECIPE_WARM_START_LOADED
@@ -205,7 +231,9 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                loss of the two ranks within DDP_GATE of the one rank's, B1
                launched forward and dx in each stage-1 rank as often as
                its rows route (and never on stage 2), rank 0's B1 against
-               its plain version at its last batch's routed shapes, every
+               its plain version at its last batch's routed shapes, the
+               assignment kernel once a step in each stage-1 rank and never
+               on stage 2, every
                rank's resolved config and the run's config.json equal to
                the packaged config with USER_CONFIG_OVERRIDES (the file
                read, its interpolation resolved);
@@ -363,6 +391,7 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                report loads every leaf, with nothing mismatched or unused;
                every warm-started tensor on the card equals its source bit
                for bit; the first loss is finite; B1 runs forward and dx;
+               the assignment kernel launches once a step;
 19. export -- (run right after phase 13, whose launches its exports run
                beside) pq3d_tpu_torch.export (torch.export artifacts; B1
                is the operator pq3d::zrun_conv): (i) the slice's full-width
@@ -394,15 +423,17 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                parallel.fsdp=2, 2 steps (step 1 all-plain in f32, dropout
                and self-mask off); gates: step 1's global loss within
                DDP_GATE of phase 13's one nccl rank, B1 forward and dx once
-               per routed conv in each rank in step 2 and B2 never, B1
-               against its plain version at rank 0's last routed shapes,
+               per routed conv in each rank in step 2 and B2 never, the
+               assignment kernel once in each rank in step 2, B1 against
+               its plain version at rank 0's last routed shapes,
                the gathered weights' checksums equal on both ranks and in
                the checkpoint; prints each rank's parameter bytes on the
                card beside the full model's, steps/s beside phase 13's
                2-rank DDP and the peak a rank; (ii) phase 13's stage-2 run
                with parallel.tp=2, 2 steps; gates: step 1's loss within
                DDP_GATE of phase 13's one rank, the tp peers' replicated
-               weights' checksums equal, B1 never; prints the tensor-
+               weights' checksums equal, B1 and the assignment kernel
+               never; prints the tensor-
                parallel collectives a step and their share of it; (iii)
                InstSegServer(mesh=["cuda:0", "cuda:0"], batch_size=4) on
                phase 5b's 8 timed scenes against one server, the
@@ -413,10 +444,11 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                version at one part's routed shapes), and UnifiedServer
                with the same mesh on 8 of phase 10's requests (tokens
                equal to one server's); prints scenes/s;
-The phases run in the order 1-13, 19, 20, 14-18, each ending with a
-``timing: phase N`` line.  Then a summary line (B1 against B2 in this
-run), one JSON line with every hand kernel's numbers, and the result
-line.
+The phases run in the order 1-8, 8b, 9-13, 19, 20, 14-18, each ending
+with a ``timing: phase N`` line.  Then two summary lines (B1 against B2
+in this run; the assignment kernel against the parent's host path, and
+its launches by path), one JSON line with every hand kernel's numbers,
+and the result line.
 
     python3 chip_smoke.py --profile PATH
 
@@ -594,9 +626,11 @@ def ptxas_summary(log, kernel, scale=1):
     import re
     out, cout = [], None
     for line in log.splitlines():
-        m = re.search(kernel + r"ILi(\d+)E", line)
+        m = re.search(kernel + r"ILi(\d+)E(?:Lb(\d)E)?", line)
         if m and "Compiling entry" in line:
             cout = int(m.group(1)) * scale
+            if m.group(2) is not None:      # the assignment kernel's STAGED
+                cout = f"{cout} {'staged' if m.group(2) == '1' else 'global'}"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and cout is not None:
@@ -1506,10 +1540,12 @@ def ztriple_calls():
 def train_phase(trainer, zrun_conv, warm, card, label="train"):
     """1 warm step, then one epoch of 5 timed steps through the trainer
     (its prefetching loader included), then 5 steps on the warm batch.
-    Per step: the flat rows of each level, B1's forward and dx launches
-    and the z-run gather conv's forward and backward calls.  Returns the
-    launch counts and the step records."""
+    Per step: the flat rows of each level, B1's forward and dx launches,
+    the assignment solver's launches (one a step: the set loss matches on
+    the card) and the z-run gather conv's forward and backward calls.
+    Returns the launch counts and the step records."""
     import torch
+    from pq3d_tpu_torch.ops import hungarian
     model = trainer.model
     backbone = model.voxel_encoder.backbone
     expected = []        # routed convs of each train forward
@@ -1530,6 +1566,7 @@ def train_phase(trainer, zrun_conv, warm, card, label="train"):
 
     def timed_step(batch):
         b1 = dict(zrun_conv.phase_launches)
+        solver = hungarian.launches
         zt = dict(zcalls)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -1543,6 +1580,7 @@ def train_phase(trainer, zrun_conv, warm, card, label="train"):
                       "rows": step_rows[-1], "routed": expected[-1],
                       "b1": {k: zrun_conv.phase_launches[k] - b1[k]
                              for k in b1},
+                      "hungarian": hungarian.launches - solver,
                       "ztriple": {k: zcalls[k] - zt[k] for k in zt}})
         return out
 
@@ -1563,10 +1601,12 @@ def train_phase(trainer, zrun_conv, warm, card, label="train"):
     torch.cuda.reset_peak_memory_stats()
     with ztriple_calls() as zcalls:
         zrun_conv.reset_counts()            # main path starts here
+        hungarian.reset_counts()
         t0 = time.time()
         trainer.train_epoch(0)
         wall = time.time() - t0
         counts = dict(zrun_conv.phase_launches)  # main path ends here
+        counts["hungarian"] = hungarian.launches
     peak = torch.cuda.max_memory_allocated()
     trainer._train_step, trainer.train_data = inner, loader
     hook.remove()
@@ -1575,7 +1615,8 @@ def train_phase(trainer, zrun_conv, warm, card, label="train"):
               f"{s['grad_norm']:.3f} | host pipeline {h:.3f} s | device "
               f"step {s['device_ms']:.1f} ms | level rows {s['rows']} | "
               f"B1 fwd {s['b1']['fwd']} dx {s['b1']['bwd']} (routed "
-              f"{s['routed']}) | z-run gather conv fwd "
+              f"{s['routed']}) | solver {s['hungarian']} | z-run gather "
+              f"conv fwd "
               f"{s['ztriple']['fwd']} bwd {s['ztriple']['bwd']}",
               flush=True)
     if len(steps) != 5 or len(expected) != 5:
@@ -1593,10 +1634,16 @@ def train_phase(trainer, zrun_conv, warm, card, label="train"):
           f"{4 / (steps[-1]['end'] - steps[0]['end']):.3f} steps/s) | "
           f"max_memory_allocated {peak / 2**30:.2f} GiB | zrun_conv "
           f"launches fwd {counts['fwd']} bwd {counts['bwd']}, routed convs "
-          f"per step {expected} ({card})", flush=True)
+          f"per step {expected}; assignment solver launches "
+          f"{counts['hungarian']} ({card})", flush=True)
     if counts["fwd"] != routed or counts["bwd"] != routed:
         fail(f"zrun_conv launches fwd {counts['fwd']} bwd {counts['bwd']} "
              f"!= routed convs {routed} each")
+    if counts["hungarian"] != len(steps) or any(
+            s["hungarian"] != 1 for s in steps):
+        fail(f"the assignment solver launched "
+             f"{[s['hungarian'] for s in steps]} times in the steps "
+             f"(once a step expected; {counts['hungarian']} in all)")
 
     # the gate reads the batch's loss with dropout off before and after the
     # 5 steps: each step's own loss carries dropout's noise (+-3 around a
@@ -1611,6 +1658,195 @@ def train_phase(trainer, zrun_conv, warm, card, label="train"):
         fail("the loss did not fall over 5 steps on one batch")
     return {"counts": counts, "routed_per_step": expected, "steps": steps,
             "host_s": host_s, "wall_s": wall, "peak_bytes": peak}
+
+
+ASSIGN_GATE = 1e-5      # the real rows' cost against scipy's, relative
+# ... or, in a lane that holds PAD_COST rows, ASSIGN_ULPS f32 ulps of
+# PAD_COST (2^-10 each) a real row: once a padded row has augmented, the
+# f32 duals are near 1e4 and resolve a reduced cost only to that ulp, and
+# their rounding adds up over the lane's augmentations, so among queries
+# whose costs nearly tie the solver (JAX's as well: the plain version is
+# JAX's arithmetic) may take one dearer by a fraction of that (0.009-0.104
+# ulp a real row read on an H100; PERF.md)
+ASSIGN_ULP = 2.0 ** -10
+ASSIGN_ULPS = 4
+ASSIGN_PADDED = 20      # padded rows a lane in the random costs (ii)
+
+
+def assignment_lanes(kind, shape, seed):
+    """(L, M, Q) costs of phase 8b's kinds (ii) and (iii): random, with the
+    last ASSIGN_PADDED rows of every lane at the set loss's PAD_COST
+    (``padded``), or the same with every query column tied, as in a round
+    whose queries are all the same (``tied``)."""
+    import numpy as np
+    from pq3d_tpu_torch.optim.losses import PAD_COST
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal(shape).astype(np.float32) * 3
+    if kind == "tied":
+        c[:] = c[:, :, :1]
+    c[:, shape[1] - ASSIGN_PADDED:] = PAD_COST
+    return c
+
+
+def assign_phase(trainer, warm, card, bw_peak, save=None):
+    """Phase assign (8b): the assignment kernel at full width on three
+    kinds of (round x scene) lanes: (i) the costs the set loss builds for
+    phase 8's warm batch (its forward in eval mode; the loss runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+    host synchronisation), (ii) random costs with padded rows and (iii)
+    the same with every query column tied.  Gates: col4row and the
+    Dijkstra steps equal to the plain version's (on a CPU copy) on every
+    row of every lane, every lane a permutation, the real rows' cost
+    within ASSIGN_GATE of scipy's on the real rows alone (or ASSIGN_ULPS
+    ulps of PAD_COST a real row, in a lane with padded rows), the launches equal to the
+    calls.  Prints the kernel's median ms over 20 event pairs, the
+    wrapper's host us a call, the parent's path (the copy to the host and
+    one scipy call a lane), the plain version's ms, the bound and the
+    steps.  ``save``: a path where (i)'s costs and valid rows are written
+    (``np.savez``)."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linear_sum_assignment
+    from pq3d_tpu_torch.ops import hungarian
+    from pq3d_tpu_torch.optim import losses
+    model = trainer.model
+    b = trainer._put(warm)
+    model.eval()
+    with torch.no_grad():
+        out = model(b)
+    model.train()
+    seen = []
+    orig = hungarian.solve_batch
+
+    def capture(cost, steps=None):
+        seen.append(cost)
+        return orig(cost, steps)
+    hungarian.reset_counts()
+    hungarian.solve_batch = capture
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                total, _ = trainer.loss_fn(out, b)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    finally:
+        hungarian.solve_batch = orig
+    loss = float(total)
+    if len(seen) != 1 or hungarian.launches != 1 or not math.isfinite(loss):
+        fail(f"assign: the set loss made {len(seen)} solver calls, "
+             f"{hungarian.launches} launches, loss {loss}")
+    real = seen[0]
+    n_lanes, m, q = real.shape
+    rounds = n_lanes // warm["instance_valid"].shape[0]
+    print(f"assign: the set loss of phase 8's batch ran under "
+          f"set_sync_debug_mode('error') with no host sync: loss "
+          f"{loss:.4f}, one solver launch over {n_lanes} lanes ({rounds} "
+          f"rounds x {warm['instance_valid'].shape[0]} scenes) of {m} x "
+          f"{q}", flush=True)
+    valid = np.tile(np.asarray(warm["instance_valid"]), (rounds, 1))
+    if save:
+        np.savez(save, cost=real.cpu().numpy(), valid=valid)
+    kinds = {"set_loss": (real.contiguous(), valid)}
+    for kind, seed in (("padded", 1), ("tied", 2)):
+        c = assignment_lanes(kind, (n_lanes, m, q), seed)
+        rows = np.zeros((n_lanes, m), bool)
+        rows[:, :m - ASSIGN_PADDED] = True
+        kinds[kind] = (torch.from_numpy(c).to(real.device), rows)
+    calls = [1]                    # the set loss's launch above
+    out_rec = {}
+    for kind, (cost, rows) in kinds.items():
+        steps = torch.zeros(n_lanes, dtype=torch.int32, device=cost.device)
+
+        def run():
+            calls[0] += 1
+            return hungarian.solve_batch(cost, steps)
+        col = run()
+        torch.cuda.synchronize()
+        host = cost.cpu()
+        t0 = time.perf_counter()
+        ref, ref_steps = hungarian.solve_batch_reference(host)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got, got_steps = col.cpu(), steps.cpu()
+        err = int((got.long() - ref.long()).abs().max())
+        if not (torch.equal(got, ref) and torch.equal(got_steps, ref_steps)):
+            bad = int((got != ref).any(1).sum())
+            fail(f"assign: {kind}: the kernel's col4row differs from the "
+                 f"plain version's in {bad} of {n_lanes} lanes, or its "
+                 f"steps do")
+        c_np = host.numpy()
+        worst = worst_ulp = 0.0
+        for lane in range(n_lanes):
+            g = got[lane].numpy()
+            if len(set(g.tolist())) != m or g.min() < 0 or g.max() >= q:
+                fail(f"assign: {kind}: lane {lane} is no permutation")
+            r = np.flatnonzero(rows[lane])
+            if not len(r):
+                continue
+            ours = c_np[lane, r, g[r]].sum(dtype=np.float64)
+            ri, ci = linear_sum_assignment(c_np[lane][r])
+            ref_cost = c_np[lane][r][ri, ci].sum(dtype=np.float64)
+            gap = abs(ours - ref_cost)
+            rel = gap / max(abs(ref_cost), 1e-30)
+            per_row = gap / (len(r) * ASSIGN_ULP)
+            worst, worst_ulp = max(worst, rel), max(worst_ulp, per_row)
+            padded = len(r) < m
+            if rel > ASSIGN_GATE and not (padded
+                                          and per_row <= ASSIGN_ULPS):
+                fail(f"assign: {kind}: lane {lane}'s real rows cost "
+                     f"{ours!r} against scipy's {ref_cost!r}: {rel:.2e} "
+                     f"relative (gate {ASSIGN_GATE:.0e}), {per_row:.3f} "
+                     f"ulp of PAD_COST a real row (gate {ASSIGN_ULPS} with "
+                     f"padded "
+                     f"rows; {len(r)} real rows of {m})")
+        ms = cuda_time(run, 20)
+        host_us = host_time(run, 20) * 1e3
+
+        def parent():
+            # the parent's path: the costs to the host, one scipy call a
+            # lane, the assignment back to the card
+            c = cost.cpu().numpy()
+            return torch.from_numpy(losses.assign(
+                c.reshape(rounds, -1, m, q))).to(cost.device)
+        lib = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parent()
+            torch.cuda.synchronize()
+            lib.append((time.perf_counter() - t0) * 1e3)
+        library_ms = sorted(lib)[2]
+        nbytes = cost.numel() * 4 + n_lanes * m * 4
+        bound_ms = nbytes / bw_peak * 1e3
+        st = ref_steps.double()
+        out_rec[kind] = {
+            "lanes": n_lanes, "rows": m, "cols": q,
+            "real_rows": int(rows.sum()), "max_abs_err": err,
+            "cost_rel": worst, "cost_ulp_a_row": worst_ulp,
+            "ms": ms, "host_us": host_us,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
+            "steps_max": int(st.max()), "steps_mean": float(st.mean()),
+            "staged": hungarian.staged(m, q)}
+        print(f"assign: {kind}: {n_lanes} lanes of {m} x {q} "
+              f"({int(rows.sum())} real rows): col4row and steps equal to "
+              f"the plain version's on every row, real rows' cost "
+              f"{worst:.1e} from scipy's, {worst_ulp:.4f} ulp of PAD_COST a "
+              f"real row (gates {ASSIGN_GATE:.0e}, or {ASSIGN_ULPS} ulps a "
+              f"row beside "
+              f"padded rows) | kernel "
+              f"{ms:.4f} ms (median of 20), wrapper host {host_us:.1f} "
+              f"us a call | parent's path (copy to the host + {n_lanes} "
+              f"scipy calls) {library_ms:.3f} ms | plain {plain_ms:.1f} ms "
+              f"(CPU) | bound {bound_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} "
+              f"MB, bytes) | Dijkstra steps a lane max {int(st.max())}, "
+              f"mean {float(st.mean()):.1f} | costs "
+              f"{'staged in shared memory' if out_rec[kind]['staged'] else 'read from global memory'} "
+              f"({card})", flush=True)
+    if hungarian.launches != calls[0]:
+        fail(f"assign: {hungarian.launches} launches for {calls[0]} calls")
+    return out_rec
 
 
 FLAT_RECT_GATE = 1e-4   # the flat step's loss against the rectangular one,
@@ -2513,15 +2749,19 @@ def all_finite(metrics):
 
 def recipe_stage(label, argv, zrun_conv, stage1, card):
     """One ``python -m pq3d_tpu_torch.run`` call in this process, with the
-    B1 counts set to 0 just before it and read just after.  Records each
-    batch's host-pipeline seconds (and the first train batch), each model
-    forward's mode and routed convs (stage 1), each epoch's metrics and
-    the peak memory; restores the signal handlers the trainer installs."""
+    B1 and assignment solver counts set to 0 just before it and read just
+    after.  Records each batch's host-pipeline seconds (and the first train
+    batch), each model forward's mode and routed convs (stage 1), each
+    epoch's metrics and the peak memory; restores the signal handlers the
+    trainer installs.  Gates B1 against the routed convs and the solver
+    at one launch a set-criterion loss (each train step's and each eval
+    forward's), never under the direct criterion or on stage 2."""
     import signal
     import torch
     from pq3d_tpu_torch import run
     from pq3d_tpu_torch.data import datasets, unified_loader
     from pq3d_tpu_torch.models.query3d import Query3DUnified
+    from pq3d_tpu_torch.ops import hungarian
     from pq3d_tpu_torch.train.trainer import Query3DTrainer
     rec = {"host": [], "forwards": [], "epochs": [], "first": None,
            "offline_mask": []}
@@ -2562,6 +2802,7 @@ def recipe_stage(label, argv, zrun_conv, stage1, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zrun_conv.reset_counts()                   # this path starts here
+    hungarian.reset_counts()
     t0 = time.time()
     try:
         with patched(*owner, assembler), \
@@ -2574,6 +2815,7 @@ def recipe_stage(label, argv, zrun_conv, stage1, card):
             signal.signal(sig, h)
     rec["wall_s"] = time.time() - t0
     rec["counts"] = dict(zrun_conv.phase_launches)   # and ends here
+    rec["hungarian"] = hungarian.launches
     rec["peak"] = torch.cuda.max_memory_allocated()
     steps = sum(int(e["batches"]) for e in rec["epochs"])
     epoch_s = sum(e["epoch_time_s"] for e in rec["epochs"])
@@ -2594,7 +2836,14 @@ def recipe_stage(label, argv, zrun_conv, stage1, card):
           f"{rec['peak'] / 2**30:.2f} GiB | zrun_conv launches fwd "
           f"{rec['counts']['fwd']} bwd {rec['counts']['bwd']}, routed "
           f"convs per train forward {train_routed}, per eval forward "
-          f"{eval_routed} ({card})", flush=True)
+          f"{eval_routed}; assignment solver launches {rec['hungarian']} "
+          f"({card})", flush=True)
+    crit = ((trainer.cfg["model"].get("InstSegLoss") or {}).get(
+        "criterion_type", "set") if stage1 else None)
+    want = len(rec["forwards"]) if crit == "set" else 0
+    if rec["hungarian"] != want:
+        fail(f"{label}: the assignment solver launched {rec['hungarian']} "
+             f"times; {want} expected (one a {crit or 'stage-2'} loss)")
     if stage1:
         if len(train_routed) != steps or not all(train_routed):
             fail(f"{label}: {len(train_routed)} train forwards with "
@@ -2760,6 +3009,7 @@ def recipe_phase(card, dev, zrun_conv, synth_ms, flops_peak, bw_peak):
     print(f"recipe: phase {total:.1f} s ({card})", flush=True)
     out.update(runs=runs, b1=b1, b1_ms=b1_ms, train_check=tc,
                warm_started=RECIPE_WARM_START_LOADED, phase_s=total,
+               hungarian={n: r["hungarian"] for n, r in runs.items()},
                launches={k: sum(runs[n]["counts"][k] for n in
                                 ("stage1", "stage1_resume", "gt"))
                          for k in ("fwd", "bwd")})
@@ -2878,7 +3128,7 @@ def ddp_rank(argv):
     from pq3d_tpu_torch import launch, run
     from pq3d_tpu_torch.models import query3d
     from pq3d_tpu_torch.models.sparse_unet import flatten_maps
-    from pq3d_tpu_torch.ops import windowed_conv, zrun_conv
+    from pq3d_tpu_torch.ops import hungarian, windowed_conv, zrun_conv
     from pq3d_tpu_torch.parallel import dist, tp
     from pq3d_tpu_torch.serve import to_device
     from pq3d_tpu_torch.train.trainer import Query3DTrainer
@@ -2969,6 +3219,7 @@ def ddp_rank(argv):
             torch.cuda.reset_peak_memory_stats()
             zrun_conv.reset_counts()        # the main path starts here
             windowed_conv.reset_counts()
+            hungarian.reset_counts()
             return m
         routed = (len(backbone.routed_convs(level_rows(batch)))
                   if backbone is not None else 0)
@@ -3002,6 +3253,7 @@ def ddp_rank(argv):
             torch.cuda.synchronize()
             rec["launches"] = dict(zrun_conv.phase_launches)  # path ends
             rec["b2_launches"] = windowed_conv.launches
+            rec["hungarian"] = hungarian.launches
             rec["peak_bytes"] = torch.cuda.max_memory_allocated()
             rec["peak_reserved"] = torch.cuda.max_memory_reserved()
             sharding = trainer.sharding
@@ -3251,6 +3503,11 @@ def ddp_stage(label, two, one, card, with_b1):
                      f"forward, {bwd} dx for {routed} routed convs")
             if not with_b1 and fwd + bwd:
                 fail(f"ddp: {label}: B1 ran on stage 2")
+            solver = len(r["steps"]) if with_b1 else 0
+            if r["hungarian"] != solver:
+                fail(f"ddp: {label} rank {r['rank']}: the assignment solver "
+                     f"launched {r['hungarian']} times in "
+                     f"{len(r['steps'])} steps ({solver} expected)")
     s2, s1 = ddp_summary(two), ddp_summary(one)
     print(f"ddp: {label}: step 1 all-plain f32 global loss, 2 gloo ranks "
           f"{loss2:.6f} against 1 nccl rank {loss1:.6f} (rel {rel:.2e}, "
@@ -3263,7 +3520,10 @@ def ddp_stage(label, two, one, card, with_b1):
           f"{s1['peak_gib']} GiB; synced batch norm all-reduces "
           f"{s2['bn_calls_a_step']} a step, their share of train_batch "
           f"{s2['bn_share']}; B1 launches per rank {s2['launches']} "
-          f"against {s1['launches']}; run wall {wall_text(two)} and "
+          f"against {s1['launches']}; assignment solver launches per rank "
+          f"{[r['hungarian'] for r in two['reports']]} against "
+          f"{[r['hungarian'] for r in one['reports']]}; run wall "
+          f"{wall_text(two)} and "
           f"{wall_text(one)} ({card})", flush=True)
     return {"loss_2": loss2, "loss_1": loss1, "loss_rel": rel,
             "two": s2, "one": s1, "b1": r0.get("b1"),
@@ -3272,7 +3532,9 @@ def ddp_stage(label, two, one, card, with_b1):
             "launches": {"fwd": sum(r["launches"]["fwd"]
                                     for r in two["reports"]),
                          "bwd": sum(r["launches"]["bwd"]
-                                    for r in two["reports"])}}
+                                    for r in two["reports"])},
+            "hungarian": sum(r["hungarian"] for run in (two, one)
+                             for r in run["reports"])}
 
 
 def replicated_phase(card, zrun_conv):
@@ -3519,6 +3781,11 @@ def mesh_train_gates(card, dd, runs):
                 fail(f"mesh: {label} rank {r['rank']}: B1 launched {fwd} "
                      f"forward, {bwd} dx for {routed} routed convs; B2 "
                      f"{r['b2_launches']}")
+            solver = len(r["steps"]) if stage == "stage1" else 0
+            if r["hungarian"] != solver:
+                fail(f"mesh: {label} rank {r['rank']}: the assignment "
+                     f"solver launched {r['hungarian']} times in "
+                     f"{len(r['steps'])} steps ({solver} expected)")
         s = ddp_summary(run)
         tp_share = [r["tp_s"] / sum(x["s"] for x in r["steps"])
                     for r in run["reports"]]
@@ -3546,7 +3813,9 @@ def mesh_train_gates(card, dd, runs):
               f"tensor-parallel collectives a step "
               f"{tp_calls}, their share of train_batch {tp_share}; synced "
               f"batch norm all-reduces a step {s['bn_calls_a_step']}; B1 "
-              f"launches per rank {s['launches']}; before the last step "
+              f"launches per rank {s['launches']}; assignment solver "
+              f"launches per rank {[r['hungarian'] for r in run['reports']]}"
+              f"; before the last step "
               + "; ".join(f"rank {r['rank']}: {memory_text(r['memory'][-1])}"
                           for r in run["reports"])
               + f"; run wall {wall_text(run)} ({card})", flush=True)
@@ -3560,6 +3829,8 @@ def mesh_train_gates(card, dd, runs):
                       "wall_split": run["wall_split"],
                       "b2_launches": sum(r["b2_launches"]
                                          for r in run["reports"]),
+                      "hungarian": sum(r["hungarian"]
+                                       for r in run["reports"]),
                       "launches": {"fwd": sum(r["launches"]["fwd"]
                                               for r in run["reports"]),
                                    "bwd": sum(r["launches"]["bwd"]
@@ -5636,7 +5907,8 @@ def reference_warm_start_phase(card, zrun_conv):
     total = time.time() - t_phase
     print(f"reference_warm_start: phase {total:.1f} s ({card})", flush=True)
     return {"loaded": len(report["loaded"]), "losses": losses,
-            "launches": rec["counts"], "steps_per_s": rec["steps_per_s"],
+            "launches": rec["counts"], "hungarian": rec["hungarian"],
+            "steps_per_s": rec["steps_per_s"],
             "peak_gib": rec["peak"] / 2**30, "phase_s": total}
 
 
@@ -5936,7 +6208,7 @@ def main():
     from pq3d_tpu_torch.eval.instseg_eval import rank_instances
     from pq3d_tpu_torch.models.query3d import build_model
     from pq3d_tpu_torch.models.sparse_unet import flatten_maps
-    from pq3d_tpu_torch.ops import windowed_conv, zrun_conv
+    from pq3d_tpu_torch.ops import hungarian, windowed_conv, zrun_conv
     from pq3d_tpu_torch.serve import InstSegServer, to_device
 
     # the synthetic scenes outgrow the YAML's deep level caps; the pipeline
@@ -5970,10 +6242,11 @@ def main():
     # ---- 2. build: one nvcc for each source, all started together ------
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = {name: pool.submit(mod.build) for name, mod in
                   (("zrun_conv.cu", zrun_conv),
-                   ("windowed_conv.cu", windowed_conv))}
+                   ("windowed_conv.cu", windowed_conv),
+                   ("hungarian.cu", hungarian))}
         for name, job in builds.items():
             try:
                 job.result()
@@ -5981,11 +6254,15 @@ def main():
                 fail(f"nvcc failed on {name}:\n{e.stderr[-4000:]}")
     print(f"build: {' and '.join(builds)} in {time.time() - t0:.1f} s",
           flush=True)
-    for name, mod, kern, scale in (
-            ("zrun_conv.cu", zrun_conv, "zrun_conv_kernel", 1),
-            ("windowed_conv.cu", windowed_conv, "windowed_conv_kernel", 8)):
+    for name, mod, kern, scale, what in (
+            ("zrun_conv.cu", zrun_conv, "zrun_conv_kernel", 1,
+             "Cout (of a block)"),
+            ("windowed_conv.cu", windowed_conv, "windowed_conv_kernel", 8,
+             "Cout (of a block)"),
+            ("hungarian.cu", hungarian, "hungarian_kernel", 32,
+             "columns at most, costs staged or read from global memory")):
         regs = ptxas_summary(mod.build_log, kern, scale)
-        print(f"build: {name} ptxas, Cout (of a block): registers / spills: "
+        print(f"build: {name} ptxas, {what}: registers / spills: "
               f"{'; '.join(regs)}", flush=True)
         if not regs:
             fail(f"no ptxas report in {name}'s build log")
@@ -6203,6 +6480,10 @@ def main():
         windowed_conv.reset_counts()
         tr = train_phase(trainer, zrun_conv, warm, card)
         b2_train = windowed_conv.launches
+
+        lap("8b")
+        # ---- 8b. assign: the set loss's solver on the card --------------
+        asg = assign_phase(trainer, warm, card, bw_peak)
 
         lap("9")
         # ---- 9. train_check ---------------------------------------------
@@ -6458,6 +6739,41 @@ def main():
                  f"(B2 is on no model path)",
         "levels": wc["levels"], "shapes": wc["shapes"],
     }
+    a = asg["set_loss"]
+    solver_paths = {"train": tr["counts"]["hungarian"],
+                    "flat_train": ft["counts"]["hungarian"],
+                    **{f"recipe_{k}": n for k, n in rc["hungarian"].items()},
+                    "ddp_train": dd["stage1"]["hungarian"],
+                    "ddp_stage2": dd["stage2"]["hungarian"],
+                    "mesh_train_fsdp": ms["stage1_fsdp"]["hungarian"],
+                    "mesh_train_tp": ms["stage2_tp"]["hungarian"],
+                    "reference_warm_start": rw["hungarian"]}
+    solver_entry = {
+        "name": "hungarian", "route": "cuda",
+        "source": "pq3d_tpu_torch/csrc/hungarian.cu",
+        "replaces": "pq3d_tpu/ops/hungarian.py:28",
+        "replaces_note": "no Pallas kernel: the JAX package's on-device "
+                         "lax.while_loop solver (solve, vmapped by its set "
+                         "loss's solve_batch)",
+        "launches": sum(solver_paths.values()),
+        "launches_by_path": solver_paths,
+        "max_abs_err": max(r["max_abs_err"] for r in asg.values()),
+        "ms": a["ms"], "host_ms": a["host_us"] / 1e3,
+        "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+        "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+        "scope": f"ms/host_ms/plain_ms/bound_ms/library_ms: one call on "
+                 f"the {a['lanes']} lanes ({a['rows']} x {a['cols']}) of "
+                 f"phase 8's set loss; plain_ms on the CPU; library_ms the "
+                 f"parent's path (the costs to the host, one scipy "
+                 f"linear_sum_assignment a lane, the assignment back): no "
+                 f"PyTorch call solves an assignment; max_abs_err: col4row "
+                 f"against the plain version's over the three kinds; "
+                 f"launches: the set-criterion train steps of phases 8, 9b, "
+                 f"13 (every stage-1 rank) and 20 (FSDP), the recipe's "
+                 f"stage-1 train and eval losses and phase 18's steps (0 "
+                 f"under the direct criterion and on stage 2)",
+        "kinds": asg,
+    }
     print(f"summary: B1 {entry['ms']:.3f} ms per served forward (host "
           f"{entry['host_ms']:.3f} ms) against B2 {b2_entry['ms']:.3f} ms "
           f"(kernel alone {b2_entry['kernel_ms']:.3f} ms, multiplied share "
@@ -6466,7 +6782,11 @@ def main():
           f"{entry['bwd_ms']:.3f} ms per train step (host "
           f"{entry['bwd_host_ms']:.3f} ms); multiplied share of the dense work {entry['mult_share']:.4f} "
           f"forward, {entry['bwd_mult_share']:.4f} dx", flush=True)
-    print(json.dumps({"kernels": [entry, b2_entry]}), flush=True)
+    print(f"summary: assignment kernel {a['ms']:.4f} ms on the set loss's "
+          f"{a['lanes']} lanes against the parent's copy + scipy path "
+          f"{a['library_ms']:.3f} ms; launches {solver_paths}", flush=True)
+    print(json.dumps({"kernels": [entry, b2_entry, solver_entry]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,13 +7,15 @@ GT-query variant (``batch_mask_loss``, ``batch_dice_loss``,
 ``ground_loss``, ``generation_loss``, ``answer_loss``).
 
 All target tensors are padded; validity masks make the math exact.  The
-matching costs of every prediction round are built at once, read back to
-the host once, and assigned by one ``scipy.optimize.linear_sum_assignment``
-call per (round, scene): what the reference does and what the JAX
-package's ``hungarian.solve_scipy_callback`` does.  The JAX package's
-device solver is a ``lax.while_loop``, not a kernel; both give the same
-assignment of the real targets (padded targets cost a constant, so they
-never change it).
+matching costs of every prediction round are built at once and matched on
+the tensors' device by ``ops/hungarian.solve_batch``, one lane a (round,
+scene): the JAX package's on-device solver, whose ``col4row`` it repeats on
+every row (on the card a hand-written kernel, on the CPU its plain
+version), so the set loss copies nothing to the host and the train step
+never waits for it.  The reference, and the JAX package's
+``solve_scipy_callback``, call scipy on the host instead (:func:`assign`
+keeps that oracle): the same assignment of the real targets (padded
+targets cost a constant, so they never change it).
 
 Under a process group each rank holds a slice of the global batch, and
 every count a loss divides by is summed over the ranks that hold rows
@@ -31,8 +33,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
-from scipy.optimize import linear_sum_assignment
 
+from pq3d_tpu_torch.ops import hungarian
 from pq3d_tpu_torch.parallel.dist import global_sum, rows
 
 PAD_COST = 1e4  # constant cost for padded targets (preserves real matching)
@@ -113,14 +115,21 @@ def round_costs(predictions_class: List[torch.Tensor],
 
 
 def assign(costs: np.ndarray) -> np.ndarray:
-    """(R, B, M, Q) costs -> (R, B, M) query index per target: one
-    ``linear_sum_assignment`` per (round, scene)."""
-    out = np.zeros(costs.shape[:3], np.int64)
-    for r in range(costs.shape[0]):
-        for b in range(costs.shape[1]):
-            rows, cols = linear_sum_assignment(costs[r, b])
-            out[r, b, rows] = cols
-    return out
+    """(R, B, M, Q) costs -> (R, B, M) query index per target on the host:
+    one scipy ``linear_sum_assignment`` per (round, scene)
+    (``hungarian.solve_scipy``), the oracle the device solver is held to."""
+    r, b, m, q = costs.shape
+    return hungarian.solve_scipy(torch.from_numpy(np.ascontiguousarray(
+        costs).reshape(r * b, m, q))).numpy().reshape(r, b, m).astype(
+            np.int64)
+
+
+def match_costs(costs: torch.Tensor) -> torch.Tensor:
+    """(R, B, M, Q) costs -> (R, B, M) query index per target (int64), on
+    the costs' device: ``hungarian.solve_batch`` over the R * B lanes."""
+    r, b, m, q = costs.shape
+    col = hungarian.solve_batch(costs.reshape(r * b, m, q).contiguous())
+    return col.long().view(r, b, m)
 
 
 def match_layer(pred_logits: torch.Tensor, mask_logits: torch.Tensor,
@@ -129,12 +138,12 @@ def match_layer(pred_logits: torch.Tensor, mask_logits: torch.Tensor,
                 cfg: InstSegLossConfig) -> torch.Tensor:
     """Hungarian match of one prediction round -> (B, M) query index per
     target (padded targets get arbitrary distinct queries); the
-    assignment of :func:`round_costs` and :func:`assign` for one round."""
+    assignment of :func:`round_costs` and :func:`match_costs` for one
+    round."""
     batch = {"instance_labels": labels, "segment_masks": tgt_masks,
              "instance_valid": inst_valid, "seg_pad_masks": seg_valid}
-    costs = round_costs([pred_logits], [mask_logits], batch, cfg)
-    col = assign(costs.cpu().numpy())[0]
-    return torch.from_numpy(col).to(pred_logits.device)
+    return match_costs(round_costs([pred_logits], [mask_logits], batch,
+                                   cfg))[0]
 
 
 def instseg_layer_loss(pred_logits: torch.Tensor, mask_logits: torch.Tensor,
@@ -191,9 +200,8 @@ def instseg_set_loss(predictions_class: List[torch.Tensor],
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Set criterion over all prediction rounds (aux rounds suffixed
     ``_i``, the last unsuffixed), weighted by the matcher costs."""
-    costs = round_costs(predictions_class, predictions_mask, batch, cfg)
-    col_all = torch.from_numpy(assign(costs.cpu().numpy())).to(
-        costs.device)
+    col_all = match_costs(round_costs(predictions_class, predictions_mask,
+                                      batch, cfg))
     losses: Dict[str, torch.Tensor] = {}
     total = 0.0
     n = len(predictions_class)

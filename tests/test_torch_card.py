@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from pq3d_tpu_torch.ops import hungarian as thu
 from pq3d_tpu_torch.ops import kernel_maps
 from pq3d_tpu_torch.ops import windowed_conv as twc
 from pq3d_tpu_torch.ops import zrun_conv as tzr
@@ -729,3 +730,105 @@ def test_export_on_the_cpu_runs_on_the_card(cuda_device):
         g, r = got[key][0].float(), ref[key][0].float()
         assert g.device.type == "cuda" and torch.isfinite(g).all()
         assert (g - r).abs().max() <= 1e-5 * r.abs().max()
+
+
+def _assignment_lanes(kind, lanes, rows, cols, seed):
+    """(lanes, rows, cols) f32 costs of one kind: random with the last
+    fifth of the rows padded at the set loss's PAD_COST, every query
+    column tied (a round of identical queries), small integers with many
+    ties, plain random, or lanes with non-finite costs beside finite
+    ones."""
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal((lanes, rows, cols)).astype(np.float32) * 3
+    if kind == "padded":
+        c[:, rows - rows // 5:] = 1e4
+    elif kind == "tied":
+        c[:] = c[:, :, :1]
+    elif kind == "integers":
+        c = rng.integers(0, 3, c.shape).astype(np.float32)
+    elif kind == "non_finite":
+        c[1, rows // 2] = np.nan
+        c[2] = np.inf
+        c[3, :, rows - 2:] = np.inf
+    return c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,lanes,rows,cols,stage", [
+    ("padded", 52, 120, 120, True), ("tied", 52, 120, 120, True),
+    ("integers", 8, 120, 120, True), ("padded", 52, 120, 120, False),
+    ("random", 5, 30, 33, True), ("random", 3, 1, 1, True),
+    ("random", 4, 200, 257, True), ("random", 2, 64, 1024, False),
+    ("non_finite", 6, 12, 16, True)])
+def test_hungarian_kernel_matches_plain_version(cuda_device, monkeypatch,
+                                                kind, lanes, rows, cols,
+                                                stage):
+    """hungarian.cu against solve_batch_reference on a CPU copy: col4row
+    equal on every row of every lane (the kernel pins JAX's f32 operation
+    order, so no tolerance), the same Dijkstra steps a lane, one launch
+    counted; costs staged in shared memory and read from global memory
+    (``stage`` False forces the second path); failed lanes -1."""
+    c = _assignment_lanes(kind, lanes, rows, cols, rows + cols)
+    fits = thu.staged
+    monkeypatch.setattr(thu, "staged", lambda r, n: stage and fits(r, n))
+    cd = torch.from_numpy(c).to(cuda_device)
+    steps = torch.zeros(lanes, dtype=torch.int32, device=cuda_device)
+    before = thu.launches
+    got = thu.solve_batch(cd, steps)
+    torch.cuda.synchronize()
+    assert thu.launches == before + 1 and got.dtype == torch.int32
+    ref, ref_steps = thu.solve_batch_reference(torch.from_numpy(c))
+    assert torch.equal(got.cpu(), ref)
+    assert torch.equal(steps.cpu(), ref_steps)
+    if kind == "non_finite":
+        assert (ref[1:4] == -1).all() and (ref[[0, 4, 5]] >= 0).all()
+    else:
+        assert all(len(set(r.tolist())) == rows for r in ref)
+
+
+@pytest.mark.cuda
+def test_hungarian_refusals_on_the_card(cuda_device):
+    """A non-f32 or strided cost, and R > N, raise before any launch."""
+    before = thu.launches
+    for bad in (torch.zeros(2, 4, 6, device=cuda_device, dtype=torch.half),
+                torch.zeros(2, 6, 4, device=cuda_device).transpose(1, 2),
+                torch.zeros(2, 7, 6, device=cuda_device)):
+        with pytest.raises((TypeError, ValueError)):
+            thu.solve_batch(bad)
+    assert thu.launches == before
+
+
+@pytest.mark.cuda
+def test_set_loss_makes_no_host_sync(cuda_device):
+    """instseg_set_loss on CUDA tensors under
+    torch.cuda.set_sync_debug_mode("error"): no operation of the set loss
+    synchronises with the host, the solver launched once."""
+    from pq3d_tpu_torch.optim import losses
+    rng = np.random.default_rng(2)
+    b, q, m, s, rounds = 2, 16, 12, 40, 3
+    cls = [torch.from_numpy(rng.standard_normal((b, q, 21)).astype(
+        np.float32)).to(cuda_device) for _ in range(rounds)]
+    msk = [torch.from_numpy(rng.standard_normal((b, s, q)).astype(
+        np.float32)).to(cuda_device) for _ in range(rounds)]
+    valid = torch.zeros(b, m, dtype=torch.bool)
+    valid[0, :5] = valid[1, :9] = True
+    batch = {"instance_labels": torch.from_numpy(rng.integers(
+                 0, 20, (b, m)).astype(np.int32)),
+             "segment_masks": torch.from_numpy(rng.random((b, m, s)) < 0.3),
+             "instance_valid": valid,
+             "seg_pad_masks": torch.ones(b, s, dtype=torch.bool)}
+    batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    cfg = losses.InstSegLossConfig(num_classes=20)
+    torch.cuda.synchronize()
+    before = thu.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        total, _ = losses.instseg_set_loss(cls, msk, batch, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert thu.launches == before + 1
+    ref, _ = losses.instseg_set_loss([x.cpu() for x in cls],
+                                     [x.cpu() for x in msk],
+                                     {k: v.cpu() for k, v in batch.items()},
+                                     cfg)
+    assert abs(total.item() - ref.item()) <= 1e-4 * abs(ref.item())

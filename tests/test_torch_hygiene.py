@@ -30,7 +30,7 @@ NEEDED = ["pq3d_tpu_torch." + m for m in (
     "utils.profiling", "export", "data.augmentor", "data.tokenizers",
     "models.legacy_encoders", "utils.io_utils", "utils.metric_utils",
     "utils.box_utils", "parallel.dist", "parallel.mesh", "parallel.tp",
-    "utils.yaml_reader", "config")]
+    "utils.yaml_reader", "config", "ops.hungarian")]
 import pq3d_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(pq3d_tpu_torch.__path__,
                                               "pq3d_tpu_torch.")]
@@ -67,10 +67,11 @@ def _top_imports(path):
 
 
 @pytest.mark.parametrize("path", ["tools/torch_mesh_phase.py",
-                                  "tests/_torch_mesh_worker.py"])
+                                  "tests/_torch_mesh_worker.py",
+                                  "tools/torch_assign_phase.py"])
 def test_mesh_programs_import_no_jax(path):
-    """The mesh's card tool and its CPU ranks' program run the port
-    alone."""
+    """The mesh's card tool, its CPU ranks' program and the assignment
+    phase's card tool run the port alone."""
     top = _top_imports(path)
     assert not top & {"jax", "flax", "pq3d_tpu", "yaml", "sklearn"}, top
     assert "pq3d_tpu_torch" in top
