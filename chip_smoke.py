@@ -100,7 +100,7 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                the plain version's (on a CPU copy) on every row of every
                lane, every lane a permutation, the real rows' cost within
                1e-5 relative of scipy's on the real rows alone (or, beside
-               padded rows, 4 f32 ulps of PAD_COST a real row:
+               padded rows, 1 f32 ulp of PAD_COST a real row:
                ASSIGN_ULPS), the launches equal to the calls; prints the kernel's median ms
                over 20 CUDA-event pairs, the wrapper's host us a call, the
                parent's path (the copy to the host, one scipy call a lane,
@@ -126,6 +126,24 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                one batch collated in both layouts: the flat loss within
                1e-4 relative of the rectangular one, and the gradients,
                normalised by their largest entry, within 1e-4;
+9c. dev_train -- stage-1 training with the maps built on the card
+               (the JAX package's model builds them inside its train step
+               too): phase 8's trainer, scenes, seed and batch in dev_maps
+               (maps and the z-run plans of levels 1-3 built on the card
+               at phase 5b's level caps) and dev_flat_zt (the flat maps
+               and plans at a lock derived from the training scenes, margin
+               1.5), 2 timed steps each: loss, grad norm, steps/s, device
+               ms a step, peak memory, the map build's device ms; gates:
+               B1's forward and dx launches equal the routed convs of
+               every step at the built maps' rows, the assignment kernel
+               once a step, phase 9's train_check (2e-2), and on one batch
+               all-plain in f32 (TF32, dropout and the self-mask off,
+               direct criterion) the step on maps built on the card
+               against the step on the host's maps of the same scenes
+               (rect and flat_zt): loss within 1e-4 relative, gradients
+               normalised by their largest entry within 1e-4; dev_gather
+               and dev_flat_swin take one step each with a finite loss and
+               finite gradients;
 10. unified -- stage-2 serving end to end: the full-width
                unified_tasks_sceneverse model (PointNet++ on 80 objects x
                1024 points, the CLIP-large text tower, the mixed query
@@ -248,6 +266,11 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
 14. unified_variants -- the rest of stage 2 at the widths of
                unified_tasks_sceneverse (random weights from a seed), B1
                and B2 counted from 0 over (a) and (b) and gated at 0.
+               In (c), first, the model of
+               model.obj_loc.pairwise_rel_type=vertical_bottom: one forward
+               of a batch of 8 against the same model and weights with
+               center: ground, teacher-forced and token outputs
+               bit-equal (the model passes no box sizes, as JAX's).
                (a) The model with heads [ground, generation, qa] (8864
                answers) behind UnifiedServer(batch_size=8), 8 warm and 32
                timed requests of phase 10's kind, in the JAX package's
@@ -409,7 +432,14 @@ Phases (one line each; any failure exits non-zero, nothing is skipped):
                widths exported on the card on a batch of 8 of phase 10's
                requests and run as exported, in memory (stage 1 carries
                the save and load round trip): tokens equal to eager's,
-               ground_logits within 1e-5; each prints the export seconds,
+               ground_logits within 1e-5; then the same model with
+               early_exit=True (its decode one torch.while_loop) exported
+               the same way: the graph holds the loop, its tokens equal the
+               eager early-exit decode's and the fixed-length program's;
+               it prints the eager early-exit call's seconds (the loop's
+               capture included) and one forward's ms exported early-exit
+               against exported fixed-length (CUDA events, median of 3);
+               each prints the export seconds,
                graph nodes, stage 1's artifact MiB and load (and move)
                seconds and one forward's ms exported against eager (CUDA
                events, median of 3); (iii) VoxelLevelEncoder (hidden 768) on (i)'s batch with
@@ -540,6 +570,20 @@ def settle(srv, scenes):
 def level_rows(batch):
     """Flat rows per hierarchy level of a collated (numpy or torch) batch."""
     return [math.prod(batch["maps"][f"valid_{l}"].shape) for l in range(5)]
+
+
+def batch_rows(model, batch):
+    """Flat rows per level of the maps that ``model``'s forward of
+    ``batch`` runs on: the batch's host maps, or the static shapes of the
+    maps it builds on the card (the flat lock's totals, or the level caps
+    times the batch)."""
+    ve = model.voxel_enc
+    if ve.device_flat_caps is not None:
+        caps = dict(ve.device_flat_caps)
+        return [caps[f"tot_{l}"] for l in range(5)]
+    if ve.device_maps is not None:
+        return [batch["vox_coords"].shape[0] * c for c in ve.device_maps]
+    return level_rows(batch)
 
 
 def make_scenes(n, seed):
@@ -1537,13 +1581,15 @@ def ztriple_calls():
         sparse.sparse_conv_ztriple_sym = orig
 
 
-def train_phase(trainer, zrun_conv, warm, card, label="train"):
-    """1 warm step, then one epoch of 5 timed steps through the trainer
-    (its prefetching loader included), then 5 steps on the warm batch.
-    Per step: the flat rows of each level, B1's forward and dx launches,
-    the assignment solver's launches (one a step: the set loss matches on
-    the card) and the z-run gather conv's forward and backward calls.
-    Returns the launch counts and the step records."""
+def train_phase(trainer, zrun_conv, warm, card, label="train", n_steps=5,
+                fall=True):
+    """1 warm step, then one epoch of ``n_steps`` timed steps through the
+    trainer (its prefetching loader included), then, with ``fall``, 5
+    steps on the warm batch.  Per step: the flat rows of each level (of
+    the maps the card builds, in a device-map layout), B1's forward and
+    dx launches, the assignment solver's launches (one a step: the set
+    loss matches on the card) and the z-run gather conv's forward and
+    backward calls.  Returns the launch counts and the step records."""
     import torch
     from pq3d_tpu_torch.ops import hungarian
     model = trainer.model
@@ -1552,7 +1598,7 @@ def train_phase(trainer, zrun_conv, warm, card, label="train"):
     step_rows = []       # the flat rows per level of each train forward
 
     def count(mod, args):
-        step_rows.append(level_rows(args[0]))
+        step_rows.append(batch_rows(model, args[0]))
         expected.append(len(backbone.routed_convs(step_rows[-1])))
     hook = model.register_forward_pre_hook(count)
     t0 = time.time()
@@ -1619,8 +1665,8 @@ def train_phase(trainer, zrun_conv, warm, card, label="train"):
               f"conv fwd "
               f"{s['ztriple']['fwd']} bwd {s['ztriple']['bwd']}",
               flush=True)
-    if len(steps) != 5 or len(expected) != 5:
-        fail(f"the epoch ran {len(steps)} steps, expected 5")
+    if len(steps) != n_steps or len(expected) != n_steps:
+        fail(f"the epoch ran {len(steps)} steps, expected {n_steps}")
     if not all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
                for s in steps):
         fail("a loss or gradient norm is not finite")
@@ -1629,9 +1675,11 @@ def train_phase(trainer, zrun_conv, warm, card, label="train"):
             [torch.isfinite(g).all() for g in grads]).all().item():
         fail("a trainable parameter has no gradient or a non-finite one")
     routed = sum(expected)
-    print(f"{label}: 5 steps in {wall:.2f} s: {5 / wall:.3f} steps/s, "
-          f"{20 / wall:.3f} scenes/s (steady, steps 2-5: "
-          f"{4 / (steps[-1]['end'] - steps[0]['end']):.3f} steps/s) | "
+    scenes = n_steps * trainer.train_data.batch_size
+    print(f"{label}: {n_steps} steps in {wall:.2f} s: {n_steps / wall:.3f} "
+          f"steps/s, {scenes / wall:.3f} scenes/s (steady, steps 2-"
+          f"{n_steps}: {(n_steps - 1) / (steps[-1]['end'] - steps[0]['end']):.3f}"
+          f" steps/s) | "
           f"max_memory_allocated {peak / 2**30:.2f} GiB | zrun_conv "
           f"launches fwd {counts['fwd']} bwd {counts['bwd']}, routed convs "
           f"per step {expected}; assignment solver launches "
@@ -1645,6 +1693,10 @@ def train_phase(trainer, zrun_conv, warm, card, label="train"):
              f"{[s['hungarian'] for s in steps]} times in the steps "
              f"(once a step expected; {counts['hungarian']} in all)")
 
+    rec = {"counts": counts, "routed_per_step": expected, "steps": steps,
+           "host_s": host_s, "wall_s": wall, "peak_bytes": peak}
+    if not fall:
+        return rec
     # the gate reads the batch's loss with dropout off before and after the
     # 5 steps: each step's own loss carries dropout's noise (+-3 around a
     # fall of 6-9 over the 5 steps), enough to decide a first-vs-last test
@@ -1656,21 +1708,45 @@ def train_phase(trainer, zrun_conv, warm, card, label="train"):
           f"dropout off {before:.4f} before, {after:.4f} after", flush=True)
     if not after < before:
         fail("the loss did not fall over 5 steps on one batch")
-    return {"counts": counts, "routed_per_step": expected, "steps": steps,
-            "host_s": host_s, "wall_s": wall, "peak_bytes": peak}
+    return rec
 
 
 ASSIGN_GATE = 1e-5      # the real rows' cost against scipy's, relative
-# ... or, in a lane that holds PAD_COST rows, ASSIGN_ULPS f32 ulps of
-# PAD_COST (2^-10 each) a real row: once a padded row has augmented, the
-# f32 duals are near 1e4 and resolve a reduced cost only to that ulp, and
-# their rounding adds up over the lane's augmentations, so among queries
-# whose costs nearly tie the solver (JAX's as well: the plain version is
-# JAX's arithmetic) may take one dearer by a fraction of that (0.009-0.104
-# ulp a real row read on an H100; PERF.md)
+# ... or, in a lane that holds PAD_COST rows, ASSIGN_ULPS f32 ulp of
+# PAD_COST (2^-10) a real row: once a padded row has augmented, the f32
+# duals are near 1e4 and resolve a reduced cost only to that ulp, so among
+# queries whose costs nearly tie the solver (JAX's as well: the plain
+# version is JAX's arithmetic) may take one dearer by a fraction of it
+# (0.0086-0.104 ulp a real row read on an H100; PERF.md)
 ASSIGN_ULP = 2.0 ** -10
-ASSIGN_ULPS = 4
+ASSIGN_ULPS = 1
 ASSIGN_PADDED = 20      # padded rows a lane in the random costs (ii)
+
+
+def host_cpu_model():
+    """The host CPU's model name (/proc/cpuinfo's, else lscpu's), with the
+    machine and the cores this process sees."""
+    import platform
+    name = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    name = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    if name is None:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+            name = next((ln.split(":", 1)[1].strip()
+                         for ln in out.splitlines()
+                         if ln.startswith("Model name")), None)
+        except (OSError, subprocess.SubprocessError):
+            pass
+    return (f"{name or 'CPU model not reported'}, {platform.machine()}, "
+            f"{len(os.sched_getaffinity(0))} cores")
 
 
 def assignment_lanes(kind, shape, seed):
@@ -1701,8 +1777,8 @@ def assign_phase(trainer, warm, card, bw_peak, save=None):
     ulps of PAD_COST a real row, in a lane with padded rows), the launches equal to the
     calls.  Prints the kernel's median ms over 20 event pairs, the
     wrapper's host us a call, the parent's path (the copy to the host and
-    one scipy call a lane), the plain version's ms, the bound and the
-    steps.  ``save``: a path where (i)'s costs and valid rows are written
+    one scipy call a lane), the plain version's ms, the host solver's ms
+    (gated equal to the plain version), the bound and the steps.  ``save``: a path where (i)'s costs and valid rows are written
     (``np.savez``)."""
     import numpy as np
     import torch
@@ -1775,6 +1851,19 @@ def assign_phase(trainer, warm, card, bw_peak, save=None):
             fail(f"assign: {kind}: the kernel's col4row differs from the "
                  f"plain version's in {bad} of {n_lanes} lanes, or its "
                  f"steps do")
+        # the host solver (csrc/hungarian_cpu.cpp), which a CPU tensor runs
+        cpu_steps = torch.zeros(n_lanes, dtype=torch.int32)
+        cpu_col = hungarian.solve_batch(host, cpu_steps)
+        if not (torch.equal(cpu_col, ref)
+                and torch.equal(cpu_steps, ref_steps)):
+            fail(f"assign: {kind}: the host solver's col4row or steps "
+                 f"differ from the plain version's")
+        cpu_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            hungarian.solve_batch(host, cpu_steps)
+            cpu_ms.append((time.perf_counter() - t0) * 1e3)
+        host_solver_ms = sorted(cpu_ms)[2]
         c_np = host.numpy()
         worst = worst_ulp = 0.0
         for lane in range(n_lanes):
@@ -1826,6 +1915,7 @@ def assign_phase(trainer, warm, card, bw_peak, save=None):
             "cost_rel": worst, "cost_ulp_a_row": worst_ulp,
             "ms": ms, "host_us": host_us,
             "plain_ms": plain_ms, "library_ms": library_ms,
+            "host_solver_ms": host_solver_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
             "steps_max": int(st.max()), "steps_mean": float(st.mean()),
             "staged": hungarian.staged(m, q)}
@@ -1833,13 +1923,14 @@ def assign_phase(trainer, warm, card, bw_peak, save=None):
               f"({int(rows.sum())} real rows): col4row and steps equal to "
               f"the plain version's on every row, real rows' cost "
               f"{worst:.1e} from scipy's, {worst_ulp:.4f} ulp of PAD_COST a "
-              f"real row (gates {ASSIGN_GATE:.0e}, or {ASSIGN_ULPS} ulps a "
+              f"real row (gates {ASSIGN_GATE:.0e}, or {ASSIGN_ULPS} ulp a "
               f"row beside "
               f"padded rows) | kernel "
               f"{ms:.4f} ms (median of 20), wrapper host {host_us:.1f} "
               f"us a call | parent's path (copy to the host + {n_lanes} "
               f"scipy calls) {library_ms:.3f} ms | plain {plain_ms:.1f} ms "
-              f"(CPU) | bound {bound_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} "
+              f"(CPU) | host solver {host_solver_ms:.2f} ms (median of 5, "
+              f"equal to the plain version; {host_cpu_model()}) | bound {bound_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} "
               f"MB, bytes) | Dijkstra steps a lane max {int(st.max())}, "
               f"mean {float(st.mean()):.1f} | costs "
               f"{'staged in shared memory' if out_rec[kind]['staged'] else 'read from global memory'} "
@@ -1862,11 +1953,13 @@ def flat_vs_rect_step(trainer):
         pipe, flat_pack=False, ztriple_conv=False), pipe)
 
 
-def two_pipe_step(trainer, ref_pipe, pipe):
+def two_pipe_step(trainer, ref_pipe, pipe, ves=None):
     """One batch of the trainer's scenes collated by two pipelines (same
     augmentation, same features), one step each from the same weights:
     every conv plain in f32 (TF32 off), dropout and the decoder's
-    self-mask off, the direct criterion.  Returns the loss's relative
+    self-mask off, the direct criterion.  ``ves``: the model's voxel
+    encoder settings for each pipeline (host maps against maps built on
+    the card), else the model's own for both.  Returns the loss's relative
     difference, the largest gradient difference over the largest
     ``ref_pipe`` gradient entry (the gradients normalised by their
     maximum) and, printed only, the worst max|diff| / max|ref| of a
@@ -1879,9 +1972,11 @@ def two_pipe_step(trainer, ref_pipe, pipe):
     loader = trainer.train_data
     idxs = np.arange(loader.batch_size)
     runs = []
+    own_ve = model.voxel_enc
     try:
         with all_plain(model):
-            for pipe in (ref_pipe, pipe):
+            for pipe, ve in zip((ref_pipe, pipe), ves or (own_ve, own_ve)):
+                model.voxel_enc = ve
                 batch = trainer._put(_assemble_instseg_batch(
                     loader.dataset, pipe, loader.extra_features, idxs,
                     np.random.default_rng(7), True))
@@ -1896,6 +1991,7 @@ def two_pipe_step(trainer, ref_pipe, pipe):
                     n: p.grad.detach().clone() for n, p in
                     model.named_parameters() if p.grad is not None}))
     finally:
+        model.voxel_enc = own_ve
         model.zero_grad(set_to_none=True)
     (loss_r, grads_r), (loss_f, grads_f) = runs
     if set(grads_r) != set(grads_f):
@@ -1954,6 +2050,158 @@ def flat_train_phase(trainer, zrun_conv, rect, card):
             "flat_vs_rect_tensor_rel": per_tensor, "warm": warm}
 
 
+DEV_TRAIN_STEPS = 2     # timed steps a device-map layout (8 scenes)
+DEV_TRAIN_MAIN = ("dev_maps", "dev_flat_zt")   # timed, B1 counted
+DEV_TRAIN_LOCK_MARGIN = 1.5   # a flat lock's margin over its probe batch
+DEV_TRAIN_GATE = FLAT_RECT_GATE   # device against host maps, all-plain
+
+
+def dev_train_trainer(exp_dir, layout, card):
+    """Phase 8's trainer (``smoke_trainer``: the same scenes, seed and
+    batch) in the device-map ``layout`` with DEV_TRAIN_STEPS steps an
+    epoch: the serving layout's overrides at phase 5b's level caps, and a
+    flat layout's lock (``device_flat_lock`` on the training scenes
+    through its host-maps twin, margin DEV_TRAIN_LOCK_MARGIN) set as the
+    pipeline's ``flat_shape_caps`` and the model's ``device_flat_caps``."""
+    from pq3d_tpu_torch.config import LOCK_PROBE, SERVING_LAYOUTS
+    from pq3d_tpu_torch.config import load_config
+    from pq3d_tpu_torch.data.datasets import build_dataset
+    from pq3d_tpu_torch.data.instseg_pipeline import (device_flat_lock,
+                                                      pipeline_config)
+    t0 = time.time()
+    over = [f"data.synthetic.num_train={4 * DEV_TRAIN_STEPS}",
+            f"data.instseg_options.level_caps={LAYOUT_CAPS}",
+            *SERVING_LAYOUTS[layout]]
+    if layout in LOCK_PROBE:
+        probe = load_config("instseg_sceneverse", [
+            "data.train=[SyntheticInstSeg]", "data.synthetic.n_points=70000",
+            "data.synthetic.n_instances=24", "data.synthetic.n_segments=400",
+            *over[:2], *SERVING_LAYOUTS[LOCK_PROBE[layout]]])
+        ds = build_dataset(probe, "train")
+        lock = device_flat_lock(
+            [ds.get_scene(i) for i in range(len(ds))],
+            pipeline_config(probe["data"]["instseg_options"]), 4,
+            margin=DEV_TRAIN_LOCK_MARGIN)
+        caps = ", ".join(f"{k}: {v}" for k, v in sorted(lock.items()))
+        over += [f"data.instseg_options.flat_shape_caps={{{caps}}}",
+                 "model.voxel_encoder.args.device_flat_caps="
+                 "${data.instseg_options.flat_shape_caps}"]
+    trainer = smoke_trainer(os.path.join(exp_dir, layout), *over)
+    print(f"dev_train {layout}: trainer built in {time.time() - t0:.1f} s "
+          f"({' '.join(SERVING_LAYOUTS[layout])}"
+          f"{'; the flat lock from ' + LOCK_PROBE[layout] if layout in LOCK_PROBE else ''}) "
+          f"({card})", flush=True)
+    return trainer
+
+
+def dev_train_phase(card, zrun_conv, exp_dir, rect):
+    """Phase dev_train (9c): stage-1 training with the maps built on the
+    card.  ``dev_maps`` and ``dev_flat_zt`` (phase 8's trainer, scenes,
+    seed and batch; DEV_TRAIN_STEPS timed steps each, phase 8's figures
+    beside them, the map build's device ms): B1's forward and dx launches
+    equal the routed convs of every step at the built maps' rows, the
+    assignment kernel once a step, train_check (phase 9's 2e-2), and one
+    step all-plain in f32 (two_pipe_step) with the maps built on the card
+    against the host's maps of the same scenes (``rect`` and ``flat_zt``):
+    loss and normalised gradients within DEV_TRAIN_GATE.  ``dev_gather``
+    and ``dev_flat_swin``: one step each, finite loss and gradients.
+    ``rect`` is phase 8's record."""
+    import dataclasses
+    import torch
+    from pq3d_tpu_torch.ops import hungarian
+    out = {}
+    for layout in DEV_TRAIN_MAIN:
+        trainer = dev_train_trainer(exp_dir, layout, card)
+        model = trainer.model
+        t0 = time.time()
+        warm = next(iter(trainer.train_data(99)))
+        b = trainer._put(warm)
+        with torch.no_grad():
+            built = model._voxel_maps(b)
+            build_ms = cuda_time(lambda: model._voxel_maps(b), 5)
+        rows = level_rows({"maps": built})
+        if rows != batch_rows(model, b):
+            fail(f"dev_train {layout}: the built maps' rows {rows} differ "
+                 f"from the caps' {batch_rows(model, b)}")
+        del built
+        print(f"dev_train {layout}: one batch of 4 augmented scenes "
+              f"collated in {time.time() - t0:.1f} s, {len(warm['maps'])} "
+              f"host maps shipped, level rows of the maps built on the "
+              f"card {rows}, map build {build_ms:.3f} ms (median of 5, CUDA "
+              f"events) ({card})", flush=True)
+        tr = train_phase(trainer, zrun_conv, warm, card,
+                         label=f"dev_train {layout}",
+                         n_steps=DEV_TRAIN_STEPS, fall=False)
+
+        def summary(r, n):
+            ms = [s["device_ms"] for s in r["steps"]]
+            return (f"{n / r['wall_s']:.3f} steps/s, device "
+                    f"{min(ms):.1f}-{max(ms):.1f} ms a step, host "
+                    f"{min(r['host_s']):.3f}-{max(r['host_s']):.3f} s a "
+                    f"batch, peak {r['peak_bytes'] / 2**30:.2f} GiB")
+        beside = (f" | rectangular host maps (phase 8) {summary(rect, 5)}"
+                  if rect is not None else "")
+        print(f"dev_train {layout}: {summary(tr, DEV_TRAIN_STEPS)}{beside} "
+              f"({card})", flush=True)
+        tc = train_check_phase(trainer, zrun_conv, warm)
+        pipe, ve = trainer.train_data.pipe_cfg, model.voxel_enc
+        host_pipe = dataclasses.replace(
+            pipe, device_maps=False, flat_shape_caps=None,
+            ztriple_conv=pipe.flat_pack)
+        host_ve = dataclasses.replace(ve, device_maps=None,
+                                      device_flat_caps=None)
+        loss_rel, grad_rel, per_tensor, loss_h, loss_d = two_pipe_step(
+            trainer, host_pipe, pipe, ves=(host_ve, ve))
+        twin = "flat_zt" if pipe.flat_pack else "rect"
+        print(f"dev_train {layout}: one step all-plain f32, direct "
+              f"criterion: loss with host maps ({twin}) {loss_h:.6f}, with "
+              f"maps built on the card {loss_d:.6f} (rel {loss_rel:.2e}); "
+              f"gradients' largest difference over their maximum "
+              f"{grad_rel:.2e} (gate for both {DEV_TRAIN_GATE:.0e}); not "
+              f"gated: worst tensor over its own maximum {per_tensor:.2e}",
+              flush=True)
+        if not max(loss_rel, grad_rel) <= DEV_TRAIN_GATE:
+            fail(f"dev_train {layout}: the step on maps built on the card "
+                 f"disagrees with the step on the host's maps")
+        out[layout] = {**tr, "train_check": tc, "map_build_ms": build_ms,
+                       "level_rows": rows, "vs_host_loss_rel": loss_rel,
+                       "vs_host_grad_rel": grad_rel,
+                       "vs_host_tensor_rel": per_tensor}
+        del trainer, model, b, warm
+        torch.cuda.empty_cache()
+
+    for layout in ("dev_gather", "dev_flat_swin"):
+        trainer = dev_train_trainer(exp_dir, layout, card)
+        warm = next(iter(trainer.train_data(99)))
+        zrun_conv.reset_counts()
+        hungarian.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m = trainer.train_batch(warm)
+        torch.cuda.synchronize()
+        step_s = time.time() - t0
+        loss = float(m["loss"])
+        grads = [p.grad for p in trainer.model.parameters()
+                 if p.requires_grad]
+        finite = math.isfinite(loss) and all(
+            g is not None and torch.isfinite(g).all().item() for g in grads)
+        print(f"dev_train {layout}: one step {step_s:.2f} s (the first: "
+              f"optimizer built, kernels warmed), loss {loss:.4f}, "
+              f"gradients {'finite' if finite else 'NOT FINITE'} on "
+              f"{len(grads)} tensors, grad norm {float(m['grad_norm']):.3f} "
+              f"| B1 fwd {zrun_conv.phase_launches['fwd']} dx "
+              f"{zrun_conv.phase_launches['bwd']}, solver "
+              f"{hungarian.launches} ({card})", flush=True)
+        if not finite:
+            fail(f"dev_train {layout}: a non-finite loss or gradient")
+        out[layout] = {"loss": loss, "step_s": step_s,
+                       "b1": dict(zrun_conv.phase_launches),
+                       "hungarian": hungarian.launches}
+        del trainer, warm
+        torch.cuda.empty_cache()
+    return out
+
+
 def train_check_phase(trainer, zrun_conv, batch):
     """One train step (dropout off) with the kernel (K) against the same
     step with every conv's backward on its plain version (KP) and with
@@ -1971,7 +2219,7 @@ def train_check_phase(trainer, zrun_conv, batch):
     model = trainer.model
     backbone = model.voxel_encoder.backbone
     b = trainer._put(batch)
-    names = [r[0] for r in backbone.routed_convs(level_rows(b))]
+    names = [r[0] for r in backbone.routed_convs(batch_rows(model, b))]
     kernel, sym = zrun_conv.zrun_conv, zrun_conv.zrun_conv_sym
 
     def plain_bwd(x, w, zb, zc, out_valid=None, phase="fwd"):
@@ -4439,6 +4687,44 @@ def variant_vs_cpu(label, overrides, np_batch, dev, prep=None):
     return {**rel, "tokens_equal": same}
 
 
+def vertical_bottom_forward(np_batch, dev, card):
+    """Phase 14's ``pairwise_rel_type: vertical_bottom``: the model of
+    ``model.obj_loc.pairwise_rel_type=vertical_bottom`` at full width, one
+    forward of ``np_batch`` on the card, against the same model and
+    weights with ``center``.  The model passes no box sizes (JAX's passes
+    ``whls=None``), so the gate is bit-equal ground, teacher-forced and
+    token outputs."""
+    import torch
+    from pq3d_tpu_torch.config import load_config
+    from pq3d_tpu_torch.models.query3d import build_model
+    from pq3d_tpu_torch.serve import to_device
+    cfg = load_config("unified_tasks_sceneverse",
+                      ["model.obj_loc.pairwise_rel_type=vertical_bottom"])
+    model = build_model(cfg, device="cuda", seed=0).eval()
+    if model.pairwise_rel_type != "vertical_bottom":
+        fail("variants: build_model did not read pairwise_rel_type")
+    b = to_device(np_batch, dev)
+    keys = ("ground_logits", "generation_logits", "generation_tokens")
+    outs = {}
+    for rel_type in ("vertical_bottom", "center"):
+        model.pairwise_rel_type = rel_type
+        with torch.inference_mode():
+            out = model(b)
+        outs[rel_type] = {k: out[k] for k in keys}
+    same = {k: torch.equal(outs["vertical_bottom"][k], outs["center"][k])
+            for k in keys}
+    print(f"variants vertical_bottom: one forward of 8 requests at full "
+          f"width, pairwise_rel_type vertical_bottom against center at the "
+          f"same weights: "
+          + ", ".join(f"{k} {'bit-equal' if same[k] else 'DIFFER'}"
+                      for k in keys) + f" ({card})", flush=True)
+    if not all(same.values()):
+        fail("variants: vertical_bottom's outputs differ from center's")
+    del model
+    torch.cuda.empty_cache()
+    return {"bit_equal": same}
+
+
 def variants_one_batch(card, dev):
     """Phase 14 (c): gate + attention projection + image prompts, BERT,
     the bf16 tower, and PointnetSAModuleVotes, card against CPU."""
@@ -4460,7 +4746,8 @@ def variants_one_batch(card, dev):
         (8, pipe.prompt_len, 768)).astype(np.float32))
     img["prompt_type"] = np.where(np.arange(8) % 3 == 0, PROMPT_IMAGE,
                                   np_batch["prompt_type"])
-    res = {"gate_attention_image": variant_vs_cpu(
+    res = {"vertical_bottom": vertical_bottom_forward(np_batch, dev, card),
+           "gate_attention_image": variant_vs_cpu(
         "gate + attention projection + image prompts (rows 0, 3, 6)",
         ["model.unified_encoder.args.structure=gate",
          "model.txt_encoder.args.projection_type=attention"], img, dev,
@@ -5978,6 +6265,7 @@ def export_prepare(card, dev):
     waits for the CPU export and loads its artifact onto the card.  Phase
     ddp runs it beside its launches.  Returns what ``export_phase``
     reads."""
+    import dataclasses
     import subprocess
     import tempfile
     import numpy as np
@@ -6022,6 +6310,22 @@ def export_prepare(card, dev):
             # carries the save and load round trip
             fn2 = export.load_forward(program)
             del program
+            # the same model with early_exit: its decode is one
+            # torch.while_loop, which the program keeps as a loop
+            fixed_cfg = umodel.generation_head.cfg
+            umodel.generation_head.cfg = dataclasses.replace(
+                fixed_cfg, early_exit=True)
+            try:
+                t1 = time.time()
+                program = export.export_program(umodel, b2d, outputs=ukeys)
+                s2ee = {"export_s": time.time() - t1,
+                        "nodes": len(program.graph.nodes),
+                        "while_loop_nodes": export.while_loop_nodes(
+                            program)}
+            finally:
+                umodel.generation_head.cfg = fixed_cfg
+            fn2ee = export.load_forward(program)
+            del program
             stdout, stderr = cpu_host.communicate(timeout=900)
         finally:
             if cpu_host.poll() is None:
@@ -6043,8 +6347,11 @@ def export_prepare(card, dev):
           f"{s1['export_s']:.1f} s, saved in {s1['save_s']:.1f} s) ended "
           f"{cpu_s:.1f} s after the start, its load and move "
           f"{s1['load_s']:.1f} s ({card})", flush=True)
-    return {"fn": fn, "s1": s1, "fn2": fn2, "s2": s2, "umodel": umodel,
-            "b2d": b2d, "prepare_s": wall}
+    print(f"export: stage 2 with early_exit exported in "
+          f"{s2ee['export_s']:.1f} s, {s2ee['nodes']} graph nodes, "
+          f"{s2ee['while_loop_nodes']} while_loop ({card})", flush=True)
+    return {"fn": fn, "s1": s1, "fn2": fn2, "s2": s2, "fn2ee": fn2ee,
+            "s2ee": s2ee, "umodel": umodel, "b2d": b2d, "prepare_s": wall}
 
 
 def export_phase(card, dev, zrun_conv, prep=None):
@@ -6053,6 +6360,7 @@ def export_phase(card, dev, zrun_conv, prep=None):
     stage-1 artifact exported on the CPU run on the card, the stage-2
     program exported on the card run in memory, and VoxelLevelEncoder at
     full width.  Returns the phase's numbers."""
+    import dataclasses
     import torch
     from pq3d_tpu_torch.models.encoders import VoxelLevelEncoder
     from pq3d_tpu_torch.models.query3d import init_weights
@@ -6061,6 +6369,7 @@ def export_phase(card, dev, zrun_conv, prep=None):
     if prep is None:
         prep = export_prepare(card, dev)
     fn, s1, fn2, s2 = prep["fn"], prep["s1"], prep["fn2"], prep["s2"]
+    fn2ee, s2ee = prep["fn2ee"], prep["s2ee"]
     umodel, b2d = prep["umodel"], prep["b2d"]
     out = {"prepare_s": prep["prepare_s"]}
     prep.clear()
@@ -6173,7 +6482,45 @@ def export_phase(card, dev, zrun_conv, prep=None):
               eager_ms=cuda_time(eager2, EXPORT_FORWARDS), ground_rel=grel)
     report("stage2", s2, None)
     out["stage2"] = s2
-    del fn2, umodel
+
+    # (ii) with early_exit: the exported while_loop decode against the
+    # eager early-exit decode and the fixed-length program's tokens
+    fixed_cfg = umodel.generation_head.cfg
+    umodel.generation_head.cfg = dataclasses.replace(fixed_cfg,
+                                                     early_exit=True)
+    try:
+        t0 = time.time()
+        with torch.inference_mode():
+            eager_ee = umodel(b2d)["generation_tokens"]
+        torch.cuda.synchronize()
+        eager_first_s = time.time() - t0
+    finally:
+        umodel.generation_head.cfg = fixed_cfg
+    got_ee = fn2ee(b2d)["generation_tokens"]
+    fixed_toks = got["generation_tokens"]
+    same_eager = torch.equal(got_ee, eager_ee)
+    same_fixed = torch.equal(got_ee, fixed_toks)
+    eos_rows = int((got_ee == 1).any(1).sum())
+    ee_ms = cuda_times(lambda: fn2ee(b2d), 3)
+    fx_ms = cuda_times(lambda: fn2(b2d), 3)
+    s2ee.update(exported_ms=ee_ms[1], fixed_exported_ms=fx_ms[1],
+                eager_first_s=eager_first_s, eos_rows=eos_rows)
+    print(f"export: stage2 early_exit: exported in {s2ee['export_s']:.1f} "
+          f"s, {s2ee['nodes']} graph nodes, {s2ee['while_loop_nodes']} "
+          f"while_loop | tokens {'equal' if same_eager else 'DIFFER'} to "
+          f"the eager early-exit decode (its first call {eager_first_s:.1f} "
+          f"s, the loop's capture included), "
+          f"{'equal' if same_fixed else 'DIFFER'} to the fixed-length "
+          f"program's | rows that emit EOS {eos_rows} of "
+          f"{got_ee.shape[0]} | one forward (its {got_ee.shape[1]}-token "
+          f"decode inside) {ee_ms[1]:.1f} ms exported early-exit against "
+          f"{fx_ms[1]:.1f} ms exported fixed-length (CUDA events, median of "
+          f"3) ({card})", flush=True)
+    if s2ee["while_loop_nodes"] != 1 or not (same_eager and same_fixed):
+        fail("export: the exported early-exit decode disagrees with eager "
+             "or with the fixed-length program, or holds no while_loop")
+    out["stage2_early_exit"] = s2ee
+    del fn2, fn2ee, umodel
     torch.cuda.empty_cache()
     out["phase_s"] = time.time() - t_phase
     print(f"export: phase {out['phase_s']:.1f} s", flush=True)
@@ -6507,6 +6854,15 @@ def main():
         if args.profile:
             profile_run(lambda: trainer.train_batch(ft["warm"]),
                         "flat train step", f"{stem}_flat_train{ext}")
+        del trainer
+        torch.cuda.empty_cache()
+
+        lap("9c")
+        # ---- 9c. dev_train: the maps built on the card in training ------
+        windowed_conv.reset_counts()
+        dt = dev_train_phase(card, zrun_conv, exp_dir, tr)
+        b2_train += windowed_conv.launches
+        trainer = None
     finally:
         import shutil
         shutil.rmtree(exp_dir, ignore_errors=True)
@@ -6605,6 +6961,8 @@ def main():
         "replaces": "pq3d_tpu/ops/pallas_zt.py:386",
         "launches": main_launches + tr["counts"]["fwd"]
         + tr["counts"]["bwd"] + ft["counts"]["fwd"] + ft["counts"]["bwd"]
+        + sum(dt[k]["counts"][p] for k in DEV_TRAIN_MAIN
+              for p in ("fwd", "bwd"))
         + rc["launches"]["fwd"] + rc["launches"]["bwd"]
         + sum(r["launches"] for r in lay["runs"].values())
         + dd["stage1"]["launches"]["fwd"] + dd["stage1"]["launches"]["bwd"]
@@ -6619,6 +6977,9 @@ def main():
                              "train_bwd": tr["counts"]["bwd"],
                              "flat_train_fwd": ft["counts"]["fwd"],
                              "flat_train_bwd": ft["counts"]["bwd"],
+                             **{f"dev_train_{k}_{p}": dt[k]["counts"][p]
+                                for k in DEV_TRAIN_MAIN
+                                for p in ("fwd", "bwd")},
                              "recipe_fwd": rc["launches"]["fwd"],
                              "recipe_bwd": rc["launches"]["bwd"],
                              "ddp_train_fwd": dd["stage1"]["launches"]["fwd"],
@@ -6646,7 +7007,9 @@ def main():
                  f"train step (B=4); launches: the serving run, the "
                  f"serve_layouts runs (rect, dev_maps, flat_zt, rect on a "
                  f"pool), the 5 timed train steps (rectangular and flat + "
-                 f"z-run), the recipe's stage-1 "
+                 f"z-run), phase dev_train's {DEV_TRAIN_STEPS} timed steps "
+                 f"in dev_maps and dev_flat_zt (forward, dx, on plans "
+                 f"built on the card), the recipe's stage-1 "
                  f"runs (train and eval forwards, dx), phase ddp's timed "
                  f"stage-1 steps on both ranks (forward, dx) and its "
                  f"replicated serving, phase swin_layouts' dev_flat_zt and "
@@ -6686,6 +7049,9 @@ def main():
         "flat_vs_rect": {"loss_rel": ft["flat_vs_rect_loss_rel"],
                          "grad_rel": ft["flat_vs_rect_grad_rel"],
                          "tensor_rel": ft["flat_vs_rect_tensor_rel"]},
+        "dev_train": {k: {kk: v for kk, v in r.items()
+                          if kk not in ("steps", "host_s")}
+                      for k, r in dt.items()},
         # shares of one forward's (dx: one step's) N x 27 slots and (tile,
         # tap) pairs, weighted by each conv's dense N x 27 x Cin x Cout work
         "slot_share": per_fwd("flops") / per_fwd("dense27_flops"),
@@ -6742,6 +7108,8 @@ def main():
     a = asg["set_loss"]
     solver_paths = {"train": tr["counts"]["hungarian"],
                     "flat_train": ft["counts"]["hungarian"],
+                    **{f"dev_train_{k}": dt[k]["counts"]["hungarian"]
+                       for k in DEV_TRAIN_MAIN},
                     **{f"recipe_{k}": n for k, n in rc["hungarian"].items()},
                     "ddp_train": dd["stage1"]["hungarian"],
                     "ddp_stage2": dd["stage2"]["hungarian"],
@@ -6769,6 +7137,7 @@ def main():
                  f"PyTorch call solves an assignment; max_abs_err: col4row "
                  f"against the plain version's over the three kinds; "
                  f"launches: the set-criterion train steps of phases 8, 9b, "
+                 f"9c (dev_maps, dev_flat_zt), "
                  f"13 (every stage-1 rank) and 20 (FSDP), the recipe's "
                  f"stage-1 train and eval losses and phase 18's steps (0 "
                  f"under the direct criterion and on stage 2)",

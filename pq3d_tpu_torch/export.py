@@ -27,9 +27,10 @@ Typical flow::
     fn = load_forward(Path("model.pt2").read_bytes(), device="cuda")
     out = fn(batch)           # the dict the model's forward returns
 
-Layouts: a forward that reaches a data-dependent shape or a host sync
-cannot be traced; :func:`export_forward` raises ``NotImplementedError``
-naming the cause (``T5Decoder.decode`` with ``early_exit``).
+A forward that reaches a data-dependent shape or a host sync cannot be
+traced.  The early-exit decode (``T5Decoder.decode`` with ``early_exit``)
+is neither: it is one ``torch.while_loop``, which the program keeps as a
+loop (``while_loop_nodes``), as JAX's export keeps its ``lax.while_loop``.
 """
 from __future__ import annotations
 
@@ -80,21 +81,11 @@ def tensor_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def _refuse_unexportable(model: torch.nn.Module) -> None:
-    for m in model.modules():
-        if getattr(getattr(m, "cfg", None), "early_exit", False):
-            raise NotImplementedError(
-                f"export: {type(m).__name__} has early_exit=True, whose "
-                f"decode loop ends on a host read of the finished flags "
-                f"(bool(finished.all())); export with early_exit=False")
-
-
 def export_program(model: torch.nn.Module, example_batch: Dict[str, Any],
                    outputs: Optional[Sequence[str]] = None
                    ) -> torch.export.ExportedProgram:
     """``torch.export`` of ``model``'s eval-mode forward on
     ``example_batch`` (see :func:`export_forward`)."""
-    _refuse_unexportable(model)
     model.eval()
     batch = tensor_batch(example_batch)
     with torch.no_grad():
@@ -209,3 +200,11 @@ def kernel_nodes(blob) -> int:
     program's) graph holds."""
     return sum(1 for n in _program(blob).graph.nodes
                if n.op == "call_function" and n.target is ZRUN_CONV_OP)
+
+
+def while_loop_nodes(blob) -> int:
+    """How many ``torch.while_loop`` nodes (an early-exit decode keeps
+    one) the artifact's (or program's) top-level graph holds."""
+    loop = torch.ops.higher_order.while_loop
+    return sum(1 for n in _program(blob).graph.nodes
+               if n.op == "call_function" and n.target is loop)

@@ -202,12 +202,16 @@ class Query3DUnified(nn.Module):
         super().__init__()
         if not set(heads) <= {"mask", "ground", "generation", "qa"} \
                 or dim_loc not in (3, 6) \
-                or pairwise_rel_type != "center" \
                 or not set(memories) <= {"voxel", "mv", "pc", "prompt"}:
             raise NotImplementedError(
                 "the port runs memories from (voxel, mv, pc, prompt), heads "
-                "from (mask, ground, generation, qa), dim_loc 3 or 6 and "
-                "'center' pairwise relations")
+                "from (mask, ground, generation, qa) and dim_loc 3 or 6")
+        if pairwise_rel_type == "mlp" and unified.spatial_selfattn:
+            raise NotImplementedError(
+                "pairwise_rel_type 'mlp' concatenates the query boxes' "
+                "sizes, and the model has none: JAX's model passes whls=None "
+                "(pq3d_tpu/models/query3d.py:368-371), so JAX's 'mlp' branch "
+                "fails on concatenate as well")
         if "mask" in heads and mask_head_cfg is None:
             raise ValueError("the mask head needs mask_head_cfg")
         self.memories = tuple(memories)
@@ -215,6 +219,7 @@ class Query3DUnified(nn.Module):
         self.hidden_size = hidden_size
         self.dim_loc = dim_loc
         self.spatial_dim = spatial_dim
+        self.pairwise_rel_type = pairwise_rel_type
         self.use_offline_voxel_fts = use_offline_voxel_fts
         self.use_offline_attn_mask = use_offline_attn_mask
         self.voxel_enc = voxel_enc
@@ -475,8 +480,12 @@ class Query3DUnified(nn.Module):
 
         pairwise_locs = None
         if self.unified.spatial_selfattn:
-            pairwise_locs = calc_pairwise_locs(query_locs[..., :3],
-                                               spatial_dim=self.spatial_dim)
+            # whls=None, as JAX's model passes: 'vertical_bottom' then
+            # gives what 'center' gives
+            pairwise_locs = calc_pairwise_locs(
+                query_locs[..., :3], None,
+                pairwise_rel_type=self.pairwise_rel_type,
+                spatial_dim=self.spatial_dim)
         query, pred_cls, pred_mask = self.unified_encoder(
             inputs, pairwise_locs, mask_head=mask_head)
         out: Dict[str, Any] = {"query": query}

@@ -155,6 +155,22 @@ class T5DecoderBlock(nn.Module):
                                        cross_mask, None)
         return x + self.wo(F.relu(self.wi(self.ln_ff(x))))
 
+    def decode_step_at(self, x, self_k, self_v, at, self_mask, cross_k,
+                       cross_v, cross_mask, bias_row):
+        """``decode_step`` with the step index a tensor (JAX's form): the
+        token's K/V go into the full-width caches where ``at`` (1, 1, L, 1)
+        is set, written functionally, and it attends over all L keys under
+        ``self_mask`` (key <= t).  Returns (x, self_k, self_v)."""
+        normed = self.ln_self(x)
+        k_new, v_new = self.self_attn.kv_proj(normed)
+        self_k = torch.where(at, k_new, self_k)
+        self_v = torch.where(at, v_new, self_v)
+        q = self.self_attn._split(self.self_attn.q(normed))
+        x = x + self.self_attn.attend(q, self_k, self_v, self_mask, bias_row)
+        q = self.cross_attn._split(self.cross_attn.q(self.ln_cross(x)))
+        x = x + self.cross_attn.attend(q, cross_k, cross_v, cross_mask, None)
+        return x + self.wo(F.relu(self.wi(self.ln_ff(x)))), self_k, self_v
+
 
 class T5Decoder(nn.Module):
     """Decoder-only T5 over external encoder states."""
@@ -201,7 +217,14 @@ class T5Decoder(nn.Module):
     def decode(self, enc: torch.Tensor, enc_mask: torch.Tensor,
                max_tokens: int, early_exit: bool = False) -> torch.Tensor:
         """Greedy decode: (B, M, D) encoder states -> (B, max_tokens) token
-        ids (EOS-frozen, start token stripped)."""
+        ids (EOS-frozen, start token stripped).
+
+        ``early_exit=True`` runs :meth:`decode_until_eos`, one
+        ``torch.while_loop`` that stops once every row has emitted EOS and
+        that ``torch.export`` keeps as a loop; finished rows emit PAD
+        either way, so its tokens equal the fixed-length decode's."""
+        if early_exit:
+            return self.decode_until_eos(enc, enc_mask, max_tokens)
         b = enc.shape[0]
         dev = enc.device
         blocks = self._blocks()
@@ -232,6 +255,60 @@ class T5Decoder(nn.Module):
             finished = finished | (nxt == T5_EOS_ID)
             out[:, t] = nxt
             cur = nxt
-            if early_exit and bool(finished.all()):
-                break
         return out.to(torch.int32)
+
+    def decode_until_eos(self, enc: torch.Tensor, enc_mask: torch.Tensor,
+                         max_tokens: int) -> torch.Tensor:
+        """The early-exit greedy decode in JAX's form
+        (``pq3d_tpu/models/t5.py``, ``decode`` with ``early_exit``): a
+        ``torch.while_loop`` over the state (t, cur, finished, caches, out),
+        ``out`` filled with PAD, that runs while t < max_tokens and some row
+        has not emitted EOS.  The loop carries the full-width self-attention
+        caches, writes position t with ``torch.where`` on ``arange == t``,
+        attends over every key under ``key <= t`` and picks the bias row by
+        index, so no shape depends on t and nothing is read back to the
+        host inside the loop."""
+        b = enc.shape[0]
+        dev = enc.device
+        blocks = self._blocks()
+        cross, caches = [], []
+        for blk in blocks:
+            ck, cv = blk.cross_attn.kv_proj(enc)
+            cross.append((ck, cv))
+            zeros = ck.new_zeros(b, blk.self_attn.heads, max_tokens,
+                                 self.d_kv)
+            caches.append((zeros, zeros.clone()))
+        bias_full = blocks[0].self_attn.pos_bias_table(max_tokens,
+                                                       max_tokens)
+        cross_mask = enc_mask[:, None, None, :]
+        key_iota = torch.arange(max_tokens, device=dev)
+
+        def cond(t, cur, finished, caches, out):
+            return (t < max_tokens) & ~finished.all()
+
+        def body(t, cur, finished, caches, out):
+            x = self.embed(cur[:, None])
+            self_mask = (key_iota <= t)[None, None, None, :]
+            at = (key_iota == t)[None, None, :, None]
+            bias_row = bias_full.index_select(2, t.reshape(1))
+            new_caches = []
+            for blk, (sk, sv), (ck, cv) in zip(blocks, caches, cross):
+                x, sk, sv = blk.decode_step_at(x, sk, sv, at, self_mask, ck,
+                                               cv, cross_mask, bias_row)
+                new_caches.append((sk, sv))
+            # _logits as F.linear: the loop's capture would lift
+            # ``embed.weight.T`` as an input that aliases the weight
+            logits = F.linear(self.ln_final(x) * self.d_model ** -0.5,
+                              self.embed.weight)[:, 0]
+            nxt = torch.argmax(logits, dim=-1)
+            nxt = torch.where(finished, T5_PAD_ID, nxt)
+            finished = finished | (nxt == T5_EOS_ID)
+            out = torch.where(key_iota[None, :] == t, nxt[:, None], out)
+            return t + 1, nxt, finished, tuple(new_caches), out
+
+        state = (torch.zeros((), dtype=torch.long, device=dev),
+                 torch.full((b,), T5_PAD_ID, dtype=torch.long, device=dev),
+                 torch.zeros(b, dtype=torch.bool, device=dev), tuple(caches),
+                 torch.full((b, max_tokens), T5_PAD_ID, dtype=torch.long,
+                            device=dev))
+        return torch.while_loop(cond, body, state)[-1].to(torch.int32)

@@ -15,12 +15,15 @@ same for (L, R, N) -> (L, R), lane by lane.  Padded rows are given a
 constant cost: such a row is indifferent to its column, so the real rows'
 assignment is an optimal one of the real rows alone.
 
-On a CPU tensor :func:`solve_batch` runs :func:`solve_batch_reference`,
-which repeats JAX's arithmetic step by step in the same f32 operation
-order, so its ``col4row`` equals JAX's on every row, ties and padded rows
-included.  On a CUDA tensor it launches ``csrc/hungarian.cu`` (one warp a
-lane), which pins the same order with round-to-nearest intrinsics; a
-failed build or launch raises, and there is no fallback.
+On a CPU tensor :func:`solve_batch` runs ``csrc/hungarian_cpu.cpp``, the
+same solver in C++ (built by g++ with ``-ffp-contract=off`` and without
+``-ffast-math``, so no float operation is fused or reordered); on a CUDA
+tensor it launches ``csrc/hungarian.cu`` (one warp a lane), which pins the
+order with round-to-nearest intrinsics.  Both repeat JAX's arithmetic in
+its f32 operation order, as the plain version :func:`solve_batch_reference`
+does step by step, so ``col4row`` equals JAX's on every row, ties and
+padded rows included.  A failed build or launch raises, and there is no
+fallback.
 
 Loops are bounded: at most N Dijkstra steps an augmentation and R steps a
 path walk.  Finite costs never reach those caps.  A lane that does (only
@@ -49,8 +52,13 @@ SMEM_LIMIT = 232448  # shared memory a block may use (227 KB)
 launches = 0
 
 _SRC = os.path.join(CSRC_DIR, "hungarian.cu")
+_CPU_SRC = os.path.join(CSRC_DIR, "hungarian_cpu.cpp")
 _LOCK = threading.Lock()
 _LIB = None
+_CPU_LIB = None
+# no -march=native: GCC then fuses multiply-adds by default, and
+# -ffp-contract=off forbids any such contraction
+CPU_FLAGS = ["-O3", "-ffp-contract=off", "-shared", "-fPIC", "-std=c++17"]
 build_log = ""       # the compiler's output of the loaded library's build
 
 
@@ -79,6 +87,7 @@ def _check(cost: torch.Tensor, ndim: int, steps: Optional[torch.Tensor]):
                          f"most {MAX_COLS}")
     if steps is not None and (steps.shape != cost.shape[:1]
                               or steps.dtype != torch.int32
+                              or not steps.is_contiguous()
                               or steps.device != cost.device):
         raise ValueError("hungarian: steps must be (L,) int32 on the "
                          "cost's device")
@@ -180,25 +189,46 @@ def build() -> ctypes.CDLL:
     return _LIB
 
 
+def build_cpu() -> ctypes.CDLL:
+    """Build (once per source hash) and load the host solver's library;
+    a failed build raises."""
+    global _CPU_LIB
+    if _CPU_LIB is not None:
+        return _CPU_LIB
+    with _LOCK:
+        if _CPU_LIB is None:
+            lib = ctypes.CDLL(build_shared(_CPU_SRC, "native", ["g++"],
+                                           CPU_FLAGS))
+            lib.pq3d_hungarian_cpu.argtypes = (
+                [ctypes.c_void_p] * 3
+                + [ctypes.c_int64, ctypes.c_int, ctypes.c_int])
+            lib.pq3d_hungarian_cpu.restype = ctypes.c_int
+            _CPU_LIB = lib
+    return _CPU_LIB
+
+
 def solve_batch(cost: torch.Tensor,
                 steps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(L, R, N) f32 costs, R <= N, contiguous -> ``col4row`` (L, R) int32.
 
-    A CPU tensor runs :func:`solve_batch_reference`; a CUDA tensor launches
-    the kernel on the current stream (no synchronise) and counts the
-    launch.  ``steps``, an (L,) int32 tensor on the cost's device, receives
-    each lane's Dijkstra steps."""
+    A CPU tensor runs the host solver (``csrc/hungarian_cpu.cpp``); a CUDA
+    tensor launches the kernel on the current stream (no synchronise) and
+    counts the launch.  ``steps``, an (L,) int32 tensor on the cost's
+    device, receives each lane's Dijkstra steps."""
     _check(cost, 3, steps)
     nl, nr, nc = cost.shape
-    if cost.device.type == "cpu":
-        col, st = solve_batch_reference(cost)
-        if steps is not None:
-            steps.copy_(st)
-        return col
     col4row = torch.empty(nl, nr, dtype=torch.int32, device=cost.device)
     if nl == 0 or nr == 0:
         if steps is not None:
             steps.zero_()
+        return col4row
+    if cost.device.type == "cpu":
+        err = build_cpu().pq3d_hungarian_cpu(
+            cost.data_ptr(), col4row.data_ptr(),
+            steps.data_ptr() if steps is not None else None, nl, nr, nc)
+        if err != 0:
+            raise RuntimeError(f"hungarian: host solver refused the shape "
+                               f"{tuple(cost.shape)}")
         return col4row
     lib = build()
     stream = torch.cuda.current_stream(cost.device).cuda_stream

@@ -64,7 +64,9 @@ def build_instseg_trainer(cfg: Dict[str, Any]):
     layout, the flat pack (``flat_pack``) and with the z-run gather conv
     (``ztriple_conv``), alone or together, with the Res16UNet or the
     Swin3D backbone (whose window must equal the pipeline's
-    ``swin_window``); ``device_maps`` raises."""
+    ``swin_window``), and in the device-map layouts (``device_maps``: the
+    model builds the maps from the batch's voxel coordinates; the caps
+    must hold every augmented scene, which ``collate`` checks)."""
     from pq3d_tpu_torch.data.datasets import InstSegLoader, build_dataset
     from pq3d_tpu_torch.data.instseg_pipeline import pipeline_config
     from pq3d_tpu_torch.eval.instseg_eval import InstSegEval
@@ -81,14 +83,7 @@ def build_instseg_trainer(cfg: Dict[str, Any]):
     if trainer_name not in trainers:
         raise NotImplementedError(f"trainer {trainer_name!r} is not ported")
     iopt = cfg["data"]["instseg_options"]
-    va = (cfg["model"].get("voxel_encoder") or {}).get("args", {})
     pipe_cfg = pipeline_config(iopt)
-    if pipe_cfg.device_maps or va.get("device_maps") \
-            or va.get("device_flat_caps"):
-        raise NotImplementedError(
-            "training in the device_maps layout is not ported (the port "
-            "serves it; the JAX package trains it in no test either, so it "
-            "waits for a later slice)")
     dl = cfg["dataloader"]
     seed = int(cfg.get("rng_seed", 42))
 

@@ -309,8 +309,9 @@ def test_layout_config_refusals():
 @pytest.mark.parametrize("layout", ["rect", "dev_maps", "flat_zt"])
 def test_serving_config_and_training_refusal(layout, monkeypatch):
     """serving_config sets the layout up (model caps == level_caps under
-    dev_maps, also after a level_caps override); the trainer refuses
-    dev_maps and takes flat_zt (as far as the model build)."""
+    dev_maps, also after a level_caps override); the trainer takes
+    dev_maps and flat_zt (as far as the model build; dev_maps was refused
+    until the port trained it)."""
     from pq3d_tpu_torch import run
     from pq3d_tpu_torch.config import serving_config
     caps = [1024, 512, 256, 128, 64]
@@ -327,10 +328,6 @@ def test_serving_config_and_training_refusal(layout, monkeypatch):
     if layout == "rect":
         return
     cfg["device"] = "cpu"
-    if layout == "dev_maps":
-        with pytest.raises(NotImplementedError, match="later slice"):
-            run.build_instseg_trainer(cfg)
-        return
 
     class Built(Exception):
         pass

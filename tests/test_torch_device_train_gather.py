@@ -1,0 +1,18 @@
+"""Stage-1 training in the ``dev_gather`` layout (the 125-tap gather stem's
+map built on the device beside the other maps): the train step against
+JAX's and against the port's host-maps step, and ``run.py`` training in
+it.  The gates are tests/test_torch_device_train.py's, which this file
+shares so that pytest-xdist can run the layouts side by side."""
+import torch
+
+from test_torch_device_train import check_layout_step, run_layout
+
+torch.set_num_threads(1)
+
+
+def test_dev_gather_train_step_matches_jax_and_host_maps(monkeypatch):
+    check_layout_step("dev_gather", monkeypatch)
+
+
+def test_run_trains_dev_gather(tmp_path, monkeypatch):
+    run_layout(tmp_path, monkeypatch, "dev_gather")

@@ -11,7 +11,10 @@ bit-equal to the port's eager forward, and the eager forward is within
 2e-2 of JAX's jitted one (bf16 conv operands, tests/test_torch_model.py's
 tolerance).  Stage 2: tests/test_model_unified.py's model (mixed decoder,
 ground and generation heads, 5 greedy tokens): tokens and ground logits
-bit-equal across the round trip, tokens equal to JAX's.  The op itself:
+bit-equal across the round trip, tokens equal to JAX's; the same model
+with ``early_exit`` exports its ``torch.while_loop`` decode, whose tokens
+equal eager's, the fixed-length decode's and JAX's early-exit decode's.
+The op itself:
 ``torch.library.opcheck``, and a train step's gradients through it against
 the plain backward.  (The same on the card: tests/test_torch_card.py.)
 """
@@ -181,12 +184,66 @@ def test_stage2_round_trip_and_tokens_equal_jax():
         assert torch.equal(got[k], eager[k]), k
     np.testing.assert_array_equal(got["generation_tokens"].numpy(),
                                   np.asarray(ref_j["generation_tokens"]))
-    # early_exit ends the decode on a host read: export refuses it
+    # early_exit: the decode is one torch.while_loop, which the program
+    # keeps as a loop; its tokens equal eager's, the fixed-length
+    # decode's and JAX's early-exit decode's (finished rows emit PAD)
     te = copy.deepcopy(tm)
     te.generation_head.cfg = dataclasses.replace(te.generation_head.cfg,
                                                  early_exit=True)
-    with pytest.raises(NotImplementedError, match="early_exit"):
-        tex.export_forward(te, bt)
+    jee = jm.clone(generation_head_cfg=dataclasses.replace(
+        jm.generation_head_cfg, early_exit=True))
+    ref_ee = jax.jit(lambda v, bb: jee.apply(v, bb, train=False))(
+        variables, bj)
+    with torch.no_grad():
+        eager_ee = te(bt)
+    blob = tex.export_forward(te, bt, outputs=keys)
+    assert tex.while_loop_nodes(blob) == 1
+    got = tex.load_forward(blob)(bt)
+    for k in keys:
+        assert torch.equal(got[k], eager_ee[k]), k
+    for toks in (eager["generation_tokens"],
+                 torch.from_numpy(np.asarray(ref_ee["generation_tokens"]))):
+        assert torch.equal(got["generation_tokens"], toks)
+
+
+class _Head(torch.nn.Module):
+    """A generation head as a forward over one batch dict."""
+
+    def __init__(self, head):
+        super().__init__()
+        self.head = head
+
+    def forward(self, batch):
+        return {"tokens": self.head(batch["emb"], batch["valid"])}
+
+
+def test_early_exit_export_stops_when_every_row_ends():
+    """tests/test_torch_text_gen.py's generation head (12-token window,
+    rows that emit EOS at steps 1, 3 and 8), exported with early_exit on
+    those three rows, so the loop ends at step 9 of 12: the program's
+    tokens equal eager's early-exit and fixed-length decodes and JAX's
+    early-exit decode; every row ends with EOS and then PAD."""
+    from test_torch_text_gen import _gen_pair
+    jm, tm, variables, emb, valid, _ = _gen_pair(early_exit=True)
+    rows = [0, 1, 2]
+    emb, valid = emb[rows], valid[rows]
+    ref = np.asarray(jax.jit(jm.apply)(variables, jnp.asarray(emb),
+                                       jnp.asarray(valid)))
+    batch = {"emb": torch.from_numpy(emb), "valid": torch.from_numpy(valid)}
+    blob = tex.export_forward(_Head(tm), batch)
+    assert tex.while_loop_nodes(blob) == 1
+    got = tex.load_forward(blob)(batch)["tokens"]
+    with torch.no_grad():
+        eager = tm(batch["emb"], batch["valid"])
+        fixed = copy.deepcopy(tm)
+        fixed.cfg = dataclasses.replace(fixed.cfg, early_exit=False)
+        fixed = fixed(batch["emb"], batch["valid"])
+    for toks in (eager, fixed, torch.from_numpy(ref)):
+        assert torch.equal(got, toks)
+    ends = [int(np.flatnonzero(r == 1)[0]) for r in got.numpy()]
+    assert max(ends) < got.shape[1] - 1, got
+    for r, e in zip(got.numpy(), ends):
+        assert (r[e + 1:] == 0).all()
 
 
 def _op_inputs(n=256, cin=96, cout=128, seed=0):

@@ -19,7 +19,7 @@
   gradients normalised by their maximum atol 1e-4 (JAX's
   ``tests/test_flat_pack.py`` test of the same).
 - ``python -m pq3d_tpu_torch.run`` trains 2 steps in flat + z-run, z-run
-  alone and flat alone, ``device_maps`` still raises, and ``InstSegEval``
+  alone and flat alone, and in ``dev_maps``, and ``InstSegEval``
   scores flat val batches as it scores rectangular ones.
 """
 import functools
@@ -401,10 +401,12 @@ def test_run_trains_in_each_layout(tmp_path, monkeypatch, layout):
     assert all(torch.isfinite(p).all() for p in trainer.model.parameters())
 
 
-def test_run_refuses_device_maps(tmp_path):
-    with pytest.raises(NotImplementedError, match="device_maps"):
-        trun.main(_tiny(tmp_path, "dm",
-                        "data.instseg_options.device_maps=true"))
+def test_run_refuses_device_maps(tmp_path, monkeypatch):
+    """``device_maps`` was refused until the port trained it; ``run.py``
+    now trains the ``dev_maps`` layout (2 steps, maps built in the
+    forward; tests/test_torch_device_train*.py hold the step to JAX's)."""
+    from test_torch_device_train import run_layout
+    run_layout(tmp_path, monkeypatch, "dev_maps", epochs=2)
 
 
 def test_instseg_eval_on_flat_val_batches(tmp_path):

@@ -281,3 +281,55 @@ def test_padded_rows_bound_the_f32_gap_to_scipy():
     # the f32 gap is there: some lane is matched dearer than scipy's by
     # more than the 1e-5 relative gate of lanes without padded rows
     assert max(gaps) > 1e-5
+
+
+def _cpu_lanes(kind, rng, lanes, r, n):
+    if kind == "random":
+        return (rng.standard_normal((lanes, r, n)) * 10).astype(np.float32)
+    if kind == "padded":
+        c = rng.standard_normal((lanes, r, n)).astype(np.float32) * 3
+        for lane, real in enumerate(rng.integers(1, r, lanes)):
+            c[lane, real:] = tlosses.PAD_COST
+        return c
+    if kind == "tied":
+        c = np.repeat(rng.standard_normal((lanes, r, 1)), n, 2)
+        c[0] = 0.0
+        return c.astype(np.float32)
+    return rng.integers(0, 3, (lanes, r, n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "padded", "tied", "integers"])
+def test_host_solver_equals_plain_version_and_jax(kind):
+    """``solve_batch`` on a CPU tensor runs csrc/hungarian_cpu.cpp: its
+    ``col4row`` and Dijkstra steps equal the plain version's on every lane,
+    and its ``col4row`` equals JAX's ``solve`` on every row."""
+    rng = np.random.default_rng(len(kind))
+    c = _cpu_lanes(kind, rng, 6, 14, 19)
+    steps = torch.zeros(6, dtype=torch.int32)
+    got = th.solve_batch(torch.from_numpy(c), steps)
+    ref, ref_steps = th.solve_batch_reference(torch.from_numpy(c))
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    np.testing.assert_array_equal(steps.numpy(), ref_steps.numpy())
+    np.testing.assert_array_equal(got.numpy(), _jax(c))
+
+
+def test_host_solver_at_full_width_equals_jax():
+    """The set loss's full-width problem, 52 lanes (13 rounds x 4 scenes)
+    of 120 x 120 with padded rows: every row equal to JAX's, and the steps
+    equal to the plain version's."""
+    c = _cpu_lanes("padded", np.random.default_rng(52), 52, 120, 120)
+    steps = torch.zeros(52, dtype=torch.int32)
+    got = th.solve_batch(torch.from_numpy(c), steps)
+    np.testing.assert_array_equal(got.numpy(), _jax(c))
+    ref, ref_steps = th.solve_batch_reference(torch.from_numpy(c))
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    np.testing.assert_array_equal(steps.numpy(), ref_steps.numpy())
+
+
+def test_host_solver_build_flags():
+    """The host solver is built without contraction or fast math, so no
+    float operation is fused or reordered against JAX's order."""
+    assert "-ffp-contract=off" in th.CPU_FLAGS
+    assert not any("fast-math" in f or f == "-Ofast" or "march" in f
+                   for f in th.CPU_FLAGS)
+    assert th.build_cpu() is th.build_cpu()

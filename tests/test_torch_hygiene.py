@@ -68,10 +68,11 @@ def _top_imports(path):
 
 @pytest.mark.parametrize("path", ["tools/torch_mesh_phase.py",
                                   "tests/_torch_mesh_worker.py",
-                                  "tools/torch_assign_phase.py"])
+                                  "tools/torch_assign_phase.py",
+                                  "tools/torch_dev_train_phase.py"])
 def test_mesh_programs_import_no_jax(path):
     """The mesh's card tool, its CPU ranks' program and the assignment
-    phase's card tool run the port alone."""
+    and device-map training phases' card tools run the port alone."""
     top = _top_imports(path)
     assert not top & {"jax", "flax", "pq3d_tpu", "yaml", "sklearn"}, top
     assert "pq3d_tpu_torch" in top

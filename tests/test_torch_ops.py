@@ -136,3 +136,42 @@ def test_calc_pairwise_locs():
     got = tpw.calc_pairwise_locs(torch.from_numpy(c))
     assert got.shape == (2, 9, 9, 5)
     assert _rel(ref, got.numpy()) <= TOL["f32"]
+
+
+@pytest.mark.parametrize("rel_type", ["center", "vertical_bottom", "mlp"])
+@pytest.mark.parametrize("with_whls", [False, True])
+@pytest.mark.parametrize("spatial_dim", [5, 4])
+def test_calc_pairwise_locs_every_branch(rel_type, with_whls, spatial_dim):
+    """JAX's whole ``calc_pairwise_locs``: the three relation types, with
+    and without box sizes ``whls``, within 1e-6 of the largest feature.
+    ``vertical_bottom`` without ``whls`` is bit-equal to ``center``; with
+    them its dz / dist / dist2d read the boxes' bottoms; ``mlp`` needs
+    ``whls`` (JAX fails on ``concatenate`` without them) and the port
+    raises."""
+    rng = np.random.default_rng(7)
+    c = rng.standard_normal((2, 6, 3)).astype(np.float32)
+    w = rng.random((2, 6, 3)).astype(np.float32) + 0.1
+    jw = jnp.asarray(w) if with_whls else None
+    tw = torch.from_numpy(w) if with_whls else None
+    kw = dict(pairwise_rel_type=rel_type, spatial_dim=spatial_dim)
+    if rel_type == "mlp" and not with_whls:
+        with pytest.raises(TypeError):
+            jpw.calc_pairwise_locs(jnp.asarray(c), None, **kw)
+        with pytest.raises(ValueError, match="whls"):
+            tpw.calc_pairwise_locs(torch.from_numpy(c), None, **kw)
+        return
+    ref = np.asarray(jpw.calc_pairwise_locs(jnp.asarray(c), jw, **kw))
+    got = tpw.calc_pairwise_locs(torch.from_numpy(c), tw, **kw).numpy()
+    assert got.shape == ref.shape
+    assert _rel(ref, got) <= 1e-6
+    if rel_type == "vertical_bottom":
+        center = tpw.calc_pairwise_locs(
+            torch.from_numpy(c), None, spatial_dim=spatial_dim).numpy()
+        if with_whls:
+            assert not np.array_equal(got, center)
+            np.testing.assert_array_equal(got[..., -2:], center[..., -2:])
+        else:
+            np.testing.assert_array_equal(got, center)
+    with pytest.raises(NotImplementedError):
+        tpw.calc_pairwise_locs(torch.from_numpy(c), tw,
+                               pairwise_rel_type="nearest")

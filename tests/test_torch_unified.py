@@ -323,3 +323,45 @@ def test_build_model_refuses_unported_heads(head, key, value):
                 got["generation_logits"].numpy()) <= TOL
     np.testing.assert_array_equal(got["generation_tokens"].numpy(),
                                   np.asarray(ref["generation_tokens"]))
+
+
+def test_vertical_bottom_model_matches_jax_and_center(pair):
+    """``pairwise_rel_type: vertical_bottom`` through the model: JAX's
+    model passes ``whls=None``, so both packages' spatial features equal
+    ``center``'s.  The port's logits and tokens with it are bit-equal to
+    its own with ``center`` at the same weights and within 1e-4 of JAX's
+    model with ``vertical_bottom``.  ``build_model`` reads
+    ``model.obj_loc.pairwise_rel_type``; ``mlp`` is refused with JAX's
+    reason."""
+    jm, tm, variables, batch = pair
+    jvb = jm.clone(pairwise_rel_type="vertical_bottom")
+    ref = jax.jit(lambda v, b: jvb.apply(v, b, train=False))(
+        variables, jax.tree.map(jnp.asarray, batch))
+    tvb = copy.deepcopy(tm)
+    tvb.pairwise_rel_type = "vertical_bottom"
+    with torch.no_grad():
+        tb = to_device(batch, torch.device("cpu"))
+        got, center = tvb(tb), tm(tb)
+    for k in ("ground_logits", "generation_logits", "generation_tokens"):
+        assert torch.equal(got[k], center[k]), k
+    valid = batch["query_pad_masks"]
+    assert _rel(np.asarray(ref["ground_logits"])[valid],
+                got["ground_logits"].numpy()[valid]) <= TOL
+    assert _rel(ref["generation_logits"],
+                got["generation_logits"].numpy()) <= TOL
+    np.testing.assert_array_equal(got["generation_tokens"].numpy(),
+                                  np.asarray(ref["generation_tokens"]))
+    small = ["model.hidden_size=48", "model.txt_tower.width=48",
+             "model.txt_tower.layers=1",
+             "model.unified_encoder.args.num_layers=1",
+             "model.unified_encoder.args.num_attention_heads=4"]
+    cfg = tconfig.load_config(
+        "unified_tasks_synthetic",
+        small + ["model.obj_loc.pairwise_rel_type=vertical_bottom"])
+    assert tq3d.build_model(cfg, device="cpu").pairwise_rel_type == \
+        "vertical_bottom"
+    cfg = tconfig.load_config(
+        "unified_tasks_synthetic",
+        small + ["model.obj_loc.pairwise_rel_type=mlp"])
+    with pytest.raises(NotImplementedError, match="whls=None"):
+        tq3d.build_model(cfg, device="cpu")
