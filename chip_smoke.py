@@ -3812,9 +3812,9 @@ def replicated_phase(card, zrun_conv):
             self.logits, self._ids = {}, []
             super().__init__(*a, **k)
 
-        def _dispatch(self, scenes):
+        def _dispatch(self, scenes, ids):
             self._ids = [id(s) for s in scenes]
-            return super()._dispatch(scenes)
+            return super()._dispatch(scenes, ids)
 
         def _forward(self, batch):
             cls_l, mask_l = super()._forward(batch)
@@ -4119,7 +4119,7 @@ def mesh_server_phase(card, zrun_conv):
             self._lock = threading.Lock()
             super().__init__(*a, **k)
 
-        def _dispatch(self, scenes):
+        def _dispatch(self, scenes, ids):
             n = max(len(self.mesh_models), 1)
             rows = self.batch_size // n
             with self._lock:
@@ -4127,7 +4127,7 @@ def mesh_server_phase(card, zrun_conv):
                     self._pending.setdefault(part, []).append(
                         [id(s) for s in scenes[part * rows:
                                                (part + 1) * rows]])
-            return super()._dispatch(scenes)
+            return super()._dispatch(scenes, ids)
 
         def _forward_on(self, model, batch):
             cls_l, mask_l = super()._forward_on(model, batch)

@@ -26,8 +26,12 @@ mask, and a batch without one raises ``ValueError``.
 
 Data flow: query_locs -> positional queries; memories -> (feat,
 attend_mask, pos) triples; the mask head bound with segment features (when
-there is one); the unified query decoder; the task heads.  Consumes the
-batch dict of ``data/instseg_pipeline.collate`` or
+there is one); the unified query decoder; the task heads.  While a
+``torch.profiler`` runs, three regions are recorded as device spans
+(``utils/profiling.device_span``): ``model.maps`` (the U-Net's maps),
+``model.backbone`` (the voxel encoder without the maps) and
+``model.decoder`` (the query decoder's rounds and the final mask head).
+Consumes the batch dict of ``data/instseg_pipeline.collate`` or
 ``data/unified_pipeline.collate_unified`` as tensors.  ``model.train()``
 selects BatchNorm batch statistics and dropout (the JAX ``train=True``),
 ``model.eval()`` running statistics and no dropout.  A model cast by
@@ -68,6 +72,7 @@ from pq3d_tpu_torch.models.t5 import RMSNorm, T5Decoder
 from pq3d_tpu_torch.ops import device_flat_maps, device_maps
 from pq3d_tpu_torch.ops.pairwise import calc_pairwise_locs
 from pq3d_tpu_torch.utils.inference import JaxPromotion
+from pq3d_tpu_torch.utils.profiling import device_span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -447,9 +452,13 @@ class Query3DUnified(nn.Module):
                 inputs[mem] = (self.voxel_encoder(batch["voxel_seg_fts"]),
                                batch["voxel_seg_pad_masks"], fts_pos)
             elif mem == "voxel":
-                scales = self.voxel_encoder(
-                    batch["voxel_feats"], self._voxel_maps(batch),
-                    batch["voxel2segment"], max_seg=fts_locs.shape[1])
+                dev = batch["voxel_feats"].device
+                with device_span("model.maps", dev):
+                    maps = self._voxel_maps(batch)
+                with device_span("model.backbone", dev):
+                    scales = self.voxel_encoder(
+                        batch["voxel_feats"], maps, batch["voxel2segment"],
+                        max_seg=fts_locs.shape[1])
                 inputs[mem] = (scales, seg_valid, fts_pos)
             else:
                 inputs[mem] = self._encode_prompt(batch, rng) + (None,)
@@ -486,11 +495,13 @@ class Query3DUnified(nn.Module):
                 query_locs[..., :3], None,
                 pairwise_rel_type=self.pairwise_rel_type,
                 spatial_dim=self.spatial_dim)
-        query, pred_cls, pred_mask = self.unified_encoder(
-            inputs, pairwise_locs, mask_head=mask_head)
+        with device_span("model.decoder", query_pos.device):
+            query, pred_cls, pred_mask = self.unified_encoder(
+                inputs, pairwise_locs, mask_head=mask_head)
+            if "mask" in self.heads:
+                cls_logits, mask_logits, _ = mask_head(query, skip=False)
         out: Dict[str, Any] = {"query": query}
         if "mask" in self.heads:
-            cls_logits, mask_logits, _ = mask_head(query, skip=False)
             out["predictions_class"] = pred_cls + [cls_logits]
             out["predictions_mask"] = pred_mask + [mask_logits]
         if "ground" in self.heads:

@@ -38,11 +38,23 @@ Counterpart of ``pq3d_tpu/serve.py`` (``ServerStats``, ``_MicroBatchServer``,
 
 The forward runs under ``torch.inference_mode()`` on the server's device
 (the mesh's devices); device results are read back in ``_finish``.
+
+While a ``torch.profiler`` runs, the stage-1 server records its stages
+as spans of ``utils/profiling`` (each with the batch id and the ids of
+the requests it holds): ``server.preprocess``, ``server.collate``,
+``server.dispatch`` (host-to-device copy and forward enqueue),
+``server.readback`` and ``server.rank``; and both servers record as
+counters each request's ``server.queue_wait`` (submit to the start of
+its batch's host work) and each batch's ``server.hold`` (the end of its
+dispatch to the start of its readback: its answers' wait for the server
+thread), in seconds.  ``ServerStats.stage_s`` sums the stages always.
 """
 from __future__ import annotations
 
 import concurrent.futures as _futures
+import contextlib
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -66,6 +78,7 @@ from pq3d_tpu_torch.device import resolve_device
 from pq3d_tpu_torch.eval.instseg_eval import rank_instances
 from pq3d_tpu_torch.models.encoders import check_swin_window
 from pq3d_tpu_torch.parallel.mesh import replicate
+from pq3d_tpu_torch.utils import profiling
 
 # spawn-pool worker protocol for the stage-1 host preprocessing: module
 # level, so spawned workers find the functions by name; a worker runs numpy
@@ -89,8 +102,6 @@ def _serve_process_scene(scene, seed: int):
 class ServerStats:
     scenes: int = 0
     steps: int = 0
-    total_wait_s: float = 0.0   # first-submit -> dispatch batching wait
-    total_step_s: float = 0.0   # summed per-batch dispatch->resolve time
     # wall-clock span of processed batches (per-batch times overlap under
     # the pipelined worker, so throughput comes from the span)
     t_first: float = 0.0
@@ -99,7 +110,8 @@ class ServerStats:
         default_factory=lambda: deque(maxlen=100_000))
     # per-stage host decomposition (summed seconds across batches):
     # preprocess, collate, put_dispatch (host->device copy + forward
-    # enqueue), readback (waits for the device), rank
+    # enqueue), readback (waits for the device), rank; stage 2's
+    # forward_decode and finish in place of the last three
     stage_s: Dict[str, float] = field(default_factory=dict)
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
@@ -110,6 +122,15 @@ class ServerStats:
 
     def add_stage(self, name: str, seconds: float) -> None:
         self.stage_s[name] = self.stage_s.get(name, 0.0) + seconds
+
+    @contextlib.contextmanager
+    def stage(self, name: str, sp=None):
+        """The block's host seconds into ``stage_s[name]``, always, with
+        the block inside ``sp`` (a recorder span, or its no-op) if given."""
+        t0 = time.time()
+        with sp if sp is not None else contextlib.nullcontext():
+            yield
+        self.add_stage(name, time.time() - t0)
 
     def summary(self) -> Dict[str, Any]:
         with self._lock:
@@ -145,6 +166,8 @@ class _MicroBatchServer:
         self._closed = False
         self._close_lock = threading.Lock()
         self._rng = np.random.default_rng(0)
+        self._request_ids = itertools.count()
+        self._batch_ids = itertools.count()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -153,7 +176,8 @@ class _MicroBatchServer:
         with self._close_lock:
             if self._closed:
                 raise RuntimeError("server closed")
-            self._q.put((request, fut, time.time()))
+            self._q.put((request, fut, time.time_ns(),
+                         next(self._request_ids)))
         return fut
 
     def close(self) -> None:
@@ -196,7 +220,10 @@ class _MicroBatchServer:
         return items
 
     def _loop(self):
-        inflight = None    # (items, n_real, state, t_dispatch)
+        # a queued item is (request, future, submit ns, request id); a
+        # batch in flight (items, state, ids, dispatch start ns, dispatch
+        # end ns), ids its batch id and request ids
+        inflight = None
         shutdown = False
         while True:
             items = None
@@ -208,12 +235,16 @@ class _MicroBatchServer:
                 items = []
             nxt = None
             if items:
-                t0 = time.time()
-                reqs = [it[0] for it in items]
-                self.stats.total_wait_s += t0 - min(it[2] for it in items)
+                t0 = time.time_ns()
+                ids = {"batch": next(self._batch_ids),
+                       "requests": tuple(it[3] for it in items)}
+                for _, _, t_sub, rid in items:
+                    # submit to the start of the batch's host work
+                    profiling.count("server.queue_wait", (t0 - t_sub) * 1e-9,
+                                    batch=ids["batch"], request=rid)
                 try:
-                    state = self._dispatch(reqs)
-                    nxt = (items, len(reqs), state, t0)
+                    state = self._dispatch([it[0] for it in items], ids)
+                    nxt = (items, state, ids, t0, time.time_ns())
                 except Exception as e:
                     self._fail(items, e)
             if inflight is not None:
@@ -223,39 +254,44 @@ class _MicroBatchServer:
                 return
 
     def _resolve(self, inflight):
-        items, n_real, state, t0 = inflight
+        items, state, ids, t0, t_dispatched = inflight
         try:
-            results = self._finish(state)
-            dt = time.time() - t0
-            for i in range(n_real):
-                _, fut, t_sub = items[i]
+            # the answers' wait for the server thread: the end of the
+            # batch's dispatch to the start of its readback
+            profiling.count("server.hold",
+                            (time.time_ns() - t_dispatched) * 1e-9,
+                            batch=ids["batch"])
+            results = self._finish(state, ids)
+            for (_, fut, t_sub, _), res in zip(items, results):
                 try:
-                    fut.set_result(results[i])
+                    fut.set_result(res)
                 except _futures.InvalidStateError:
                     continue    # the client cancelled this request
-                self.stats.record_latency(time.time() - t_sub)
-            self.stats.scenes += n_real
+                self.stats.record_latency((time.time_ns() - t_sub) * 1e-9)
+            self.stats.scenes += len(items)
             self.stats.steps += 1
-            self.stats.total_step_s += dt
             if self.stats.t_first == 0.0:
-                self.stats.t_first = t0
+                self.stats.t_first = t0 * 1e-9
             self.stats.t_last = time.time()
         except Exception as e:
             self._fail(items, e)
 
     @staticmethod
     def _fail(items, e):
-        for _, fut, _t in items:
+        for it in items:
             try:
-                if not fut.done():
-                    fut.set_exception(e)
+                if not it[1].done():
+                    it[1].set_exception(e)
             except _futures.InvalidStateError:
                 pass
 
-    def _dispatch(self, reqs):
+    def _dispatch(self, reqs, ids):
+        """Host work and the asynchronous device enqueue of ``reqs``;
+        ``ids`` (``batch``, ``requests``) name its spans."""
         raise NotImplementedError
 
-    def _finish(self, state):
+    def _finish(self, state, ids):
+        """Readback and host postprocess: one answer a real request."""
         raise NotImplementedError
 
     def _place(self, model, mesh, device, batch_size: int) -> None:
@@ -495,15 +531,15 @@ class InstSegServer(_MicroBatchServer):
         return list(self._pool.run(_serve_process_scene,
                                    zip(scenes, seeds)))
 
-    def _dispatch(self, scenes):
+    def _dispatch(self, scenes, ids):
         n_real = len(scenes)
-        t0 = time.time()
-        processed = self._preprocess(scenes)
-        t1 = time.time()
-        self.stats.add_stage("preprocess", t1 - t0)
-        processed += [processed[-1]] * (self.batch_size - n_real)
-        np_batch = collate_processed(processed, self.pipe_cfg)
-        self.stats.add_stage("collate", time.time() - t1)
+        st = self.stats
+        with st.stage("preprocess", profiling.span("server.preprocess",
+                                                   **ids)):
+            processed = self._preprocess(scenes)
+        with st.stage("collate", profiling.span("server.collate", **ids)):
+            processed += [processed[-1]] * (self.batch_size - n_real)
+            np_batch = collate_processed(processed, self.pipe_cfg)
         meta = np_batch.pop("_meta")
         if self.pipe_cfg.flat_pack and not self.pipe_cfg.device_maps:
             # the device flat maps' lock is the model's: it cannot grow,
@@ -515,31 +551,32 @@ class InstSegServer(_MicroBatchServer):
             np_batch[f"{name}_seg_fts"] = np.zeros(
                 (self.batch_size, S, dim), np.float32)
             np_batch[f"{name}_seg_pad_masks"] = np_batch["seg_pad_masks"]
-        t2 = time.time()
-        if self.mesh is not None:
-            cls_l = self._run_parts(np_batch, self._forward_on)
-            mask_l = None
-        else:
-            cls_l, mask_l = self._forward(to_device(np_batch, self.device))
-        self.stats.add_stage("put_dispatch", time.time() - t2)
+        with st.stage("put_dispatch", profiling.device_span(
+                "server.dispatch", **ids)):
+            if self.mesh is not None:
+                cls_l = self._run_parts(np_batch, self._forward_on)
+                mask_l = None
+            else:
+                cls_l, mask_l = self._forward(to_device(np_batch,
+                                                        self.device))
         return (n_real, cls_l, mask_l, np_batch["seg_pad_masks"], meta)
 
-    def _finish(self, state):
+    def _finish(self, state, ids):
         n_real, cls_l, mask_l, seg_valid, meta = state
-        t0 = time.time()
-        if mask_l is None:          # the mesh parts' futures
-            cls_l, mask_l = _cat_parts(cls_l)
-        cls_l = cls_l.float().cpu().numpy()
-        mask_l = mask_l.float().cpu().numpy()
-        self.stats.add_stage("readback", time.time() - t0)
-        t1 = time.time()
-        out = [rank_instances(cls_l[i], mask_l[i], seg_valid[i],
-                              num_classes=self.num_classes, topk=self.topk,
-                              score_threshold=self.score_threshold,
-                              seg_to_full=meta["segment_to_full"][i])
-               for i in range(n_real)]
-        self.stats.add_stage("rank", time.time() - t1)
-        return out
+        st = self.stats
+        with st.stage("readback", profiling.device_span(
+                "server.readback", **ids)):
+            if mask_l is None:          # the mesh parts' futures
+                cls_l, mask_l = _cat_parts(cls_l)
+            cls_l = cls_l.float().cpu().numpy()
+            mask_l = mask_l.float().cpu().numpy()
+        with st.stage("rank", profiling.span("server.rank", **ids)):
+            return [rank_instances(cls_l[i], mask_l[i], seg_valid[i],
+                                   num_classes=self.num_classes,
+                                   topk=self.topk,
+                                   score_threshold=self.score_threshold,
+                                   seg_to_full=meta["segment_to_full"][i])
+                    for i in range(n_real)]
 
 
 class UnifiedServer(_MicroBatchServer):
@@ -590,59 +627,57 @@ class UnifiedServer(_MicroBatchServer):
         return {k: out[k] for k in ("ground_logits", "generation_tokens")
                 if k in out}
 
-    def _dispatch(self, reqs):
+    def _dispatch(self, reqs, ids):
         n_real = len(reqs)
-        t0 = time.time()
-        processed = []
-        for scene, lang in reqs:
-            item = process_item(scene, lang, self.pipe_cfg, self._rng,
-                                False, self.feature_dims)
-            processed.append({k: v for k, v in item.items()
-                              if not k.startswith("meta_")})
-        t1 = time.time()
-        self.stats.add_stage("preprocess", t1 - t0)
-        processed += [processed[-1]] * (self.batch_size - n_real)
-        np_batch = collate_unified(processed, self.pipe_cfg,
-                                   self.feature_dims, train=False)
-        # obj_fts is the array pc_seg_fts holds; without a response the
-        # model skips the teacher-forced logits, which serving does not use
-        np_batch = {k: v for k, v in np_batch.items()
-                    if k not in ("obj_fts", "response")}
-        t2 = time.time()
-        self.stats.add_stage("collate", t2 - t1)
-        if self.mesh is not None:
-            out = self._run_parts(np_batch, self._forward_on)
-        else:
-            out = self._forward(to_device(np_batch, self.device))
-        self.stats.add_stage("forward_decode", time.time() - t2)
+        st = self.stats
+        with st.stage("preprocess"):
+            processed = []
+            for scene, lang in reqs:
+                item = process_item(scene, lang, self.pipe_cfg, self._rng,
+                                    False, self.feature_dims)
+                processed.append({k: v for k, v in item.items()
+                                  if not k.startswith("meta_")})
+        with st.stage("collate"):
+            processed += [processed[-1]] * (self.batch_size - n_real)
+            np_batch = collate_unified(processed, self.pipe_cfg,
+                                       self.feature_dims, train=False)
+            # obj_fts is the array pc_seg_fts holds; without a response
+            # the model skips the teacher-forced logits, which serving
+            # does not use
+            np_batch = {k: v for k, v in np_batch.items()
+                        if k not in ("obj_fts", "response")}
+        with st.stage("forward_decode"):
+            if self.mesh is not None:
+                out = self._run_parts(np_batch, self._forward_on)
+            else:
+                out = self._forward(to_device(np_batch, self.device))
         return (n_real, out, np_batch["query_pad_masks"])
 
-    def _finish(self, state):
+    def _finish(self, state, ids):
         n_real, out, obj_valid = state
-        t0 = time.time()
-        if isinstance(out, list):   # the mesh parts' futures
-            out = _cat_parts(out)
-        out = {k: v.float().cpu().numpy() if v.is_floating_point()
-               else v.cpu().numpy() for k, v in out.items()}
-        # object slots are query slots in the unified batch (one query per
-        # candidate object)
-        results = []
-        for i in range(n_real):
-            r: Dict[str, Any] = {}
-            if "ground_logits" in out:
-                scores = np.where(obj_valid[i], out["ground_logits"][i],
-                                  -np.inf)
-                r["ground_scores"] = scores
-                # no valid candidate: None, not an argmax over padding
-                r["ground_obj"] = (int(np.argmax(scores))
-                                   if obj_valid[i].any() else None)
-            if "generation_tokens" in out:
-                toks = out["generation_tokens"][i]
-                r["generation_tokens"] = toks
-                if self.detokenize is not None:
-                    r["generation"] = self.detokenize(toks.tolist())
-            results.append(r)
-        self.stats.add_stage("finish", time.time() - t0)
+        with self.stats.stage("finish"):
+            if isinstance(out, list):   # the mesh parts' futures
+                out = _cat_parts(out)
+            out = {k: v.float().cpu().numpy() if v.is_floating_point()
+                   else v.cpu().numpy() for k, v in out.items()}
+            # object slots are query slots in the unified batch (one
+            # query per candidate object)
+            results = []
+            for i in range(n_real):
+                r: Dict[str, Any] = {}
+                if "ground_logits" in out:
+                    scores = np.where(obj_valid[i], out["ground_logits"][i],
+                                      -np.inf)
+                    r["ground_scores"] = scores
+                    # no valid candidate: None, not an argmax over padding
+                    r["ground_obj"] = (int(np.argmax(scores))
+                                       if obj_valid[i].any() else None)
+                if "generation_tokens" in out:
+                    toks = out["generation_tokens"][i]
+                    r["generation_tokens"] = toks
+                    if self.detokenize is not None:
+                        r["generation"] = self.detokenize(toks.tolist())
+                results.append(r)
         return results
 
 

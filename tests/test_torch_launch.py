@@ -160,9 +160,9 @@ class _Recording(InstSegServer):
         self.logits, self._ids = {}, []
         super().__init__(*a, **k)
 
-    def _dispatch(self, scenes):
+    def _dispatch(self, scenes, ids):
         self._ids = [id(s) for s in scenes]
-        return super()._dispatch(scenes)
+        return super()._dispatch(scenes, ids)
 
     def _forward(self, batch):
         cls_l, mask_l = super()._forward(batch)
